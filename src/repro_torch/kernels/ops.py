@@ -1,0 +1,66 @@
+"""Kernel entry points with runtime kernel selection (the paper's launcher).
+
+Every matmul of the port's models routes through :func:`matmul`, which asks
+the current :class:`~repro_torch.core.runtime.KernelRuntime` for the deployed
+config of the problem and runs it.  On a CUDA tensor that is always the
+hand-written kernel (``matmul_cuda``); a failure raises, and nothing falls
+back to the plain version.  The plain version runs only for tensors on the
+CPU.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Protocol
+
+import torch
+
+from ..core.runtime import current_runtime
+from .matmul import DEFAULT_CONFIG, MatmulConfig, matmul_cuda, matmul_plain
+
+__all__ = ["FixedPolicy", "KernelPolicy", "matmul"]
+
+
+class KernelPolicy(Protocol):
+    """Maps a matmul problem to the deployed config that should run it."""
+
+    def select_matmul(self, m: int, k: int, n: int, batch: int) -> MatmulConfig: ...
+
+
+@dataclasses.dataclass
+class FixedPolicy:
+    """Single-kernel baseline (what an untuned library ships)."""
+
+    matmul_config: MatmulConfig = DEFAULT_CONFIG
+
+    def select_matmul(self, m, k, n, batch):
+        return self.matmul_config
+
+
+def matmul(
+    lhs: torch.Tensor,
+    rhs: torch.Tensor,
+    *,
+    out_dtype: torch.dtype | None = None,
+) -> torch.Tensor:
+    """``lhs @ rhs`` with runtime kernel selection.
+
+    ``lhs``: (..., k), ``rhs``: (k, n).  The problem is featurized as in the
+    tuning dataset: the trailing lead dim is the GEMM M and everything before
+    it the repeated batch, so a (B, S, D) activation is B GEMMs of (S, D).
+    The kernel itself runs once on ``lhs.reshape(m * batch, k)``.
+    """
+    if rhs.ndim != 2:
+        raise ValueError(f"rhs must be 2-D, got {tuple(rhs.shape)}")
+    *lead, k = lhs.shape
+    n = rhs.shape[1]
+    m = lead[-1] if lead else 1
+    batch = 1
+    for d in lead[:-1]:
+        batch *= d
+    config = current_runtime().select_matmul_config(m, k, n, batch)
+    lhs2 = lhs.reshape(m * batch, k)
+    if lhs2.device.type == "cpu":
+        out = matmul_plain(lhs2, rhs, out_dtype)
+    else:
+        out = matmul_cuda(lhs2.contiguous(), rhs, config or DEFAULT_CONFIG, out_dtype=out_dtype)
+    return out.reshape(*lead, n)
