@@ -5,29 +5,53 @@ Needs one NVIDIA GPU and the CUDA toolkit; exits non-zero without them.
 Phases (each one fails the run if its check fails):
 
 1. card: the GPU's name and power limit (nvidia-smi);
-2. build: compile the port's CUDA kernels from ``src/repro_torch/kernels/csrc``;
-3. kernel against plain: every compiled matmul config, in bf16->bf16,
+2. build: compile the port's CUDA kernels from ``src/repro_torch/kernels/csrc``,
+   one nvcc per source, all started together;
+3. GEMM against plain: every compiled matmul config, in bf16->bf16,
    bf16->f32 and f32->f32, at ragged shapes and at every GEMM shape that
-   full-width granite-8b serving gives the kernel, against ``matmul_plain``
-   (TF32 off).  Error = max|kernel - plain| / max|plain|; limits 1e-2 (bf16
-   out), 1e-3 (f32 out from bf16), 1e-5 (f32 in);
-4. full-width serving: granite-8b unreduced (d_model 4096, 32 heads, 8 KV
+   full-width granite-8b and rwkv6-7b serving give the kernel, against
+   ``matmul_plain`` (TF32 off).  Error = max|kernel - plain| / max|plain|;
+   limits 1e-2 (bf16 out), 1e-3 (f32 out from bf16), 1e-5 (f32 in);
+3b. WKV against plain: every compiled chunk config, r/k/v in bf16 and f32,
+   head dims 16 and 64, S in {1, 7, 16, 50, 128, 300} (and the served
+   (1, S, 64, 64) at S in {32, 64, 128}), with and without an initial state,
+   nonzero u, decays drawn as the reference test draws them, at the clamp
+   (-5) and a -5 / -1e-3 mix, against ``wkv_plain`` (TF32 off).  Limit
+   1e-4 relative to max|plain| for the output and the final state; every
+   output finite;
+4. full-width granite-8b serving: unreduced (d_model 4096, 32 heads, 8 KV
    heads, d_ff 14336, vocab 49152, 36 layers), bf16, random weights from a
    CUDA generator, ServingEngine(max_batch=4, cache_len=256), 4 requests of
    8-100 tokens, 16 new tokens each.  Every forward (prefill or decode step)
    must launch the GEMM kernel exactly 7 * n_layers + 1 times;
 5. selection reaches the kernel: one request under a FixedPolicy with a
-   non-default config launches that config and not the default;
+   non-default matmul config launches that config and not the default;
 5b. profile: device time by kernel and the device's idle share over two
-   full-width decode steps (torch.profiler);
+   full-width granite decode steps (torch.profiler);
 6. CPU against card: the serving CLI on reduced granite-8b in f32, once with
    ``--device cuda`` and once with ``--device cpu``, same seed: equal greedy
    token streams;
-7. GEMM timing: each served GEMM shape with CUDA events (median of 20 after
-   warm-up, weights rotated through more than the 50 MB L2), beside its bound
-   max(FLOPs / 989e12, bytes / 3.35e12), the plain version and torch.matmul
-   (a yardstick only: the port never calls it);
-8. the ``kernels`` JSON line, then the card line, then the result line.
+7. GEMM timing: each served granite GEMM shape with CUDA events (median of 20
+   after warm-up, each call queued behind a device sleep so that the events
+   hold device time, weights rotated through more than the 50 MB L2), beside
+   its bound max(FLOPs / 989e12, bytes / 3.35e12), one call from an idle
+   device (host launch work included), the plain version and torch.matmul (a
+   yardstick only: the port never calls it);
+8. full-width rwkv6-7b serving, after granite's weights are released:
+   unreduced (32 layers, d_model 4096, 64 WKV heads of 64, d_ff 14336, vocab
+   65536), bf16, the same engine and requests.  Every forward launches the
+   GEMM 10 * n_layers + 1 times; every prefill launches the WKV kernel
+   n_layers times and every decode step 0 times;
+9. selection reaches the WKV kernel: one request under
+   FixedPolicy(wkv_config=WkvConfig(64)) launches wkv_c64 and not wkv_c16;
+9b. profile: one rwkv6-7b prefill and two decode steps (torch.profiler);
+10. CPU against card: the serving CLI on reduced rwkv6-7b in f32, cuda and
+   cpu: equal greedy token streams;
+11. timing: the WKV kernel at (1, S, 64, 64), S in {32, 64, 128}, every
+   chunk config, beside its bound max(bytes / 3.35e12, 5 hd^2 f32 operations
+   per token and head / 67e12) and the plain version; the GEMM at rwkv6-7b's
+   decode shapes as in phase 7;
+12. the ``kernels`` JSON line, then the card line, then the result line.
 
 Everything measured also goes to ``build/chip_smoke.json``.
 """
@@ -45,8 +69,13 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 BF16_FLOPS = 989e12
+F32_FLOPS = 67e12  # outside the tensor cores
 TOL = {("bf16", "bf16"): 1e-2, ("bf16", "f32"): 1e-3, ("f32", "f32"): 1e-5}
+SLEEP_CYCLES = 2_000_000  # ~1 ms at the H100's 1.98 GHz boost clock
+WKV_TOL = 1e-4  # both sides compute in f32 from the same values; the reference kernel test's tolerance
 GRANITE_KN = [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096), (4096, 49152)]
+RWKV_KN = [(4096, 4096), (4096, 64), (64, 4096), (4096, 14336), (14336, 4096), (4096, 65536)]
+PROMPT_LENGTHS = (8, 37, 64, 100)
 
 
 def require(cond: bool, msg: str) -> None:
@@ -67,7 +96,7 @@ def phase_kernel_vs_plain(torch, mm) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     dt = {"bf16": torch.bfloat16, "f32": torch.float32}
     shapes = [(m, k, n) for m in (1, 4, 37, 128) for k in (100, 4100) for n in (96, 1024)]
-    shapes += [(m, k, n) for m in (1, 4, 32, 64, 128) for k, n in GRANITE_KN]
+    shapes += [(m, k, n) for m in (1, 4, 32, 64, 128) for k, n in dict.fromkeys(GRANITE_KN + RWKV_KN)]
     g = torch.Generator(device="cuda").manual_seed(1)
     worst = {pair: {"rel": 0.0, "abs": 0.0} for pair in TOL}
     checks = 0
@@ -94,23 +123,82 @@ def phase_kernel_vs_plain(torch, mm) -> dict:
     return {f"{s}->{d}": w for (s, d), w in worst.items()} | {"checks": checks}
 
 
-def phase_serve(torch, mm) -> dict:
+def _wkv_inputs(torch, g, b, s, h, hd, dtype, decay, with_state):
+    """r/k/v/u in ``dtype``, logw and the state in f32, drawn as the reference's
+    kernel test draws them; ``decay`` picks logw: 'dist', 'clamp' or 'mix'."""
+    shape = (b, s, h, hd)
+    randn = lambda *sh: torch.randn(sh, device="cuda", generator=g)
+    r, k, v = randn(*shape) * 0.5, randn(*shape) * 0.5, randn(*shape)
+    logw = -torch.exp(randn(*shape) * 0.5).clamp(1e-3, 5.0)
+    if decay == "clamp":
+        logw = torch.full(shape, -5.0, device="cuda")
+    elif decay == "mix":
+        logw = torch.where(torch.rand(shape, device="cuda", generator=g) < 0.5, -5.0, -1e-3)
+    u = randn(h, hd) * 0.3
+    state = randn(b, h, hd, hd) * 0.1 if with_state else None
+    return r.to(dtype), k.to(dtype), v.to(dtype), logw, u.to(dtype), state
+
+
+def phase_wkv_vs_plain(torch, wk) -> dict:
+    """Every compiled chunk config against the plain version."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(4)
+    shapes = [(2, s, 3, hd) for hd in (16, 64) for s in (1, 7, 16, 50, 128, 300)]
+    shapes += [(1, s, 64, 64) for s in (32, 64, 128)]  # what rwkv6-7b prefill gives the kernel
+    worst = {"rel": 0.0, "abs": 0.0}
+    clamp_finite = {c.name(): True for c in wk.config_space()}
+    checks = 0
+    for b, s, h, hd in shapes:
+        for dtype in (torch.bfloat16, torch.float32):
+            for decay in ("dist", "clamp", "mix"):
+                for with_state in (True, False):
+                    args = _wkv_inputs(torch, g, b, s, h, hd, dtype, decay, with_state)
+                    want = wk.wkv_plain(*args)
+                    scales = [w.abs().max().item() for w in want]
+                    for cfg in wk.config_space():
+                        got = wk.wkv_cuda(*args, config=cfg)
+                        for name, x, w, scale in zip(("o", "state"), got, want, scales):
+                            finite = bool(torch.isfinite(x).all())
+                            require(finite, f"{cfg.name()} {name} not finite at {(b, s, h, hd)} {dtype} {decay}")
+                            err = (x - w).abs().max().item()
+                            require(err <= WKV_TOL * scale,
+                                    f"{cfg.name()} {name} at {(b, s, h, hd)} {dtype} {decay} state={with_state}: "
+                                    f"rel err {err / scale:.3g} > {WKV_TOL}")
+                            worst["rel"], worst["abs"] = max(worst["rel"], err / scale), max(worst["abs"], err)
+                            if decay != "dist":
+                                clamp_finite[cfg.name()] &= finite
+                        checks += 1
+    torch.cuda.synchronize()
+    print(f"  {checks} checks ({len(shapes)} shapes x 2 dtypes x 3 decays x 2 states x "
+          f"{len(wk.config_space())} configs): worst rel err {worst['rel']:.3g} (limit {WKV_TOL}), "
+          f"worst abs err {worst['abs']:.3g}; finite at logw = -5 and the -5 / -1e-3 mix: {clamp_finite}")
+    return worst | {"checks": checks, "clamp_finite": clamp_finite}
+
+
+def phase_serve(torch, mm, wk, arch: str) -> dict:
+    """Serve 4 requests x 16 tokens at full width; every forward's launches checked."""
     from repro_torch.configs import registry
     from repro_torch.core.runtime import KernelRuntime
     from repro_torch.kernels.ops import FixedPolicy
     from repro_torch.models.model import build_model
     from repro_torch.serve.engine import ServingEngine
 
-    cfg = registry.get("granite-8b")
-    require((cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_ff, cfg.vocab) == (4096, 32, 8, 14336, 49152),
-            f"unexpected granite-8b config {cfg}")
+    cfg = registry.get(arch)
+    if arch == "granite-8b":
+        require((cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_ff, cfg.vocab) == (4096, 32, 8, 14336, 49152),
+                f"unexpected granite-8b config {cfg}")
+        per_forward, wkv_per_prefill = 7 * cfg.n_layers + 1, 0
+    else:
+        require((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.head_dim, cfg.d_ff, cfg.vocab)
+                == (32, 4096, 64, 64, 14336, 65536), f"unexpected rwkv6-7b config {cfg}")
+        per_forward, wkv_per_prefill = 10 * cfg.n_layers + 1, cfg.n_layers
     model = build_model(cfg, dtype=torch.bfloat16, param_dtype=torch.bfloat16, device="cuda")
     t0 = time.perf_counter()
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     weight_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
-    print(f"  granite-8b full width: {cfg.n_layers} layers (no depth cut), d_model {cfg.d_model}, "
+    print(f"  {arch} full width: {cfg.n_layers} layers (no depth cut), d_model {cfg.d_model}, "
           f"d_ff {cfg.d_ff}, vocab {cfg.vocab}, bf16; weights {weight_bytes / 1e9:.2f} GB, "
           f"init {init_s:.1f}s")
 
@@ -121,68 +209,77 @@ def phase_serve(torch, mm) -> dict:
             f"prefill logits {tuple(logits.shape)} {logits.dtype}")
     require(bool(torch.isfinite(logits).all()), "non-finite prefill logits")
 
-    per_forward = 7 * cfg.n_layers + 1
-    events: list[tuple[str, int, float]] = []  # (kind, kernel launches, seconds)
-    mark = {"launches": 0, "t": 0.0}
+    events: list[tuple[str, int, int, int, float]] = []  # (kind, size, GEMM launches, WKV launches, seconds)
+    mark = {"gemm": 0, "wkv": 0, "t": 0.0}
 
     def record(kind):
-        def hook(_size):
+        def hook(size):
             torch.cuda.synchronize()
-            now, total = time.perf_counter(), mm.total_launches()
-            events.append((kind, total - mark["launches"], now - mark["t"]))
-            mark["launches"], mark["t"] = total, now
+            now, gemm, wkv = time.perf_counter(), mm.total_launches(), wk.total_launches()
+            events.append((kind, size, gemm - mark["gemm"], wkv - mark["wkv"], now - mark["t"]))
+            mark["gemm"], mark["wkv"], mark["t"] = gemm, wkv, now
         return hook
 
-    rt = KernelRuntime(name="chip_smoke")
+    rt = KernelRuntime(name=f"chip_smoke[{arch}]")
     rt.install(FixedPolicy())
     rt.set_selection_logging(True, cap=1 << 16)
     engine = ServingEngine(model, params, max_batch=4, cache_len=256, runtime=rt,
                            on_prefill=record("prefill"), on_decode=record("decode"))
     rng = torch.Generator().manual_seed(2)
-    lengths = (8, 37, 64, 100)
-    prompts = [torch.randint(0, cfg.vocab, (n,), generator=rng).numpy() for n in lengths]
+    prompts = [torch.randint(0, cfg.vocab, (n,), generator=rng).numpy() for n in PROMPT_LENGTHS]
 
     # The main path: counts to 0 just before, read just after.
     torch.cuda.synchronize()
     mm.reset_launches()
+    wk.reset_launches()
     mark["t"] = t0 = time.perf_counter()
     tickets = [engine.submit(p, max_new_tokens=16) for p in prompts]
     status = engine.drain()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(mm.LAUNCHES)
+    launches, wkv_launches = dict(mm.LAUNCHES), dict(wk.LAUNCHES)
 
     require(status.completed == 4 and not status.exhausted, f"not every request completed: {status}")
     require(all(len(t.request.output) == 16 for t in tickets), "a request got fewer than 16 tokens")
-    bad = [(kind, n) for kind, n, _ in events if n != per_forward]
+    bad = [(kind, n) for kind, _, n, _, _ in events if n != per_forward]
     require(not bad, f"forwards with a GEMM launch count other than {per_forward}: {bad}")
-    require(sum(launches.values()) == per_forward * len(events), "launches outside the forwards")
+    require(sum(launches.values()) == per_forward * len(events), "GEMM launches outside the forwards")
+    bad = [(kind, n) for kind, _, _, n, _ in events if n != (wkv_per_prefill if kind == "prefill" else 0)]
+    require(not bad, f"forwards with a WKV launch count other than {wkv_per_prefill} per prefill, 0 per decode: {bad}")
+    require(sum(wkv_launches.values()) == sum(e[3] for e in events), "WKV launches outside the forwards")
     stats = rt.shape_cache_stats()
-    require(stats["hits"] + stats["misses"] == sum(launches.values()) and stats["hits"] > 0,
-            f"selection shape cache not consulted on every GEMM: {stats}")
+    fam = stats["per_family"]
+    for op, n in (("matmul", sum(launches.values())), ("wkv", sum(wkv_launches.values()))):
+        got = fam.get(op, {"hits": 0, "misses": 0})
+        require(got["hits"] + got["misses"] == n, f"{op} selection not consulted on every launch: {got} vs {n}")
+    require(fam["matmul"]["hits"] > 0, f"matmul shape cache never hit: {fam}")
     n_prefill = sum(1 for e in events if e[0] == "prefill")
     n_decode = len(events) - n_prefill
     # Launches per decode step, per (k, n), read from the selection log.
     counts: dict[str, int] = {}
-    for op, (m, k, n, batch), _cfg in rt.selection_log():
-        if m == 1 and batch == 4:  # decode GEMMs: (B=4, 1, D) activations
-            counts[f"{k}x{n}"] = counts.get(f"{k}x{n}", 0) + 1
+    for op, problem, _cfg in rt.selection_log():
+        if op == "matmul" and problem[0] == 1 and problem[3] == 4:  # decode GEMMs: (B=4, 1, D) activations
+            kn = f"{problem[1]}x{problem[2]}"
+            counts[kn] = counts.get(kn, 0) + 1
     per_step = {kn: c / n_decode for kn, c in counts.items()}
     toks = sum(len(t.request.output) for t in tickets)
-    prefill_ms = [round(s * 1e3, 3) for kind, _, s in events if kind == "prefill"]
-    decode_ms = [s * 1e3 for kind, _, s in events if kind == "decode"]
-    print(f"  served 4 requests (prompts {lengths}) x 16 tokens: {toks} tokens in {wall:.3f}s "
+    prefill_ms = [round(sec * 1e3, 3) for kind, _, _, _, sec in events if kind == "prefill"]
+    buckets = [size for kind, size, _, _, _ in events if kind == "prefill"]
+    decode_ms = [sec * 1e3 for kind, _, _, _, sec in events if kind == "decode"]
+    print(f"  served 4 requests (prompts {PROMPT_LENGTHS}) x 16 tokens: {toks} tokens in {wall:.3f}s "
           f"({toks / wall:.1f} tok/s); {n_prefill} prefills, {n_decode} decode steps")
-    print(f"  prefill ms {prefill_ms}; decode step ms median {statistics.median(decode_ms):.3f} "
-          f"(min {min(decode_ms):.3f}, max {max(decode_ms):.3f})")
-    print(f"  GEMM launches: {per_forward} per forward (7 x {cfg.n_layers} + 1) on every one of "
-          f"{len(events)} forwards; shape cache {stats['hits']} hits / {stats['misses']} misses")
-    print(f"  decode-step launches per (k x n): {per_step}")
+    print(f"  prefill ms {prefill_ms} (buckets {buckets}); decode step ms median "
+          f"{statistics.median(decode_ms):.3f} (min {min(decode_ms):.3f}, max {max(decode_ms):.3f})")
+    print(f"  GEMM launches: {per_forward} per forward on every one of {len(events)} forwards; "
+          f"WKV launches: {wkv_per_prefill} per prefill, 0 per decode step ({sum(wkv_launches.values())} in all, "
+          f"{wkv_launches}); shape cache {stats['hits']} hits / {stats['misses']} misses")
+    print(f"  decode-step GEMM launches per (k x n): {per_step}")
     return {
-        "n_layers": cfg.n_layers, "weight_bytes": weight_bytes, "tokens": toks, "wall_s": wall,
-        "tok_per_s": toks / wall, "prefill_ms": prefill_ms, "decode_ms": decode_ms,
-        "launches": launches, "per_forward": per_forward, "forwards": len(events),
-        "per_decode_step": per_step, "shape_cache": {k: stats[k] for k in ("hits", "misses")},
+        "arch": arch, "n_layers": cfg.n_layers, "weight_bytes": weight_bytes, "tokens": toks, "wall_s": wall,
+        "tok_per_s": toks / wall, "prefill_ms": prefill_ms, "prefill_buckets": buckets, "decode_ms": decode_ms,
+        "launches": launches, "wkv_launches": wkv_launches, "per_forward": per_forward,
+        "wkv_per_prefill": wkv_per_prefill, "forwards": len(events), "per_decode_step": per_step,
+        "shape_cache": {k: stats[k] for k in ("hits", "misses")}, "per_family": fam,
         "engine": engine, "model": model, "params": params, "prompts": prompts,
     }
 
@@ -207,20 +304,41 @@ def phase_policy(mm, serve: dict) -> dict:
     return {"config": other.name(), "launches": got, "default_launches": default}
 
 
-def phase_cpu_vs_card() -> dict:
+def phase_wkv_policy(wk, serve: dict) -> dict:
+    from repro_torch.core.runtime import KernelRuntime
+    from repro_torch.kernels.ops import FixedPolicy
+    from repro_torch.serve.engine import ServingEngine
+
+    other = wk.WkvConfig(64)
+    require(other in wk.config_space() and other != wk.DEFAULT_WKV_CONFIG, "bad choice of wkv config")
+    rt = KernelRuntime(name="chip_smoke-wkv64")
+    rt.install(FixedPolicy(wkv_config=other))
+    engine = ServingEngine(serve["model"], serve["params"], max_batch=4, cache_len=256, runtime=rt)
+    wk.reset_launches()
+    engine.submit(serve["prompts"][0], max_new_tokens=4)
+    engine.drain()
+    got, default = wk.LAUNCHES[other.name()], wk.LAUNCHES[wk.DEFAULT_WKV_CONFIG.name()]
+    require(got == serve["wkv_per_prefill"] and default == 0,
+            f"FixedPolicy(wkv_config={other.name()}) launched it {got} times, the default {default} times")
+    print(f"  FixedPolicy(wkv_config={other.name()}): {got} launches of it (one prefill), "
+          f"{default} of {wk.DEFAULT_WKV_CONFIG.name()}")
+    return {"config": other.name(), "launches": got, "default_launches": default}
+
+
+def phase_cpu_vs_card(arch: str) -> dict:
     from repro_torch.launch import serve as serve_cli
 
-    argv = ["--arch", "granite-8b", "--reduced", "--requests", "4", "--max-new-tokens", "8"]
+    argv = ["--arch", arch, "--reduced", "--requests", "4", "--max-new-tokens", "8"]
     card = serve_cli.main(argv + ["--device", "cuda"])
     cpu = serve_cli.main(argv + ["--device", "cpu"])
     if card != cpu:
-        _report_divergence(card, cpu, argv)
-    require(card == cpu, "greedy token streams differ between cuda and cpu")
-    print(f"  reduced granite-8b f32: cuda and cpu token streams equal ({sum(map(len, cpu))} tokens)")
+        _report_divergence(arch, card, cpu)
+    require(card == cpu, f"{arch}: greedy token streams differ between cuda and cpu")
+    print(f"  reduced {arch} f32: cuda and cpu token streams equal ({sum(map(len, cpu))} tokens)")
     return {"equal": True, "tokens": sum(map(len, cpu))}
 
 
-def _report_divergence(card, cpu, argv) -> None:
+def _report_divergence(arch, card, cpu) -> None:
     """Top-2 logit gap at the first token where the streams part."""
     import numpy as np
     import torch
@@ -230,7 +348,7 @@ def _report_divergence(card, cpu, argv) -> None:
 
     i = next(i for i, (a, b) in enumerate(zip(card, cpu)) if a != b)
     j = next(j for j, (a, b) in enumerate(zip(card[i], cpu[i])) if a != b)
-    cfg = registry.get("granite-8b").reduced()
+    cfg = registry.get(arch).reduced()
     prompt = np.random.default_rng(0).integers(0, cfg.vocab, size=(len(card), 8))[i]
     seq = torch.as_tensor(np.concatenate([prompt, cpu[i][:j]]))[None]
     for dev in ("cpu", "cuda"):
@@ -242,18 +360,21 @@ def _report_divergence(card, cpu, argv) -> None:
               f"gap {(top.values[0] - top.values[1]).item():.3g}")
 
 
-def phase_profile(torch, serve: dict) -> dict:
-    """Device time by kernel over two full-width decode steps (torch.profiler)."""
+def phase_profile(torch, serve: dict, n_prefill: int) -> dict:
+    """Device time by kernel over ``n_prefill`` prefills and two decode steps
+    (torch.profiler)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    engine = serve["engine"]
-    for p in serve["prompts"]:
+    engine, prompts = serve["engine"], serve["prompts"]
+    for p in prompts[n_prefill:]:
         engine.submit(p, max_new_tokens=4)
-    engine.step()  # prefills + the first decode step, outside the window
+    engine.step()  # the other prefills + a decode step, outside the window
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
+        for p in prompts[:n_prefill]:
+            engine.submit(p, max_new_tokens=4)
         engine.step()
         engine.step()
         torch.cuda.synchronize()
@@ -266,26 +387,40 @@ def phase_profile(torch, serve: dict) -> dict:
         us = getattr(evt, "self_device_time_total", None)
         if us is None:
             us = evt.self_cuda_time_total
-        name = "matmul (gemm_*_kernel)" if "gemm_" in evt.key else evt.key[:60]
+        if "gemm_" in evt.key:
+            name = "matmul (gemm_*_kernel)"
+        elif "wkv_kernel" in evt.key:
+            name = "wkv (wkv_kernel)"
+        else:
+            name = evt.key[:60]
         by_kernel[name] = by_kernel.get(name, 0.0) + us / 1e3
     busy = sum(by_kernel.values())
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]
+    what = f"{n_prefill} prefill(s) + 2 decode steps" if n_prefill else "2 decode steps (batch 4)"
     if busy == 0:
         print("  the profiler recorded no device time: device busy share not measured")
-        return {"wall_ms": wall_ms, "busy_ms": None}
-    print(f"  2 decode steps (batch 4): wall {wall_ms:.1f} ms, device busy {busy:.1f} ms, "
-          f"idle share {1 - busy / wall_ms:.3f}")
+        return {"window": what, "wall_ms": wall_ms, "busy_ms": None}
+    print(f"  {what}: wall {wall_ms:.1f} ms, device busy {busy:.1f} ms, idle share {1 - busy / wall_ms:.3f}")
     for name, ms in top:
         print(f"    {ms:9.3f} ms  {name}")
-    return {"wall_ms": wall_ms, "busy_ms": busy, "idle_share": 1 - busy / wall_ms, "top": top}
+    return {"window": what, "wall_ms": wall_ms, "busy_ms": busy, "idle_share": 1 - busy / wall_ms, "top": top,
+            "wkv_ms": by_kernel.get("wkv (wkv_kernel)", 0.0)}
 
 
-def _time_ms(torch, fn, n_warm=3, n_runs=20) -> float:
+def _time_ms(torch, fn, n_warm=3, n_runs=20, queued=True) -> float:
+    """Median time of one call of ``fn`` between CUDA events.  ``queued``: each
+    call is enqueued behind a ~1 ms device sleep, so the host's launch work
+    overlaps the sleep and the events hold the device's time alone (a call
+    whose host work outlasts the sleep still shows the rest).  Otherwise
+    each call starts from an idle device and the events also hold the
+    host's launch work: what one eager call costs."""
     for i in range(n_warm):
         fn(i)
     times = []
     for i in range(n_runs):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        if queued:
+            torch.cuda._sleep(SLEEP_CYCLES)
         start.record()
         fn(i)
         end.record()
@@ -294,12 +429,12 @@ def _time_ms(torch, fn, n_warm=3, n_runs=20) -> float:
     return statistics.median(times)
 
 
-def phase_timing(torch, mm, per_step: dict) -> list[dict]:
+def phase_timing(torch, mm, per_step: dict, kn_list, ms=(4, 128)) -> list[dict]:
     rows = []
     g = torch.Generator(device="cuda").manual_seed(3)
-    for m in (4, 128):
-        for k, n in GRANITE_KN:
-            out_dtype = torch.float32 if n == 49152 else torch.bfloat16  # the vocab GEMM emits f32 logits
+    for m in ms:
+        for k, n in kn_list:
+            out_dtype = torch.float32 if n >= 49152 else torch.bfloat16  # the vocab GEMM emits f32 logits
             a = torch.randn(m, k, device="cuda", generator=g).bfloat16()
             b_bytes = k * n * 2
             copies = max(1, -(-150_000_000 // b_bytes))  # rotate weights through > 3x the L2
@@ -312,23 +447,58 @@ def phase_timing(torch, mm, per_step: dict) -> list[dict]:
                 cfg.name(): _time_ms(torch, lambda i, c=cfg: mm.matmul_cuda(a, bs[i % copies], c, out_dtype=out_dtype))
                 for cfg in mm.config_space()
             }
+            call = _time_ms(torch, lambda i: mm.matmul_cuda(a, bs[i % copies], out_dtype=out_dtype), queued=False)
             plain = _time_ms(torch, lambda i: mm.matmul_plain(a, bs[i % copies], out_dtype))
             library = _time_ms(torch, lambda i: torch.matmul(a, bs[i % copies]).to(out_dtype))
             best = min(per_cfg, key=per_cfg.get)
             row = {
                 "m": m, "k": k, "n": n, "out": str(out_dtype).replace("torch.", ""),
                 "ms": per_cfg[mm.DEFAULT_CONFIG.name()], "best_config": best, "best_ms": per_cfg[best],
-                "plain_ms": plain, "library_ms": library, "bound_ms": bound,
+                "call_ms": call, "plain_ms": plain, "library_ms": library, "bound_ms": bound,
                 "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= flops / BF16_FLOPS else "operations",
                 "launches_per_decode_step": per_step.get(f"{k}x{n}", 0) if m == 4 else None,
                 "per_config_ms": per_cfg,
             }
             rows.append(row)
             print(f"  m={m:<4} k={k:<6} n={n:<6} {row['out']:>8}: kernel {row['ms']:.4f} ms "
-                  f"(best {best} {per_cfg[best]:.4f}), bound {bound:.4f} ms ({row['bound_by']}), "
-                  f"plain {plain:.4f}, torch.matmul {library:.4f}"
+                  f"(best {best} {per_cfg[best]:.4f}; one call from idle {call:.4f}), bound {bound:.4f} ms "
+                  f"({row['bound_by']}), plain {plain:.4f}, torch.matmul {library:.4f}"
                   + (f", {row['launches_per_decode_step']:g} launches/decode step" if m == 4 else ""))
             del bs
+    return rows
+
+
+def phase_wkv_timing(torch, wk) -> list[dict]:
+    """The WKV kernel at what rwkv6-7b's batch-1 prefill gives it (bf16 r/k/v
+    and u, f32 logw, a zero f32 state), every config, beside its bound."""
+    rows = []
+    g = torch.Generator(device="cuda").manual_seed(5)
+    b, h, hd = 1, 64, 64
+    for s in (32, 64, 128):
+        r, k, v, logw, u, _ = _wkv_inputs(torch, g, b, s, h, hd, torch.bfloat16, "dist", False)
+        state = torch.zeros((b, h, hd, hd), device="cuda")
+        args = (r, k, v, logw, u, state)
+        # Each input read once, each output written once.
+        nbytes = sum(t.numel() * t.element_size() for t in args) + b * s * h * hd * 4 + b * h * hd * hd * 4
+        # The recurrent form's count, the fewest for this function: per token and head,
+        # o = r.S (2 hd^2), S = w (.) S + k v^T (3 hd^2), the u-bonus (4 hd).
+        ops = b * s * h * (5 * hd * hd + 4 * hd)
+        bound = max(nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS) * 1e3
+        per_cfg = {cfg.name(): _time_ms(torch, lambda i, c=cfg: wk.wkv_cuda(*args, config=c))
+                   for cfg in wk.config_space()}
+        call = _time_ms(torch, lambda i: wk.wkv_cuda(*args), queued=False)
+        plain = _time_ms(torch, lambda i: wk.wkv_plain(*args))
+        best = min(per_cfg, key=per_cfg.get)
+        row = {"s": s, "shape": [b, s, h, hd], "ms": per_cfg[wk.DEFAULT_WKV_CONFIG.name()], "best_config": best,
+               "best_ms": per_cfg[best], "call_ms": call, "plain_ms": plain, "bound_ms": bound,
+               "bytes": nbytes, "ops": ops,
+               "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= ops / F32_FLOPS else "operations",
+               "per_config_ms": per_cfg}
+        rows.append(row)
+        cfgs = ", ".join(f"{name} {ms:.4f}" for name, ms in per_cfg.items())
+        print(f"  (1, {s}, 64, 64) bf16: {cfgs} ms; bound {bound:.4f} ms ({row['bound_by']}: "
+              f"{nbytes / 1e6:.2f} MB, {ops / 1e6:.1f} Mop f32); one {wk.DEFAULT_WKV_CONFIG.name()} call from idle "
+              f"{call:.4f} ms; plain {plain:.4f} ms")
     return rows
 
 
@@ -340,6 +510,12 @@ def _leaves(tree):
         yield tree
 
 
+def _release(torch, serve: dict) -> None:
+    for key in ("engine", "model", "params", "prompts"):
+        serve.pop(key)
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -349,6 +525,7 @@ def main() -> int:
         return 2
     from repro_torch.kernels import _build
     from repro_torch.kernels import matmul as mm
+    from repro_torch.kernels import wkv as wk
 
     t_start = time.perf_counter()
     print("[1] card")
@@ -357,42 +534,66 @@ def main() -> int:
 
     print("[2] build")
     t0 = time.perf_counter()
-    tiles = mm.compiled_tiles()
-    print(f"  matmul.cu -> sm_90a in {time.perf_counter() - t0:.1f}s "
-          f"(nvcc {_build.build_seconds.get('matmul', 0.0):.1f}s); tiles (bm, bn, bk, smem bf16, smem f32): {tiles}")
-    regs = [line.split(":", 1)[1].strip() for line in _build.build_log("matmul").splitlines()
-            if "registers" in line]
-    print(f"  ptxas: {len(regs)} kernels; {sorted(set(regs))}")
+    _build.load_all(["matmul", "wkv"])
+    tiles, wkv_cfgs = mm.compiled_tiles(), wk.compiled_configs()
+    print(f"  matmul.cu and wkv.cu -> sm_90a in {time.perf_counter() - t0:.1f}s (nvcc in parallel: "
+          f"{', '.join(f'{k} {v:.1f}s' for k, v in _build.build_seconds.items())})")
+    print(f"  matmul tiles (bm, bn, bk, smem bf16, smem f32): {tiles}")
+    print(f"  wkv instantiations (chunk, hd, smem): {wkv_cfgs}")
+    for name in ("matmul", "wkv"):
+        log = _build.build_log(name).splitlines()
+        regs = [line.split(":", 1)[1].strip() for line in log if "registers" in line]
+        spills = sorted({line.strip() for line in log if "spill" in line and "0 bytes spill" not in line})
+        print(f"  ptxas {name}: {len(regs)} kernels; {sorted(set(regs))}; spills {spills or 'none'}")
 
-    print("[3] kernel against plain")
+    print("[3] GEMM against plain")
     errors = phase_kernel_vs_plain(torch, mm)
+    print("[3b] WKV against plain")
+    wkv_errors = phase_wkv_vs_plain(torch, wk)
 
-    print("[4] full-width serving")
-    serve = phase_serve(torch, mm)
-
+    print("[4] full-width granite-8b serving")
+    serve = phase_serve(torch, mm, wk, "granite-8b")
     print("[5] selection reaches the kernel")
     policy = phase_policy(mm, serve)
-    print("[5b] where a decode step's time goes")
-    profile = phase_profile(torch, serve)
-    for key in ("engine", "model", "params", "prompts"):
-        serve.pop(key)
-    torch.cuda.empty_cache()
+    print("[5b] where a granite-8b decode step's time goes")
+    profile = phase_profile(torch, serve, 0)
+    _release(torch, serve)  # granite's weights go before rwkv6-7b's load
 
-    print("[6] cpu against card")
-    parity = phase_cpu_vs_card()
+    print("[6] cpu against card, granite-8b")
+    parity = phase_cpu_vs_card("granite-8b")
 
-    print("[7] GEMM timing (bf16, DEFAULT_CONFIG = the config served)")
-    rows = phase_timing(torch, mm, serve["per_decode_step"])
+    print("[7] GEMM timing, granite-8b shapes (bf16, DEFAULT_CONFIG = the config served)")
+    rows = phase_timing(torch, mm, serve["per_decode_step"], GRANITE_KN)
 
-    # One decode step's GEMMs at m=4: sum of count x time over the shapes it launches.
+    print("[8] full-width rwkv6-7b serving")
+    rwkv = phase_serve(torch, mm, wk, "rwkv6-7b")
+    print("[9] selection reaches the WKV kernel")
+    wkv_policy = phase_wkv_policy(wk, rwkv)
+    print("[9b] where an rwkv6-7b prefill's and decode step's time goes")
+    rwkv_profile = phase_profile(torch, rwkv, 1)
+    _release(torch, rwkv)
+
+    print("[10] cpu against card, rwkv6-7b")
+    rwkv_parity = phase_cpu_vs_card("rwkv6-7b")
+
+    print("[11] WKV timing (DEFAULT_WKV_CONFIG = the config served), GEMM timing at rwkv6-7b decode shapes")
+    wkv_rows = phase_wkv_timing(torch, wk)
+    rwkv_rows = phase_timing(torch, mm, rwkv["per_decode_step"], RWKV_KN, ms=(4,))
+
+    # One granite decode step's GEMMs at m=4: sum of count x time over the shapes it launches.
     step = [r for r in rows if r["m"] == 4]
     total = lambda key: sum(r[key] * r["launches_per_decode_step"] for r in step)
+    # The rwkv6-7b run's WKV launches: n_layers per prefill, at each prefill's bucket.
+    by_s = {r["s"]: r for r in wkv_rows}
+    wkv_total = lambda key: rwkv["wkv_per_prefill"] * sum(by_s[s][key] for s in rwkv["prefill_buckets"])
+    gemm_launches = {"granite-8b": sum(serve["launches"].values()), "rwkv6-7b": sum(rwkv["launches"].values())}
     kernels = {"kernels": [{
         "name": "matmul",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/matmul.cu",
         "replaces": "src/repro/kernels/matmul.py:120",
-        "launches": sum(serve["launches"].values()),
+        "launches": sum(gemm_launches.values()),
+        "launches_by_path": gemm_launches,
         "max_abs_err": max(w["abs"] for k, w in errors.items() if k != "checks"),
         "max_rel_err": max(w["rel"] for k, w in errors.items() if k != "checks"),
         "ms": total("ms"),
@@ -401,16 +602,34 @@ def main() -> int:
         "bound_by": "bytes",
         "library_ms": total("library_ms"),
         "timed_as": "all GEMMs of one granite-8b decode step (batch 4), summed over shapes",
+    }, {
+        "name": "wkv",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/wkv.cu",
+        "replaces": "src/repro/kernels/wkv.py:114",
+        "launches": sum(rwkv["wkv_launches"].values()),
+        "max_abs_err": wkv_errors["abs"],
+        "max_rel_err": wkv_errors["rel"],
+        "ms": wkv_total("ms"),
+        "plain_ms": wkv_total("plain_ms"),
+        "bound_ms": wkv_total("bound_ms"),
+        "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in wkv_rows) else "operations",
+        "library_ms": None,
+        "library_note": "no single PyTorch call computes the chunked WKV recurrence",
+        "timed_as": f"all WKV launches of the rwkv6-7b run's prefills (buckets {rwkv['prefill_buckets']}, "
+                    f"{rwkv['wkv_per_prefill']} each), summed from per-length medians",
     }]}
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps({
         "card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
-        "errors": {k: v for k, v in errors.items()}, "serve": serve, "policy": policy, "profile": profile,
-        "cpu_vs_card": parity, "timing": rows, "kernels": kernels["kernels"],
-        "seconds": time.perf_counter() - t_start,
+        "build_seconds": _build.build_seconds, "errors": errors, "wkv_errors": wkv_errors,
+        "serve": serve, "policy": policy, "profile": profile, "cpu_vs_card": parity, "timing": rows,
+        "rwkv_serve": rwkv, "wkv_policy": wkv_policy, "rwkv_profile": rwkv_profile,
+        "rwkv_cpu_vs_card": rwkv_parity, "wkv_timing": wkv_rows, "rwkv_timing": rwkv_rows,
+        "kernels": kernels["kernels"], "seconds": time.perf_counter() - t_start,
     }, indent=1, default=str))
-    print(f"[8] done in {time.perf_counter() - t_start:.1f}s")
+    print(f"[12] done in {time.perf_counter() - t_start:.1f}s")
     print(json.dumps(kernels))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -187,6 +187,16 @@ class KernelRuntime:
             "matmul", (m, k, n, batch), pol, lambda: pol.select_matmul(m, k, n, batch)
         )
 
+    def select_wkv_config(self, s: int, hd: int):
+        """The WKV selection ``ops.wkv`` runs on every call, under the family
+        key ``"wkv"``; ``None`` with no policy installed or when the policy
+        does not cover the family."""
+        pol = self._sync()
+        select = getattr(pol, "select_wkv", None)
+        if select is None:
+            return None
+        return self._select("wkv", (s, hd), pol, lambda: select(s, hd))
+
 
 class _Activation:
     """``with rt.activate():`` — push/pop on the thread's activation stack."""

@@ -3,8 +3,9 @@
 The sources under ``csrc/`` are compiled at first use into
 ``build/repro_torch/`` under the repository root, one shared library per
 source, named by a hash of the source, the flags and the compiler, so an edit
-rebuilds and an unchanged tree reuses the library.  Nothing here touches CUDA
-when the module is imported: the CPU tests import every module of the port.
+rebuilds and an unchanged tree reuses the library.  :func:`load_all` starts
+one ``nvcc`` per source, all at once.  Nothing here touches CUDA when the
+module is imported: the CPU tests import every module of the port.
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -25,7 +27,8 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC",
 )
 
-_lock = threading.Lock()
+_locks_guard = threading.Lock()
+_locks: dict[str, threading.Lock] = {}  # source name -> its build/load lock
 _libs: dict[str, ctypes.CDLL] = {}
 build_seconds: dict[str, float] = {}  # source name -> nvcc wall time (0.0 when reused)
 
@@ -69,9 +72,14 @@ def _compile(name: str, nvcc: str, out: Path) -> None:
     os.replace(tmp, out)  # atomic: a concurrent loader sees the whole file or none
 
 
+def _lock_for(name: str) -> threading.Lock:
+    with _locks_guard:
+        return _locks.setdefault(name, threading.Lock())
+
+
 def load(name: str) -> ctypes.CDLL:
     """Compile ``csrc/<name>.cu`` if its library is missing, then load it."""
-    with _lock:
+    with _lock_for(name):
         lib = _libs.get(name)
         if lib is not None:
             return lib
@@ -86,6 +94,14 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(out))
         _libs[name] = lib
         return lib
+
+
+def load_all(names) -> dict[str, ctypes.CDLL]:
+    """Build and load every named source, one ``nvcc`` per source, in parallel."""
+    names = list(names)
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        futures = {name: pool.submit(load, name) for name in names}
+    return {name: fut.result() for name, fut in futures.items()}
 
 
 def build_log(name: str) -> str:

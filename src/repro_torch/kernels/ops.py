@@ -1,9 +1,10 @@
 """Kernel entry points with runtime kernel selection (the paper's launcher).
 
-Every matmul of the port's models routes through :func:`matmul`, which asks
-the current :class:`~repro_torch.core.runtime.KernelRuntime` for the deployed
-config of the problem and runs it.  On a CUDA tensor that is always the
-hand-written kernel (``matmul_cuda``); a failure raises, and nothing falls
+Every matmul of the port's models routes through :func:`matmul`, and every
+multi-token RWKV6 WKV recurrence through :func:`wkv`.  Each asks the current
+:class:`~repro_torch.core.runtime.KernelRuntime` for the deployed config of
+the problem and runs it.  On a CUDA tensor that is always the hand-written
+kernel (``matmul_cuda``, ``wkv_cuda``); a failure raises, and nothing falls
 back to the plain version.  The plain version runs only for tensors on the
 CPU.
 """
@@ -16,24 +17,35 @@ import torch
 
 from ..core.runtime import current_runtime
 from .matmul import DEFAULT_CONFIG, MatmulConfig, matmul_cuda, matmul_plain
+from .wkv import DEFAULT_WKV_CONFIG, WkvConfig, wkv_cuda, wkv_plain
 
-__all__ = ["FixedPolicy", "KernelPolicy", "matmul"]
+__all__ = ["FixedPolicy", "KernelPolicy", "matmul", "wkv"]
 
 
 class KernelPolicy(Protocol):
-    """Maps a matmul problem to the deployed config that should run it."""
+    """Maps a kernel problem to the deployed config that should run it.
+
+    A policy that has no ``select_wkv`` does not cover the wkv family: the
+    runtime then selects ``None`` and ``wkv`` runs its default config.
+    """
 
     def select_matmul(self, m: int, k: int, n: int, batch: int) -> MatmulConfig: ...
+
+    def select_wkv(self, s: int, hd: int) -> WkvConfig: ...
 
 
 @dataclasses.dataclass
 class FixedPolicy:
-    """Single-kernel baseline (what an untuned library ships)."""
+    """Single-kernel-per-family baseline (what an untuned library ships)."""
 
     matmul_config: MatmulConfig = DEFAULT_CONFIG
+    wkv_config: WkvConfig = DEFAULT_WKV_CONFIG
 
     def select_matmul(self, m, k, n, batch):
         return self.matmul_config
+
+    def select_wkv(self, s, hd):
+        return self.wkv_config
 
 
 def matmul(
@@ -64,3 +76,18 @@ def matmul(
     else:
         out = matmul_cuda(lhs2.contiguous(), rhs, config or DEFAULT_CONFIG, out_dtype=out_dtype)
     return out.reshape(*lead, n)
+
+
+def wkv(r, k, v, logw, u, state=None):
+    """Chunked RWKV6 WKV with runtime kernel selection.
+
+    r/k/v/logw: (B, S, H, hd); u: (H, hd); state: (B, H, hd, hd) or None.
+    Returns (o (B, S, H, hd) f32, final state f32).  The problem is
+    featurized as in the reference: (S, hd).  On CPU tensors the plain
+    version runs (it ignores the chunk, as the reference's jnp path does).
+    """
+    _, s, _, hd = r.shape
+    config = current_runtime().select_wkv_config(s, hd)
+    if r.device.type == "cpu":
+        return wkv_plain(r, k, v, logw, u, state)
+    return wkv_cuda(r, k, v, logw, u, state, config or DEFAULT_WKV_CONFIG)

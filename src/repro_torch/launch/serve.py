@@ -39,7 +39,7 @@ def main(argv=None) -> list[list[int]]:
     if args.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "--device cuda but torch finds no CUDA device; pass --device cpu to "
-            "serve on the CPU with the plain matmul"
+            "serve on the CPU with the kernels' plain versions"
         )
     cfg = registry.get(args.arch)
     if args.reduced:

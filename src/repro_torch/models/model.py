@@ -1,16 +1,17 @@
-"""Dense decoder-only transformer, ported from ``repro/models/model.py``.
+"""Model families, ported from ``repro/models/model.py``.
 
-Same functional surface as the reference's ``TransformerLM``:
+Same functional surface as the reference's ``TransformerLM`` and ``RWKV6LM``:
 
   init(generator) -> params
-  init_cache(batch, cache_len) -> {"k", "v"} of shape (n_layers, B, T, KV, hd)
+  init_cache(batch, cache_len) -> cache dict (k/v per token for the
+      transformer; the recurrent wkv/x1/x2 state for RWKV6)
   prefill(params, batch, cache_len) -> (last-position logits, cache)
   decode_step(params, cache, tokens, positions) -> (logits, cache)
 
 Params keep the reference's tree and layout: (in, out) matrices with a
 stacked leading layer axis.  The reference's ``lax.scan`` over layers is a
-Python loop over views of the stacked tensors.  MoE and VLM variants wait for
-later parts of the port.
+Python loop over views of the stacked tensors.  MoE, VLM, Hymba and
+encoder-decoder variants wait for later parts of the port.
 """
 from __future__ import annotations
 
@@ -18,12 +19,42 @@ import torch
 
 from ..configs.base import ArchConfig
 from . import layers as L
+from . import rwkv as R
 
 
 def build_model(cfg: ArchConfig, dtype=torch.bfloat16, param_dtype=torch.bfloat16, device="cuda"):
+    if cfg.family == "ssm":
+        return RWKV6LM(cfg, dtype, param_dtype, device)
     if cfg.family != "dense" or cfg.moe is not None:
-        raise NotImplementedError(f"the port serves dense transformers so far, not {cfg.family!r}")
+        raise NotImplementedError(f"the port serves dense transformers and RWKV6 so far, not {cfg.family!r}")
     return TransformerLM(cfg, dtype, param_dtype, device)
+
+
+def _initializers(model, generator: torch.Generator | None):
+    """``normal(shape, scale)`` and ``full(shape, value)`` in the model's param
+    dtype on its device.  Normals are drawn from ``generator`` (on its own
+    device, seed 0 on the model's device when None), then moved."""
+    if generator is None:
+        generator = torch.Generator(device=model.device).manual_seed(0)
+
+    def normal(shape, scale):
+        t = torch.randn(shape, generator=generator, device=generator.device)
+        return t.mul_(scale).to(device=model.device, dtype=model.param_dtype)
+
+    def full(shape, value):
+        return torch.full(shape, value, dtype=model.param_dtype, device=model.device)
+
+    return normal, full
+
+
+def _init_embedding(cfg: ArchConfig, normal) -> dict:
+    pv = cfg.padded_vocab()
+    emb = {"embed": normal((pv, cfg.d_model), 0.02)}
+    if cfg.tie_embeddings:
+        emb["embed_t"] = emb["embed"].t().contiguous()
+    else:
+        emb["unembed"] = normal((cfg.d_model, pv), 0.02)
+    return emb
 
 
 _ATTN = ("wq", "wk", "wv", "wo")
@@ -44,21 +75,15 @@ class TransformerLM:
         """Random weights drawn from ``generator`` (on its own device), then
         moved to the model's device.  Scales follow the reference's
         initializers; the numbers themselves differ (another generator)."""
-        if generator is None:
-            generator = torch.Generator(device=self.device).manual_seed(0)
         c = self.cfg
         n = c.n_layers
-        pv = c.padded_vocab()
-
-        def normal(shape, scale):
-            t = torch.randn(shape, generator=generator, device=generator.device)
-            return t.mul_(scale).to(device=self.device, dtype=self.param_dtype)
+        normal, full = _initializers(self, generator)
 
         def dense(d_in, d_out):
             return normal((n, d_in, d_out), (2.0 / (d_in + d_out)) ** 0.5)
 
         def ones(*shape):
-            return torch.ones(shape, dtype=self.param_dtype, device=self.device)
+            return full(shape, 1.0)
 
         attn = {
             "wq": dense(c.d_model, c.q_dim),
@@ -71,13 +96,8 @@ class TransformerLM:
             "w_up": dense(c.d_model, c.d_ff),
             "w_down": dense(c.d_ff, c.d_model),
         }
-        emb = {"embed": normal((pv, c.d_model), 0.02)}
-        if c.tie_embeddings:
-            emb["embed_t"] = emb["embed"].t().contiguous()
-        else:
-            emb["unembed"] = normal((c.d_model, pv), 0.02)
         return {
-            "emb": emb,
+            "emb": _init_embedding(c, normal),
             "final_norm": ones(c.d_model),
             "blocks": {"attn": attn, "ffn": ffn, "ln1": ones(n, c.d_model), "ln2": ones(n, c.d_model)},
         }
@@ -135,5 +155,86 @@ class TransformerLM:
                 self._layer(params, i), x, pos2d,
                 cache=(cache["k"][i], cache["v"][i]), cache_positions=positions,
             )
+        x = L.rms_norm(x, params["final_norm"], c.norm_eps)
+        return L.logits_from_hidden(params["emb"], x), cache
+
+
+class RWKV6LM:
+    """RWKV6 "Finch": attention-free, a recurrent (hd, hd) state per head."""
+
+    def __init__(self, cfg: ArchConfig, dtype=torch.bfloat16, param_dtype=torch.bfloat16, device="cuda"):
+        self.cfg = cfg
+        self.dtype = dtype
+        self.param_dtype = param_dtype
+        self.device = torch.device(device)
+
+    def init(self, generator: torch.Generator | None = None) -> dict:
+        """Random weights drawn from ``generator`` at the reference's scales."""
+        c = self.cfg
+        normal, full = _initializers(self, generator)
+        return {
+            "emb": _init_embedding(c, normal),
+            "final_norm": full((c.d_model,), 1.0),
+            "blocks": {
+                "rwkv": R.init_rwkv(c, normal, full),
+                "ln1": full((c.n_layers, c.d_model), 1.0),
+                "ln2": full((c.n_layers, c.d_model), 1.0),
+            },
+        }
+
+    def _layer(self, blk: dict, x, state):
+        """state: (wkv (B, H, hd, hd), x1 (B, d), x2 (B, d))."""
+        c = self.cfg
+        wkv_state, x1, x2 = state
+        xn = L.rms_norm(x, blk["ln1"], c.norm_eps)
+        h, (new_wkv, last1) = R.time_mix_layer(blk["rwkv"], xn, c, state=wkv_state, x_prev=x1)
+        x = x + h
+        xn2 = L.rms_norm(x, blk["ln2"], c.norm_eps)
+        h2, last2 = R.channel_mix_layer(blk["rwkv"], xn2, c, x_prev=x2)
+        return x + h2, (new_wkv, last1, last2)
+
+    def init_cache(self, b: int, cache_len: int) -> dict:
+        """Recurrent state only: nothing grows with ``cache_len``."""
+        c = self.cfg
+        n, h, hd, d = c.n_layers, c.n_heads, c.head_dim, c.d_model
+        return {
+            "wkv": torch.zeros((n, b, h, hd, hd), dtype=torch.float32, device=self.device),
+            "x1": torch.zeros((n, b, d), dtype=self.dtype, device=self.device),
+            "x2": torch.zeros((n, b, d), dtype=self.dtype, device=self.device),
+        }
+
+    def _run(self, params: dict, x, cache: dict):
+        """All layers; each layer's new state is written into ``cache`` in
+        place (the reference returns a new cache)."""
+        blocks = params["blocks"]
+        for i in range(self.cfg.n_layers):
+            blk = {
+                "rwkv": {key: t[i] for key, t in blocks["rwkv"].items()},
+                "ln1": blocks["ln1"][i],
+                "ln2": blocks["ln2"][i],
+            }
+            x, new = self._layer(blk, x, (cache["wkv"][i], cache["x1"][i], cache["x2"][i]))
+            for key, t in zip(("wkv", "x1", "x2"), new):
+                cache[key][i].copy_(t)
+        return x
+
+    def prefill(self, params: dict, batch: dict, cache_len: int):
+        """Run the prompt ``batch["tokens"]`` (B, S) from a zero state; returns
+        the f32 logits of the last position (B, 1, V_padded) and the state."""
+        c = self.cfg
+        tokens = batch["tokens"]
+        cache = self.init_cache(tokens.shape[0], cache_len)
+        x = L.embed_tokens(params["emb"], tokens).to(self.dtype)
+        x = self._run(params, x, cache)
+        x = L.rms_norm(x, params["final_norm"], c.norm_eps)
+        return L.logits_from_hidden(params["emb"], x[:, -1:]), cache
+
+    def decode_step(self, params: dict, cache: dict, tokens: torch.Tensor, positions: torch.Tensor):
+        """tokens: (B, 1).  ``positions`` is unused: the recurrent state carries
+        all history.  The cache is updated in place and returned."""
+        del positions
+        c = self.cfg
+        x = L.embed_tokens(params["emb"], tokens).to(self.dtype)
+        x = self._run(params, x, cache)
         x = L.rms_norm(x, params["final_norm"], c.norm_eps)
         return L.logits_from_hidden(params["emb"], x), cache

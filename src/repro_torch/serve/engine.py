@@ -1,7 +1,8 @@
 """Continuous-batching serving engine, ported from ``repro/serve/engine.py``.
 
 The engine owns ``max_batch`` decode **lanes** backed by a dense
-:class:`~repro_torch.serve.kvpool.KVPool`, a priority
+:class:`~repro_torch.serve.kvpool.KVPool` (k/v blocks for a transformer, one
+recurrent-state row per lane for RWKV6), a priority
 :class:`~repro_torch.serve.scheduler.Scheduler`, and the reference's legacy
 (monolithic-prefill) admission path:
 
@@ -11,10 +12,12 @@ The engine owns ``max_batch`` decode **lanes** backed by a dense
     status = engine.drain()       # run everything submitted to completion
 
 One ``engine.step()`` is one scheduling round: admit waiting requests into
-free lanes (prompt left-padded to its prefill bucket, the pad tokens attended
-as real tokens, first token from the last position's logits), then one
+free lanes (prompt left-padded to its prefill bucket with token 0, the pad
+tokens attended as real tokens, or run through RWKV6's recurrence, as in the
+reference; first token from the last position's logits), then one
 batched decode advances every active lane at the smallest power-of-two width
-bucket that fits, padded with idle lanes.  Kernel selection runs against the
+bucket that fits, padded with idle lanes (whose recurrent-state rows advance
+too, as in the reference).  Kernel selection runs against the
 engine's :class:`~repro_torch.core.runtime.KernelRuntime`; eager PyTorch
 selects on every GEMM call, so the runtime's shape cache is consulted on
 every forward (the reference selects once per jit trace).

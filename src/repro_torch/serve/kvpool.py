@@ -1,30 +1,88 @@
-"""KV cache storage for the serving engine: the dense layout of ``repro/serve/kvpool.py``.
+"""Cache storage for the serving engine: the dense layout of ``repro/serve/kvpool.py``.
 
 The reference pool is block-allocated; with ``block_size=None`` it degenerates
 to one ``cache_len``-sized block per lane, which is the layout this port keeps
 so far.  The block bookkeeping is the reference's (a free list, per-lane block
 tables, lazy reclaim of retired lanes, block 0 as an always-zero scratch
 block), so admission decisions and pool statistics match it; refcounts wait
-for prefix sharing, since without it every block has one owner.  Storage
-is the model's own cache dict, ``{"k", "v"}`` of shape
-``(n_layers, n_blocks + 1, cache_len, KV, hd)``: the batch axis (1) indexes
-blocks.  Paging and prefix sharing raise ``NotImplementedError`` until the
-serving tier is ported.
+for prefix sharing, since without it every block has one owner.
+
+Cache leaves are classified structurally, as the reference's
+``probe_cache_layout`` does: ``model.init_cache`` is probed at two (batch,
+length) points and each leaf's scaling axes decide its kind.
+
+* **paged** leaves have a batch axis and a length axis that tracks
+  ``cache_len`` (k/v token caches).  They live in the block store, whose
+  batch axis indexes blocks: ``(n_blocks + 1)`` rows, row 0 the scratch block.
+* **lane** leaves have a batch axis but no length axis (the RWKV6 wkv/x1/x2
+  recurrent state).  They live one row per lane.  ``gather`` and ``scatter``
+  read and write the row of every lane in the decode batch, idle lanes
+  included, as the reference does.
+* **replicated** leaves have neither; stored once.
+
+Paging and prefix sharing raise ``NotImplementedError`` until the serving
+tier is ported.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import numpy as np
 import torch
 
-__all__ = ["KVPool"]
+__all__ = ["KVPool", "LeafSpec", "probe_cache_layout"]
 
-_BATCH_AXIS = 1  # TransformerLM caches are (n_layers, B, T, KV, hd)
+_PROBE_BATCHES = (3, 5, 7, 11, 13)
+
+
+@dataclasses.dataclass(frozen=True)
+class LeafSpec:
+    """Structural classification of one cache leaf."""
+
+    path: str
+    kind: str  # "paged" | "lane" | "replicated"
+    batch_axis: int | None
+    length_axis: int | None
+
+
+def probe_cache_layout(init_cache, cache_len: int, block_size: int) -> dict[str, LeafSpec]:
+    """Classify every leaf of the flat cache dict ``init_cache(batch, length)``
+    by which of its axes scale with the probe's batch and length."""
+    length_b = block_size if block_size != cache_len else max(1, cache_len // 2)
+    if length_b == cache_len:
+        raise ValueError(f"cache_len={cache_len} too small to probe a paged layout")
+    batches = [b for b in _PROBE_BATCHES if b not in (cache_len, length_b)]
+    pb_a, pb_b = batches[0], batches[1]
+    shapes_a = {key: tuple(t.shape) for key, t in init_cache(pb_a, cache_len).items()}
+    shapes_b = {key: tuple(t.shape) for key, t in init_cache(pb_b, length_b).items()}
+    if shapes_a.keys() != shapes_b.keys():
+        raise ValueError("init_cache structure changes with (batch, length); cannot page it")
+    specs = {}
+    for key, sa in shapes_a.items():
+        sb = shapes_b[key]
+        if len(sa) != len(sb):
+            raise ValueError(f"cache leaf {key} changes rank with (batch, length)")
+        batch_axis = next((i for i in range(len(sa)) if sa[i] == pb_a and sb[i] == pb_b), None)
+        length_axis = None
+        if batch_axis is not None:
+            length_axis = next(
+                (i for i in range(len(sa)) if i != batch_axis and sa[i] == cache_len and sb[i] == length_b),
+                None,
+            )
+        if batch_axis is None:
+            kind = "replicated"
+        elif length_axis is None:
+            kind = "lane"
+        else:
+            kind = "paged"
+        specs[key] = LeafSpec(key, kind, batch_axis, length_axis)
+    return specs
 
 
 class KVPool:
-    """Dense KV storage: one cache_len block per lane, plus scratch block 0."""
+    """Dense cache storage: one cache_len block per lane plus scratch block 0,
+    and one row per lane for recurrent state."""
 
     def __init__(self, model, *, lanes: int, cache_len: int,
                  block_size: int | None = None, n_blocks: int | None = None):
@@ -37,7 +95,12 @@ class KVPool:
         self.block_size = self.cache_len
         self.blocks_per_lane = 1
         self.n_blocks = self.lanes
-        self._store = model.init_cache(self.n_blocks + 1, self.cache_len)
+        self.specs = probe_cache_layout(model.init_cache, self.cache_len, self.block_size)
+        kinds = {spec.kind for spec in self.specs.values()}
+        per_block = model.init_cache(self.n_blocks + 1, self.cache_len) if "paged" in kinds else {}
+        per_lane = model.init_cache(self.lanes, self.cache_len) if kinds - {"paged"} else {}
+        self._store = {key: per_block[key] if spec.kind == "paged" else per_lane[key]
+                       for key, spec in self.specs.items()}
         self._device = next(iter(self._store.values())).device
         # Free list popped from the tail: ids come out ascending (1, 2, ...).
         self._free = list(range(self.n_blocks, 0, -1))
@@ -107,6 +170,12 @@ class KVPool:
         self._lane_tokens[lane] = 0
         return len(dropped)
 
+    def reset_lane_state(self, lane: int) -> None:
+        """Zero ``lane``'s row of every lane leaf (fresh-cache state)."""
+        for key, spec in self.specs.items():
+            if spec.kind == "lane":
+                self._store[key].select(spec.batch_axis, lane).zero_()
+
     def stats(self) -> dict:
         alloc_slots = sum(len(t) for t in self._tables) * self.block_size
         used_slots = min(sum(self._lane_tokens), alloc_slots)
@@ -124,34 +193,54 @@ class KVPool:
 
     # -- data movement ------------------------------------------------------
     def _zero_block(self, blk: int) -> None:
-        for arr in self._store.values():
-            arr.select(_BATCH_AXIS, blk).zero_()
+        for key, spec in self.specs.items():
+            if spec.kind == "paged":
+                self._store[key].select(spec.batch_axis, blk).zero_()
 
-    def _block_ids(self, lane_ids) -> torch.Tensor:
-        """One block id per lane (scratch 0 for a lane with no table)."""
-        ids = np.zeros(len(lane_ids), dtype=np.int64)
+    def _rows(self, lane_ids) -> tuple[torch.Tensor, torch.Tensor]:
+        """(block id, lane id) per row: block 0 (scratch) for a lane with no table."""
+        blocks = np.zeros(len(lane_ids), dtype=np.int64)
         for row, lane in enumerate(lane_ids):
             if self._tables[lane]:
-                ids[row] = self._tables[lane][0]
-        return torch.from_numpy(ids).to(self._device)
+                blocks[row] = self._tables[lane][0]
+        lanes = np.asarray(lane_ids, dtype=np.int64)
+        return torch.from_numpy(blocks).to(self._device), torch.from_numpy(lanes).to(self._device)
 
     def admit(self, lane: int, cache1: dict) -> None:
         """Write a batch-1 prefill cache (full ``cache_len`` length) into
-        ``lane``'s block."""
-        blk = self._tables[lane][0]
-        for key, arr in self._store.items():
-            arr.select(_BATCH_AXIS, blk).copy_(cache1[key].select(_BATCH_AXIS, 0))
+        ``lane``'s block and lane-state row."""
+        for key, spec in self.specs.items():
+            if spec.kind == "replicated":
+                continue  # the reference keeps the pool's value
+            row = self._tables[lane][0] if spec.kind == "paged" else lane
+            self._store[key].select(spec.batch_axis, row).copy_(cache1[key].select(spec.batch_axis, 0))
 
     def gather(self, lane_ids) -> dict:
-        """The dense decode view (a copy) for ``lane_ids``; lanes without a
-        block read the zero scratch block."""
-        idx = self._block_ids(list(lane_ids))
-        return {key: arr.index_select(_BATCH_AXIS, idx) for key, arr in self._store.items()}
+        """The dense decode view (a copy) for ``lane_ids``.  Paged leaves of a
+        lane without a block read the zero scratch block; lane leaves read
+        each lane's own row."""
+        blocks, lanes = self._rows(list(lane_ids))
+        out = {}
+        for key, spec in self.specs.items():
+            arr = self._store[key]
+            if spec.kind == "replicated":
+                out[key] = arr
+            else:
+                out[key] = arr.index_select(spec.batch_axis, blocks if spec.kind == "paged" else lanes)
+        return out
 
     def scatter(self, lane_ids, cache: dict) -> None:
-        """Write an updated dense view back.  Lanes without a block wrote
-        into scratch block 0, which is re-zeroed afterwards."""
-        idx = self._block_ids(list(lane_ids))
-        for key, arr in self._store.items():
-            arr.index_copy_(_BATCH_AXIS, idx, cache[key])
-        self._zero_block(0)
+        """Write an updated dense view back.  Paged rows of lanes without a
+        block went to scratch block 0, which is re-zeroed afterwards."""
+        blocks, lanes = self._rows(list(lane_ids))
+        touched_scratch = False
+        for key, spec in self.specs.items():
+            if spec.kind == "replicated":
+                self._store[key] = cache[key]
+            elif spec.kind == "lane":
+                self._store[key].index_copy_(spec.batch_axis, lanes, cache[key])
+            else:
+                self._store[key].index_copy_(spec.batch_axis, blocks, cache[key])
+                touched_scratch = True
+        if touched_scratch:
+            self._zero_block(0)

@@ -3,7 +3,10 @@
 Both engines serve the same 5 prompts (3 to 60 tokens: prefill buckets 32 and
 64) on reduced granite-8b in f32, dense KV layout, ``max_batch=2``,
 ``cache_len=128``, 8 new tokens each.  Greedy token streams and the engine
-status partition must be identical.
+status partition must be identical.  Reduced rwkv6-7b is served the same way
+(3 prompts of 3, 60 and 17 tokens), and its recurrent state, which both pools
+keep one row per lane, must match after the run, idle and retired lanes
+included.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -13,9 +16,11 @@ import torch
 from _torch_parity import reduced_pair
 from repro.core.runtime import KernelRuntime as JaxRuntime
 from repro.serve.engine import ServingEngine as JaxEngine
+from repro.serve.kvpool import probe_cache_layout as jax_probe
 from repro_torch.core.runtime import KernelRuntime
 from repro_torch.launch import serve as serve_cli
 from repro_torch.serve.engine import ServingEngine, _bucket, _extend_ladder
+from repro_torch.serve.kvpool import probe_cache_layout
 
 LENGTHS = (3, 60, 17, 33, 9)
 
@@ -76,3 +81,66 @@ def test_cli_serves_on_cpu(capsys):
                            "--max-new-tokens", "4", "--max-batch", "2", "--cache-len", "64"])
     assert [len(o) for o in outs] == [4, 4, 4]
     assert "served 3 requests on cpu" in capsys.readouterr().out
+
+
+def test_rwkv_engine_matches_reference_engine():
+    jm, jp, tm, tp = reduced_pair("rwkv6-7b")
+    rng = np.random.default_rng(12)
+    prompts = [rng.integers(0, tm.cfg.vocab, n).astype(np.int32) for n in (3, 60, 17)]
+    kw = dict(max_batch=2, cache_len=128)
+    jeng = JaxEngine(jm, jp, runtime=JaxRuntime(), **kw)
+    teng = ServingEngine(tm, tp, runtime=KernelRuntime(), **kw)
+    jt = [jeng.submit(p, max_new_tokens=8) for p in prompts]
+    tt = [teng.submit(p, max_new_tokens=8) for p in prompts]
+    jeng.step(), teng.step()
+    js, ts = jeng.status(), teng.status()
+    assert (ts.completed, ts.in_flight, ts.queued, ts.steps) == (js.completed, js.in_flight, js.queued, js.steps)
+    js, ts = jeng.drain(), teng.drain()
+    assert [t.request.output for t in tt] == [t.request.output for t in jt]
+    assert all(len(t.request.output) == 8 and t.done for t in tt)
+    assert (ts.completed, ts.in_flight, ts.queued, ts.steps, ts.exhausted) == (
+        js.completed, js.in_flight, js.queued, js.steps, js.exhausted)
+    assert (ts.pool_utilization, ts.pool_fragmentation) == pytest.approx(
+        (js.pool_utilization, js.pool_fragmentation))
+    tstats, jstats = teng.pool.stats(), jeng.pool.stats()
+    assert {k: tstats[k] for k in tstats} == pytest.approx({k: jstats[k] for k in tstats})
+    # Dense view of the lanes' recurrent state after the run.
+    for key in ("wkv", "x1", "x2"):
+        np.testing.assert_allclose(teng.cache[key].numpy(), np.asarray(jeng.cache[key]), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ["granite-8b", "rwkv6-7b"])
+def test_leaf_kinds_match_reference_probe(arch):
+    jm, _, tm, _ = reduced_pair(arch)
+    for cache_len in (64, 128):
+        jspecs, _ = jax_probe(jm.init_cache, cache_len, cache_len)
+        want = {spec.path.strip("[']"): (spec.kind, spec.batch_axis, spec.length_axis) for spec in jspecs}
+        got = {key: (spec.kind, spec.batch_axis, spec.length_axis)
+               for key, spec in probe_cache_layout(tm.init_cache, cache_len, cache_len).items()}
+        assert got == want
+    kinds = {spec.kind for spec in ServingEngine(tm, None, max_batch=2, cache_len=64).pool.specs.values()}
+    assert kinds == ({"paged"} if arch == "granite-8b" else {"lane"})
+
+
+def test_lane_state_rows_follow_their_lanes():
+    _, _, tm, tp = reduced_pair("rwkv6-7b")
+    pool = ServingEngine(tm, tp, max_batch=3, cache_len=64, runtime=KernelRuntime()).pool
+    assert pool.ensure(1, 8)
+    cache1 = tm.init_cache(1, 64)
+    for key in cache1:
+        cache1[key].fill_(2.0)
+    pool.admit(1, cache1)
+    view = pool.gather([2, 1])  # lane 2 has no table: its own (zero) row, not a scratch block
+    assert torch.all(view["wkv"][:, 0] == 0) and torch.all(view["wkv"][:, 1] == 2)
+    view["x1"][:, 0] = 5.0
+    pool.scatter([2, 1], view)
+    assert torch.all(pool.gather([2])["x1"] == 5.0)
+    pool.reset_lane_state(1)
+    assert all(torch.all(t == 0) for t in pool.gather([1]).values())
+
+
+def test_cli_serves_rwkv_on_cpu(capsys):
+    outs = serve_cli.main(["--arch", "rwkv6-7b", "--device", "cpu", "--requests", "3",
+                           "--max-new-tokens", "4", "--max-batch", "2", "--cache-len", "64"])
+    assert [len(o) for o in outs] == [4, 4, 4]
+    assert "served 3 requests on cpu (rwkv6-7b" in capsys.readouterr().out
