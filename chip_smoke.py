@@ -9,7 +9,7 @@ Phases (each one fails the run if its check fails):
    one nvcc per source, all started together;
 3. GEMM against plain: every compiled matmul config, in bf16->bf16,
    bf16->f32 and f32->f32, at ragged shapes and at every GEMM shape that
-   full-width granite-8b and rwkv6-7b serving give the kernel, against
+   full-width granite-8b, rwkv6-7b and hymba-1.5b serving give the kernel, against
    ``matmul_plain`` (TF32 off).  Error = max|kernel - plain| / max|plain|;
    limits 1e-2 (bf16 out), 1e-3 (f32 out from bf16), 1e-5 (f32 in);
 3b. WKV against plain: every compiled chunk config, r/k/v in bf16 and f32,
@@ -51,7 +51,32 @@ Phases (each one fails the run if its check fails):
    chunk config, beside its bound max(bytes / 3.35e12, 5 hd^2 f32 operations
    per token and head / 67e12) and the plain version; the GEMM at rwkv6-7b's
    decode shapes as in phase 7;
-12. the ``kernels`` JSON line, then the card line, then the result line.
+3c. (run with phase 3) SSM against plain: every compiled (block_d, chunk)
+   config, state sizes 8 and 16, with and without an initial state, S in
+   {1, 7, 50, 128, 300} at a ragged d = 100, and the served (1, S, 1600, 16)
+   at S in {32, 64, 128}, dta drawn as the reference test draws it
+   (-exp(0.3 normal)), against ``ssm_plain``.  Limit 1e-4 relative to
+   max|plain| for y and the final state; every output finite;
+12. full-width hymba-1.5b serving, after rwkv6-7b's weights are released:
+   unreduced (32 layers, d_model 1600, 25 heads, 5 KV heads of 64, d_ff 5504,
+   vocab 32001, ssm_state 16, window 2048), bf16, the same engine and
+   requests.  Every forward launches the GEMM 13 * n_layers + 1 times; every
+   prefill launches the SSM kernel n_layers times and every decode step 0
+   times;
+13. selection reaches the SSM kernel: one request under
+   FixedPolicy(ssm_config=SsmConfig(8, 16)) launches ssm_bd8_c16 n_layers
+   times and the default not at all;
+13b. profile: one hymba-1.5b prefill and two decode steps (torch.profiler);
+14. CPU against card on Hymba, in process: reduced hymba-1.5b at 4 layers
+   (one sliding-window layer, window 32), f32, cache_len 128, prompts of 20
+   and 45 tokens (buckets 32 and 64: the ring is written by the ring-buffer
+   prefill and wraps in decode), 16 new tokens each: equal greedy token
+   streams on cuda and cpu;
+15. timing: the SSM kernel at (1, S, 1600, 16), S in {32, 64, 128}, every
+   config, beside its bound max(bytes / 3.35e12, 6 f32 operations per (t,
+   channel, state) / 67e12) and the plain version; the GEMM at hymba-1.5b's
+   decode shapes as in phase 7;
+16. the ``kernels`` JSON line, then the card line, then the result line.
 
 Everything measured also goes to ``build/chip_smoke.json``.
 """
@@ -75,6 +100,10 @@ SLEEP_CYCLES = 2_000_000  # ~1 ms at the H100's 1.98 GHz boost clock
 WKV_TOL = 1e-4  # both sides compute in f32 from the same values; the reference kernel test's tolerance
 GRANITE_KN = [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096), (4096, 49152)]
 RWKV_KN = [(4096, 4096), (4096, 64), (64, 4096), (4096, 14336), (14336, 4096), (4096, 65536)]
+HYMBA_KN = [(1600, 1600), (1600, 320), (1600, 3200), (1600, 48), (48, 1600), (1600, 16), (1600, 5504),
+            (5504, 1600), (1600, 32128)]
+VOCAB_KN = {(4096, 49152), (4096, 65536), (1600, 32128)}
+SSM_TOL = 1e-4  # both sides compute in f32 from the same values; the reference kernel test's rtol
 PROMPT_LENGTHS = (8, 37, 64, 100)
 
 
@@ -96,7 +125,7 @@ def phase_kernel_vs_plain(torch, mm) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     dt = {"bf16": torch.bfloat16, "f32": torch.float32}
     shapes = [(m, k, n) for m in (1, 4, 37, 128) for k in (100, 4100) for n in (96, 1024)]
-    shapes += [(m, k, n) for m in (1, 4, 32, 64, 128) for k, n in dict.fromkeys(GRANITE_KN + RWKV_KN)]
+    shapes += [(m, k, n) for m in (1, 4, 32, 64, 128) for k, n in dict.fromkeys(GRANITE_KN + RWKV_KN + HYMBA_KN)]
     g = torch.Generator(device="cuda").manual_seed(1)
     worst = {pair: {"rel": 0.0, "abs": 0.0} for pair in TOL}
     checks = 0
@@ -175,7 +204,63 @@ def phase_wkv_vs_plain(torch, wk) -> dict:
     return worst | {"checks": checks, "clamp_finite": clamp_finite}
 
 
-def phase_serve(torch, mm, wk, arch: str) -> dict:
+def _ssm_inputs(torch, g, b, s, d, n, with_state):
+    """dtx, dta, b, c (and the state) in f32, drawn as the reference's kernel
+    test draws them (tests/test_ssm_kernel.py:_inputs)."""
+    randn = lambda *sh: torch.randn(sh, device="cuda", generator=g)
+    dtx, dta = randn(b, s, d) * 0.5, -torch.exp(randn(b, s, d, n) * 0.3)
+    bv, cv = randn(b, s, n) * 0.5, randn(b, s, n) * 0.5
+    return dtx, dta, bv, cv, (randn(b, d, n) * 0.1 if with_state else None)
+
+
+def phase_ssm_vs_plain(torch, ss) -> dict:
+    """Every compiled (block_d, chunk) config against the plain version."""
+    g = torch.Generator(device="cuda").manual_seed(6)
+    shapes = [(2, s, 100, n) for n in (8, 16) for s in (1, 7, 50, 128, 300)]
+    shapes += [(1, s, 1600, 16) for s in (32, 64, 128)]  # what hymba-1.5b prefill gives the kernel
+    worst = {"rel": 0.0, "abs": 0.0}
+    checks = 0
+    for b, s, d, n in shapes:
+        for with_state in (True, False):
+            args = _ssm_inputs(torch, g, b, s, d, n, with_state)
+            want = ss.ssm_plain(*args)
+            scales = [w.abs().max().item() for w in want]
+            for cfg in ss.config_space():
+                got = ss.ssm_cuda(*args, config=cfg)
+                for name, x, w, scale in zip(("y", "state"), got, want, scales):
+                    require(bool(torch.isfinite(x).all()), f"{cfg.name()} {name} not finite at {(b, s, d, n)}")
+                    err = (x - w).abs().max().item()
+                    require(err <= SSM_TOL * scale, f"{cfg.name()} {name} at {(b, s, d, n)} state={with_state}: "
+                                                    f"rel err {err / scale:.3g} > {SSM_TOL}")
+                    worst["rel"], worst["abs"] = max(worst["rel"], err / scale), max(worst["abs"], err)
+                checks += 1
+    torch.cuda.synchronize()
+    print(f"  {checks} checks ({len(shapes)} shapes x 2 states x {len(ss.config_space())} configs): worst rel err "
+          f"{worst['rel']:.3g} (limit {SSM_TOL}), worst abs err {worst['abs']:.3g}; every output finite")
+    return worst | {"checks": checks}
+
+
+# Per arch: GEMM launches per forward, and launches per prefill of each
+# sequence kernel (every decode step launches none of them).
+def _expected(cfg) -> tuple[int, dict[str, int]]:
+    n = cfg.n_layers
+    if cfg.name == "granite-8b":
+        require((cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_ff, cfg.vocab) == (4096, 32, 8, 14336, 49152),
+                f"unexpected granite-8b config {cfg}")
+        return 7 * n + 1, {"wkv": 0, "ssm": 0}
+    if cfg.name == "rwkv6-7b":
+        require((n, cfg.d_model, cfg.n_heads, cfg.head_dim, cfg.d_ff, cfg.vocab)
+                == (32, 4096, 64, 64, 14336, 65536), f"unexpected rwkv6-7b config {cfg}")
+        return 10 * n + 1, {"wkv": n, "ssm": 0}
+    require((n, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_ff, cfg.vocab, cfg.ssm_state,
+             cfg.window) == (32, 1600, 25, 5, 64, 5504, 32001, 16, 2048), f"unexpected hymba-1.5b config {cfg}")
+    return 13 * n + 1, {"wkv": 0, "ssm": n}
+
+
+_FAMILY = {"wkv": "wkv", "ssm": "ssm_scan"}  # launch counter -> selection family
+
+
+def phase_serve(torch, mm, seq: dict, arch: str) -> dict:
     """Serve 4 requests x 16 tokens at full width; every forward's launches checked."""
     from repro_torch.configs import registry
     from repro_torch.core.runtime import KernelRuntime
@@ -184,14 +269,7 @@ def phase_serve(torch, mm, wk, arch: str) -> dict:
     from repro_torch.serve.engine import ServingEngine
 
     cfg = registry.get(arch)
-    if arch == "granite-8b":
-        require((cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_ff, cfg.vocab) == (4096, 32, 8, 14336, 49152),
-                f"unexpected granite-8b config {cfg}")
-        per_forward, wkv_per_prefill = 7 * cfg.n_layers + 1, 0
-    else:
-        require((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.head_dim, cfg.d_ff, cfg.vocab)
-                == (32, 4096, 64, 64, 14336, 65536), f"unexpected rwkv6-7b config {cfg}")
-        per_forward, wkv_per_prefill = 10 * cfg.n_layers + 1, cfg.n_layers
+    per_forward, per_prefill = _expected(cfg)
     model = build_model(cfg, dtype=torch.bfloat16, param_dtype=torch.bfloat16, device="cuda")
     t0 = time.perf_counter()
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
@@ -209,15 +287,18 @@ def phase_serve(torch, mm, wk, arch: str) -> dict:
             f"prefill logits {tuple(logits.shape)} {logits.dtype}")
     require(bool(torch.isfinite(logits).all()), "non-finite prefill logits")
 
-    events: list[tuple[str, int, int, int, float]] = []  # (kind, size, GEMM launches, WKV launches, seconds)
-    mark = {"gemm": 0, "wkv": 0, "t": 0.0}
+    # (kind, size, GEMM launches, {sequence kernel: launches}, seconds) per forward
+    events: list[tuple[str, int, int, dict, float]] = []
+    mark = {"gemm": 0, "t": 0.0} | {name: 0 for name in seq}
 
     def record(kind):
         def hook(size):
             torch.cuda.synchronize()
-            now, gemm, wkv = time.perf_counter(), mm.total_launches(), wk.total_launches()
-            events.append((kind, size, gemm - mark["gemm"], wkv - mark["wkv"], now - mark["t"]))
-            mark["gemm"], mark["wkv"], mark["t"] = gemm, wkv, now
+            now, gemm = time.perf_counter(), mm.total_launches()
+            counts = {name: mod.total_launches() for name, mod in seq.items()}
+            events.append((kind, size, gemm - mark["gemm"], {k: v - mark[k] for k, v in counts.items()},
+                           now - mark["t"]))
+            mark.update(counts, gemm=gemm, t=now)
         return hook
 
     rt = KernelRuntime(name=f"chip_smoke[{arch}]")
@@ -231,25 +312,31 @@ def phase_serve(torch, mm, wk, arch: str) -> dict:
     # The main path: counts to 0 just before, read just after.
     torch.cuda.synchronize()
     mm.reset_launches()
-    wk.reset_launches()
+    for mod in seq.values():
+        mod.reset_launches()
+    mark.update({name: 0 for name in seq}, gemm=0)
     mark["t"] = t0 = time.perf_counter()
     tickets = [engine.submit(p, max_new_tokens=16) for p in prompts]
     status = engine.drain()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches, wkv_launches = dict(mm.LAUNCHES), dict(wk.LAUNCHES)
+    launches = dict(mm.LAUNCHES)
+    seq_launches = {name: dict(mod.LAUNCHES) for name, mod in seq.items()}
 
     require(status.completed == 4 and not status.exhausted, f"not every request completed: {status}")
     require(all(len(t.request.output) == 16 for t in tickets), "a request got fewer than 16 tokens")
     bad = [(kind, n) for kind, _, n, _, _ in events if n != per_forward]
     require(not bad, f"forwards with a GEMM launch count other than {per_forward}: {bad}")
     require(sum(launches.values()) == per_forward * len(events), "GEMM launches outside the forwards")
-    bad = [(kind, n) for kind, _, _, n, _ in events if n != (wkv_per_prefill if kind == "prefill" else 0)]
-    require(not bad, f"forwards with a WKV launch count other than {wkv_per_prefill} per prefill, 0 per decode: {bad}")
-    require(sum(wkv_launches.values()) == sum(e[3] for e in events), "WKV launches outside the forwards")
     stats = rt.shape_cache_stats()
     fam = stats["per_family"]
-    for op, n in (("matmul", sum(launches.values())), ("wkv", sum(wkv_launches.values()))):
+    for name in seq:
+        want = per_prefill[name]
+        bad = [(kind, c[name]) for kind, _, _, c, _ in events if c[name] != (want if kind == "prefill" else 0)]
+        require(not bad, f"forwards with a {name} launch count other than {want} per prefill, 0 per decode: {bad}")
+        require(sum(seq_launches[name].values()) == sum(e[3][name] for e in events),
+                f"{name} launches outside the forwards")
+    for op, n in [("matmul", sum(launches.values()))] + [(_FAMILY[k], sum(v.values())) for k, v in seq_launches.items()]:
         got = fam.get(op, {"hits": 0, "misses": 0})
         require(got["hits"] + got["misses"] == n, f"{op} selection not consulted on every launch: {got} vs {n}")
     require(fam["matmul"]["hits"] > 0, f"matmul shape cache never hit: {fam}")
@@ -258,10 +345,13 @@ def phase_serve(torch, mm, wk, arch: str) -> dict:
     # Launches per decode step, per (k, n), read from the selection log.
     counts: dict[str, int] = {}
     for op, problem, _cfg in rt.selection_log():
-        if op == "matmul" and problem[0] == 1 and problem[3] == 4:  # decode GEMMs: (B=4, 1, D) activations
+        # Decode GEMMs have 4 rows: a (4, 1, D) activation is (m, batch) = (1, 4), and Mamba's
+        # output projection of a (4, D) one is (4, 1). Prefill GEMMs have >= 32 rows.
+        if op == "matmul" and problem[0] * problem[3] == 4:
             kn = f"{problem[1]}x{problem[2]}"
             counts[kn] = counts.get(kn, 0) + 1
     per_step = {kn: c / n_decode for kn, c in counts.items()}
+    require(sum(per_step.values()) == per_forward, f"decode-step GEMMs by shape {per_step} do not sum to {per_forward}")
     toks = sum(len(t.request.output) for t in tickets)
     prefill_ms = [round(sec * 1e3, 3) for kind, _, _, _, sec in events if kind == "prefill"]
     buckets = [size for kind, size, _, _, _ in events if kind == "prefill"]
@@ -270,18 +360,19 @@ def phase_serve(torch, mm, wk, arch: str) -> dict:
           f"({toks / wall:.1f} tok/s); {n_prefill} prefills, {n_decode} decode steps")
     print(f"  prefill ms {prefill_ms} (buckets {buckets}); decode step ms median "
           f"{statistics.median(decode_ms):.3f} (min {min(decode_ms):.3f}, max {max(decode_ms):.3f})")
-    print(f"  GEMM launches: {per_forward} per forward on every one of {len(events)} forwards; "
-          f"WKV launches: {wkv_per_prefill} per prefill, 0 per decode step ({sum(wkv_launches.values())} in all, "
-          f"{wkv_launches}); shape cache {stats['hits']} hits / {stats['misses']} misses")
+    seq_text = "; ".join(f"{name.upper()} launches: {per_prefill[name]} per prefill, 0 per decode step "
+                         f"({sum(seq_launches[name].values())} in all)" for name in seq)
+    print(f"  GEMM launches: {per_forward} per forward on every one of {len(events)} forwards; {seq_text}; "
+          f"shape cache {stats['hits']} hits / {stats['misses']} misses")
     print(f"  decode-step GEMM launches per (k x n): {per_step}")
     return {
         "arch": arch, "n_layers": cfg.n_layers, "weight_bytes": weight_bytes, "tokens": toks, "wall_s": wall,
         "tok_per_s": toks / wall, "prefill_ms": prefill_ms, "prefill_buckets": buckets, "decode_ms": decode_ms,
-        "launches": launches, "wkv_launches": wkv_launches, "per_forward": per_forward,
-        "wkv_per_prefill": wkv_per_prefill, "forwards": len(events), "per_decode_step": per_step,
+        "launches": launches, "per_forward": per_forward, "forwards": len(events), "per_decode_step": per_step,
         "shape_cache": {k: stats[k] for k in ("hits", "misses")}, "per_family": fam,
         "engine": engine, "model": model, "params": params, "prompts": prompts,
-    }
+    } | {f"{name}_launches": seq_launches[name] for name in seq} | {
+        f"{name}_per_prefill": per_prefill[name] for name in seq}
 
 
 def phase_policy(mm, serve: dict) -> dict:
@@ -304,25 +395,67 @@ def phase_policy(mm, serve: dict) -> dict:
     return {"config": other.name(), "launches": got, "default_launches": default}
 
 
-def phase_wkv_policy(wk, serve: dict) -> dict:
+def phase_seq_policy(mod, name: str, other, serve: dict) -> dict:
+    """One request under ``FixedPolicy(<name>_config=other)`` launches the
+    sequence kernel's config ``other`` n_layers times (its one prefill) and
+    the default config not at all."""
     from repro_torch.core.runtime import KernelRuntime
     from repro_torch.kernels.ops import FixedPolicy
     from repro_torch.serve.engine import ServingEngine
 
-    other = wk.WkvConfig(64)
-    require(other in wk.config_space() and other != wk.DEFAULT_WKV_CONFIG, "bad choice of wkv config")
-    rt = KernelRuntime(name="chip_smoke-wkv64")
-    rt.install(FixedPolicy(wkv_config=other))
+    default = getattr(mod, f"DEFAULT_{name.upper()}_CONFIG")
+    require(other in mod.config_space() and other != default, f"bad choice of {name} config")
+    rt = KernelRuntime(name=f"chip_smoke-{other.name()}")
+    rt.install(FixedPolicy(**{f"{name}_config": other}))
     engine = ServingEngine(serve["model"], serve["params"], max_batch=4, cache_len=256, runtime=rt)
-    wk.reset_launches()
+    mod.reset_launches()
     engine.submit(serve["prompts"][0], max_new_tokens=4)
     engine.drain()
-    got, default = wk.LAUNCHES[other.name()], wk.LAUNCHES[wk.DEFAULT_WKV_CONFIG.name()]
-    require(got == serve["wkv_per_prefill"] and default == 0,
-            f"FixedPolicy(wkv_config={other.name()}) launched it {got} times, the default {default} times")
-    print(f"  FixedPolicy(wkv_config={other.name()}): {got} launches of it (one prefill), "
-          f"{default} of {wk.DEFAULT_WKV_CONFIG.name()}")
-    return {"config": other.name(), "launches": got, "default_launches": default}
+    got, n_default = mod.LAUNCHES[other.name()], mod.LAUNCHES[default.name()]
+    require(got == serve[f"{name}_per_prefill"] and n_default == 0 and mod.total_launches() == got,
+            f"FixedPolicy({name}_config={other.name()}) launched it {got} times, the default {n_default} times")
+    print(f"  FixedPolicy({name}_config={other.name()}): {got} launches of it (one prefill), "
+          f"{n_default} of {default.name()}")
+    return {"config": other.name(), "launches": got, "default_launches": n_default}
+
+
+def phase_hymba_cpu_vs_card(torch) -> dict:
+    """Reduced hymba-1.5b at 4 layers (its layer 1 slides a 32-token window),
+    served in process on cuda and on cpu from the same weights."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import registry
+    from repro_torch.core.runtime import KernelRuntime
+    from repro_torch.kernels.ops import FixedPolicy
+    from repro_torch.models.model import build_model
+    from repro_torch.serve.engine import ServingEngine
+
+    cfg = dataclasses.replace(registry.get("hymba-1.5b").reduced(), n_layers=4)
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32) for n in (20, 45)]
+    streams = {}
+    for dev in ("cuda", "cpu"):
+        model = build_model(cfg, dtype=torch.float32, param_dtype=torch.float32, device=dev)
+        require(model._layer_kinds() == ["global", "swa", "global", "global"], "no sliding-window layer")
+        params = model.init(torch.Generator(device="cpu").manual_seed(0))
+        rt = KernelRuntime(name=f"chip_smoke-hymba4[{dev}]")
+        rt.install(FixedPolicy())
+        engine = ServingEngine(model, params, max_batch=2, cache_len=128, runtime=rt)
+        ring = engine.pool.specs["['layer1']['k']"]
+        require(ring.kind == "lane", f"the 32-token ring should be a lane leaf, got {ring}")
+        tickets = [engine.submit(p, max_new_tokens=16) for p in prompts]
+        status = engine.drain()
+        require(status.completed == 2, f"hymba4 on {dev}: {status}")
+        streams[dev] = [list(t.request.output) for t in tickets]
+    if streams["cuda"] != streams["cpu"]:
+        print(f"  cuda {streams['cuda']}\n  cpu  {streams['cpu']}")
+    require(streams["cuda"] == streams["cpu"], "hymba4: greedy token streams differ between cuda and cpu")
+    n_tok = sum(map(len, streams["cpu"]))
+    print(f"  reduced hymba-1.5b at 4 layers, f32, prompts of 20 and 45 tokens (buckets 32, 64; ring 32): "
+          f"cuda and cpu token streams equal ({n_tok} tokens)")
+    return {"equal": True, "tokens": n_tok}
 
 
 def phase_cpu_vs_card(arch: str) -> dict:
@@ -391,6 +524,8 @@ def phase_profile(torch, serve: dict, n_prefill: int) -> dict:
             name = "matmul (gemm_*_kernel)"
         elif "wkv_kernel" in evt.key:
             name = "wkv (wkv_kernel)"
+        elif "ssm_kernel" in evt.key:
+            name = "ssm_scan (ssm_kernel)"
         else:
             name = evt.key[:60]
         by_kernel[name] = by_kernel.get(name, 0.0) + us / 1e3
@@ -404,7 +539,7 @@ def phase_profile(torch, serve: dict, n_prefill: int) -> dict:
     for name, ms in top:
         print(f"    {ms:9.3f} ms  {name}")
     return {"window": what, "wall_ms": wall_ms, "busy_ms": busy, "idle_share": 1 - busy / wall_ms, "top": top,
-            "wkv_ms": by_kernel.get("wkv (wkv_kernel)", 0.0)}
+            "wkv_ms": by_kernel.get("wkv (wkv_kernel)", 0.0), "ssm_ms": by_kernel.get("ssm_scan (ssm_kernel)", 0.0)}
 
 
 def _time_ms(torch, fn, n_warm=3, n_runs=20, queued=True) -> float:
@@ -434,7 +569,7 @@ def phase_timing(torch, mm, per_step: dict, kn_list, ms=(4, 128)) -> list[dict]:
     g = torch.Generator(device="cuda").manual_seed(3)
     for m in ms:
         for k, n in kn_list:
-            out_dtype = torch.float32 if n >= 49152 else torch.bfloat16  # the vocab GEMM emits f32 logits
+            out_dtype = torch.float32 if (k, n) in VOCAB_KN else torch.bfloat16  # the vocab GEMM emits f32 logits
             a = torch.randn(m, k, device="cuda", generator=g).bfloat16()
             b_bytes = k * n * 2
             copies = max(1, -(-150_000_000 // b_bytes))  # rotate weights through > 3x the L2
@@ -502,6 +637,37 @@ def phase_wkv_timing(torch, wk) -> list[dict]:
     return rows
 
 
+def phase_ssm_timing(torch, ss) -> list[dict]:
+    """The SSM kernel at what hymba-1.5b's batch-1 prefill gives it (f32
+    dtx, dta, b, c and no initial state), every config, beside its bound."""
+    rows = []
+    g = torch.Generator(device="cuda").manual_seed(8)
+    b, d, n = 1, 1600, 16
+    for s in (32, 64, 128):
+        args = _ssm_inputs(torch, g, b, s, d, n, False)[:4]
+        # Each input read once (no initial state on the served path), y and the final state written once.
+        nbytes = sum(t.numel() * t.element_size() for t in args) + b * s * d * 4 + b * d * n * 4
+        # Per (t, channel, state): exp, dtx * b, the fma into h, h * c and its sum: 6 f32 operations.
+        ops = 6 * b * s * d * n
+        bound = max(nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS) * 1e3
+        per_cfg = {cfg.name(): _time_ms(torch, lambda i, c=cfg: ss.ssm_cuda(*args, config=c))
+                   for cfg in ss.config_space()}
+        call = _time_ms(torch, lambda i: ss.ssm_cuda(*args), queued=False)
+        plain = _time_ms(torch, lambda i: ss.ssm_plain(*args))
+        best = min(per_cfg, key=per_cfg.get)
+        row = {"s": s, "shape": [b, s, d, n], "ms": per_cfg[ss.DEFAULT_SSM_CONFIG.name()], "best_config": best,
+               "best_ms": per_cfg[best], "call_ms": call, "plain_ms": plain, "bound_ms": bound,
+               "bytes": nbytes, "ops": ops,
+               "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= ops / F32_FLOPS else "operations",
+               "per_config_ms": per_cfg}
+        rows.append(row)
+        cfgs = ", ".join(f"{name} {ms:.4f}" for name, ms in per_cfg.items())
+        print(f"  (1, {s}, 1600, 16) f32: {cfgs} ms; bound {bound:.4f} ms ({row['bound_by']}: "
+              f"{nbytes / 1e6:.2f} MB, {ops / 1e6:.1f} Mop f32); one {ss.DEFAULT_SSM_CONFIG.name()} call from idle "
+              f"{call:.4f} ms; plain {plain:.4f} ms")
+    return rows
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -525,6 +691,7 @@ def main() -> int:
         return 2
     from repro_torch.kernels import _build
     from repro_torch.kernels import matmul as mm
+    from repro_torch.kernels import ssm as ss
     from repro_torch.kernels import wkv as wk
 
     t_start = time.perf_counter()
@@ -534,13 +701,14 @@ def main() -> int:
 
     print("[2] build")
     t0 = time.perf_counter()
-    _build.load_all(["matmul", "wkv"])
-    tiles, wkv_cfgs = mm.compiled_tiles(), wk.compiled_configs()
-    print(f"  matmul.cu and wkv.cu -> sm_90a in {time.perf_counter() - t0:.1f}s (nvcc in parallel: "
+    _build.load_all(["matmul", "wkv", "ssm"])
+    tiles, wkv_cfgs, ssm_cfgs = mm.compiled_tiles(), wk.compiled_configs(), ss.compiled_configs()
+    print(f"  matmul.cu, wkv.cu and ssm.cu -> sm_90a in {time.perf_counter() - t0:.1f}s (nvcc in parallel: "
           f"{', '.join(f'{k} {v:.1f}s' for k, v in _build.build_seconds.items())})")
     print(f"  matmul tiles (bm, bn, bk, smem bf16, smem f32): {tiles}")
     print(f"  wkv instantiations (chunk, hd, smem): {wkv_cfgs}")
-    for name in ("matmul", "wkv"):
+    print(f"  ssm instantiations (block_d, chunk, N, threads): {ssm_cfgs}")
+    for name in ("matmul", "wkv", "ssm"):
         log = _build.build_log(name).splitlines()
         regs = [line.split(":", 1)[1].strip() for line in log if "registers" in line]
         spills = sorted({line.strip() for line in log if "spill" in line and "0 bytes spill" not in line})
@@ -550,9 +718,12 @@ def main() -> int:
     errors = phase_kernel_vs_plain(torch, mm)
     print("[3b] WKV against plain")
     wkv_errors = phase_wkv_vs_plain(torch, wk)
+    print("[3c] SSM against plain")
+    ssm_errors = phase_ssm_vs_plain(torch, ss)
+    seq = {"wkv": wk, "ssm": ss}
 
     print("[4] full-width granite-8b serving")
-    serve = phase_serve(torch, mm, wk, "granite-8b")
+    serve = phase_serve(torch, mm, seq, "granite-8b")
     print("[5] selection reaches the kernel")
     policy = phase_policy(mm, serve)
     print("[5b] where a granite-8b decode step's time goes")
@@ -566,9 +737,9 @@ def main() -> int:
     rows = phase_timing(torch, mm, serve["per_decode_step"], GRANITE_KN)
 
     print("[8] full-width rwkv6-7b serving")
-    rwkv = phase_serve(torch, mm, wk, "rwkv6-7b")
+    rwkv = phase_serve(torch, mm, seq, "rwkv6-7b")
     print("[9] selection reaches the WKV kernel")
-    wkv_policy = phase_wkv_policy(wk, rwkv)
+    wkv_policy = phase_seq_policy(wk, "wkv", wk.WkvConfig(64), rwkv)
     print("[9b] where an rwkv6-7b prefill's and decode step's time goes")
     rwkv_profile = phase_profile(torch, rwkv, 1)
     _release(torch, rwkv)
@@ -580,13 +751,31 @@ def main() -> int:
     wkv_rows = phase_wkv_timing(torch, wk)
     rwkv_rows = phase_timing(torch, mm, rwkv["per_decode_step"], RWKV_KN, ms=(4,))
 
+    print("[12] full-width hymba-1.5b serving")
+    hymba = phase_serve(torch, mm, seq, "hymba-1.5b")
+    print("[13] selection reaches the SSM kernel")
+    ssm_policy = phase_seq_policy(ss, "ssm", ss.SsmConfig(8, 16), hymba)
+    print("[13b] where a hymba-1.5b prefill's and decode step's time goes")
+    hymba_profile = phase_profile(torch, hymba, 1)
+    _release(torch, hymba)
+
+    print("[14] cpu against card, hymba-1.5b at 4 layers")
+    hymba_parity = phase_hymba_cpu_vs_card(torch)
+
+    print("[15] SSM timing (DEFAULT_SSM_CONFIG = the config served), GEMM timing at hymba-1.5b decode shapes")
+    ssm_rows = phase_ssm_timing(torch, ss)
+    hymba_rows = phase_timing(torch, mm, hymba["per_decode_step"], HYMBA_KN, ms=(4,))
+
     # One granite decode step's GEMMs at m=4: sum of count x time over the shapes it launches.
     step = [r for r in rows if r["m"] == 4]
     total = lambda key: sum(r[key] * r["launches_per_decode_step"] for r in step)
     # The rwkv6-7b run's WKV launches: n_layers per prefill, at each prefill's bucket.
     by_s = {r["s"]: r for r in wkv_rows}
     wkv_total = lambda key: rwkv["wkv_per_prefill"] * sum(by_s[s][key] for s in rwkv["prefill_buckets"])
-    gemm_launches = {"granite-8b": sum(serve["launches"].values()), "rwkv6-7b": sum(rwkv["launches"].values())}
+    # The hymba-1.5b run's SSM launches: n_layers per prefill, at each prefill's bucket.
+    ssm_by_s = {r["s"]: r for r in ssm_rows}
+    ssm_total = lambda key: hymba["ssm_per_prefill"] * sum(ssm_by_s[s][key] for s in hymba["prefill_buckets"])
+    gemm_launches = {run["arch"]: sum(run["launches"].values()) for run in (serve, rwkv, hymba)}
     kernels = {"kernels": [{
         "name": "matmul",
         "route": "cuda",
@@ -618,6 +807,22 @@ def main() -> int:
         "library_note": "no single PyTorch call computes the chunked WKV recurrence",
         "timed_as": f"all WKV launches of the rwkv6-7b run's prefills (buckets {rwkv['prefill_buckets']}, "
                     f"{rwkv['wkv_per_prefill']} each), summed from per-length medians",
+    }, {
+        "name": "ssm_scan",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssm.cu",
+        "replaces": "src/repro/kernels/ssm.py:90",
+        "launches": sum(hymba["ssm_launches"].values()),
+        "max_abs_err": ssm_errors["abs"],
+        "max_rel_err": ssm_errors["rel"],
+        "ms": ssm_total("ms"),
+        "plain_ms": ssm_total("plain_ms"),
+        "bound_ms": ssm_total("bound_ms"),
+        "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in ssm_rows) else "operations",
+        "library_ms": None,
+        "library_note": "no single PyTorch call computes the selective scan",
+        "timed_as": f"all SSM launches of the hymba-1.5b run's prefills (buckets {hymba['prefill_buckets']}, "
+                    f"{hymba['ssm_per_prefill']} each), summed from per-length medians",
     }]}
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)
@@ -627,9 +832,11 @@ def main() -> int:
         "serve": serve, "policy": policy, "profile": profile, "cpu_vs_card": parity, "timing": rows,
         "rwkv_serve": rwkv, "wkv_policy": wkv_policy, "rwkv_profile": rwkv_profile,
         "rwkv_cpu_vs_card": rwkv_parity, "wkv_timing": wkv_rows, "rwkv_timing": rwkv_rows,
+        "ssm_errors": ssm_errors, "hymba_serve": hymba, "ssm_policy": ssm_policy, "hymba_profile": hymba_profile,
+        "hymba_cpu_vs_card": hymba_parity, "ssm_timing": ssm_rows, "hymba_timing": hymba_rows,
         "kernels": kernels["kernels"], "seconds": time.perf_counter() - t_start,
     }, indent=1, default=str))
-    print(f"[12] done in {time.perf_counter() - t_start:.1f}s")
+    print(f"[16] done in {time.perf_counter() - t_start:.1f}s")
     print(json.dumps(kernels))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -197,6 +197,16 @@ class KernelRuntime:
             return None
         return self._select("wkv", (s, hd), pol, lambda: select(s, hd))
 
+    def select_ssm_config(self, s: int, d: int):
+        """The selective-scan selection ``ops.ssm_scan`` runs on every call,
+        under the family key ``"ssm_scan"``; ``None`` with no policy installed
+        or when the policy does not cover the family."""
+        pol = self._sync()
+        select = getattr(pol, "select_ssm", None)
+        if select is None:
+            return None
+        return self._select("ssm_scan", (s, d), pol, lambda: select(s, d))
+
 
 class _Activation:
     """``with rt.activate():`` — push/pop on the thread's activation stack."""

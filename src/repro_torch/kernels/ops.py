@@ -1,12 +1,13 @@
 """Kernel entry points with runtime kernel selection (the paper's launcher).
 
-Every matmul of the port's models routes through :func:`matmul`, and every
-multi-token RWKV6 WKV recurrence through :func:`wkv`.  Each asks the current
+Every matmul of the port's models routes through :func:`matmul`, every
+multi-token RWKV6 WKV recurrence through :func:`wkv`, and every multi-token
+Mamba selective scan through :func:`ssm_scan`.  Each asks the current
 :class:`~repro_torch.core.runtime.KernelRuntime` for the deployed config of
 the problem and runs it.  On a CUDA tensor that is always the hand-written
-kernel (``matmul_cuda``, ``wkv_cuda``); a failure raises, and nothing falls
-back to the plain version.  The plain version runs only for tensors on the
-CPU.
+kernel (``matmul_cuda``, ``wkv_cuda``, ``ssm_cuda``); a failure raises, and
+nothing falls back to the plain version.  The plain version runs only for
+tensors on the CPU.
 """
 from __future__ import annotations
 
@@ -17,21 +18,25 @@ import torch
 
 from ..core.runtime import current_runtime
 from .matmul import DEFAULT_CONFIG, MatmulConfig, matmul_cuda, matmul_plain
+from .ssm import DEFAULT_SSM_CONFIG, SsmConfig, ssm_cuda, ssm_plain
 from .wkv import DEFAULT_WKV_CONFIG, WkvConfig, wkv_cuda, wkv_plain
 
-__all__ = ["FixedPolicy", "KernelPolicy", "matmul", "wkv"]
+__all__ = ["FixedPolicy", "KernelPolicy", "matmul", "ssm_scan", "wkv"]
 
 
 class KernelPolicy(Protocol):
     """Maps a kernel problem to the deployed config that should run it.
 
-    A policy that has no ``select_wkv`` does not cover the wkv family: the
-    runtime then selects ``None`` and ``wkv`` runs its default config.
+    A policy that has no ``select_wkv`` (``select_ssm``) does not cover the
+    wkv (ssm_scan) family: the runtime then selects ``None`` and the op runs
+    its default config.
     """
 
     def select_matmul(self, m: int, k: int, n: int, batch: int) -> MatmulConfig: ...
 
     def select_wkv(self, s: int, hd: int) -> WkvConfig: ...
+
+    def select_ssm(self, s: int, d: int) -> SsmConfig: ...
 
 
 @dataclasses.dataclass
@@ -40,12 +45,16 @@ class FixedPolicy:
 
     matmul_config: MatmulConfig = DEFAULT_CONFIG
     wkv_config: WkvConfig = DEFAULT_WKV_CONFIG
+    ssm_config: SsmConfig = DEFAULT_SSM_CONFIG
 
     def select_matmul(self, m, k, n, batch):
         return self.matmul_config
 
     def select_wkv(self, s, hd):
         return self.wkv_config
+
+    def select_ssm(self, s, d):
+        return self.ssm_config
 
 
 def matmul(
@@ -91,3 +100,18 @@ def wkv(r, k, v, logw, u, state=None):
     if r.device.type == "cpu":
         return wkv_plain(r, k, v, logw, u, state)
     return wkv_cuda(r, k, v, logw, u, state, config or DEFAULT_WKV_CONFIG)
+
+
+def ssm_scan(dtx, dta, b, c, state=None):
+    """Mamba selective scan with runtime kernel selection.
+
+    dtx: (B, S, d); dta: (B, S, d, N); b/c: (B, S, N); state: (B, d, N) or
+    None.  Returns (y (B, S, d) f32, final state (B, d, N) f32).  The problem
+    is featurized as in the reference: (S, d).  On CPU tensors the plain
+    version runs.
+    """
+    _, s, d = dtx.shape
+    config = current_runtime().select_ssm_config(s, d)
+    if dtx.device.type == "cpu":
+        return ssm_plain(dtx, dta, b, c, state)
+    return ssm_cuda(dtx, dta, b, c, state, config or DEFAULT_SSM_CONFIG)

@@ -47,3 +47,25 @@ def wkv_ref(r, k, v, logw, u, state=None, chunk: int = 16):
         outs.append(o)
     o = torch.stack(outs).permute(1, 0, 3, 2, 4).reshape(b, n_chunks * chunk, h, hd)
     return o[:, :s], S
+
+
+def ssm_scan_ref(dtx, dta, b, c, state=None):
+    """Oracle for kernels/ssm.py: the selective scan as a sequential loop over S.
+
+    dtx (B, S, d); dta (B, S, d, N); b/c (B, S, N); state (B, d, N), zeros
+    when None.  f32 math:  h_t = exp(dta_t) * h_{t-1} + dtx_t b_t^T  and
+    y_t = sum_N h_t c_t.  Returns (y (B, S, d) f32, final state (B, d, N) f32),
+    as the reference's associative-scan ``ssm_scan_ref`` does.
+    """
+    bsz, s, d = dtx.shape
+    n = b.shape[-1]
+    abar = torch.exp(dta.float())
+    bx = dtx.float()[..., None] * b.float()[:, :, None, :]  # (B, S, d, N)
+    cf = c.float()
+    h = torch.zeros((bsz, d, n), dtype=torch.float32, device=dtx.device) if state is None else state.float()
+    ys = []
+    for t in range(s):
+        h = abar[:, t] * h + bx[:, t]
+        ys.append((h * cf[:, t, None, :]).sum(-1))
+    y = torch.stack(ys, dim=1) if ys else torch.zeros((bsz, 0, d), dtype=torch.float32, device=dtx.device)
+    return y, h

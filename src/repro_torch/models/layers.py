@@ -42,12 +42,16 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10_000.0) -> t
 # ---------------------------------------------------------------------------
 # chunked flash attention (grouped-query layout, no KV repeat)
 # ---------------------------------------------------------------------------
-def _attn_chunk(q, k, v, row0: int, col0: int, scale: float):
-    """One causal (q-chunk x kv-chunk) tile.  q: (B,KV,G,Lq,hd)  k/v: (B,KV,Lk,hd)."""
+def _attn_chunk(q, k, v, row0: int, col0: int, scale: float, window: int = 0):
+    """One causal (q-chunk x kv-chunk) tile.  q: (B,KV,G,Lq,hd)  k/v: (B,KV,Lk,hd).
+    ``window`` > 0 also masks columns at or before ``row - window``."""
     logits = torch.einsum("bkgqh,bkth->bkgqt", q.float(), k.float()) * scale
     rows = row0 + torch.arange(q.shape[-2], device=q.device)[:, None]
     cols = col0 + torch.arange(k.shape[-2], device=q.device)[None, :]
-    logits = logits.masked_fill(cols > rows, _NEG_INF)
+    masked = cols > rows
+    if window:
+        masked |= cols <= rows - window
+    logits = logits.masked_fill(masked, _NEG_INF)
     m = logits.amax(dim=-1)
     p = torch.exp(logits - m[..., None])
     return m, p.sum(dim=-1), torch.einsum("bkgqt,bkth->bkgqh", p, v.float())
@@ -58,6 +62,7 @@ def flash_attention(
     k: torch.Tensor,
     v: torch.Tensor,
     *,
+    window: int = 0,
     q_chunk: int = 512,
     kv_chunk: int = 1024,
 ) -> torch.Tensor:
@@ -65,10 +70,12 @@ def flash_attention(
 
     q: (B, S, H, hd) with H = KV * G;  k/v: (B, T, KV, hd).  The causal
     diagonal is aligned to the end of KV (query i sits at position T - S + i).
-    Memory is bounded by q_chunk x kv_chunk tiles.  The last chunk of each
-    axis is simply shorter: the reference pads it and masks the pad columns
-    at -1e30, which contributes exactly nothing to a row that has a real
-    column, and every row has one (column 0 under the end-aligned diagonal).
+    ``window`` > 0 is sliding-window attention: a query at position r sees
+    columns c with r - window < c <= r.  Memory is bounded by q_chunk x
+    kv_chunk tiles.  The last chunk of each axis is simply shorter: the
+    reference pads it and masks the pad columns at -1e30, which contributes
+    exactly nothing to a row that has a real column, and every row has one
+    (its own diagonal).
     """
     b, s, h, hd = q.shape
     t, kvh = k.shape[1], k.shape[2]
@@ -89,7 +96,7 @@ def flash_attention(
         for k0 in range(0, t, kc):
             m_c, l_c, o_c = _attn_chunk(
                 qblk, kt[:, :, k0 : k0 + kc], vt[:, :, k0 : k0 + kc],
-                q0 + diag_off, k0, scale,
+                q0 + diag_off, k0, scale, window,
             )
             m_new = torch.maximum(m, m_c)
             corr = torch.exp(m - m_new)
@@ -139,17 +146,22 @@ def attention_layer(
     *,
     cache: tuple[torch.Tensor, torch.Tensor],
     cache_positions: torch.Tensor | None = None,
+    cache_valid: torch.Tensor | None = None,
+    window: int = 0,
 ) -> torch.Tensor:
     """GQA self-attention for one layer (params already sliced to this layer).
 
     ``cache = (k_cache, v_cache)``, each (B, T, KV, hd).  Modes:
-      * prefill: s > 1 — k/v are written to positions [0, s) and x attends
-        over itself, causally;
+      * prefill: s > 1 — x attends over itself, causally (within ``window``
+        when > 0).  With s < T, k/v are written to positions [0, s); with
+        s >= T the cache is a ring buffer (a sliding window's): it keeps the
+        last T tokens, each at its ring slot p % T, so decode can continue;
       * decode: cache set, s == 1 — k/v are written at ``cache_positions``
-        (B,) and the token attends over slots ``< cache_positions + 1``.
+        (B,) and the token attends over slots ``< cache_valid`` (default
+        ``cache_positions + 1``).
 
     The cache is updated in place (the reference returns a new one); it is a
-    view into the caller's stacked cache, so no per-step copy is made.
+    view into the caller's cache, so no per-step copy is made.
     """
     b, s, _ = x.shape
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -163,13 +175,16 @@ def attention_layer(
         bidx = torch.arange(b, device=x.device)
         k_cache[bidx, cache_positions] = k[:, 0]
         v_cache[bidx, cache_positions] = v[:, 0]
-        out = decode_attention(q, k_cache, v_cache, cache_positions + 1)
+        valid = cache_valid if cache_valid is not None else cache_positions + 1
+        out = decode_attention(q, k_cache, v_cache, valid)
     else:  # prefill: write the whole prefix
-        if s >= k_cache.shape[1]:
-            raise ValueError(f"prefill of {s} tokens does not fit a {k_cache.shape[1]}-slot cache")
-        k_cache[:, :s] = k
-        v_cache[:, :s] = v
-        out = flash_attention(q, k, v)
+        t_cache = k_cache.shape[1]
+        for dst, src in ((k_cache, k), (v_cache, v)):
+            if s >= t_cache:  # ring buffer: token p lands in slot p % t_cache
+                dst.copy_(torch.roll(src[:, -t_cache:], (s - t_cache) % t_cache, dims=1))
+            else:
+                dst[:, :s] = src
+        out = flash_attention(q, k, v, window=window)
     return ops.matmul(out.reshape(b, s, h * hd), p["wo"])
 
 

@@ -1,16 +1,18 @@
 """Model families, ported from ``repro/models/model.py``.
 
-Same functional surface as the reference's ``TransformerLM`` and ``RWKV6LM``:
+Same functional surface as the reference's ``TransformerLM``, ``RWKV6LM`` and
+``HymbaLM``:
 
   init(generator) -> params
   init_cache(batch, cache_len) -> cache dict (k/v per token for the
-      transformer; the recurrent wkv/x1/x2 state for RWKV6)
+      transformer; the recurrent wkv/x1/x2 state for RWKV6; per layer
+      ``{"k", "v", "ssm"}`` for Hymba, its sliding-window layers' k/v a ring)
   prefill(params, batch, cache_len) -> (last-position logits, cache)
   decode_step(params, cache, tokens, positions) -> (logits, cache)
 
 Params keep the reference's tree and layout: (in, out) matrices with a
 stacked leading layer axis.  The reference's ``lax.scan`` over layers is a
-Python loop over views of the stacked tensors.  MoE, VLM, Hymba and
+Python loop over views of the stacked tensors.  MoE, VLM and
 encoder-decoder variants wait for later parts of the port.
 """
 from __future__ import annotations
@@ -19,14 +21,17 @@ import torch
 
 from ..configs.base import ArchConfig
 from . import layers as L
+from . import mamba as M
 from . import rwkv as R
 
 
 def build_model(cfg: ArchConfig, dtype=torch.bfloat16, param_dtype=torch.bfloat16, device="cuda"):
     if cfg.family == "ssm":
         return RWKV6LM(cfg, dtype, param_dtype, device)
+    if cfg.family == "hybrid":
+        return HymbaLM(cfg, dtype, param_dtype, device)
     if cfg.family != "dense" or cfg.moe is not None:
-        raise NotImplementedError(f"the port serves dense transformers and RWKV6 so far, not {cfg.family!r}")
+        raise NotImplementedError(f"the port serves dense transformers, RWKV6 and Hymba so far, not {cfg.family!r}")
     return TransformerLM(cfg, dtype, param_dtype, device)
 
 
@@ -57,8 +62,35 @@ def _init_embedding(cfg: ArchConfig, normal) -> dict:
     return emb
 
 
-_ATTN = ("wq", "wk", "wv", "wo")
-_FFN = ("w_gate", "w_up", "w_down")
+def _layer_params(blocks: dict, i: int) -> dict:
+    """Layer ``i``'s params: every stacked tensor of ``blocks`` indexed at ``i``
+    (views, no copies)."""
+    return {k: _layer_params(v, i) if isinstance(v, dict) else v[i] for k, v in blocks.items()}
+
+
+def _dense(cfg: ArchConfig, normal):
+    """``dense(d_in, d_out)``: a stacked (n_layers, d_in, d_out) matrix at the
+    reference's scale (2 / (d_in + d_out))^0.5."""
+    return lambda d_in, d_out: normal((cfg.n_layers, d_in, d_out), (2.0 / (d_in + d_out)) ** 0.5)
+
+
+def _init_attention(cfg: ArchConfig, normal) -> dict:
+    dense = _dense(cfg, normal)
+    return {
+        "wq": dense(cfg.d_model, cfg.q_dim),
+        "wk": dense(cfg.d_model, cfg.kv_dim),
+        "wv": dense(cfg.d_model, cfg.kv_dim),
+        "wo": dense(cfg.q_dim, cfg.d_model),
+    }
+
+
+def _init_mlp(cfg: ArchConfig, normal) -> dict:
+    dense = _dense(cfg, normal)
+    return {
+        "w_gate": dense(cfg.d_model, cfg.d_ff),
+        "w_up": dense(cfg.d_model, cfg.d_ff),
+        "w_down": dense(cfg.d_ff, cfg.d_model),
+    }
 
 
 class TransformerLM:
@@ -78,38 +110,13 @@ class TransformerLM:
         c = self.cfg
         n = c.n_layers
         normal, full = _initializers(self, generator)
-
-        def dense(d_in, d_out):
-            return normal((n, d_in, d_out), (2.0 / (d_in + d_out)) ** 0.5)
-
-        def ones(*shape):
-            return full(shape, 1.0)
-
-        attn = {
-            "wq": dense(c.d_model, c.q_dim),
-            "wk": dense(c.d_model, c.kv_dim),
-            "wv": dense(c.d_model, c.kv_dim),
-            "wo": dense(c.q_dim, c.d_model),
-        }
-        ffn = {
-            "w_gate": dense(c.d_model, c.d_ff),
-            "w_up": dense(c.d_model, c.d_ff),
-            "w_down": dense(c.d_ff, c.d_model),
-        }
+        attn = _init_attention(c, normal)
+        ffn = _init_mlp(c, normal)
         return {
             "emb": _init_embedding(c, normal),
-            "final_norm": ones(c.d_model),
-            "blocks": {"attn": attn, "ffn": ffn, "ln1": ones(n, c.d_model), "ln2": ones(n, c.d_model)},
-        }
-
-    @staticmethod
-    def _layer(params: dict, i: int) -> dict:
-        blocks = params["blocks"]
-        return {
-            "attn": {k: blocks["attn"][k][i] for k in _ATTN},
-            "ffn": {k: blocks["ffn"][k][i] for k in _FFN},
-            "ln1": blocks["ln1"][i],
-            "ln2": blocks["ln2"][i],
+            "final_norm": full((c.d_model,), 1.0),
+            "blocks": {"attn": attn, "ffn": ffn, "ln1": full((n, c.d_model), 1.0),
+                       "ln2": full((n, c.d_model), 1.0)},
         }
 
     # -- one transformer block ----------------------------------------------
@@ -140,7 +147,7 @@ class TransformerLM:
         positions = torch.arange(s, device=self.device).expand(b, s)
         x = L.embed_tokens(params["emb"], tokens).to(self.dtype)
         for i in range(c.n_layers):
-            x = self._block(self._layer(params, i), x, positions, cache=(cache["k"][i], cache["v"][i]))
+            x = self._block(_layer_params(params["blocks"], i), x, positions, cache=(cache["k"][i], cache["v"][i]))
         x = L.rms_norm(x, params["final_norm"], c.norm_eps)
         return L.logits_from_hidden(params["emb"], x[:, -1:]), cache
 
@@ -152,7 +159,7 @@ class TransformerLM:
         pos2d = positions[:, None]
         for i in range(c.n_layers):
             x = self._block(
-                self._layer(params, i), x, pos2d,
+                _layer_params(params["blocks"], i), x, pos2d,
                 cache=(cache["k"][i], cache["v"][i]), cache_positions=positions,
             )
         x = L.rms_norm(x, params["final_norm"], c.norm_eps)
@@ -206,13 +213,8 @@ class RWKV6LM:
     def _run(self, params: dict, x, cache: dict):
         """All layers; each layer's new state is written into ``cache`` in
         place (the reference returns a new cache)."""
-        blocks = params["blocks"]
         for i in range(self.cfg.n_layers):
-            blk = {
-                "rwkv": {key: t[i] for key, t in blocks["rwkv"].items()},
-                "ln1": blocks["ln1"][i],
-                "ln2": blocks["ln2"][i],
-            }
+            blk = _layer_params(params["blocks"], i)
             x, new = self._layer(blk, x, (cache["wkv"][i], cache["x1"][i], cache["x2"][i]))
             for key, t in zip(("wkv", "x1", "x2"), new):
                 cache[key][i].copy_(t)
@@ -236,5 +238,107 @@ class RWKV6LM:
         c = self.cfg
         x = L.embed_tokens(params["emb"], tokens).to(self.dtype)
         x = self._run(params, x, cache)
+        x = L.rms_norm(x, params["final_norm"], c.norm_eps)
+        return L.logits_from_hidden(params["emb"], x), cache
+
+
+class HymbaLM:
+    """Hymba: attention and Mamba heads in parallel on the same normalized
+    input, fused as ``x + 0.5 (h_attn + h_mamba)``.  Sliding-window attention
+    on every layer but three global ones (first, middle, last)."""
+
+    def __init__(self, cfg: ArchConfig, dtype=torch.bfloat16, param_dtype=torch.bfloat16, device="cuda"):
+        self.cfg = cfg
+        self.dtype = dtype
+        self.param_dtype = param_dtype
+        self.device = torch.device(device)
+
+    def _layer_kinds(self) -> list[str]:
+        n = self.cfg.n_layers
+        glob = {0, n // 2, n - 1}
+        return ["global" if i in glob else "swa" for i in range(n)]
+
+    def init(self, generator: torch.Generator | None = None) -> dict:
+        """Random weights drawn from ``generator`` at the reference's scales."""
+        c = self.cfg
+        normal, full = _initializers(self, generator)
+        return {
+            "emb": _init_embedding(c, normal),
+            "final_norm": full((c.d_model,), 1.0),
+            "blocks": {
+                "attn": _init_attention(c, normal),
+                "mamba": M.init_mamba(c, normal, full),
+                "ffn": _init_mlp(c, normal),
+                "ln1": full((c.n_layers, c.d_model), 1.0),
+                "ln2": full((c.n_layers, c.d_model), 1.0),
+            },
+        }
+
+    def _layer(self, blk: dict, x, positions, kind: str, entry: dict, *, cache_positions=None, cache_valid=None):
+        """One layer over ``entry`` = this layer's {"k", "v", "ssm"} cache: k/v
+        are written in place; returns (x, the new ssm state)."""
+        c = self.cfg
+        xn = L.rms_norm(x, blk["ln1"], c.norm_eps)
+        h_attn = L.attention_layer(
+            blk["attn"], xn, c, positions, cache=(entry["k"], entry["v"]),
+            cache_positions=cache_positions, cache_valid=cache_valid,
+            window=0 if kind == "global" else c.window,
+        )
+        if x.shape[1] == 1:
+            h_mamba, ssm = M.mamba_decode_step(blk["mamba"], xn, entry["ssm"], c)
+        else:
+            h_mamba, ssm = M.mamba_layer(blk["mamba"], xn, c)
+        x = x + 0.5 * (h_attn + h_mamba)
+        return x + L.mlp_layer(blk["ffn"], L.rms_norm(x, blk["ln2"], c.norm_eps)), ssm
+
+    def init_cache(self, b: int, cache_len: int) -> dict:
+        """Per layer: k/v of ``cache_len`` tokens on global layers and a ring of
+        ``min(window, cache_len)`` on sliding-window ones, and the (B, d, N)
+        f32 SSM state."""
+        c = self.cfg
+        cache = {}
+        for i, kind in enumerate(self._layer_kinds()):
+            t = cache_len if kind == "global" else min(c.window, cache_len)
+            kv = (b, t, c.n_kv_heads, c.head_dim)
+            cache[f"layer{i}"] = {
+                "k": torch.zeros(kv, dtype=self.dtype, device=self.device),
+                "v": torch.zeros(kv, dtype=self.dtype, device=self.device),
+                "ssm": torch.zeros((b, c.d_model, c.ssm_state), dtype=torch.float32, device=self.device),
+            }
+        return cache
+
+    def prefill(self, params: dict, batch: dict, cache_len: int):
+        """Run the prompt ``batch["tokens"]`` (B, S); returns the f32 logits
+        of the last position (B, 1, V_padded) and the filled cache."""
+        c = self.cfg
+        tokens = batch["tokens"]
+        b, s = tokens.shape
+        cache = self.init_cache(b, cache_len)
+        positions = torch.arange(s, device=self.device).expand(b, s)
+        x = L.embed_tokens(params["emb"], tokens).to(self.dtype)
+        for i, kind in enumerate(self._layer_kinds()):
+            entry = cache[f"layer{i}"]
+            x, entry["ssm"] = self._layer(_layer_params(params["blocks"], i), x, positions, kind, entry)
+        x = L.rms_norm(x, params["final_norm"], c.norm_eps)
+        return L.logits_from_hidden(params["emb"], x[:, -1:]), cache
+
+    def decode_step(self, params: dict, cache: dict, tokens: torch.Tensor, positions: torch.Tensor):
+        """tokens: (B, 1); positions: (B,) — index of the new token.  Sliding-
+        window layers write ring slot ``positions % T`` and attend over
+        ``min(positions + 1, T)`` slots.  The cache is updated in place and
+        returned."""
+        c = self.cfg
+        x = L.embed_tokens(params["emb"], tokens).to(self.dtype)
+        pos2d = positions[:, None]
+        for i, kind in enumerate(self._layer_kinds()):
+            entry = cache[f"layer{i}"]
+            t = entry["k"].shape[1]
+            if kind == "global":
+                cpos, cvalid = positions, positions + 1
+            else:
+                cpos, cvalid = positions % t, torch.clamp(positions + 1, max=t)
+            x, ssm = self._layer(_layer_params(params["blocks"], i), x, pos2d, kind, entry,
+                                 cache_positions=cpos, cache_valid=cvalid)
+            entry["ssm"].copy_(ssm)
         x = L.rms_norm(x, params["final_norm"], c.norm_eps)
         return L.logits_from_hidden(params["emb"], x), cache

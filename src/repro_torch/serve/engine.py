@@ -2,7 +2,8 @@
 
 The engine owns ``max_batch`` decode **lanes** backed by a dense
 :class:`~repro_torch.serve.kvpool.KVPool` (k/v blocks for a transformer, one
-recurrent-state row per lane for RWKV6), a priority
+recurrent-state row per lane for RWKV6, both for Hymba, whose SSM state and
+sliding-window rings shorter than ``cache_len`` are lane rows), a priority
 :class:`~repro_torch.serve.scheduler.Scheduler`, and the reference's legacy
 (monolithic-prefill) admission path:
 
@@ -13,7 +14,7 @@ recurrent-state row per lane for RWKV6), a priority
 
 One ``engine.step()`` is one scheduling round: admit waiting requests into
 free lanes (prompt left-padded to its prefill bucket with token 0, the pad
-tokens attended as real tokens, or run through RWKV6's recurrence, as in the
+tokens attended as real tokens, or run through RWKV6's or Mamba's recurrence, as in the
 reference; first token from the last position's logits), then one
 batched decode advances every active lane at the smallest power-of-two width
 bucket that fits, padded with idle lanes (whose recurrent-state rows advance

@@ -9,15 +9,21 @@ for prefix sharing, since without it every block has one owner.
 
 Cache leaves are classified structurally, as the reference's
 ``probe_cache_layout`` does: ``model.init_cache`` is probed at two (batch,
-length) points and each leaf's scaling axes decide its kind.
+length) points and each leaf's scaling axes decide its kind.  A cache is a
+dict of tensors, nested or not (Hymba's is ``{"layer{i}": {"k", "v",
+"ssm"}}``); each leaf is named by its path in the reference's ``keystr``
+form (``"['layer1']['k']"``), and ``gather`` / ``scatter`` / ``admit`` take
+and return the model's own tree.
 
 * **paged** leaves have a batch axis and a length axis that tracks
-  ``cache_len`` (k/v token caches).  They live in the block store, whose
-  batch axis indexes blocks: ``(n_blocks + 1)`` rows, row 0 the scratch block.
-* **lane** leaves have a batch axis but no length axis (the RWKV6 wkv/x1/x2
-  recurrent state).  They live one row per lane.  ``gather`` and ``scatter``
-  read and write the row of every lane in the decode batch, idle lanes
-  included, as the reference does.
+  ``cache_len`` exactly (k/v token caches).  They live in the block store,
+  whose batch axis indexes blocks: ``(n_blocks + 1)`` rows, row 0 the scratch
+  block.
+* **lane** leaves have a batch axis but no length axis that tracks
+  ``cache_len`` (the RWKV6 wkv/x1/x2 and Hymba SSM recurrent state, and
+  sliding-window rings shorter than ``cache_len``).  They live one row per
+  lane.  ``gather`` and ``scatter`` read and write the row of every lane in
+  the decode batch, idle lanes included, as the reference does.
 * **replicated** leaves have neither; stored once.
 
 Paging and prefix sharing raise ``NotImplementedError`` until the serving
@@ -46,16 +52,43 @@ class LeafSpec:
     length_axis: int | None
 
 
+def _keystr(keys: tuple[str, ...]) -> str:
+    return "".join(f"['{k}']" for k in keys)
+
+
+def flatten_cache(tree: dict, prefix: tuple[str, ...] = ()) -> dict[tuple[str, ...], torch.Tensor]:
+    """The leaves of a (nested) cache dict, keyed by their key path."""
+    out = {}
+    for key, val in tree.items():
+        if isinstance(val, dict):
+            out.update(flatten_cache(val, prefix + (key,)))
+        else:
+            out[prefix + (key,)] = val
+    return out
+
+
+def unflatten_cache(leaves: dict[tuple[str, ...], torch.Tensor]) -> dict:
+    """Inverse of :func:`flatten_cache`."""
+    tree: dict = {}
+    for (*parents, last), val in leaves.items():
+        node = tree
+        for key in parents:
+            node = node.setdefault(key, {})
+        node[last] = val
+    return tree
+
+
 def probe_cache_layout(init_cache, cache_len: int, block_size: int) -> dict[str, LeafSpec]:
-    """Classify every leaf of the flat cache dict ``init_cache(batch, length)``
-    by which of its axes scale with the probe's batch and length."""
+    """Classify every leaf of the cache dict ``init_cache(batch, length)`` by
+    which of its axes scale with the probe's batch and length.  Keyed by the
+    leaf's path in ``keystr`` form."""
     length_b = block_size if block_size != cache_len else max(1, cache_len // 2)
     if length_b == cache_len:
         raise ValueError(f"cache_len={cache_len} too small to probe a paged layout")
     batches = [b for b in _PROBE_BATCHES if b not in (cache_len, length_b)]
     pb_a, pb_b = batches[0], batches[1]
-    shapes_a = {key: tuple(t.shape) for key, t in init_cache(pb_a, cache_len).items()}
-    shapes_b = {key: tuple(t.shape) for key, t in init_cache(pb_b, length_b).items()}
+    shapes_a = {_keystr(k): tuple(t.shape) for k, t in flatten_cache(init_cache(pb_a, cache_len)).items()}
+    shapes_b = {_keystr(k): tuple(t.shape) for k, t in flatten_cache(init_cache(pb_b, length_b)).items()}
     if shapes_a.keys() != shapes_b.keys():
         raise ValueError("init_cache structure changes with (batch, length); cannot page it")
     specs = {}
@@ -97,10 +130,12 @@ class KVPool:
         self.n_blocks = self.lanes
         self.specs = probe_cache_layout(model.init_cache, self.cache_len, self.block_size)
         kinds = {spec.kind for spec in self.specs.values()}
-        per_block = model.init_cache(self.n_blocks + 1, self.cache_len) if "paged" in kinds else {}
-        per_lane = model.init_cache(self.lanes, self.cache_len) if kinds - {"paged"} else {}
-        self._store = {key: per_block[key] if spec.kind == "paged" else per_lane[key]
-                       for key, spec in self.specs.items()}
+        per_block = flatten_cache(model.init_cache(self.n_blocks + 1, self.cache_len)) if "paged" in kinds else {}
+        per_lane = flatten_cache(model.init_cache(self.lanes, self.cache_len)) if kinds - {"paged"} else {}
+        # keystr path -> key path, to rebuild the model's tree.
+        self._paths = {_keystr(k): k for k in (per_block or per_lane)}
+        self._store = {key: (per_block if self.specs[key].kind == "paged" else per_lane)[k]
+                       for key, k in self._paths.items()}
         self._device = next(iter(self._store.values())).device
         # Free list popped from the tail: ids come out ascending (1, 2, ...).
         self._free = list(range(self.n_blocks, 0, -1))
@@ -206,41 +241,47 @@ class KVPool:
         lanes = np.asarray(lane_ids, dtype=np.int64)
         return torch.from_numpy(blocks).to(self._device), torch.from_numpy(lanes).to(self._device)
 
+    def _flat(self, cache: dict) -> dict[str, torch.Tensor]:
+        return {_keystr(k): t for k, t in flatten_cache(cache).items()}
+
     def admit(self, lane: int, cache1: dict) -> None:
-        """Write a batch-1 prefill cache (full ``cache_len`` length) into
-        ``lane``'s block and lane-state row."""
+        """Write a batch-1 prefill cache (the model's tree, full ``cache_len``
+        length) into ``lane``'s block and lane-state row."""
+        leaves = self._flat(cache1)
         for key, spec in self.specs.items():
             if spec.kind == "replicated":
                 continue  # the reference keeps the pool's value
             row = self._tables[lane][0] if spec.kind == "paged" else lane
-            self._store[key].select(spec.batch_axis, row).copy_(cache1[key].select(spec.batch_axis, 0))
+            self._store[key].select(spec.batch_axis, row).copy_(leaves[key].select(spec.batch_axis, 0))
 
     def gather(self, lane_ids) -> dict:
-        """The dense decode view (a copy) for ``lane_ids``.  Paged leaves of a
-        lane without a block read the zero scratch block; lane leaves read
-        each lane's own row."""
+        """The dense decode view (a copy, in the model's tree) for
+        ``lane_ids``.  Paged leaves of a lane without a block read the zero
+        scratch block; lane leaves read each lane's own row."""
         blocks, lanes = self._rows(list(lane_ids))
         out = {}
         for key, spec in self.specs.items():
             arr = self._store[key]
             if spec.kind == "replicated":
-                out[key] = arr
+                out[self._paths[key]] = arr
             else:
-                out[key] = arr.index_select(spec.batch_axis, blocks if spec.kind == "paged" else lanes)
-        return out
+                out[self._paths[key]] = arr.index_select(spec.batch_axis, blocks if spec.kind == "paged" else lanes)
+        return unflatten_cache(out)
 
     def scatter(self, lane_ids, cache: dict) -> None:
-        """Write an updated dense view back.  Paged rows of lanes without a
-        block went to scratch block 0, which is re-zeroed afterwards."""
+        """Write an updated dense view (the model's tree) back.  Paged rows of
+        lanes without a block went to scratch block 0, which is re-zeroed
+        afterwards."""
         blocks, lanes = self._rows(list(lane_ids))
+        leaves = self._flat(cache)
         touched_scratch = False
         for key, spec in self.specs.items():
             if spec.kind == "replicated":
-                self._store[key] = cache[key]
+                self._store[key] = leaves[key]
             elif spec.kind == "lane":
-                self._store[key].index_copy_(spec.batch_axis, lanes, cache[key])
+                self._store[key].index_copy_(spec.batch_axis, lanes, leaves[key])
             else:
-                self._store[key].index_copy_(spec.batch_axis, blocks, cache[key])
+                self._store[key].index_copy_(spec.batch_axis, blocks, leaves[key])
                 touched_scratch = True
         if touched_scratch:
             self._zero_block(0)

@@ -6,7 +6,10 @@ Both engines serve the same 5 prompts (3 to 60 tokens: prefill buckets 32 and
 status partition must be identical.  Reduced rwkv6-7b is served the same way
 (3 prompts of 3, 60 and 17 tokens), and its recurrent state, which both pools
 keep one row per lane, must match after the run, idle and retired lanes
-included.
+included.  Reduced hymba-1.5b at 4 layers (one sliding-window layer, its
+ring of 32 a lane leaf beside every layer's SSM state) serves prompts of 5
+and 40 tokens (buckets 32 and 64, both >= the ring) with ``cache_len=128``;
+streams, status and pool statistics must be identical.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -109,17 +112,21 @@ def test_rwkv_engine_matches_reference_engine():
         np.testing.assert_allclose(teng.cache[key].numpy(), np.asarray(jeng.cache[key]), rtol=1e-4, atol=1e-4)
 
 
-@pytest.mark.parametrize("arch", ["granite-8b", "rwkv6-7b"])
+@pytest.mark.parametrize("arch", ["granite-8b", "rwkv6-7b", "hymba-1.5b"])
 def test_leaf_kinds_match_reference_probe(arch):
-    jm, _, tm, _ = reduced_pair(arch)
+    """Leaf paths (keystr form) and kinds equal the reference probe's."""
+    jm, _, tm, _ = reduced_pair(arch, 4 if arch == "hymba-1.5b" else None)
     for cache_len in (64, 128):
         jspecs, _ = jax_probe(jm.init_cache, cache_len, cache_len)
-        want = {spec.path.strip("[']"): (spec.kind, spec.batch_axis, spec.length_axis) for spec in jspecs}
+        want = {spec.path: (spec.kind, spec.batch_axis, spec.length_axis) for spec in jspecs}
         got = {key: (spec.kind, spec.batch_axis, spec.length_axis)
                for key, spec in probe_cache_layout(tm.init_cache, cache_len, cache_len).items()}
         assert got == want
     kinds = {spec.kind for spec in ServingEngine(tm, None, max_batch=2, cache_len=64).pool.specs.values()}
-    assert kinds == ({"paged"} if arch == "granite-8b" else {"lane"})
+    assert kinds == {"granite-8b": {"paged"}, "rwkv6-7b": {"lane"}, "hymba-1.5b": {"paged", "lane"}}[arch]
+    if arch == "hymba-1.5b":  # the sliding-window layer's ring and every SSM state are lane leaves
+        lane = {key for key, (kind, _, _) in want.items() if kind == "lane"}
+        assert lane == {"['layer1']['k']", "['layer1']['v']"} | {f"['layer{i}']['ssm']" for i in range(4)}
 
 
 def test_lane_state_rows_follow_their_lanes():
@@ -144,3 +151,39 @@ def test_cli_serves_rwkv_on_cpu(capsys):
                            "--max-new-tokens", "4", "--max-batch", "2", "--cache-len", "64"])
     assert [len(o) for o in outs] == [4, 4, 4]
     assert "served 3 requests on cpu (rwkv6-7b" in capsys.readouterr().out
+
+
+def test_hymba_engine_matches_reference_engine():
+    jm, jp, tm, tp = reduced_pair("hymba-1.5b", 4)
+    rng = np.random.default_rng(13)
+    prompts = [rng.integers(0, tm.cfg.vocab, n).astype(np.int32) for n in (5, 40)]
+    kw = dict(max_batch=2, cache_len=128)
+    jeng = JaxEngine(jm, jp, runtime=JaxRuntime(), **kw)
+    teng = ServingEngine(tm, tp, runtime=KernelRuntime(), **kw)
+    jt = [jeng.submit(p, max_new_tokens=4) for p in prompts]
+    tt = [teng.submit(p, max_new_tokens=4) for p in prompts]
+    jeng.step(), teng.step()
+    js, ts = jeng.status(), teng.status()
+    assert (ts.completed, ts.in_flight, ts.queued, ts.steps) == (js.completed, js.in_flight, js.queued, js.steps)
+    js, ts = jeng.drain(), teng.drain()
+    assert [t.request.output for t in tt] == [t.request.output for t in jt]
+    assert all(len(t.request.output) == 4 and t.done for t in tt)
+    assert (ts.completed, ts.in_flight, ts.queued, ts.steps, ts.exhausted) == (
+        js.completed, js.in_flight, js.queued, js.steps, js.exhausted)
+    tstats, jstats = teng.pool.stats(), jeng.pool.stats()
+    assert {k: tstats[k] for k in tstats} == pytest.approx({k: jstats[k] for k in tstats})
+    # Dense view of every lane's ring and SSM state after the run, retired lanes included.
+    tview, jview = teng.cache, jeng.cache
+    for i in range(4):
+        np.testing.assert_allclose(tview[f"layer{i}"]["ssm"].numpy(), np.asarray(jview[f"layer{i}"]["ssm"]),
+                                   rtol=1e-4, atol=1e-4)
+    for key in ("k", "v"):
+        np.testing.assert_allclose(tview["layer1"][key].numpy(), np.asarray(jview["layer1"][key]),
+                                   rtol=1e-4, atol=1e-4)
+
+
+def test_cli_serves_hymba_on_cpu(capsys):
+    outs = serve_cli.main(["--arch", "hymba-1.5b", "--device", "cpu", "--requests", "3",
+                           "--max-new-tokens", "4", "--max-batch", "2", "--cache-len", "64"])
+    assert [len(o) for o in outs] == [4, 4, 4]
+    assert "served 3 requests on cpu (hymba-1.5b" in capsys.readouterr().out
