@@ -5,8 +5,8 @@ Needs one NVIDIA GPU and the CUDA toolkit; exits non-zero without them.
 Phases (each one fails the run if its check fails):
 
 1. card: the GPU's name and power limit (nvidia-smi);
-2. build: compile the port's CUDA kernels from ``src/repro_torch/kernels/csrc``,
-   one nvcc per source, all started together;
+2. build: compile the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
+   (matmul, wkv, ssm, attention), one nvcc per source, all started together;
 3. GEMM against plain: every compiled matmul config, in bf16->bf16,
    bf16->f32 and f32->f32, at ragged shapes and at every GEMM shape that
    full-width granite-8b, rwkv6-7b and hymba-1.5b serving give the kernel, against
@@ -76,7 +76,38 @@ Phases (each one fails the run if its check fails):
    config, beside its bound max(bytes / 3.35e12, 6 f32 operations per (t,
    channel, state) / 67e12) and the plain version; the GEMM at hymba-1.5b's
    decode shapes as in phase 7;
-16. the ``kernels`` JSON line, then the card line, then the result line.
+16. attention against plain: every compiled (block_q, block_kv) config, q/k/v in
+   bf16 and f32, head dims 64 and 128, causal and not, at (2, 3) heads for (sq,
+   skv) in {(1, 1), (1, 300), (7, 7), (50, 130), (128, 128), (64, 1000)} and
+   (40, 24) (sq > skv: the 16 rows that see nothing must be zeros), and at the
+   served (1, 32, 1, 32768) and (1, 32, 4096, 4096), against
+   ``attention_plain`` (TF32 off).  Limits relative to max|plain|: 1e-2 for a
+   bf16 output, 1e-4 for f32; every output finite;
+17. tune on the card: ``python -m repro_torch.launch.tune --archs
+   granite-8b,hymba-1.5b --families attention --n-kernels 4 --out
+   build/deploy_h100.json`` in process: the matmul table (93 problems x 10
+   configs) and the attention table (11 problems x 9 configs) measured with the
+   port's kernels, the paper's pipeline, the Deployment written; the table
+   sizes, seconds, deployed configs and fractions recorded;
+18. the quickstart's path: the Deployment loaded into a fresh KernelRuntime
+   (selection logging on); under ``rt.activate()``, ``ops.attention`` at every
+   harvested attention problem at (1, 32) heads in bf16, twice (the second a
+   shape-cache hit), each call launching exactly the config
+   ``Deployment.select_attention`` names and matching the plain version within
+   1e-2; ``ops.matmul`` at the quickstart's two shapes launching the tree's
+   matmul config.  Each problem's kernel, plain and SDPA times beside its bound;
+19. full-width granite-8b served as in phase 4 under the tuned Deployment: 7 *
+   n_layers + 1 GEMM launches per forward, the split over the deployed configs,
+   tokens/s, the decode step, and one decode step's GEMM device time under the
+   tree's choices (from phase 7's per-config times) beside the default config's
+   and each shape's best; whether the greedy streams equal phase 4's;
+19b. profile: two decode steps of the tuned run (torch.profiler), as phase 5b;
+20. attention timing: every config at granite-8b's (1, 32, S, 128) and
+   hymba-1.5b's (1, 25, S, 64), causal S in {512, 2048, 4096} and a decode step
+   at 4096 and 32768 cached tokens, beside the bound max(FLOPs / 989e12, bytes /
+   3.35e12), one call from an idle device, the plain version and SDPA with
+   ``causal_lower_right`` (a yardstick only: the port never calls it);
+21. the ``kernels`` JSON line, then the card line, then the result line.
 
 Everything measured also goes to ``build/chip_smoke.json``.
 """
@@ -96,7 +127,6 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 BF16_FLOPS = 989e12
 F32_FLOPS = 67e12  # outside the tensor cores
 TOL = {("bf16", "bf16"): 1e-2, ("bf16", "f32"): 1e-3, ("f32", "f32"): 1e-5}
-SLEEP_CYCLES = 2_000_000  # ~1 ms at the H100's 1.98 GHz boost clock
 WKV_TOL = 1e-4  # both sides compute in f32 from the same values; the reference kernel test's tolerance
 GRANITE_KN = [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096), (4096, 49152)]
 RWKV_KN = [(4096, 4096), (4096, 64), (64, 4096), (4096, 14336), (14336, 4096), (4096, 65536)]
@@ -105,6 +135,11 @@ HYMBA_KN = [(1600, 1600), (1600, 320), (1600, 3200), (1600, 48), (48, 1600), (16
 VOCAB_KN = {(4096, 49152), (4096, 65536), (1600, 32128)}
 SSM_TOL = 1e-4  # both sides compute in f32 from the same values; the reference kernel test's rtol
 PROMPT_LENGTHS = (8, 37, 64, 100)
+# Attention against plain, relative to max |plain|: a bf16 output is one rounding (2^-8) from
+# the f32 answer on each side; f32 sums in another order.
+ATTN_TOL = {"bf16": 1e-2, "f32": 1e-4}
+TUNED_ARCHS = ("granite-8b", "hymba-1.5b")
+DEPLOY_PATH = ROOT / "build" / "deploy_h100.json"
 
 
 def require(cond: bool, msg: str) -> None:
@@ -260,8 +295,9 @@ def _expected(cfg) -> tuple[int, dict[str, int]]:
 _FAMILY = {"wkv": "wkv", "ssm": "ssm_scan"}  # launch counter -> selection family
 
 
-def phase_serve(torch, mm, seq: dict, arch: str) -> dict:
-    """Serve 4 requests x 16 tokens at full width; every forward's launches checked."""
+def phase_serve(torch, mm, seq: dict, arch: str, policy=None) -> dict:
+    """Serve 4 requests x 16 tokens at full width; every forward's launches checked.
+    ``policy`` (default ``FixedPolicy()``) is installed in the engine's runtime."""
     from repro_torch.configs import registry
     from repro_torch.core.runtime import KernelRuntime
     from repro_torch.kernels.ops import FixedPolicy
@@ -302,7 +338,7 @@ def phase_serve(torch, mm, seq: dict, arch: str) -> dict:
         return hook
 
     rt = KernelRuntime(name=f"chip_smoke[{arch}]")
-    rt.install(FixedPolicy())
+    rt.install(FixedPolicy() if policy is None else policy)
     rt.set_selection_logging(True, cap=1 << 16)
     engine = ServingEngine(model, params, max_batch=4, cache_len=256, runtime=rt,
                            on_prefill=record("prefill"), on_decode=record("decode"))
@@ -351,6 +387,8 @@ def phase_serve(torch, mm, seq: dict, arch: str) -> dict:
             kn = f"{problem[1]}x{problem[2]}"
             counts[kn] = counts.get(kn, 0) + 1
     per_step = {kn: c / n_decode for kn, c in counts.items()}
+    decode_configs = sorted({(f"{p[1]}x{p[2]}", c.name()) for op, p, c in rt.selection_log()
+                             if op == "matmul" and p[0] * p[3] == 4})
     require(sum(per_step.values()) == per_forward, f"decode-step GEMMs by shape {per_step} do not sum to {per_forward}")
     toks = sum(len(t.request.output) for t in tickets)
     prefill_ms = [round(sec * 1e3, 3) for kind, _, _, _, sec in events if kind == "prefill"]
@@ -370,6 +408,7 @@ def phase_serve(torch, mm, seq: dict, arch: str) -> dict:
         "tok_per_s": toks / wall, "prefill_ms": prefill_ms, "prefill_buckets": buckets, "decode_ms": decode_ms,
         "launches": launches, "per_forward": per_forward, "forwards": len(events), "per_decode_step": per_step,
         "shape_cache": {k: stats[k] for k in ("hits", "misses")}, "per_family": fam,
+        "decode_configs": decode_configs, "outputs": [list(t.request.output) for t in tickets],
         "engine": engine, "model": model, "params": params, "prompts": prompts,
     } | {f"{name}_launches": seq_launches[name] for name in seq} | {
         f"{name}_per_prefill": per_prefill[name] for name in seq}
@@ -542,26 +581,13 @@ def phase_profile(torch, serve: dict, n_prefill: int) -> dict:
             "wkv_ms": by_kernel.get("wkv (wkv_kernel)", 0.0), "ssm_ms": by_kernel.get("ssm_scan (ssm_kernel)", 0.0)}
 
 
-def _time_ms(torch, fn, n_warm=3, n_runs=20, queued=True) -> float:
-    """Median time of one call of ``fn`` between CUDA events.  ``queued``: each
-    call is enqueued behind a ~1 ms device sleep, so the host's launch work
-    overlaps the sleep and the events hold the device's time alone (a call
-    whose host work outlasts the sleep still shows the rest).  Otherwise
-    each call starts from an idle device and the events also hold the
-    host's launch work: what one eager call costs."""
-    for i in range(n_warm):
-        fn(i)
-    times = []
-    for i in range(n_runs):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        if queued:
-            torch.cuda._sleep(SLEEP_CYCLES)
-        start.record()
-        fn(i)
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+def _time_ms(fn, n_warm=3, n_runs=20, queued=True) -> float:
+    """Median time of one call of ``fn`` between CUDA events, by the tuning
+    tables' clock (``core/gpubench.time_ms``: queued behind a device sleep
+    unless ``queued`` is false), at the smoke's counts."""
+    from repro_torch.core.gpubench import time_ms
+
+    return time_ms(fn, n_warm=n_warm, n_runs=n_runs, queued=queued)
 
 
 def phase_timing(torch, mm, per_step: dict, kn_list, ms=(4, 128)) -> list[dict]:
@@ -579,12 +605,12 @@ def phase_timing(torch, mm, per_step: dict, kn_list, ms=(4, 128)) -> list[dict]:
             nbytes = m * k * 2 + b_bytes + out_bytes
             bound = max(flops / BF16_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3
             per_cfg = {
-                cfg.name(): _time_ms(torch, lambda i, c=cfg: mm.matmul_cuda(a, bs[i % copies], c, out_dtype=out_dtype))
+                cfg.name(): _time_ms(lambda i, c=cfg: mm.matmul_cuda(a, bs[i % copies], c, out_dtype=out_dtype))
                 for cfg in mm.config_space()
             }
-            call = _time_ms(torch, lambda i: mm.matmul_cuda(a, bs[i % copies], out_dtype=out_dtype), queued=False)
-            plain = _time_ms(torch, lambda i: mm.matmul_plain(a, bs[i % copies], out_dtype))
-            library = _time_ms(torch, lambda i: torch.matmul(a, bs[i % copies]).to(out_dtype))
+            call = _time_ms(lambda i: mm.matmul_cuda(a, bs[i % copies], out_dtype=out_dtype), queued=False)
+            plain = _time_ms(lambda i: mm.matmul_plain(a, bs[i % copies], out_dtype))
+            library = _time_ms(lambda i: torch.matmul(a, bs[i % copies]).to(out_dtype))
             best = min(per_cfg, key=per_cfg.get)
             row = {
                 "m": m, "k": k, "n": n, "out": str(out_dtype).replace("torch.", ""),
@@ -619,10 +645,10 @@ def phase_wkv_timing(torch, wk) -> list[dict]:
         # o = r.S (2 hd^2), S = w (.) S + k v^T (3 hd^2), the u-bonus (4 hd).
         ops = b * s * h * (5 * hd * hd + 4 * hd)
         bound = max(nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS) * 1e3
-        per_cfg = {cfg.name(): _time_ms(torch, lambda i, c=cfg: wk.wkv_cuda(*args, config=c))
+        per_cfg = {cfg.name(): _time_ms(lambda i, c=cfg: wk.wkv_cuda(*args, config=c))
                    for cfg in wk.config_space()}
-        call = _time_ms(torch, lambda i: wk.wkv_cuda(*args), queued=False)
-        plain = _time_ms(torch, lambda i: wk.wkv_plain(*args))
+        call = _time_ms(lambda i: wk.wkv_cuda(*args), queued=False)
+        plain = _time_ms(lambda i: wk.wkv_plain(*args))
         best = min(per_cfg, key=per_cfg.get)
         row = {"s": s, "shape": [b, s, h, hd], "ms": per_cfg[wk.DEFAULT_WKV_CONFIG.name()], "best_config": best,
                "best_ms": per_cfg[best], "call_ms": call, "plain_ms": plain, "bound_ms": bound,
@@ -650,10 +676,10 @@ def phase_ssm_timing(torch, ss) -> list[dict]:
         # Per (t, channel, state): exp, dtx * b, the fma into h, h * c and its sum: 6 f32 operations.
         ops = 6 * b * s * d * n
         bound = max(nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS) * 1e3
-        per_cfg = {cfg.name(): _time_ms(torch, lambda i, c=cfg: ss.ssm_cuda(*args, config=c))
+        per_cfg = {cfg.name(): _time_ms(lambda i, c=cfg: ss.ssm_cuda(*args, config=c))
                    for cfg in ss.config_space()}
-        call = _time_ms(torch, lambda i: ss.ssm_cuda(*args), queued=False)
-        plain = _time_ms(torch, lambda i: ss.ssm_plain(*args))
+        call = _time_ms(lambda i: ss.ssm_cuda(*args), queued=False)
+        plain = _time_ms(lambda i: ss.ssm_plain(*args))
         best = min(per_cfg, key=per_cfg.get)
         row = {"s": s, "shape": [b, s, d, n], "ms": per_cfg[ss.DEFAULT_SSM_CONFIG.name()], "best_config": best,
                "best_ms": per_cfg[best], "call_ms": call, "plain_ms": plain, "bound_ms": bound,
@@ -665,6 +691,227 @@ def phase_ssm_timing(torch, ss) -> list[dict]:
         print(f"  (1, {s}, 1600, 16) f32: {cfgs} ms; bound {bound:.4f} ms ({row['bound_by']}: "
               f"{nbytes / 1e6:.2f} MB, {ops / 1e6:.1f} Mop f32); one {ss.DEFAULT_SSM_CONFIG.name()} call from idle "
               f"{call:.4f} ms; plain {plain:.4f} ms")
+    return rows
+
+
+def _attention_bound(sq: int, skv: int, d: int, heads: int, causal: bool) -> tuple[float, str]:
+    """(least ms, what bounds it) for one bf16 attention call: the larger of
+    the useful FLOPs (both products over the visible (row, column) pairs of
+    this call's mask) over the bf16 tensor-core peak and the bytes of q, k, v
+    and the output (each read or written once) over the memory rate."""
+    if causal:  # row i sees min(skv, i + skv - sq + 1) columns; rows below sq - skv see none
+        pairs = sum(min(skv, i + skv - sq + 1) for i in range(max(0, sq - skv), sq))
+    else:
+        pairs = sq * skv
+    flops = 4.0 * pairs * d * heads
+    nbytes = (2 * sq + 2 * skv) * d * heads * 2
+    t_ops, t_bytes = flops / BF16_FLOPS, nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def _attn_inputs(torch, g, lead, sq, skv, d, dtype):
+    randn = lambda *sh: torch.randn(sh, device="cuda", generator=g, dtype=torch.float32).to(dtype)
+    return randn(*lead, sq, d), randn(*lead, skv, d), randn(*lead, skv, d)
+
+
+def _plain_by_head(at, q, k, v, causal=True):
+    """The plain version head by head (its f32 logits of a 32768 x 32768 head
+    take 4.3 GB; of all 32 heads at once, 137 GB)."""
+    out = q.new_empty(q.shape)
+    for h in range(q.shape[1]):
+        out[:, h] = at.attention_plain(q[:, h], k[:, h], v[:, h], causal=causal)
+    return out
+
+
+def phase_attention_vs_plain(torch, at) -> dict:
+    """Every compiled attention config against the plain version."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(11)
+    shapes = [((2, 3), sq, skv) for sq, skv in ((1, 1), (1, 300), (7, 7), (50, 130), (128, 128), (64, 1000),
+                                                 (40, 24))]
+    shapes += [((1, 32), 1, 32768), ((1, 32), 4096, 4096)]  # what granite-8b serving would give it
+    worst = {name: {"rel": 0.0, "abs": 0.0} for name in ATTN_TOL}
+    checks = 0
+    for lead, sq, skv in shapes:
+        for d in (64, 128):
+            for name, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+                q, k, v = _attn_inputs(torch, g, lead, sq, skv, d, dtype)
+                for causal in (True, False):
+                    want = at.attention_plain(q, k, v, causal=causal).float()
+                    scale = want.abs().max().item()
+                    for cfg in at.config_space():
+                        got = at.attention_cuda(q, k, v, cfg, causal=causal).float()
+                        where = f"{cfg.name()} {name} {(*lead, sq, skv, d)} causal={causal}"
+                        require(bool(torch.isfinite(got).all()), f"{where}: output not finite")
+                        if causal and sq > skv:
+                            require(bool((got[..., : sq - skv, :] == 0).all()), f"{where}: rows that see "
+                                                                                  f"nothing are not zeros")
+                        err = (got - want).abs().max().item()
+                        require(err <= ATTN_TOL[name] * scale, f"{where}: rel err {err / scale:.3g} > "
+                                                               f"{ATTN_TOL[name]}")
+                        w = worst[name]
+                        w["rel"], w["abs"] = max(w["rel"], err / scale), max(w["abs"], err)
+                        checks += 1
+                del q, k, v
+    torch.cuda.synchronize()
+    for name, w in worst.items():
+        print(f"  {name}: worst rel err {w['rel']:.3g} (limit {ATTN_TOL[name]}), worst abs err {w['abs']:.3g}")
+    print(f"  {checks} checks ({len(shapes)} shapes x 2 head dims x 2 dtypes x 2 masks x {len(at.config_space())} "
+          f"configs): every output finite; at (40, 24) causal the 16 rows that see nothing are zeros")
+    return {"worst": worst, "checks": checks}
+
+
+def phase_tune(torch, mm, at) -> dict:
+    """The tuning entry point on the card, in process: measured tables ->
+    cluster-select -> decision tree -> build/deploy_h100.json."""
+    from repro_torch.launch import tune as tune_cli
+
+    mm.reset_launches()
+    at.reset_launches()
+    t0 = time.perf_counter()
+    result = tune_cli.main(["--archs", ",".join(TUNED_ARCHS), "--families", "attention", "--n-kernels", "4",
+                            "--out", str(DEPLOY_PATH)])
+    wall = time.perf_counter() - t0
+    dep = result.deployment
+    require(DEPLOY_PATH.is_file(), f"{DEPLOY_PATH} not written")
+    require(result.train.source == "measured" and dep.device.startswith("gpu_"),
+            f"not a measured card table: {result.train.source} on {dep.device}")
+    lineage, tables = dep.meta["tuning_lineage"], dep.meta["tables"]
+    require(set(tables) == {"matmul", "attention"}, f"families tuned: {sorted(tables)}")
+    require(tables["matmul"][1] == len(mm.config_space()) and tables["attention"][1] == len(at.config_space()),
+            f"tables {tables}")
+    for fam in ("matmul", "attention"):
+        require(lineage[fam]["measured_fraction"] == 1.0, f"{fam}: not every cell measured: {lineage[fam]}")
+    out = {
+        "device": dep.device, "wall_s": wall, "tables": tables,
+        "measure_seconds": {fam: lineage[fam]["measure_seconds"] for fam in tables},
+        "deployed": {fam: [c.name() for c in dep.family_tuning(fam).configs] for fam in tables},
+        "fractions": {"matmul": [result.oracle_fraction, result.classifier_fraction]} | {
+            name: [r.oracle_fraction, r.classifier_fraction] for name, r in result.family_results.items()},
+        "launches_while_measuring": {"matmul": mm.total_launches(), "attention": at.total_launches()},
+    }
+    print(f"  tuned on {dep.device} in {wall:.1f}s; tables {tables} (problems x configs), measured in "
+          f"{out['measure_seconds']} s; launches while measuring {out['launches_while_measuring']}")
+    return out
+
+
+def phase_quickstart(torch, mm, at, ops) -> dict:
+    """The quickstart's path on the card: the tuned Deployment in a fresh
+    runtime, ops.attention at every harvested attention problem at (1, 32)
+    heads in bf16 and ops.matmul at the quickstart's two shapes, each call
+    launching exactly the config the Deployment's tree names."""
+    from torch.nn.attention.bias import causal_lower_right
+
+    from repro_torch.core.attnmodel import harvest_attn_problems
+    from repro_torch.core.dispatch import Deployment
+    from repro_torch.core.runtime import KernelRuntime
+
+    dep = Deployment.load(DEPLOY_PATH)
+    rt = KernelRuntime(name="chip_smoke-tuned")
+    rt.install(dep)
+    rt.set_selection_logging(True)
+    problems = harvest_attn_problems(list(TUNED_ARCHS))
+    sdpa = torch.nn.functional.scaled_dot_product_attention  # the library yardstick: timed only
+    g = torch.Generator(device="cuda").manual_seed(12)
+    heads = 32
+    # The main path: counts to 0 just before, read just after; every call's
+    # output is checked afterwards, and the timing launches come after the read.
+    torch.cuda.synchronize()
+    at.reset_launches()
+    mm.reset_launches()
+    calls = []
+    for sq, skv, d in problems:
+        q, k, v = _attn_inputs(torch, g, (1, heads), sq, skv, d, torch.bfloat16)
+        want_cfg = dep.select_attention(sq, skv, d)
+        for _ in range(2):  # the second call is a shape-cache hit
+            before = dict(at.LAUNCHES)
+            with rt.activate():
+                got = ops.attention(q, k, v)
+            delta = {n: c - before[n] for n, c in at.LAUNCHES.items() if c != before[n]}
+            require(delta == {want_cfg.name(): 1}, f"ops.attention at {(sq, skv, d)} launched {delta}, the tree "
+                                                   f"names {want_cfg.name()}")
+        calls.append(((sq, skv, d), want_cfg, (q, k, v), got))
+    mm_calls = []
+    for m, k, n in ((512, 784, 512), (1, 4096, 512)):  # the quickstart's two GEMMs
+        a = torch.randn((m, k), device="cuda", generator=g).bfloat16()
+        b = torch.randn((k, n), device="cuda", generator=g).bfloat16()
+        want_cfg = dep.select_matmul(m, k, n, 1)
+        before = dict(mm.LAUNCHES)
+        with rt.activate():
+            got = ops.matmul(a, b)
+        delta = {name: c - before[name] for name, c in mm.LAUNCHES.items() if c != before[name]}
+        require(delta == {want_cfg.name(): 1}, f"ops.matmul at {(m, k, n)} launched {delta}, the tree names "
+                                               f"{want_cfg.name()}")
+        mm_calls.append(((m, k, n, 1), want_cfg, a, b, got))
+    torch.cuda.synchronize()
+    launches = {"attention": dict(at.LAUNCHES), "matmul": dict(mm.LAUNCHES)}
+    stats = rt.shape_cache_stats()["per_family"]
+    require(stats["attention"]["misses"] == len(problems) and stats["attention"]["hits"] == len(problems),
+            f"attention shape cache {stats['attention']}")
+
+    rows, worst = [], {"rel": 0.0, "abs": 0.0}
+    while calls:
+        (sq, skv, d), cfg, (q, k, v), got = calls.pop(0)
+        want = _plain_by_head(at, q, k, v).float()
+        got = got.float()
+        scale = want.abs().max().item()
+        err = (got - want).abs().max().item()
+        require(bool(torch.isfinite(got).all()) and err <= ATTN_TOL["bf16"] * scale,
+                f"ops.attention at {(sq, skv, d)}: rel err {err / scale:.3g} > {ATTN_TOL['bf16']}")
+        worst["rel"], worst["abs"] = max(worst["rel"], err / scale), max(worst["abs"], err)
+        bound, bound_by = _attention_bound(sq, skv, d, heads, True)
+        mask = causal_lower_right(sq, skv)
+        row = {"problem": [sq, skv, d], "config": cfg.name(), "rel_err": err / scale,
+               "ms": _time_ms(lambda i: at.attention_cuda(q, k, v, cfg), n_runs=10),
+               "plain_ms": _time_ms(lambda i: _plain_by_head(at, q, k, v), n_warm=1, n_runs=3),
+               "library_ms": _time_ms(lambda i: sdpa(q, k, v, attn_mask=mask), n_runs=10),
+               "bound_ms": bound, "bound_by": bound_by}
+        rows.append(row)
+        print(f"  {(sq, skv, d)}: {row['config']} (tree), rel err {row['rel_err']:.2g}; kernel {row['ms']:.4f} ms, "
+              f"bound {bound:.4f} ({bound_by}), plain {row['plain_ms']:.3f}, SDPA {row['library_ms']:.4f}")
+        del q, k, v, got, want
+        torch.cuda.empty_cache()
+    mm_rows = []
+    for problem, cfg, a, b, got in mm_calls:
+        want = mm.matmul_plain(a, b).float()
+        scale = want.abs().max().item()
+        err = (got.float() - want).abs().max().item()
+        require(err <= TOL[("bf16", "bf16")] * scale, f"ops.matmul at {problem}: rel err {err / scale:.3g}")
+        mm_rows.append({"problem": list(problem), "config": cfg.name(), "rel_err": err / scale})
+    print(f"  ops.matmul at the quickstart's shapes: {[(r['problem'], r['config']) for r in mm_rows]}")
+    print(f"  attention launches {sum(launches['attention'].values())} "
+          f"({ {n: c for n, c in launches['attention'].items() if c} }); shape cache {stats}")
+    return {"rows": rows, "matmul": mm_rows, "worst": worst, "launches": launches, "shape_cache": stats}
+
+
+def phase_attention_timing(torch, at) -> list[dict]:
+    """Every config at the served shapes of granite-8b (32 heads of 128) and
+    hymba-1.5b (25 heads of 64): causal prefill S in {512, 2048, 4096} and a
+    decode step at 4096 and 32768 cached tokens, bf16."""
+    from torch.nn.attention.bias import causal_lower_right
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention  # the library yardstick: timed only
+    g = torch.Generator(device="cuda").manual_seed(13)
+    rows = []
+    for arch, heads, d in (("granite-8b", 32, 128), ("hymba-1.5b", 25, 64)):
+        for sq, skv in ((512, 512), (2048, 2048), (4096, 4096), (1, 4096), (1, 32768)):
+            q, k, v = _attn_inputs(torch, g, (1, heads), sq, skv, d, torch.bfloat16)
+            bound, bound_by = _attention_bound(sq, skv, d, heads, True)
+            per_cfg = {cfg.name(): _time_ms(lambda i, c=cfg: at.attention_cuda(q, k, v, c))
+                       for cfg in at.config_space()}
+            call = _time_ms(lambda i: at.attention_cuda(q, k, v), queued=False)
+            plain = _time_ms(lambda i: at.attention_plain(q, k, v), n_runs=5)
+            mask = causal_lower_right(sq, skv)
+            library = _time_ms(lambda i: sdpa(q, k, v, attn_mask=mask))
+            best = min(per_cfg, key=per_cfg.get)
+            row = {"arch": arch, "shape": [1, heads, sq, skv, d], "ms": per_cfg[at.DEFAULT_ATTN_CONFIG.name()],
+                   "best_config": best, "best_ms": per_cfg[best], "call_ms": call, "plain_ms": plain,
+                   "library_ms": library, "bound_ms": bound, "bound_by": bound_by, "per_config_ms": per_cfg}
+            rows.append(row)
+            print(f"  {arch} (1, {heads}, {sq}, {skv}, {d}): default {row['ms']:.4f} ms, best {best} {per_cfg[best]:.4f}; "
+                  f"bound {bound:.4f} ({bound_by}); one call from idle {call:.4f}; plain {plain:.3f}; "
+                  f"SDPA {library:.4f}")
+            del q, k, v
     return rows
 
 
@@ -690,7 +937,9 @@ def main() -> int:
               file=sys.stderr)
         return 2
     from repro_torch.kernels import _build
+    from repro_torch.kernels import attention as at
     from repro_torch.kernels import matmul as mm
+    from repro_torch.kernels import ops
     from repro_torch.kernels import ssm as ss
     from repro_torch.kernels import wkv as wk
 
@@ -701,14 +950,16 @@ def main() -> int:
 
     print("[2] build")
     t0 = time.perf_counter()
-    _build.load_all(["matmul", "wkv", "ssm"])
+    _build.load_all(["matmul", "wkv", "ssm", "attention"])
     tiles, wkv_cfgs, ssm_cfgs = mm.compiled_tiles(), wk.compiled_configs(), ss.compiled_configs()
-    print(f"  matmul.cu, wkv.cu and ssm.cu -> sm_90a in {time.perf_counter() - t0:.1f}s (nvcc in parallel: "
-          f"{', '.join(f'{k} {v:.1f}s' for k, v in _build.build_seconds.items())})")
+    attn_cfgs = at.compiled_configs()
+    print(f"  matmul.cu, wkv.cu, ssm.cu and attention.cu -> sm_90a in {time.perf_counter() - t0:.1f}s (nvcc in "
+          f"parallel: {', '.join(f'{k} {v:.1f}s' for k, v in _build.build_seconds.items())})")
     print(f"  matmul tiles (bm, bn, bk, smem bf16, smem f32): {tiles}")
     print(f"  wkv instantiations (chunk, hd, smem): {wkv_cfgs}")
     print(f"  ssm instantiations (block_d, chunk, N, threads): {ssm_cfgs}")
-    for name in ("matmul", "wkv", "ssm"):
+    print(f"  attention instantiations (block_q, block_kv, hd, threads, smem bf16, smem f32): {attn_cfgs}")
+    for name in ("matmul", "wkv", "ssm", "attention"):
         log = _build.build_log(name).splitlines()
         regs = [line.split(":", 1)[1].strip() for line in log if "registers" in line]
         spills = sorted({line.strip() for line in log if "spill" in line and "0 bytes spill" not in line})
@@ -766,9 +1017,38 @@ def main() -> int:
     ssm_rows = phase_ssm_timing(torch, ss)
     hymba_rows = phase_timing(torch, mm, hymba["per_decode_step"], HYMBA_KN, ms=(4,))
 
-    # One granite decode step's GEMMs at m=4: sum of count x time over the shapes it launches.
+    print("[16] attention against plain")
+    attn_errors = phase_attention_vs_plain(torch, at)
+    print("[17] tune on the card: measured tables -> cluster-select -> decision tree -> Deployment")
+    tuning = phase_tune(torch, mm, at)
+    print("[18] the quickstart's path: the tuned Deployment in a fresh runtime, ops.attention and ops.matmul")
+    quick = phase_quickstart(torch, mm, at, ops)
+    print("[19] full-width granite-8b served under the tuned Deployment")
+    from repro_torch.core.dispatch import Deployment
+
+    tuned = phase_serve(torch, mm, seq, "granite-8b", policy=Deployment.load(DEPLOY_PATH))
+    print("[19b] where a tuned granite-8b decode step's time goes")
+    tuned_profile = phase_profile(torch, tuned, 0)
+    _release(torch, tuned)
+    # One granite decode step's GEMMs at m=4: sum of count x time over the shapes it launches,
+    # under the default config, each shape's best compiled config, and the tree's choices.
     step = [r for r in rows if r["m"] == 4]
     total = lambda key: sum(r[key] * r["launches_per_decode_step"] for r in step)
+    tree_cfg = dict(tuned["decode_configs"])
+    require(len(tree_cfg) == len(tuned["decode_configs"]), f"one (k, n) decode GEMM selected two configs: "
+                                                            f"{tuned['decode_configs']}")
+    tuned_step_ms = sum(r["per_config_ms"][tree_cfg[f"{r['k']}x{r['n']}"]] * r["launches_per_decode_step"]
+                        for r in step)
+    tuned["gemm_step_ms"] = {"default": total("ms"), "best_per_shape": total("best_ms"), "tree": tuned_step_ms,
+                             "bound": total("bound_ms")}
+    tuned["streams_equal_phase_4"] = tuned["outputs"] == serve["outputs"]
+    split = {name: n for name, n in tuned["launches"].items() if n}
+    print(f"  GEMM launches by config: {split}; decode-step GEMM configs {tree_cfg}")
+    print(f"  one decode step's GEMMs (CUDA-event device time from phase 7, summed over shapes): tree "
+          f"{tuned_step_ms:.2f} ms, default {total('ms'):.2f}, best per shape {total('best_ms'):.2f}, "
+          f"bound {total('bound_ms'):.2f}; greedy streams equal phase 4's: {tuned['streams_equal_phase_4']}")
+    print("[20] attention timing at the served shapes")
+    attn_rows = phase_attention_timing(torch, at)
     # The rwkv6-7b run's WKV launches: n_layers per prefill, at each prefill's bucket.
     by_s = {r["s"]: r for r in wkv_rows}
     wkv_total = lambda key: rwkv["wkv_per_prefill"] * sum(by_s[s][key] for s in rwkv["prefill_buckets"])
@@ -776,6 +1056,8 @@ def main() -> int:
     ssm_by_s = {r["s"]: r for r in ssm_rows}
     ssm_total = lambda key: hymba["ssm_per_prefill"] * sum(ssm_by_s[s][key] for s in hymba["prefill_buckets"])
     gemm_launches = {run["arch"]: sum(run["launches"].values()) for run in (serve, rwkv, hymba)}
+    gemm_launches["granite-8b (tuned)"] = sum(tuned["launches"].values())
+    gemm_launches["quickstart"] = sum(quick["launches"]["matmul"].values())
     kernels = {"kernels": [{
         "name": "matmul",
         "route": "cuda",
@@ -790,7 +1072,8 @@ def main() -> int:
         "bound_ms": total("bound_ms"),
         "bound_by": "bytes",
         "library_ms": total("library_ms"),
-        "timed_as": "all GEMMs of one granite-8b decode step (batch 4), summed over shapes",
+        "timed_as": "all GEMMs of one granite-8b decode step (batch 4), summed over shapes, DEFAULT_CONFIG",
+        "tuned_ms": tuned_step_ms,
     }, {
         "name": "wkv",
         "route": "cuda",
@@ -823,6 +1106,24 @@ def main() -> int:
         "library_note": "no single PyTorch call computes the selective scan",
         "timed_as": f"all SSM launches of the hymba-1.5b run's prefills (buckets {hymba['prefill_buckets']}, "
                     f"{hymba['ssm_per_prefill']} each), summed from per-length medians",
+    }, {
+        "name": "attention",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/attention.cu",
+        "replaces": "src/repro/kernels/attention.py:98",
+        "launches": sum(quick["launches"]["attention"].values()),
+        "max_abs_err": max([w["abs"] for w in attn_errors["worst"].values()] + [quick["worst"]["abs"]]),
+        "max_rel_err": max([w["rel"] for w in attn_errors["worst"].values()] + [quick["worst"]["rel"]]),
+        "ms": sum(r["ms"] for r in quick["rows"]),
+        "plain_ms": sum(r["plain_ms"] for r in quick["rows"]),
+        "bound_ms": sum(r["bound_ms"] for r in quick["rows"]),
+        "bound_by": max(("operations", "bytes"), key=lambda b: sum(r["bound_ms"] for r in quick["rows"]
+                                                                    if r["bound_by"] == b)),
+        "library_ms": sum(r["library_ms"] for r in quick["rows"]),
+        "library_note": "scaled_dot_product_attention with causal_lower_right (a yardstick only)",
+        "timed_as": f"phase 18's ops.attention calls: one per harvested attention problem of {', '.join(TUNED_ARCHS)} "
+                    f"({len(quick['rows'])}) at (1, 32) heads, bf16, causal, under the tree's config, summed "
+                    f"(the run made each call twice, the second a shape-cache hit)",
     }]}
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)
@@ -834,9 +1135,12 @@ def main() -> int:
         "rwkv_cpu_vs_card": rwkv_parity, "wkv_timing": wkv_rows, "rwkv_timing": rwkv_rows,
         "ssm_errors": ssm_errors, "hymba_serve": hymba, "ssm_policy": ssm_policy, "hymba_profile": hymba_profile,
         "hymba_cpu_vs_card": hymba_parity, "ssm_timing": ssm_rows, "hymba_timing": hymba_rows,
+        "attention_errors": attn_errors, "tuning": tuning, "quickstart": quick, "tuned_serve": tuned,
+        "tuned_profile": tuned_profile,
+        "attention_timing": attn_rows,
         "kernels": kernels["kernels"], "seconds": time.perf_counter() - t_start,
     }, indent=1, default=str))
-    print(f"[16] done in {time.perf_counter() - t_start:.1f}s")
+    print(f"[21] done in {time.perf_counter() - t_start:.1f}s")
     print(json.dumps(kernels))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -51,6 +51,13 @@ class MatmulConfig:
     def name(self) -> str:
         return f"mm_bm{self.block_m}_bn{self.block_n}_bk{self.block_k}_{self.order}"
 
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+    @staticmethod
+    def from_dict(d: dict) -> "MatmulConfig":
+        return MatmulConfig(**d)
+
     def smem_bytes(self, dtype_bytes: int = 2) -> int:
         """Dynamic shared memory one CTA needs (csrc/matmul.cu Bf16Tile/F32Tile)."""
         bm, bn, bk = self.block_m, self.block_n, self.block_k

@@ -69,3 +69,28 @@ def ssm_scan_ref(dtx, dta, b, c, state=None):
         ys.append((h * cf[:, t, None, :]).sum(-1))
     y = torch.stack(ys, dim=1) if ys else torch.zeros((bsz, 0, d), dtype=torch.float32, device=dtx.device)
     return y, h
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True, scale: float | None = None):
+    """Oracle for kernels/attention.py: ``repro/kernels/ref.py::flash_attention_ref`` in PyTorch.
+
+    q: (..., sq, d), k/v: (..., skv, d) with the same leading dims.  q is
+    scaled in f32 before the product, the causal diagonal is aligned to the
+    end of KV (row i sees columns j <= i + skv - sq), the softmax is f32, and
+    the output is cast once to q's dtype.  A row with no visible column
+    (causal, sq > skv) is zeros here, where the reference's softmax over
+    nothing gives NaN; every other row is the reference's.
+    """
+    sq, d = q.shape[-2:]
+    skv = k.shape[-2]
+    scale = scale if scale is not None else 1.0 / d**0.5
+    logits = (q.float() * scale) @ k.float().transpose(-1, -2)
+    if causal:
+        rows = torch.arange(sq, device=q.device)[:, None] + (skv - sq)
+        cols = torch.arange(skv, device=q.device)[None, :]
+        logits = logits.masked_fill(cols > rows, float("-inf"))
+    top = logits.amax(dim=-1, keepdim=True)
+    p = torch.exp(logits - torch.where(torch.isfinite(top), top, torch.zeros_like(top)))
+    denom = p.sum(dim=-1, keepdim=True)
+    out = (p @ v.float()) / torch.where(denom > 0, denom, torch.ones_like(denom))
+    return out.to(q.dtype)

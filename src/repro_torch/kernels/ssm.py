@@ -42,6 +42,13 @@ class SsmConfig:
     def name(self) -> str:
         return f"ssm_bd{self.block_d}_c{self.chunk}"
 
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+    @staticmethod
+    def from_dict(d: dict) -> "SsmConfig":
+        return SsmConfig(**d)
+
     def is_valid(self) -> bool:
         return self.block_d in _BLOCK_DS and self.chunk in _CHUNKS
 

@@ -41,6 +41,13 @@ class WkvConfig:
     def name(self) -> str:
         return f"wkv_c{self.chunk}"
 
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+    @staticmethod
+    def from_dict(d: dict) -> "WkvConfig":
+        return WkvConfig(**d)
+
     def smem_bytes(self, hd: int) -> int:
         """Dynamic shared memory one CTA needs (csrc/wkv.cu WkvSmem)."""
         tile = self.chunk * (hd + 1)
