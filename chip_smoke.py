@@ -8,10 +8,16 @@ Phases (each one fails the run if its check fails):
 2. build: compile the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
    (matmul, wkv, ssm, attention), one nvcc per source, all started together;
 3. GEMM against plain: every compiled matmul config, in bf16->bf16,
-   bf16->f32 and f32->f32, at ragged shapes and at every GEMM shape that
+   bf16->f32 and f32->f32, at ragged shapes, at the split-k boundaries (k <
+   block_k, k not a multiple of block_k x splits, m = 1, n = 16), at a
+   16-byte-misaligned base (the cp.async path) and at every GEMM shape that
    full-width granite-8b, rwkv6-7b and hymba-1.5b serving give the kernel, against
-   ``matmul_plain`` (TF32 off).  Error = max|kernel - plain| / max|plain|;
-   limits 1e-2 (bf16 out), 1e-3 (f32 out from bf16), 1e-5 (f32 in);
+   ``matmul_plain`` (TF32 off), each config called twice in a row on the same
+   inputs: both within the limit and bitwise equal (the split-k counters are
+   left at 0 and the partials summed in split order); then 8 more passes over
+   the bf16 pairs with fresh inputs, for races.  Error = max|kernel -
+   plain| / max|plain|; limits 1e-2 (bf16 out), 1e-3 (f32 out from bf16), 1e-5
+   (f32 in);
 3b. WKV against plain: every compiled chunk config, r/k/v in bf16 and f32,
    head dims 16 and 64, S in {1, 7, 16, 50, 128, 300} (and the served
    (1, S, 64, 64) at S in {32, 64, 128}), with and without an initial state,
@@ -23,7 +29,8 @@ Phases (each one fails the run if its check fails):
    heads, d_ff 14336, vocab 49152, 36 layers), bf16, random weights from a
    CUDA generator, ServingEngine(max_batch=4, cache_len=256), 4 requests of
    8-100 tokens, 16 new tokens each.  Every forward (prefill or decode step)
-   must launch the GEMM kernel exactly 7 * n_layers + 1 times;
+   must launch the GEMM kernel exactly 7 * n_layers + 1 times, every launch
+   on the TMA path (phases 8, 12 and 19 likewise);
 5. selection reaches the kernel: one request under a FixedPolicy with a
    non-default matmul config launches that config and not the default;
 5b. profile: device time by kernel and the device's idle share over two
@@ -36,7 +43,8 @@ Phases (each one fails the run if its check fails):
    hold device time, weights rotated through more than the 50 MB L2), beside
    its bound max(FLOPs / 989e12, bytes / 3.35e12), one call from an idle
    device (host launch work included), the plain version and torch.matmul (a
-   yardstick only: the port never calls it);
+   yardstick only: the port never calls it); and the tall harvest GEMM
+   (16384, 4096, 14336) under every config with its TFLOP/s;
 8. full-width rwkv6-7b serving, after granite's weights are released:
    unreduced (32 layers, d_model 4096, 64 WKV heads of 64, d_ff 14336, vocab
    65536), bf16, the same engine and requests.  Every forward launches the
@@ -107,6 +115,11 @@ Phases (each one fails the run if its check fails):
    at 4096 and 32768 cached tokens, beside the bound max(FLOPs / 989e12, bytes /
    3.35e12), one call from an idle device, the plain version and SDPA with
    ``causal_lower_right`` (a yardstick only: the port never calls it);
+20b. only where ``build/parent`` holds another checkout (the parent commit):
+   ``scripts/gemm_ab.py`` times its GEMM and this tree's in turns (parent,
+   this, this, parent) at every decode-step GEMM shape of the three models and
+   the tall GEMM, and one decode step's GEMM time of each model, summed with
+   the launch counts of phases 4, 8 and 12;
 21. the ``kernels`` JSON line, then the card line, then the result line.
 
 Everything measured also goes to ``build/chip_smoke.json``.
@@ -127,6 +140,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 BF16_FLOPS = 989e12
 F32_FLOPS = 67e12  # outside the tensor cores
 TOL = {("bf16", "bf16"): 1e-2, ("bf16", "f32"): 1e-3, ("f32", "f32"): 1e-5}
+GEMM_PAIRS = [f"{src}->{dst}" for src, dst in TOL]
 WKV_TOL = 1e-4  # both sides compute in f32 from the same values; the reference kernel test's tolerance
 GRANITE_KN = [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096), (4096, 49152)]
 RWKV_KN = [(4096, 4096), (4096, 64), (64, 4096), (4096, 14336), (14336, 4096), (4096, 65536)]
@@ -140,6 +154,7 @@ PROMPT_LENGTHS = (8, 37, 64, 100)
 ATTN_TOL = {"bf16": 1e-2, "f32": 1e-4}
 TUNED_ARCHS = ("granite-8b", "hymba-1.5b")
 DEPLOY_PATH = ROOT / "build" / "deploy_h100.json"
+TALL = (16384, 4096, 14336)  # the harvest's tallest single GEMM (core/gpubench.FOLD_ROWS rows)
 
 
 def require(cond: bool, msg: str) -> None:
@@ -155,36 +170,70 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+# Split-k boundaries: k < block_k, k not a multiple of block_k x splits, m = 1, n = 16 (< block_n).
+# An odd n (4, 4100, 97) takes the cp.async path, splits k and stores element by element.
+SPLIT_SHAPES = [(1, 48, 1600), (4, 1000, 16), (3, 4100, 96), (1, 64, 4096), (4, 1600, 48), (4, 4104, 1024),
+                (4, 4100, 97)]
+
+
+def _misaligned(torch, x):
+    """A contiguous copy of ``x`` whose base is 2 bytes past a 16-byte boundary."""
+    flat = torch.empty(x.numel() + 8, dtype=x.dtype, device=x.device)
+    out = flat[1 : 1 + x.numel()].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+# Extra passes of phase 3 over the bf16 pairs, with fresh inputs: a race between the TMA
+# ring's stages once showed in only one of several such passes before it was fixed.
+RACE_PASSES = 8
+
+
 def phase_kernel_vs_plain(torch, mm) -> dict:
-    """Every compiled config against the plain version, all three type pairs."""
+    """Every compiled config against the plain version, all three type pairs,
+    each config twice in a row on the same inputs; then RACE_PASSES more
+    passes over the bf16 pairs."""
     torch.backends.cuda.matmul.allow_tf32 = False
     dt = {"bf16": torch.bfloat16, "f32": torch.float32}
     shapes = [(m, k, n) for m in (1, 4, 37, 128) for k in (100, 4100) for n in (96, 1024)]
+    shapes += SPLIT_SHAPES
     shapes += [(m, k, n) for m in (1, 4, 32, 64, 128) for k, n in dict.fromkeys(GRANITE_KN + RWKV_KN + HYMBA_KN)]
     g = torch.Generator(device="cuda").manual_seed(1)
     worst = {pair: {"rel": 0.0, "abs": 0.0} for pair in TOL}
     checks = 0
-    for m, k, n in shapes:
+    mm.reset_launches()
+    cases = [(*shape, False) for shape in shapes] + [(4, 4096, 1024, True)]
+    for m, k, n, misaligned, pairs in [(*c, TOL) for c in cases] + [
+            (*c, {p: t for p, t in TOL.items() if p[0] == "bf16"}) for _ in range(RACE_PASSES) for c in cases]:
         a32 = torch.randn(m, k, device="cuda", generator=g)
         b32 = torch.randn(k, n, device="cuda", generator=g)
-        for (src, dst), tol in TOL.items():
+        for (src, dst), tol in pairs.items():
             a, b = a32.to(dt[src]), b32.to(dt[src])
+            if misaligned:
+                a = _misaligned(torch, a)
             want = mm.matmul_plain(a, b, dt[dst]).float()
             scale = want.abs().max().item()
             for cfg in mm.config_space():
-                got = mm.matmul_cuda(a, b, cfg, out_dtype=dt[dst]).float()
-                err = (got - want).abs().max().item()
-                require(err / scale <= tol, f"{cfg.name()} {src}->{dst} at {(m, k, n)}: "
-                                            f"rel err {err / scale:.3g} > {tol}")
-                w = worst[(src, dst)]
-                w["rel"], w["abs"] = max(w["rel"], err / scale), max(w["abs"], err)
-                checks += 1
+                first = mm.matmul_cuda(a, b, cfg, out_dtype=dt[dst])
+                second = mm.matmul_cuda(a, b, cfg, out_dtype=dt[dst])
+                where = f"{cfg.name()} {src}->{dst} at {(m, k, n)}{' (misaligned base)' if misaligned else ''}"
+                for got in (first.float(), second.float()):
+                    err = (got - want).abs().max().item()
+                    require(err / scale <= tol, f"{where}: rel err {err / scale:.3g} > {tol}")
+                    w = worst[(src, dst)]
+                    w["rel"], w["abs"] = max(w["rel"], err / scale), max(w["abs"], err)
+                    checks += 1
+                require(torch.equal(first, second), f"{where}: two calls in a row differ")
     torch.cuda.synchronize()
+    paths = dict(mm.PATH_LAUNCHES)
+    require(all(paths.values()), f"a kernel path was never launched: {paths}")
     for (src, dst), w in worst.items():
         print(f"  {src}->{dst}: worst rel err {w['rel']:.3g} (limit {TOL[(src, dst)]}), "
               f"worst abs err {w['abs']:.3g}")
-    print(f"  {checks} checks over {len(shapes)} shapes x {len(mm.config_space())} configs: all within tolerance")
-    return {f"{s}->{d}": w for (s, d), w in worst.items()} | {"checks": checks}
+    print(f"  {checks} checks over {len(cases)} shapes x {len(mm.config_space())} configs x 2 calls (3 type pairs, then "
+          f"{RACE_PASSES} passes of the 2 bf16 pairs): all within tolerance, both calls bitwise equal; launches by "
+          f"path {paths}")
+    return {f"{s}->{d}": w for (s, d), w in worst.items()} | {"checks": checks, "paths": paths}
 
 
 def _wkv_inputs(torch, g, b, s, h, hd, dtype, decay, with_state):
@@ -351,12 +400,15 @@ def phase_serve(torch, mm, seq: dict, arch: str, policy=None) -> dict:
     for mod in seq.values():
         mod.reset_launches()
     mark.update({name: 0 for name in seq}, gemm=0)
+    encodes = mm.map_encodes()
     mark["t"] = t0 = time.perf_counter()
     tickets = [engine.submit(p, max_new_tokens=16) for p in prompts]
     status = engine.drain()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(mm.LAUNCHES)
+    paths = dict(mm.PATH_LAUNCHES)
+    encodes = mm.map_encodes() - encodes
     seq_launches = {name: dict(mod.LAUNCHES) for name, mod in seq.items()}
 
     require(status.completed == 4 and not status.exhausted, f"not every request completed: {status}")
@@ -364,6 +416,7 @@ def phase_serve(torch, mm, seq: dict, arch: str, policy=None) -> dict:
     bad = [(kind, n) for kind, _, n, _, _ in events if n != per_forward]
     require(not bad, f"forwards with a GEMM launch count other than {per_forward}: {bad}")
     require(sum(launches.values()) == per_forward * len(events), "GEMM launches outside the forwards")
+    require(paths["tma"] == sum(launches.values()), f"served bf16 GEMMs off the TMA path: {paths}")
     stats = rt.shape_cache_stats()
     fam = stats["per_family"]
     for name in seq:
@@ -400,13 +453,14 @@ def phase_serve(torch, mm, seq: dict, arch: str, policy=None) -> dict:
           f"{statistics.median(decode_ms):.3f} (min {min(decode_ms):.3f}, max {max(decode_ms):.3f})")
     seq_text = "; ".join(f"{name.upper()} launches: {per_prefill[name]} per prefill, 0 per decode step "
                          f"({sum(seq_launches[name].values())} in all)" for name in seq)
-    print(f"  GEMM launches: {per_forward} per forward on every one of {len(events)} forwards; {seq_text}; "
-          f"shape cache {stats['hits']} hits / {stats['misses']} misses")
+    print(f"  GEMM launches: {per_forward} per forward on every one of {len(events)} forwards, all on the TMA path "
+          f"({paths}), {encodes} tensor maps encoded; {seq_text}; shape cache {stats['hits']} hits / "
+          f"{stats['misses']} misses")
     print(f"  decode-step GEMM launches per (k x n): {per_step}")
     return {
         "arch": arch, "n_layers": cfg.n_layers, "weight_bytes": weight_bytes, "tokens": toks, "wall_s": wall,
         "tok_per_s": toks / wall, "prefill_ms": prefill_ms, "prefill_buckets": buckets, "decode_ms": decode_ms,
-        "launches": launches, "per_forward": per_forward, "forwards": len(events), "per_decode_step": per_step,
+        "launches": launches, "path_launches": paths, "map_encodes": encodes, "per_forward": per_forward, "forwards": len(events), "per_decode_step": per_step,
         "shape_cache": {k: stats[k] for k in ("hits", "misses")}, "per_family": fam,
         "decode_configs": decode_configs, "outputs": [list(t.request.output) for t in tickets],
         "engine": engine, "model": model, "params": params, "prompts": prompts,
@@ -629,6 +683,45 @@ def phase_timing(torch, mm, per_step: dict, kn_list, ms=(4, 128)) -> list[dict]:
     return rows
 
 
+def phase_tall(torch, mm) -> dict:
+    """The harvest's tallest GEMM, (16384, 4096, 14336) bf16, under every config."""
+    m, k, n = TALL
+    g = torch.Generator(device="cuda").manual_seed(9)
+    a = torch.randn(m, k, device="cuda", generator=g).bfloat16()
+    b = torch.randn(k, n, device="cuda", generator=g).bfloat16()
+    flops = 2 * m * k * n
+    bound = max(flops / BF16_FLOPS, (m * k + k * n + m * n) * 2 / HBM_BYTES_PER_S) * 1e3
+    per_cfg = {cfg.name(): _time_ms(lambda i, c=cfg: mm.matmul_cuda(a, b, c), n_runs=5) for cfg in mm.config_space()}
+    library = _time_ms(lambda i: torch.matmul(a, b), n_runs=5)
+    tflops = {name: flops / ms / 1e9 for name, ms in per_cfg.items()}
+    best = min(per_cfg, key=per_cfg.get)
+    print(f"  {TALL} bf16: {mm.DEFAULT_CONFIG.name()} {per_cfg[mm.DEFAULT_CONFIG.name()]:.3f} ms "
+          f"({tflops[mm.DEFAULT_CONFIG.name()]:.1f} TFLOP/s), best {best} {per_cfg[best]:.3f} ms; bound {bound:.3f} ms "
+          f"(operations); torch.matmul {library:.3f} ms ({flops / library / 1e9:.1f} TFLOP/s)")
+    print("    " + ", ".join(f"{name} {t:.0f}" for name, t in tflops.items()) + " TFLOP/s")
+    return {"shape": list(TALL), "per_config_ms": per_cfg, "tflops": tflops, "bound_ms": bound,
+            "library_ms": library, "library_tflops": flops / library / 1e9}
+
+
+def phase_parent_ab(serves: dict) -> dict | None:
+    """The parent's GEMM against this one, in turns, where build/parent holds the parent's tree."""
+    base = ROOT / "build" / "parent"
+    if not (base / "src" / "repro_torch" / "kernels" / "csrc" / "matmul.cu").is_file():
+        print("  no build/parent: the parent's kernel is not measured in this run")
+        return None
+    sys.path.insert(0, str(ROOT / "scripts"))
+    import gemm_ab
+
+    for arch, serve in serves.items():
+        counted = {tuple(map(int, kn.split("x"))): c for kn, c in serve["per_decode_step"].items()}
+        require(counted == gemm_ab.DECODE_STEP[arch], f"{arch}: decode-step GEMMs {counted} are not "
+                                                       f"scripts/gemm_ab.py's {gemm_ab.DECODE_STEP[arch]}")
+    result = gemm_ab.run_turns(base)
+    gemm_ab.report(result)
+    steps = gemm_ab.step_sums(result)
+    return result | {"decode_steps": steps}
+
+
 def phase_wkv_timing(torch, wk) -> list[dict]:
     """The WKV kernel at what rwkv6-7b's batch-1 prefill gives it (bf16 r/k/v
     and u, f32 logw, a zero f32 state), every config, beside its bound."""
@@ -845,6 +938,7 @@ def phase_quickstart(torch, mm, at, ops) -> dict:
         mm_calls.append(((m, k, n, 1), want_cfg, a, b, got))
     torch.cuda.synchronize()
     launches = {"attention": dict(at.LAUNCHES), "matmul": dict(mm.LAUNCHES)}
+    paths = dict(mm.PATH_LAUNCHES)
     stats = rt.shape_cache_stats()["per_family"]
     require(stats["attention"]["misses"] == len(problems) and stats["attention"]["hits"] == len(problems),
             f"attention shape cache {stats['attention']}")
@@ -881,7 +975,8 @@ def phase_quickstart(torch, mm, at, ops) -> dict:
     print(f"  ops.matmul at the quickstart's shapes: {[(r['problem'], r['config']) for r in mm_rows]}")
     print(f"  attention launches {sum(launches['attention'].values())} "
           f"({ {n: c for n, c in launches['attention'].items() if c} }); shape cache {stats}")
-    return {"rows": rows, "matmul": mm_rows, "worst": worst, "launches": launches, "shape_cache": stats}
+    return {"rows": rows, "matmul": mm_rows, "worst": worst, "launches": launches, "paths": paths,
+            "shape_cache": stats}
 
 
 def phase_attention_timing(torch, at) -> list[dict]:
@@ -986,6 +1081,7 @@ def main() -> int:
 
     print("[7] GEMM timing, granite-8b shapes (bf16, DEFAULT_CONFIG = the config served)")
     rows = phase_timing(torch, mm, serve["per_decode_step"], GRANITE_KN)
+    tall = phase_tall(torch, mm)
 
     print("[8] full-width rwkv6-7b serving")
     rwkv = phase_serve(torch, mm, seq, "rwkv6-7b")
@@ -1049,6 +1145,8 @@ def main() -> int:
           f"bound {total('bound_ms'):.2f}; greedy streams equal phase 4's: {tuned['streams_equal_phase_4']}")
     print("[20] attention timing at the served shapes")
     attn_rows = phase_attention_timing(torch, at)
+    print("[20b] GEMM: the parent's kernel against this one, in turns")
+    parent_ab = phase_parent_ab({"granite-8b": serve, "rwkv6-7b": rwkv, "hymba-1.5b": hymba})
     # The rwkv6-7b run's WKV launches: n_layers per prefill, at each prefill's bucket.
     by_s = {r["s"]: r for r in wkv_rows}
     wkv_total = lambda key: rwkv["wkv_per_prefill"] * sum(by_s[s][key] for s in rwkv["prefill_buckets"])
@@ -1058,6 +1156,8 @@ def main() -> int:
     gemm_launches = {run["arch"]: sum(run["launches"].values()) for run in (serve, rwkv, hymba)}
     gemm_launches["granite-8b (tuned)"] = sum(tuned["launches"].values())
     gemm_launches["quickstart"] = sum(quick["launches"]["matmul"].values())
+    gemm_routes = {path: sum(run["path_launches"][path] for run in (serve, rwkv, hymba, tuned))
+                   + quick["paths"][path] for path in ("tma", "cp_async")}
     kernels = {"kernels": [{
         "name": "matmul",
         "route": "cuda",
@@ -1065,8 +1165,9 @@ def main() -> int:
         "replaces": "src/repro/kernels/matmul.py:120",
         "launches": sum(gemm_launches.values()),
         "launches_by_path": gemm_launches,
-        "max_abs_err": max(w["abs"] for k, w in errors.items() if k != "checks"),
-        "max_rel_err": max(w["rel"] for k, w in errors.items() if k != "checks"),
+        "launches_by_route": gemm_routes,
+        "max_abs_err": max(errors[pair]["abs"] for pair in GEMM_PAIRS),
+        "max_rel_err": max(errors[pair]["rel"] for pair in GEMM_PAIRS),
         "ms": total("ms"),
         "plain_ms": total("plain_ms"),
         "bound_ms": total("bound_ms"),
@@ -1074,6 +1175,8 @@ def main() -> int:
         "library_ms": total("library_ms"),
         "timed_as": "all GEMMs of one granite-8b decode step (batch 4), summed over shapes, DEFAULT_CONFIG",
         "tuned_ms": tuned_step_ms,
+        "best_per_shape_ms": total("best_ms"),
+        "tall_tflops": tall["tflops"][mm.DEFAULT_CONFIG.name()],
     }, {
         "name": "wkv",
         "route": "cuda",
@@ -1130,7 +1233,8 @@ def main() -> int:
     (out_dir / "chip_smoke.json").write_text(json.dumps({
         "card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
         "build_seconds": _build.build_seconds, "errors": errors, "wkv_errors": wkv_errors,
-        "serve": serve, "policy": policy, "profile": profile, "cpu_vs_card": parity, "timing": rows,
+        "serve": serve, "policy": policy, "profile": profile, "cpu_vs_card": parity, "timing": rows, "tall": tall,
+        "parent_ab": parent_ab,
         "rwkv_serve": rwkv, "wkv_policy": wkv_policy, "rwkv_profile": rwkv_profile,
         "rwkv_cpu_vs_card": rwkv_parity, "wkv_timing": wkv_rows, "rwkv_timing": rwkv_rows,
         "ssm_errors": ssm_errors, "hymba_serve": hymba, "ssm_policy": ssm_policy, "hymba_profile": hymba_profile,
