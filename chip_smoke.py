@@ -86,11 +86,16 @@ Phases (each one fails the run if its check fails):
    decode shapes as in phase 7;
 16. attention against plain: every compiled (block_q, block_kv) config, q/k/v in
    bf16 and f32, head dims 64 and 128, causal and not, at (2, 3) heads for (sq,
-   skv) in {(1, 1), (1, 300), (7, 7), (50, 130), (128, 128), (64, 1000)} and
-   (40, 24) (sq > skv: the 16 rows that see nothing must be zeros), and at the
-   served (1, 32, 1, 32768) and (1, 32, 4096, 4096), against
-   ``attention_plain`` (TF32 off).  Limits relative to max|plain|: 1e-2 for a
-   bf16 output, 1e-4 for f32; every output finite;
+   skv) in {(1, 1), (1, 300), (7, 7), (50, 130), (128, 128), (64, 1000), (300,
+   200), (1, 4103), (4, 4103), (1, 32768), (4, 32768)} and (40, 24) (sq > skv:
+   the rows that see nothing must be zeros), and at the served (1, 32, 1, 32768)
+   and (1, 32, 4096, 4096), against ``attention_plain`` (TF32 off), each config
+   called twice in a row (bitwise equal: the split-KV combine runs in split
+   order and leaves its counters at 0), on the path its block_q names (wgmma at
+   64 and 128, mma.sync at 32, SIMT for f32), split into as many KV splits as
+   ``attention.launch_splits`` names (every decode shape splits); then 8 more
+   passes over the bf16 shapes with fresh inputs.  Limits relative to
+   max|plain|: 1e-2 for a bf16 output, 1e-4 for f32; every output finite;
 17. tune on the card: ``python -m repro_torch.launch.tune --archs
    granite-8b,hymba-1.5b --families attention --n-kernels 4 --out
    build/deploy_h100.json`` in process: the matmul table (93 problems x 10
@@ -101,9 +106,11 @@ Phases (each one fails the run if its check fails):
    (selection logging on); under ``rt.activate()``, ``ops.attention`` at every
    harvested attention problem at (1, 32) heads in bf16, twice (the second a
    shape-cache hit), each call launching exactly the config
-   ``Deployment.select_attention`` names and matching the plain version within
-   1e-2; ``ops.matmul`` at the quickstart's two shapes launching the tree's
-   matmul config.  Each problem's kernel, plain and SDPA times beside its bound;
+   ``Deployment.select_attention`` names (every decode problem split into more
+   than one KV split) and matching the plain version within 1e-2;
+   ``ops.matmul`` at the quickstart's two shapes launching the tree's matmul
+   config.  Each problem's path, KV splits, kernel, plain and SDPA times beside
+   its bound;
 19. full-width granite-8b served as in phase 4 under the tuned Deployment: 7 *
    n_layers + 1 GEMM launches per forward, the split over the deployed configs,
    tokens/s, the decode step, and one decode step's GEMM device time under the
@@ -120,6 +127,11 @@ Phases (each one fails the run if its check fails):
    this, this, parent) at every decode-step GEMM shape of the three models and
    the tall GEMM, and one decode step's GEMM time of each model, summed with
    the launch counts of phases 4, 8 and 12;
+20c. only where ``build/parent`` holds the parent commit: ``scripts/attn_ab.py``
+   times its attention kernel and this tree's in turns (parent, this, this,
+   parent), every config at every problem of phases 18 and 20, and checks
+   each decode shape at least 2x the parent and no prefill shape more than 5%
+   slower (reported, not required);
 21. the ``kernels`` JSON line, then the card line, then the result line.
 
 Everything measured also goes to ``build/chip_smoke.json``.
@@ -722,6 +734,20 @@ def phase_parent_ab(serves: dict) -> dict | None:
     return result | {"decode_steps": steps}
 
 
+def phase_attention_parent_ab() -> dict | None:
+    """The parent's attention kernel against this one, in turns, where build/parent holds the parent's tree."""
+    base = ROOT / "build" / "parent"
+    if not (base / "src" / "repro_torch" / "kernels" / "csrc" / "attention.cu").is_file():
+        print("  no build/parent: the parent's kernel is not measured in this run")
+        return None
+    sys.path.insert(0, str(ROOT / "scripts"))
+    import attn_ab
+
+    result = attn_ab.run_turns(base)
+    attn_ab.report(result)
+    return result | {"verdict": attn_ab.verdict(result)}
+
+
 def phase_wkv_timing(torch, wk) -> list[dict]:
     """The WKV kernel at what rwkv6-7b's batch-1 prefill gives it (bf16 r/k/v
     and u, f32 logw, a zero f32 state), every config, beside its bound."""
@@ -816,42 +842,78 @@ def _plain_by_head(at, q, k, v, causal=True):
     return out
 
 
+# Phase 16's shapes: (leading dims, sq, skv). (40, 24) and (300, 200) have rows that see nothing
+# (at (300, 200) whole query blocks); sq in {1, 4} at skv in {4103, 32768} take the split path; the
+# last two are what granite-8b serving would give the kernel.
+ATTN_SHAPES = [((2, 3), sq, skv) for sq, skv in ((1, 1), (1, 300), (7, 7), (50, 130), (128, 128), (64, 1000),
+                                                  (40, 24), (300, 200), (1, 4103), (4, 4103), (1, 32768),
+                                                  (4, 32768))]
+ATTN_SHAPES += [((1, 32), 1, 32768), ((1, 32), 4096, 4096)]
+
+
 def phase_attention_vs_plain(torch, at) -> dict:
-    """Every compiled attention config against the plain version."""
+    """Every compiled attention config against the plain version, each called twice in a
+    row on the same inputs (bitwise equal), on the path its block_q names and split where
+    kv_splits says so; then RACE_PASSES more passes over the bf16 shapes with fresh inputs."""
     torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator(device="cuda").manual_seed(11)
-    shapes = [((2, 3), sq, skv) for sq, skv in ((1, 1), (1, 300), (7, 7), (50, 130), (128, 128), (64, 1000),
-                                                 (40, 24))]
-    shapes += [((1, 32), 1, 32768), ((1, 32), 4096, 4096)]  # what granite-8b serving would give it
     worst = {name: {"rel": 0.0, "abs": 0.0} for name in ATTN_TOL}
-    checks = 0
-    for lead, sq, skv in shapes:
+    checks, splits_seen = 0, {}
+    at.reset_launches()
+    dtypes = (("bf16", torch.bfloat16), ("f32", torch.float32))
+    passes = [(lead, sq, skv, dtypes) for lead, sq, skv in ATTN_SHAPES]
+    passes += [(lead, sq, skv, dtypes[:1]) for _ in range(RACE_PASSES) for lead, sq, skv in ATTN_SHAPES]
+    for lead, sq, skv, kinds in passes:
+        bh = lead[0] * lead[1]
         for d in (64, 128):
-            for name, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+            for name, dtype in kinds:
                 q, k, v = _attn_inputs(torch, g, lead, sq, skv, d, dtype)
                 for causal in (True, False):
-                    want = at.attention_plain(q, k, v, causal=causal).float()
+                    want = _plain_by_head(at, q, k, v, causal=causal).float()
                     scale = want.abs().max().item()
                     for cfg in at.config_space():
-                        got = at.attention_cuda(q, k, v, cfg, causal=causal).float()
+                        paths, launched = dict(at.PATH_LAUNCHES), at.SPLITS_LAUNCHED[cfg.name()]
+                        first = at.attention_cuda(q, k, v, cfg, causal=causal)
+                        second = at.attention_cuda(q, k, v, cfg, causal=causal)
                         where = f"{cfg.name()} {name} {(*lead, sq, skv, d)} causal={causal}"
-                        require(bool(torch.isfinite(got).all()), f"{where}: output not finite")
-                        if causal and sq > skv:
-                            require(bool((got[..., : sq - skv, :] == 0).all()), f"{where}: rows that see "
-                                                                                  f"nothing are not zeros")
-                        err = (got - want).abs().max().item()
-                        require(err <= ATTN_TOL[name] * scale, f"{where}: rel err {err / scale:.3g} > "
-                                                               f"{ATTN_TOL[name]}")
-                        w = worst[name]
-                        w["rel"], w["abs"] = max(w["rel"], err / scale), max(w["abs"], err)
-                        checks += 1
+                        for got in (first.float(), second.float()):
+                            require(bool(torch.isfinite(got).all()), f"{where}: output not finite")
+                            if causal and sq > skv:
+                                require(bool((got[..., : sq - skv, :] == 0).all()), f"{where}: rows that see "
+                                                                                      f"nothing are not zeros")
+                            err = (got - want).abs().max().item()
+                            require(err <= ATTN_TOL[name] * scale, f"{where}: rel err {err / scale:.3g} > "
+                                                                   f"{ATTN_TOL[name]}")
+                            w = worst[name]
+                            w["rel"], w["abs"] = max(w["rel"], err / scale), max(w["abs"], err)
+                            checks += 1
+                        require(torch.equal(first, second), f"{where}: two calls in a row differ")
+                        path = cfg.bf16_path() if name == "bf16" else "simt_f32"
+                        splits = at.launch_splits(bh, sq, skv, d, cfg, causal, 0) if name == "bf16" else 1
+                        delta = {p: c - paths[p] for p, c in at.PATH_LAUNCHES.items() if c != paths[p]}
+                        launched = at.SPLITS_LAUNCHED[cfg.name()] - launched
+                        require(delta == {path: 2, **({"split": 2} if splits > 1 else {})} and
+                                launched == (2 * splits if splits > 1 else 0),
+                                f"{where}: launches by path {delta}, {launched} splits; want {path}, {splits} splits")
+                        if splits > 1:
+                            splits_seen[f"{(*lead, sq, skv, d)} causal={causal} {cfg.name()}"] = splits
                 del q, k, v
     torch.cuda.synchronize()
+    paths = dict(at.PATH_LAUNCHES)
+    require(all(paths.values()), f"an attention path was never launched: {paths}")
+    # Every wgmma config took the wgmma path at sq >= 64, and every call whose rule splits
+    # launched that many splits (checked per call above); the decode shapes did split:
+    require(all(any(f"(2, 3, 1, {skv}, {d}) causal={c} {cfg.name()}" in splits_seen for c in (True, False))
+                for skv in (4103, 32768) for d in (64, 128) for cfg in at.config_space()),
+            f"a decode shape did not split: {sorted(splits_seen)}")
     for name, w in worst.items():
         print(f"  {name}: worst rel err {w['rel']:.3g} (limit {ATTN_TOL[name]}), worst abs err {w['abs']:.3g}")
-    print(f"  {checks} checks ({len(shapes)} shapes x 2 head dims x 2 dtypes x 2 masks x {len(at.config_space())} "
-          f"configs): every output finite; at (40, 24) causal the 16 rows that see nothing are zeros")
-    return {"worst": worst, "checks": checks}
+    print(f"  {checks} checks ({len(ATTN_SHAPES)} shapes x 2 head dims x 2 dtypes x 2 masks x "
+          f"{len(at.config_space())} configs x 2 calls, then {RACE_PASSES} bf16 passes with fresh inputs): every "
+          f"output finite, both calls bitwise equal; at (40, 24) and (300, 200) causal the rows that see nothing are "
+          f"zeros; launches by path {paths}; {len(splits_seen)} (shape, mask, config) triples split KV, "
+          f"{min(splits_seen.values())}-{max(splits_seen.values())} splits")
+    return {"worst": worst, "checks": checks, "paths": paths, "splits": splits_seen}
 
 
 def phase_tune(torch, mm, at) -> dict:
@@ -917,13 +979,18 @@ def phase_quickstart(torch, mm, at, ops) -> dict:
         q, k, v = _attn_inputs(torch, g, (1, heads), sq, skv, d, torch.bfloat16)
         want_cfg = dep.select_attention(sq, skv, d)
         for _ in range(2):  # the second call is a shape-cache hit
-            before = dict(at.LAUNCHES)
+            before, paths = dict(at.LAUNCHES), dict(at.PATH_LAUNCHES)
+            splits = at.SPLITS_LAUNCHED[want_cfg.name()]
             with rt.activate():
                 got = ops.attention(q, k, v)
             delta = {n: c - before[n] for n, c in at.LAUNCHES.items() if c != before[n]}
             require(delta == {want_cfg.name(): 1}, f"ops.attention at {(sq, skv, d)} launched {delta}, the tree "
                                                    f"names {want_cfg.name()}")
-        calls.append(((sq, skv, d), want_cfg, (q, k, v), got))
+            route = {p: c - paths[p] for p, c in at.PATH_LAUNCHES.items() if c != paths[p]}
+            splits = at.SPLITS_LAUNCHED[want_cfg.name()] - splits or 1
+            require(sq > 1 or (route.get("split") == 1 and splits > 1),
+                    f"decode ops.attention at {(sq, skv, d)} did not split KV: {route}, {splits} splits")
+        calls.append(((sq, skv, d), want_cfg, (q, k, v), got, "+".join(sorted(route)), splits))
     mm_calls = []
     for m, k, n in ((512, 784, 512), (1, 4096, 512)):  # the quickstart's two GEMMs
         a = torch.randn((m, k), device="cuda", generator=g).bfloat16()
@@ -939,13 +1006,14 @@ def phase_quickstart(torch, mm, at, ops) -> dict:
     torch.cuda.synchronize()
     launches = {"attention": dict(at.LAUNCHES), "matmul": dict(mm.LAUNCHES)}
     paths = dict(mm.PATH_LAUNCHES)
+    attn_paths, attn_splits = dict(at.PATH_LAUNCHES), sum(at.SPLITS_LAUNCHED.values())
     stats = rt.shape_cache_stats()["per_family"]
     require(stats["attention"]["misses"] == len(problems) and stats["attention"]["hits"] == len(problems),
             f"attention shape cache {stats['attention']}")
 
     rows, worst = [], {"rel": 0.0, "abs": 0.0}
     while calls:
-        (sq, skv, d), cfg, (q, k, v), got = calls.pop(0)
+        (sq, skv, d), cfg, (q, k, v), got, route, splits = calls.pop(0)
         want = _plain_by_head(at, q, k, v).float()
         got = got.float()
         scale = want.abs().max().item()
@@ -955,13 +1023,14 @@ def phase_quickstart(torch, mm, at, ops) -> dict:
         worst["rel"], worst["abs"] = max(worst["rel"], err / scale), max(worst["abs"], err)
         bound, bound_by = _attention_bound(sq, skv, d, heads, True)
         mask = causal_lower_right(sq, skv)
-        row = {"problem": [sq, skv, d], "config": cfg.name(), "rel_err": err / scale,
+        row = {"problem": [sq, skv, d], "config": cfg.name(), "path": route, "splits": splits, "rel_err": err / scale,
                "ms": _time_ms(lambda i: at.attention_cuda(q, k, v, cfg), n_runs=10),
                "plain_ms": _time_ms(lambda i: _plain_by_head(at, q, k, v), n_warm=1, n_runs=3),
                "library_ms": _time_ms(lambda i: sdpa(q, k, v, attn_mask=mask), n_runs=10),
                "bound_ms": bound, "bound_by": bound_by}
         rows.append(row)
-        print(f"  {(sq, skv, d)}: {row['config']} (tree), rel err {row['rel_err']:.2g}; kernel {row['ms']:.4f} ms, "
+        print(f"  {(sq, skv, d)}: {row['config']} (tree) on {route}, {splits} KV split(s), rel err "
+              f"{row['rel_err']:.2g}; kernel {row['ms']:.4f} ms, "
               f"bound {bound:.4f} ({bound_by}), plain {row['plain_ms']:.3f}, SDPA {row['library_ms']:.4f}")
         del q, k, v, got, want
         torch.cuda.empty_cache()
@@ -974,9 +1043,10 @@ def phase_quickstart(torch, mm, at, ops) -> dict:
         mm_rows.append({"problem": list(problem), "config": cfg.name(), "rel_err": err / scale})
     print(f"  ops.matmul at the quickstart's shapes: {[(r['problem'], r['config']) for r in mm_rows]}")
     print(f"  attention launches {sum(launches['attention'].values())} "
-          f"({ {n: c for n, c in launches['attention'].items() if c} }); shape cache {stats}")
+          f"({ {n: c for n, c in launches['attention'].items() if c} }), by path {attn_paths}, {attn_splits} KV splits "
+          f"in the split launches; shape cache {stats}")
     return {"rows": rows, "matmul": mm_rows, "worst": worst, "launches": launches, "paths": paths,
-            "shape_cache": stats}
+            "attention_paths": attn_paths, "attention_splits": attn_splits, "shape_cache": stats}
 
 
 def phase_attention_timing(torch, at) -> list[dict]:
@@ -1053,7 +1123,10 @@ def main() -> int:
     print(f"  matmul tiles (bm, bn, bk, smem bf16, smem f32): {tiles}")
     print(f"  wkv instantiations (chunk, hd, smem): {wkv_cfgs}")
     print(f"  ssm instantiations (block_d, chunk, N, threads): {ssm_cfgs}")
-    print(f"  attention instantiations (block_q, block_kv, hd, threads, smem bf16, smem f32): {attn_cfgs}")
+    print(f"  attention instantiations (block_q, block_kv, hd, bf16 threads, stages, smem, f32 threads, smem): "
+          f"{attn_cfgs}")
+    resident = {c.name(): [at.resident_ctas(c, hd, 0) for hd in (64, 128)] for c in at.config_space()}
+    print(f"  attention bf16 CTAs an SM holds (hd 64, 128): {resident}")
     for name in ("matmul", "wkv", "ssm", "attention"):
         log = _build.build_log(name).splitlines()
         regs = [line.split(":", 1)[1].strip() for line in log if "registers" in line]
@@ -1147,6 +1220,8 @@ def main() -> int:
     attn_rows = phase_attention_timing(torch, at)
     print("[20b] GEMM: the parent's kernel against this one, in turns")
     parent_ab = phase_parent_ab({"granite-8b": serve, "rwkv6-7b": rwkv, "hymba-1.5b": hymba})
+    print("[20c] attention: the parent's kernel against this one, in turns")
+    attn_parent_ab = phase_attention_parent_ab()
     # The rwkv6-7b run's WKV launches: n_layers per prefill, at each prefill's bucket.
     by_s = {r["s"]: r for r in wkv_rows}
     wkv_total = lambda key: rwkv["wkv_per_prefill"] * sum(by_s[s][key] for s in rwkv["prefill_buckets"])
@@ -1215,6 +1290,8 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/attention.cu",
         "replaces": "src/repro/kernels/attention.py:98",
         "launches": sum(quick["launches"]["attention"].values()),
+        "launches_by_path": quick["attention_paths"],
+        "kv_splits_launched": quick["attention_splits"],
         "max_abs_err": max([w["abs"] for w in attn_errors["worst"].values()] + [quick["worst"]["abs"]]),
         "max_rel_err": max([w["rel"] for w in attn_errors["worst"].values()] + [quick["worst"]["rel"]]),
         "ms": sum(r["ms"] for r in quick["rows"]),
@@ -1234,7 +1311,7 @@ def main() -> int:
         "card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
         "build_seconds": _build.build_seconds, "errors": errors, "wkv_errors": wkv_errors,
         "serve": serve, "policy": policy, "profile": profile, "cpu_vs_card": parity, "timing": rows, "tall": tall,
-        "parent_ab": parent_ab,
+        "parent_ab": parent_ab, "attention_parent_ab": attn_parent_ab,
         "rwkv_serve": rwkv, "wkv_policy": wkv_policy, "rwkv_profile": rwkv_profile,
         "rwkv_cpu_vs_card": rwkv_parity, "wkv_timing": wkv_rows, "rwkv_timing": rwkv_rows,
         "ssm_errors": ssm_errors, "hymba_serve": hymba, "ssm_policy": ssm_policy, "hymba_profile": hymba_profile,

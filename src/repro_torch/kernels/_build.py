@@ -2,16 +2,18 @@
 
 The sources under ``csrc/`` are compiled at first use into
 ``build/repro_torch/`` under the repository root, one shared library per
-source, named by a hash of the source, the flags and the compiler, so an edit
-rebuilds and an unchanged tree reuses the library.  :func:`load_all` starts
-one ``nvcc`` per source, all at once.  Nothing here touches CUDA when the
-module is imported: the CPU tests import every module of the port.
+source, named by a hash of the source, the headers it includes, the flags and
+the compiler, so an edit rebuilds and an unchanged tree reuses the library.
+:func:`load_all` starts one ``nvcc`` per source, all at once.  Nothing here
+touches CUDA when the module is imported: the CPU tests import every module of
+the port.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -48,9 +50,25 @@ def nvcc_path() -> str:
     return found
 
 
+def _sources(name: str) -> list[Path]:
+    """``csrc/<name>.cu`` and the headers under ``csrc/`` it includes (``#include "..."``,
+    followed through headers that include others)."""
+    todo, seen = [CSRC / f"{name}.cu"], []
+    while todo:
+        path = todo.pop()
+        if path in seen:
+            continue
+        seen.append(path)
+        todo += [CSRC / inc for inc in re.findall(r'^#include "([^"]+)"', path.read_text(), re.M)]
+    return seen
+
+
 def library_path(name: str, nvcc: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes())
+    """The library's path, named by a hash of the source, the headers it includes, the
+    flags and the compiler: an edit to any of them builds a new library."""
+    h = hashlib.sha256()
+    for src in _sources(name):
+        h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     h.update(nvcc.encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"

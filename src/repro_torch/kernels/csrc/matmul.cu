@@ -47,14 +47,7 @@
 //
 // Plain C interface, loaded with ctypes; every entry point returns a cudaError_t.
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-#include <atomic>
-#include <mutex>
-#include <unordered_map>
+#include "hopper.cuh"
 
 namespace {
 
@@ -64,123 +57,7 @@ constexpr int kStages = 3;             // cp.async ring depth of the fallback ke
 constexpr int kRingBudget = 110 * 1024;  // TMA ring bytes per CTA: two CTAs fit on one SM
 constexpr int kMaxTmaStages = 8;
 
-// ---------------------------------------------------------------------------
-// PTX helpers
-// ---------------------------------------------------------------------------
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte async copy; src_bytes = 0 zero-fills the destination without reading.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred) {
-  int n = pred ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
-               "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], unsigned addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], unsigned addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void mma_bf16_16816(float (&c)[4], const unsigned (&a)[4],
-                                               unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// mbarriers (shared::cta) -----------------------------------------------------
-__device__ __forceinline__ void mbar_init(unsigned bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(unsigned bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive_expect_tx(unsigned bar, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
-  unsigned done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  }
-}
-
-// One 2-D TMA box into shared memory; completion counts bytes on ``bar``.
-__device__ __forceinline__ void tma_load_2d(unsigned dst, const CUtensorMap* map, int c0, int c1,
-                                            unsigned bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
-      : "memory");
-}
-
-// Named barrier over the first ``n`` threads of the block (id 1; id 0 is __syncthreads).
-__device__ __forceinline__ void named_sync(int n) {
-  asm volatile("bar.sync 1, %0;\n" ::"r"(n) : "memory");
-}
-
-// Byte offset of 16-byte chunk ``chunk`` of row ``row`` in a box of 128-byte rows under
-// the TMA's 128-byte swizzle (the chunk index XOR the row within its 8-row atom).
-__device__ __forceinline__ unsigned swz128(int row, int chunk) {
-  return row * 128 + ((chunk ^ (row & 7)) << 4);
-}
-
-// wgmma -------------------------------------------------------------------------
-// Shared-memory matrix descriptor: start address, leading and stride byte offsets (16-byte
-// units) and the swizzle mode (1 = 128B, 2 = 64B).
-__device__ __forceinline__ uint64_t wgmma_desc(unsigned addr, unsigned lbo, unsigned sbo,
-                                               uint64_t layout) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | (layout << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Keeps the compiler from moving accumulator reads or writes across a wgmma fence/wait.
-template <int NF>
-__device__ __forceinline__ void fence_acc(float (&d)[NF][4]) {
-#pragma unroll
-  for (int f = 0; f < NF; ++f)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[f][e])::"memory");
-}
-
+// wgmma (the PTX helpers, mbarriers, TMA and the wgmma fence are in hopper.cuh) --------
 // D(64x128, f32) += A(64x16, K-major, smem) * B(16x128, MN-major, smem).
 __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[16][4], uint64_t da, uint64_t db) {
   asm volatile(
@@ -724,90 +601,6 @@ __global__ void __launch_bounds__(256)
 }
 
 // ---------------------------------------------------------------------------
-// host side: tensor maps
-// ---------------------------------------------------------------------------
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_fn() {
-  static EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q) !=
-            cudaSuccess ||
-        q != cudaDriverEntryPointSuccess)
-      p = nullptr;
-#else
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) != cudaSuccess ||
-        q != cudaDriverEntryPointSuccess)
-      p = nullptr;
-#endif
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
-}
-
-// A map depends on nothing but these fields, so a cached map is never stale.
-struct MapKey {
-  uintptr_t ptr;
-  uint64_t inner, outer;
-  uint32_t box_inner, box_outer, swizzle;
-  bool operator==(const MapKey& o) const {
-    return ptr == o.ptr && inner == o.inner && outer == o.outer && box_inner == o.box_inner &&
-           box_outer == o.box_outer && swizzle == o.swizzle;
-  }
-};
-struct MapKeyHash {
-  size_t operator()(const MapKey& k) const {
-    uint64_t h = k.ptr * 0x9E3779B97F4A7C15ull;
-    h ^= (k.inner * 31 + k.outer) * 0xC2B2AE3D27D4EB4Full;
-    h ^= ((uint64_t)k.box_inner << 40) ^ ((uint64_t)k.box_outer << 20) ^ k.swizzle;
-    return static_cast<size_t>(h ^ (h >> 29));
-  }
-};
-
-constexpr size_t kMapCacheCap = 4096;  // activations bring new pointers: bound the cache
-std::mutex g_map_mu;
-std::unordered_map<MapKey, CUtensorMap, MapKeyHash> g_maps;
-std::atomic<long long> g_map_encodes{0};
-
-// A row-major bf16 matrix of ``outer`` rows of ``inner`` elements, cut into
-// (box_outer, box_inner) boxes, swizzled by ``swizzle`` bytes (64 or 128).
-cudaError_t tensor_map(CUtensorMap* out, const void* ptr, uint64_t inner, uint64_t outer,
-                       uint32_t box_inner, uint32_t box_outer, uint32_t swizzle) {
-  const MapKey key{reinterpret_cast<uintptr_t>(ptr), inner, outer, box_inner, box_outer, swizzle};
-  {
-    std::lock_guard<std::mutex> lock(g_map_mu);
-    auto it = g_maps.find(key);
-    if (it != g_maps.end()) {
-      *out = it->second;
-      return cudaSuccess;
-    }
-  }
-  EncodeTiled encode = encode_fn();
-  if (encode == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[2] = {inner, outer};
-  const cuuint64_t strides[1] = {inner * sizeof(bf16)};
-  const cuuint32_t box[2] = {box_inner, box_outer};
-  const cuuint32_t estride[2] = {1, 1};
-  CUtensorMap map;
-  const CUresult r = encode(&map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims,
-                            strides, box, estride, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            swizzle == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
-                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  if (r != CUDA_SUCCESS) return cudaErrorInvalidValue;
-  g_map_encodes.fetch_add(1, std::memory_order_relaxed);
-  std::lock_guard<std::mutex> lock(g_map_mu);
-  if (g_maps.size() >= kMapCacheCap) g_maps.clear();
-  g_maps.emplace(key, map);
-  *out = map;
-  return cudaSuccess;
-}
-
-// ---------------------------------------------------------------------------
 // host-side launch
 // ---------------------------------------------------------------------------
 // The f32 kernel: a 2-D grid, the order's fast axis on blockIdx.x.
@@ -821,20 +614,6 @@ dim3 grid_banded(int M, int N, int BM, int BN, int splits) {
   return dim3(((M + BM - 1) / BM) * ((N + BN - 1) / BN), 1, splits);
 }
 
-// Opts a kernel in to its dynamic shared memory once per device (above 48 KB a kernel
-// may use it only after cudaFuncSetAttribute).
-template <typename Kernel>
-cudaError_t opt_in(Kernel kernel, int smem, std::atomic<unsigned long long>& done) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  const unsigned long long bit = 1ull << (dev & 63);
-  if (done.load(std::memory_order_relaxed) & bit) return cudaSuccess;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err == cudaSuccess) done.fetch_or(bit);
-  return err;
-}
-
 template <int BM, int BN, int BK, typename OutT>
 cudaError_t run_tma(const void* a, const void* b, void* c, int M, int N, int K, int order,
                     int splits, float* ws, int* counters, cudaStream_t stream) {
@@ -842,9 +621,12 @@ cudaError_t run_tma(const void* a, const void* b, void* c, int M, int N, int K, 
   if (K % 8 || N % 8 || reinterpret_cast<uintptr_t>(a) % 16 || reinterpret_cast<uintptr_t>(b) % 16)
     return cudaErrorInvalidValue;  // the wrapper sends these shapes to the cp.async path
   CUtensorMap map_a, map_b;
-  cudaError_t err = tensor_map(&map_a, a, K, M, T::AW, a_box_rows<BM>(M), T::A_SWIZZLE);
+  // Row-major bf16 (rows, cols) matrices as 2-D maps, innermost dim first.
+  const uint64_t dims_a[3] = {(uint64_t)K, (uint64_t)M, 1}, dims_b[3] = {(uint64_t)N, (uint64_t)K, 1};
+  const uint32_t box_a[3] = {(uint32_t)T::AW, (uint32_t)a_box_rows<BM>(M), 1}, box_b[3] = {64, BK, 1};
+  cudaError_t err = tensor_map(&map_a, a, 2, dims_a, box_a, T::A_SWIZZLE);
   if (err != cudaSuccess) return err;
-  err = tensor_map(&map_b, b, N, K, 64, BK, 128);
+  err = tensor_map(&map_b, b, 2, dims_b, box_b, 128);
   if (err != cudaSuccess) return err;
   static std::atomic<unsigned long long> done{0};
   auto kernel = &gemm_tma_kernel<BM, BN, BK, OutT>;

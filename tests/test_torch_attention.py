@@ -12,14 +12,17 @@ zeros, which is checked on its own.  The CUDA kernel runs only on the card
 version there).  Here a numpy mirror of the kernel's blocking
 (``_kernel_mirror``: blocks of ``block_q`` rows, an online softmax over
 blocks of ``block_kv`` columns, KV blocks above the diagonal skipped, ragged
-tails loaded as zeros and masked) is held against the reference at every
-compiled config, so the formulation the kernel computes is checked before
-any card runs it.
+tails loaded as zeros and masked, and the split-KV path: each query block's
+blocks cut by ``kv_ranges``, per-split partials combined in split order) is
+held against the reference at every compiled config, so the formulation the
+kernel computes is checked before any card runs it; the split rule
+(``kv_splits``) is checked at the served problems.
 
 Tolerances: f32 atol/rtol 1e-5 (f32 on both sides, sums in another order);
 bf16 inputs within 1e-2 of max |reference| (the output is rounded to bf16 on
 both sides, and a rounding step apart is 2^-8 relative).
 """
+import functools
 import re
 from pathlib import Path
 
@@ -31,6 +34,7 @@ import torch
 from repro.kernels.attention import AttentionConfig as JaxAttentionConfig
 from repro.kernels.attention import flash_attention_pallas
 from repro.kernels.ref import flash_attention_ref as jax_flash_attention_ref
+from repro_torch.core.attnmodel import harvest_attn_problems
 from repro_torch.core.runtime import KernelRuntime
 from repro_torch.kernels import attention as at
 from repro_torch.kernels import ops
@@ -97,18 +101,22 @@ def test_rows_with_nothing_visible_are_zeros():
     np.testing.assert_allclose(got[16:], want[16:], **TOL)
 
 
-def _kernel_mirror(q, k, v, causal, block_q, block_kv, scale=None):
+def _kernel_mirror(q, k, v, causal, block_q, block_kv, scale=None, splits=1):
     """csrc/attention.cu's blocking in numpy (f32): per block of ``block_q``
     query rows (rows past sq load as zeros and are not stored), the KV blocks
     the block needs (under the causal mask those up to its last live row's
-    last visible column; none when that row sees nothing), an online softmax
-    in log2 units over each block of ``block_kv`` columns (columns past skv
-    load as zeros and are masked), and one division by l at the end (a row
-    with l = 0 is zeros)."""
+    last visible column; none when that row sees nothing), cut into ``splits``
+    splits as ``kv_ranges`` cuts them.  Each split runs an online softmax in
+    log2 units over its blocks of ``block_kv`` columns (columns past skv load
+    as zeros and are masked) from m = -inf, l = 0, acc = 0; the partials
+    (m, l, acc) are combined in split order, each weighed by exp2(m_z - max m)
+    (0 for a split in which a row saw nothing), and divided by l once (a row
+    with l = 0 is zeros).  One split is the kernel without split-KV."""
     bh, sq, d = q.shape
     skv = k.shape[1]
     scale = scale if scale is not None else 1.0 / d**0.5
     log2e = 1.4426950408889634
+    cfg = at.AttentionConfig(block_q, block_kv)
     out = np.zeros_like(q)
     for b in range(bh):
         for q0 in range(0, sq, block_q):
@@ -116,31 +124,37 @@ def _kernel_mirror(q, k, v, causal, block_q, block_kv, scale=None):
             qt = np.zeros((block_q, d), np.float32)
             qt[:live] = q[b, q0:q0 + live]
             rows = q0 + np.arange(block_q)
-            n_blocks = -(-skv // block_kv)
-            if causal:
-                last_col = q0 + live - 1 + skv - sq
-                n_blocks = 0 if last_col < 0 else min(n_blocks, last_col // block_kv + 1)
-            m = np.full(block_q, -np.inf, np.float32)
+            parts = []
+            for c0, c1 in at.kv_ranges(q0, sq, skv, cfg, causal, splits):
+                m = np.full(block_q, -np.inf, np.float32)
+                lsum = np.zeros(block_q, np.float32)
+                acc = np.zeros((block_q, d), np.float32)
+                for kv0 in range(c0, c1, block_kv):
+                    n_kv = min(block_kv, skv - kv0)
+                    kt = np.zeros((block_kv, d), np.float32)
+                    vt = np.zeros((block_kv, d), np.float32)
+                    kt[:n_kv], vt[:n_kv] = k[b, kv0:kv0 + n_kv], v[b, kv0:kv0 + n_kv]
+                    cols = kv0 + np.arange(block_kv)
+                    ok = np.broadcast_to(cols[None, :] < skv, (block_q, block_kv))
+                    if causal:
+                        ok = ok & (cols[None, :] <= rows[:, None] + skv - sq)
+                    s = np.where(ok, (qt @ kt.T) * np.float32(scale * log2e), -np.inf).astype(np.float32)
+                    mx = np.maximum(m, s.max(axis=1))
+                    base = np.where(mx == -np.inf, 0.0, mx).astype(np.float32)
+                    corr = np.exp2(m - base)
+                    m = mx
+                    p = np.exp2(s - base[:, None])
+                    lsum = lsum * corr + p.sum(axis=1)
+                    acc = acc * corr[:, None] + p @ vt
+                parts.append((m, lsum, acc))
+            top = np.max([m for m, _, _ in parts], axis=0)
+            base = np.where(top == -np.inf, 0.0, top).astype(np.float32)
             lsum = np.zeros(block_q, np.float32)
             acc = np.zeros((block_q, d), np.float32)
-            for j in range(n_blocks):
-                kv0 = j * block_kv
-                n_kv = min(block_kv, skv - kv0)
-                kt = np.zeros((block_kv, d), np.float32)
-                vt = np.zeros((block_kv, d), np.float32)
-                kt[:n_kv], vt[:n_kv] = k[b, kv0:kv0 + n_kv], v[b, kv0:kv0 + n_kv]
-                cols = kv0 + np.arange(block_kv)
-                ok = np.broadcast_to(cols[None, :] < skv, (block_q, block_kv))
-                if causal:
-                    ok = ok & (cols[None, :] <= rows[:, None] + skv - sq)
-                s = np.where(ok, (qt @ kt.T) * np.float32(scale * log2e), -np.inf).astype(np.float32)
-                mx = np.maximum(m, s.max(axis=1))
-                base = np.where(mx == -np.inf, 0.0, mx).astype(np.float32)
-                corr = np.exp2(m - base)
-                m = mx
-                p = np.exp2(s - base[:, None])
-                lsum = lsum * corr + p.sum(axis=1)
-                acc = acc * corr[:, None] + p @ vt
+            for m, l_z, acc_z in parts:  # in split order
+                w = np.exp2(m - base)
+                lsum = lsum + l_z * w
+                acc = acc + acc_z * w[:, None]
             inv = np.where(lsum > 0, 1.0 / np.where(lsum > 0, lsum, 1.0), 0.0)
             out[b, q0:q0 + live] = (acc * inv[:, None])[:live]
     return out
@@ -170,6 +184,119 @@ def test_kernel_blocking_matches_plain_with_empty_rows(cfg):
         want = at.attention_plain(*map(torch.from_numpy, (q, k, v)), causal=True).numpy()
         np.testing.assert_allclose(got, want, **TOL)
         assert (got[0, : sq - skv] == 0).all()
+
+
+@functools.cache
+def _references(sq, skv, causal, d=64):
+    """The JAX oracle's and (sq <= skv) its Pallas kernel's answer on _inputs(sq, skv, d)."""
+    q, k, v = map(jnp.asarray, _inputs(sq, skv, d, seed=sq + skv))
+    refs = [np.asarray(jax_flash_attention_ref(q, k, v, causal=causal))]
+    if sq <= skv:
+        refs.append(np.asarray(flash_attention_pallas(q, k, v, JaxAttentionConfig(128, 128), causal=causal,
+                                                      interpret=True)))
+    return refs
+
+
+@pytest.mark.parametrize("cfg", at.config_space(), ids=lambda c: c.name())
+def test_split_mirror_matches_reference(cfg):
+    """The split-KV path in numpy at 1-8 splits (as many as the blocks allow), with
+    splits that cut the causal diagonal (sq = 16: a split holds columns only some rows
+    see) and a ragged last block, against the JAX oracle and its Pallas kernel."""
+    for sq in (1, 4, 16):
+        for skv in (1, 300, 1000, 4103):
+            for causal in (True, False):
+                q, k, v = (x[None] for x in _inputs(sq, skv, 64, seed=sq + skv))
+                blocks = at.kv_blocks(0, sq, skv, cfg, causal)
+                for splits in range(1, min(8, blocks) + 1):
+                    got = _kernel_mirror(q, k, v, causal, cfg.block_q, cfg.block_kv, splits=splits)[0]
+                    blind = max(0, sq - skv) if causal else 0  # rows that see nothing: the oracle's NaN
+                    assert (got[:blind] == 0).all()
+                    for want in _references(sq, skv, causal):
+                        np.testing.assert_allclose(got[blind:], want[blind:], **TOL,
+                                                   err_msg=f"{sq, skv, causal, splits}")
+
+
+def test_split_mirror_with_empty_splits():
+    """The kernel takes any split count (scripts/attn_split_sweep.py forces them), so a
+    split may hold no block: at sq > skv (causal) whole query blocks see nothing and the
+    first one that sees a column has fewer blocks than splits.  Empty splits weigh 0 in
+    the combine, and rows that see nothing stay zeros, as in the plain version.  (The
+    rule itself never splits here: that query block sees fewer than block_q columns.)"""
+    q, k, v = _inputs(300, 200, 64, seed=4, lead=(1,))
+    want = at.attention_plain(*map(torch.from_numpy, (q, k, v)), causal=True).numpy()
+    for cfg in (at.AttentionConfig(32, 32), at.AttentionConfig(128, 64)):
+        assert at.kv_splits(1, 300, 200, cfg, True, hd=64) == 1
+        for splits in (2, 3, 7):
+            got = _kernel_mirror(q, k, v, True, cfg.block_q, cfg.block_kv, splits=splits)
+            np.testing.assert_allclose(got, want, **TOL)
+            assert (got[0, :100] == 0).all()
+
+
+# Every harvested attention problem of granite-8b and hymba-1.5b at (1, 32) heads, and
+# chip_smoke.py phase 20's shapes: (heads, sq, skv, d).
+_SERVED = [(32, sq, skv, d) for sq, skv, d in harvest_attn_problems(["granite-8b", "hymba-1.5b"])]
+_SERVED += [(heads, sq, skv, d) for heads, d in ((32, 128), (25, 64))
+            for sq, skv in ((512, 512), (2048, 2048), (4096, 4096), (1, 4096), (1, 32768))]
+
+
+def _ranges_tile_the_blocks(bh, sq, skv, cfg, causal, splits):
+    for q0 in range(0, sq, cfg.block_q):
+        n = at.kv_blocks(q0, sq, skv, cfg, causal)
+        ranges = at.kv_ranges(q0, sq, skv, cfg, causal, splits)
+        assert len(ranges) == splits
+        if n == 0:  # a query block that sees nothing: every split is empty
+            assert all(c0 == c1 for c0, c1 in ranges)
+            continue
+        # whole blocks, in order, no gap, none empty, ending at the last block's end
+        assert ranges[0][0] == 0 and ranges[-1][1] == min(skv, n * cfg.block_kv)
+        assert all(r1[1] == r2[0] for r1, r2 in zip(ranges, ranges[1:]))
+        assert all(c0 < c1 and c0 % cfg.block_kv == 0 for c0, c1 in ranges)
+        if splits > 1:
+            assert all(-(-(c1 - c0) // cfg.block_kv) >= at.SPLIT_MIN_BLOCKS for c0, c1 in ranges)
+
+
+@pytest.mark.parametrize("resident", [1, 2, 4])
+@pytest.mark.parametrize("causal", [True, False])
+def test_kv_splits_leave_no_split_empty(causal, resident):
+    shapes = [(1, 1, 1), (6, 1, 300), (6, 4, 4103), (6, 16, 1000), (6, 128, 128), (6, 300, 200), (1, 40, 24),
+              (3, 1000, 1000), *((h, sq, skv) for h, sq, skv, _ in _SERVED)]
+    for bh, sq, skv in shapes:
+        for cfg in at.config_space():
+            for hd in (64, 128):
+                splits = at.kv_splits(bh, sq, skv, cfg, causal, hd=hd, resident=resident)
+                assert splits >= 1
+                _ranges_tile_the_blocks(bh, sq, skv, cfg, causal, splits)
+                ctas = -(-sq // cfg.block_q) * bh
+                assert ctas * splits <= max(ctas, at.split_target(cfg, hd, at.H100_SMS, resident))
+
+
+@pytest.mark.parametrize("resident", [1, 2, 4])
+def test_kv_splits_fill_the_wave_at_served_problems(resident):
+    """At every decode problem the split fills the target (one more split would pass
+    it); a grid that fills half the target or more is not split; a causal prefill whose
+    first query block sees too few blocks splits only as far as they allow."""
+    for heads, sq, skv, d in _SERVED:
+        for cfg in at.config_space():
+            target = at.split_target(cfg, d, at.H100_SMS, resident)
+            splits = at.kv_splits(heads, sq, skv, cfg, True, hd=d, resident=resident)
+            ctas = -(-sq // cfg.block_q) * heads
+            if 2 * ctas > target:
+                assert splits == 1
+                continue
+            fewest = min(n for q0 in range(0, sq, cfg.block_q) if (n := at.kv_blocks(q0, sq, skv, cfg, True)))
+            filled = ctas * (splits + 1) > target
+            assert filled or splits == max(1, fewest // at.SPLIT_MIN_BLOCKS), (heads, sq, skv, d, cfg)
+            if sq == 1:
+                assert splits > 1 and filled, (heads, skv, d, cfg, splits)
+
+
+def test_kv_splits_is_one_when_the_grid_fills_the_target():
+    cfg = at.AttentionConfig(64, 128)
+    target = at.split_target(cfg, 128)
+    for heads in (target // 2 + 1, target, 4 * target):
+        assert at.kv_splits(heads, 1, 32768, cfg, True, hd=128) == 1
+    assert at.kv_splits(target // 2, 1, 32768, cfg, True, hd=128) == 2
+    assert at.kv_splits(1, 1, 32768, cfg, True, hd=128) == 256 // at.SPLIT_MIN_BLOCKS  # blocks limit
 
 
 def test_ops_attention_on_cpu_runs_plain_and_logs_selection():
@@ -206,7 +333,11 @@ def test_config_space_is_the_compiled_set():
     for cfg in space:
         bq, bkv = map(int, re.fullmatch(r"fa_bq(\d+)_bkv(\d+)", cfg.name()).groups())
         assert at.AttentionConfig(bq, bkv) == cfg == at.AttentionConfig.from_dict(cfg.to_dict())
-        assert cfg.is_valid() and cfg.smem_bytes(128, 2) <= at.SMEM_LIMIT and cfg.smem_bytes(128, 4) <= at.SMEM_LIMIT
+        assert cfg.is_valid()
+        for hd in (64, 128):
+            for path in (cfg.bf16_path(), "simt_f32"):
+                assert cfg.smem_bytes(hd, path) <= at.SMEM_LIMIT, (cfg, hd, path)
+            assert cfg.stages(hd) >= 2 and cfg.threads(cfg.bf16_path()) % 32 == 0
     assert at.DEFAULT_ATTN_CONFIG in space
     assert not at.AttentionConfig(256, 512).is_valid()  # the reference's default: not compiled here
     src = (Path(at.__file__).parent / "csrc" / "attention.cu").read_text()
@@ -247,16 +378,33 @@ def test_wrapper_needs_a_cuda_device():
 
 @pytest.mark.cuda
 def test_kernel_matches_plain_on_card():
+    """Every config against the plain version on the card, each called twice in a row
+    (bitwise equal: the split combine runs in split order and leaves its counters at 0),
+    on the path its block_q names, split where kv_splits says so."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
+    cases = [((1, 2), 128, 128), ((2, 3), 1, 300), ((2, 3), 7, 7), ((2, 3), 50, 130), ((2, 3), 40, 24),
+             ((2, 3), 1, 4103), ((2, 3), 4, 4103), ((1, 4), 300, 200), ((1, 32), 1, 32768)]
     for d in (64, 128):
-        for sq, skv in ((1, 300), (7, 7), (50, 130), (40, 24)):
+        for lead, sq, skv in cases:
             for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, BF16_TOL)):
-                q, k, v = (torch.from_numpy(x).cuda().to(dtype) for x in _inputs(sq, skv, d, lead=(2, 3)))
-                for causal in (True, False):
+                q, k, v = (torch.from_numpy(x).cuda().to(dtype) for x in _inputs(sq, skv, d, lead=lead))
+                for causal in (False, True):
                     want = at.attention_plain(q, k, v, causal=causal).float()
                     for cfg in at.config_space():
-                        got = at.attention_cuda(q, k, v, cfg, causal=causal).float()
-                        assert torch.isfinite(got).all()
-                        assert ((got - want).abs().max() / want.abs().max()).item() <= tol, (cfg, d, sq, skv)
+                        paths = dict(at.PATH_LAUNCHES)
+                        first = at.attention_cuda(q, k, v, cfg, causal=causal)
+                        second = at.attention_cuda(q, k, v, cfg, causal=causal)
+                        where = (cfg.name(), d, lead, sq, skv, dtype, causal)
+                        for got in (first.float(), second.float()):
+                            assert torch.isfinite(got).all(), where
+                            assert ((got - want).abs().max() / want.abs().max()).item() <= tol, where
+                        assert torch.equal(first, second), where
+                        if causal and sq > skv:
+                            assert (first[..., : sq - skv, :] == 0).all(), where
+                        path = cfg.bf16_path() if dtype == torch.bfloat16 else "simt_f32"
+                        split = dtype == torch.bfloat16 and at.launch_splits(q[..., 0, 0].numel(), sq, skv, d, cfg,
+                                                                             causal, 0) > 1
+                        delta = {p: c - paths[p] for p, c in at.PATH_LAUNCHES.items() if c != paths[p]}
+                        assert delta == {path: 2, **({"split": 2} if split else {})}, (where, delta)
