@@ -22,9 +22,10 @@ Phases (each one fails the run if its check fails):
    head dims 16 and 64, S in {1, 7, 16, 50, 128, 300} (and the served
    (1, S, 64, 64) at S in {32, 64, 128}), with and without an initial state,
    nonzero u, decays drawn as the reference test draws them, at the clamp
-   (-5) and a -5 / -1e-3 mix, against ``wkv_plain`` (TF32 off).  Limit
-   1e-4 relative to max|plain| for the output and the final state; every
-   output finite;
+   (-5) and a -5 / -1e-3 mix, and one long case (1, 2048, 64, 64) in bf16
+   with a state, against ``wkv_plain`` (TF32 off), each config called twice
+   on the same inputs.  Limit 1e-4 relative to max|plain| for the output and
+   the final state; every output finite; both calls bitwise equal;
 4. full-width granite-8b serving: unreduced (d_model 4096, 32 heads, 8 KV
    heads, d_ff 14336, vocab 49152, 36 layers), bf16, random weights from a
    CUDA generator, ServingEngine(max_batch=4, cache_len=256), 4 requests of
@@ -52,13 +53,15 @@ Phases (each one fails the run if its check fails):
    n_layers times and every decode step 0 times;
 9. selection reaches the WKV kernel: one request under
    FixedPolicy(wkv_config=WkvConfig(64)) launches wkv_c64 and not wkv_c16;
-9b. profile: one rwkv6-7b prefill and two decode steps (torch.profiler);
+9b. profile: one rwkv6-7b prefill and two decode steps (torch.profiler),
+   the WKV device time of each of its two kernels beside their sum;
 10. CPU against card: the serving CLI on reduced rwkv6-7b in f32, cuda and
    cpu: equal greedy token streams;
-11. timing: the WKV kernel at (1, S, 64, 64), S in {32, 64, 128}, every
-   chunk config, beside its bound max(bytes / 3.35e12, 5 hd^2 f32 operations
-   per token and head / 67e12) and the plain version; the GEMM at rwkv6-7b's
-   decode shapes as in phase 7;
+11. timing: the WKV kernels at (1, S, 64, 64), S in {32, 64, 128, 2048},
+   every chunk config, beside its bound max(bytes / 3.35e12, 5 hd^2 f32
+   operations per token and head / 67e12) and the plain version, and the
+   kernels one call launches (the state pass and the output kernel); the
+   GEMM at rwkv6-7b's decode shapes as in phase 7;
 3c. (run with phase 3) SSM against plain: every compiled (block_d, chunk)
    config, state sizes 8 and 16, with and without an initial state, S in
    {1, 7, 50, 128, 300} at a ragged d = 100, and the served (1, S, 1600, 16)
@@ -154,6 +157,7 @@ F32_FLOPS = 67e12  # outside the tensor cores
 TOL = {("bf16", "bf16"): 1e-2, ("bf16", "f32"): 1e-3, ("f32", "f32"): 1e-5}
 GEMM_PAIRS = [f"{src}->{dst}" for src, dst in TOL]
 WKV_TOL = 1e-4  # both sides compute in f32 from the same values; the reference kernel test's tolerance
+WKV_LONG = 2048  # a long prompt: 128 chunks of 16 through the state pass, a 268 MB workspace at chunk 8
 GRANITE_KN = [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096), (4096, 49152)]
 RWKV_KN = [(4096, 4096), (4096, 64), (64, 4096), (4096, 14336), (14336, 4096), (4096, 65536)]
 HYMBA_KN = [(1600, 1600), (1600, 320), (1600, 3200), (1600, 48), (48, 1600), (1600, 16), (1600, 5504),
@@ -265,38 +269,42 @@ def _wkv_inputs(torch, g, b, s, h, hd, dtype, decay, with_state):
 
 
 def phase_wkv_vs_plain(torch, wk) -> dict:
-    """Every compiled chunk config against the plain version."""
+    """Every compiled chunk config against the plain version, each config
+    called twice on the same inputs (both calls bitwise equal), and one long
+    case at (1, 2048, 64, 64) in bf16 with a state."""
     torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator(device="cuda").manual_seed(4)
     shapes = [(2, s, 3, hd) for hd in (16, 64) for s in (1, 7, 16, 50, 128, 300)]
     shapes += [(1, s, 64, 64) for s in (32, 64, 128)]  # what rwkv6-7b prefill gives the kernel
+    cases = [(shape, dtype, decay, with_state) for shape in shapes for dtype in (torch.bfloat16, torch.float32)
+             for decay in ("dist", "clamp", "mix") for with_state in (True, False)]
+    cases.append(((1, WKV_LONG, 64, 64), torch.bfloat16, "dist", True))
     worst = {"rel": 0.0, "abs": 0.0}
     clamp_finite = {c.name(): True for c in wk.config_space()}
     checks = 0
-    for b, s, h, hd in shapes:
-        for dtype in (torch.bfloat16, torch.float32):
-            for decay in ("dist", "clamp", "mix"):
-                for with_state in (True, False):
-                    args = _wkv_inputs(torch, g, b, s, h, hd, dtype, decay, with_state)
-                    want = wk.wkv_plain(*args)
-                    scales = [w.abs().max().item() for w in want]
-                    for cfg in wk.config_space():
-                        got = wk.wkv_cuda(*args, config=cfg)
-                        for name, x, w, scale in zip(("o", "state"), got, want, scales):
-                            finite = bool(torch.isfinite(x).all())
-                            require(finite, f"{cfg.name()} {name} not finite at {(b, s, h, hd)} {dtype} {decay}")
-                            err = (x - w).abs().max().item()
-                            require(err <= WKV_TOL * scale,
-                                    f"{cfg.name()} {name} at {(b, s, h, hd)} {dtype} {decay} state={with_state}: "
-                                    f"rel err {err / scale:.3g} > {WKV_TOL}")
-                            worst["rel"], worst["abs"] = max(worst["rel"], err / scale), max(worst["abs"], err)
-                            if decay != "dist":
-                                clamp_finite[cfg.name()] &= finite
-                        checks += 1
+    for (b, s, h, hd), dtype, decay, with_state in cases:
+        args = _wkv_inputs(torch, g, b, s, h, hd, dtype, decay, with_state)
+        want = wk.wkv_plain(*args)
+        scales = [w.abs().max().item() for w in want]
+        for cfg in wk.config_space():
+            first = wk.wkv_cuda(*args, config=cfg)
+            second = wk.wkv_cuda(*args, config=cfg)
+            where = f"{cfg.name()} at {(b, s, h, hd)} {dtype} {decay} state={with_state}"
+            require(all(torch.equal(x, y) for x, y in zip(first, second)), f"{where}: two calls differ")
+            for name, x, w, scale in zip(("o", "state"), first, want, scales):
+                finite = bool(torch.isfinite(x).all())
+                require(finite, f"{where}: {name} not finite")
+                err = (x - w).abs().max().item()
+                require(err <= WKV_TOL * scale, f"{where}: {name} rel err {err / scale:.3g} > {WKV_TOL}")
+                worst["rel"], worst["abs"] = max(worst["rel"], err / scale), max(worst["abs"], err)
+                if decay != "dist":
+                    clamp_finite[cfg.name()] &= finite
+            checks += 1
     torch.cuda.synchronize()
-    print(f"  {checks} checks ({len(shapes)} shapes x 2 dtypes x 3 decays x 2 states x "
-          f"{len(wk.config_space())} configs): worst rel err {worst['rel']:.3g} (limit {WKV_TOL}), "
-          f"worst abs err {worst['abs']:.3g}; finite at logw = -5 and the -5 / -1e-3 mix: {clamp_finite}")
+    print(f"  {checks} checks ({len(shapes)} shapes x 2 dtypes x 3 decays x 2 states, and (1, {WKV_LONG}, 64, 64) "
+          f"bf16 with a state, x {len(wk.config_space())} configs, each called twice): worst rel err "
+          f"{worst['rel']:.3g} (limit {WKV_TOL}), worst abs err {worst['abs']:.3g}; both calls bitwise equal; "
+          f"finite at logw = -5 and the -5 / -1e-3 mix: {clamp_finite}")
     return worst | {"checks": checks, "clamp_finite": clamp_finite}
 
 
@@ -627,8 +635,8 @@ def phase_profile(torch, serve: dict, n_prefill: int) -> dict:
             us = evt.self_cuda_time_total
         if "gemm_" in evt.key:
             name = "matmul (gemm_*_kernel)"
-        elif "wkv_kernel" in evt.key:
-            name = "wkv (wkv_kernel)"
+        elif "wkv_state_kernel" in evt.key or "wkv_output_kernel" in evt.key:
+            name = f"wkv ({'wkv_state_kernel' if 'wkv_state_kernel' in evt.key else 'wkv_output_kernel'})"
         elif "ssm_kernel" in evt.key:
             name = "ssm_scan (ssm_kernel)"
         else:
@@ -643,8 +651,13 @@ def phase_profile(torch, serve: dict, n_prefill: int) -> dict:
     print(f"  {what}: wall {wall_ms:.1f} ms, device busy {busy:.1f} ms, idle share {1 - busy / wall_ms:.3f}")
     for name, ms in top:
         print(f"    {ms:9.3f} ms  {name}")
+    wkv_state, wkv_output = (by_kernel.get(f"wkv ({k})", 0.0) for k in ("wkv_state_kernel", "wkv_output_kernel"))
+    if wkv_state or wkv_output:
+        print(f"  wkv: state pass {wkv_state:.3f} ms + output kernel {wkv_output:.3f} ms = "
+              f"{wkv_state + wkv_output:.3f} ms")
     return {"window": what, "wall_ms": wall_ms, "busy_ms": busy, "idle_share": 1 - busy / wall_ms, "top": top,
-            "wkv_ms": by_kernel.get("wkv (wkv_kernel)", 0.0), "ssm_ms": by_kernel.get("ssm_scan (ssm_kernel)", 0.0)}
+            "wkv_ms": wkv_state + wkv_output, "wkv_state_ms": wkv_state, "wkv_output_ms": wkv_output,
+            "ssm_ms": by_kernel.get("ssm_scan (ssm_kernel)", 0.0)}
 
 
 def _time_ms(fn, n_warm=3, n_runs=20, queued=True) -> float:
@@ -754,7 +767,7 @@ def phase_wkv_timing(torch, wk) -> list[dict]:
     rows = []
     g = torch.Generator(device="cuda").manual_seed(5)
     b, h, hd = 1, 64, 64
-    for s in (32, 64, 128):
+    for s in (32, 64, 128, WKV_LONG):
         r, k, v, logw, u, _ = _wkv_inputs(torch, g, b, s, h, hd, torch.bfloat16, "dist", False)
         state = torch.zeros((b, h, hd, hd), device="cuda")
         args = (r, k, v, logw, u, state)
@@ -768,18 +781,40 @@ def phase_wkv_timing(torch, wk) -> list[dict]:
                    for cfg in wk.config_space()}
         call = _time_ms(lambda i: wk.wkv_cuda(*args), queued=False)
         plain = _time_ms(lambda i: wk.wkv_plain(*args))
+        launches = _kernel_launches(lambda: wk.wkv_cuda(*args), ("wkv_state_kernel", "wkv_output_kernel"))
+        require(launches is None or set(launches.values()) == {1.0},
+                f"one wkv_cuda call should launch the state pass and the output kernel once each: {launches}")
         best = min(per_cfg, key=per_cfg.get)
         row = {"s": s, "shape": [b, s, h, hd], "ms": per_cfg[wk.DEFAULT_WKV_CONFIG.name()], "best_config": best,
                "best_ms": per_cfg[best], "call_ms": call, "plain_ms": plain, "bound_ms": bound,
                "bytes": nbytes, "ops": ops,
                "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= ops / F32_FLOPS else "operations",
-               "per_config_ms": per_cfg}
+               "per_config_ms": per_cfg, "kernel_launches_per_call": launches}
         rows.append(row)
         cfgs = ", ".join(f"{name} {ms:.4f}" for name, ms in per_cfg.items())
         print(f"  (1, {s}, 64, 64) bf16: {cfgs} ms; bound {bound:.4f} ms ({row['bound_by']}: "
               f"{nbytes / 1e6:.2f} MB, {ops / 1e6:.1f} Mop f32); one {wk.DEFAULT_WKV_CONFIG.name()} call from idle "
-              f"{call:.4f} ms; plain {plain:.4f} ms")
+              f"{call:.4f} ms; plain {plain:.4f} ms; kernel launches per call {launches}")
     return rows
+
+
+def _kernel_launches(fn, names, calls=4) -> dict | None:
+    """Device kernels per call of ``fn`` whose names hold one of ``names``, by
+    name, over ``calls`` calls (torch.profiler); None where it records none.
+    A small torch op opens the window: the profiler may drop its first kernel."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.ones(1, device="cuda").add_(1)
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    counts = {n: sum(e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA and n in e.key)
+              for n in names}
+    return {n: c / calls for n, c in counts.items()} if any(counts.values()) else None
 
 
 def phase_ssm_timing(torch, ss) -> list[dict]:
@@ -1263,9 +1298,14 @@ def main() -> int:
         "ms": wkv_total("ms"),
         "plain_ms": wkv_total("plain_ms"),
         "bound_ms": wkv_total("bound_ms"),
-        "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in wkv_rows) else "operations",
+        "bound_by": ("bytes" if all(by_s[s]["bound_by"] == "bytes" for s in rwkv["prefill_buckets"])
+                     else "operations"),
         "library_ms": None,
         "library_note": "no single PyTorch call computes the chunked WKV recurrence",
+        "design": "a chunk-parallel pair per call: wkv_state_kernel carries the state over the chunk boundaries "
+                  "into a workspace (producer warps load and prepare k^, consumer warps update), then "
+                  "wkv_output_kernel computes every chunk's output at once",
+        "kernel_launches_per_call": by_s[min(by_s)]["kernel_launches_per_call"],
         "timed_as": f"all WKV launches of the rwkv6-7b run's prefills (buckets {rwkv['prefill_buckets']}, "
                     f"{rwkv['wkv_per_prefill']} each), summed from per-length medians",
     }, {

@@ -89,23 +89,8 @@ __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
   return *reinterpret_cast<unsigned*>(&v);
 }
 
-// Named barriers beyond hopper.cuh's id 1: bar_sync waits until ``n`` threads have
-// arrived (itself included); bar_arrive counts this thread and goes on.
-__device__ __forceinline__ void bar_sync(int id, int n) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
-}
-__device__ __forceinline__ void bar_arrive(int id, int n) {
-  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
-}
-
-// 2^x by the SFU alone (ex2.approx.ftz: relative error ~2^-22, 2^-inf = 0); exp2f adds a
-// range fix-up around it for results below 2^-126, which P (at most 1, summed into l >= 1)
-// does not need.
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
+// The softmax takes 2^x by ex2 (hopper.cuh): exp2f's range fix-up for results below 2^-126
+// is not needed by P, at most 1 and summed into l >= 1.
 
 template <int NF>
 __device__ __forceinline__ void fence_regs(unsigned (&r)[NF][4]) {

@@ -1,9 +1,10 @@
-// Hopper building blocks shared by csrc/matmul.cu and csrc/attention.cu: PTX wrappers for
-// cp.async, ldmatrix, mma.sync, mbarriers, TMA loads and wgmma, and the host-side encode of
-// bf16 TMA tensor maps (cuTensorMapEncodeTiled through cudaGetDriverEntryPoint, so a
-// library needs no -lcuda), cached by everything a map depends on.
+// Hopper building blocks shared by csrc/matmul.cu, csrc/attention.cu and csrc/wkv.cu: PTX
+// wrappers for cp.async, ldmatrix, mma.sync, mbarriers, named barriers, 2^x, TMA loads and
+// wgmma, and the host-side encode of bf16 TMA tensor maps (cuTensorMapEncodeTiled through
+// cudaGetDriverEntryPoint, so a library needs no -lcuda), cached by everything a map
+// depends on.
 //
-// Each source includes this once; everything here has internal linkage, so the two shared
+// Each source includes this once; everything here has internal linkage, so the shared
 // libraries keep separate copies (and separate map caches and encode counts).
 #pragma once
 
@@ -110,6 +111,22 @@ __device__ __forceinline__ void tma_load_3d(unsigned dst, const CUtensorMap* map
 // Named barrier over the first ``n`` threads of the block (id 1; id 0 is __syncthreads).
 __device__ __forceinline__ void named_sync(int n) {
   asm volatile("bar.sync 1, %0;\n" ::"r"(n) : "memory");
+}
+
+// Named barriers by id: bar_sync waits until ``n`` threads have arrived (itself included);
+// bar_arrive counts this thread and goes on.
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// 2^x by the SFU alone (ex2.approx.ftz: relative error ~2^-22, 2^-inf = 0).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // Byte offset of 16-byte chunk ``chunk`` of row ``row`` in a box of 128-byte rows under

@@ -1,9 +1,10 @@
 """Chunked RWKV6 WKV for Hopper: the port of ``repro/kernels/wkv.py::wkv_pallas``.
 
-The kernel itself is CUDA C++ in ``csrc/wkv.cu`` (one CTA per (batch, head),
-a loop over chunks, the (hd, hd) f32 state in shared memory throughout),
-built by ``_build.load`` and called through a plain C interface.  This module
-holds:
+The kernels are CUDA C++ in ``csrc/wkv.cu``, a chunk-parallel pair: a state
+pass that walks the chunk boundaries and writes each chunk's starting state
+into a workspace ``hs``, then an output kernel that computes every chunk's
+output at once from ``hs``.  Both are built by ``_build.load`` and called
+through one plain C entry point.  This module holds:
 
   * :class:`WkvConfig` — one compiled chunk length (the tunable knob, as on
     the TPU);
@@ -32,6 +33,13 @@ _HEAD_DIMS = (16, 64)  # csrc/wkv.cu REPRO_WKV_HEAD_DIMS: 64 is rwkv6-7b, 16 its
 SMEM_LIMIT = 232_448  # bytes of shared memory one H100 CTA may use (227 KB)
 
 
+def value_block(chunk: int, hd: int) -> int:
+    """Value columns of one output-kernel CTA (csrc/wkv.cu value_block): the
+    whole head, but 16 at chunk 128, where the whole head's tiles do not fit
+    in shared memory."""
+    return 16 if chunk >= 128 else hd
+
+
 @dataclasses.dataclass(frozen=True, order=True)
 class WkvConfig:
     """One deployable kernel instantiation: the chunk length."""
@@ -49,9 +57,17 @@ class WkvConfig:
         return WkvConfig(**d)
 
     def smem_bytes(self, hd: int) -> int:
-        """Dynamic shared memory one CTA needs (csrc/wkv.cu WkvSmem)."""
-        tile = self.chunk * (hd + 1)
-        return 4 * (4 * tile + self.chunk * self.chunk + hd * hd + 2 * hd)
+        """Dynamic shared memory of the largest of the two kernels' CTAs over
+        the r/k/v types (csrc/wkv.cu WkvOutSmem, WkvStateSmem)."""
+        L, vb = self.chunk, value_block(self.chunk, hd)
+        output = 4 * (4 * L * (hd + 4) + L * (L + 4) + L * vb + hd * vb + hd)
+        kr = hd // 2 if hd > 16 else hd  # the state pass's key rows a CTA
+        state = 0
+        for size in (2, 4):  # the state pass's ring of (k, v, logw) stages and their decays
+            stage = L * (kr * size + hd * size + kr * 4)
+            stages = 4 if 4 * (stage + kr * 4) <= SMEM_LIMIT else 3
+            state = max(state, stages * (stage + kr * 4))
+        return max(output, state)
 
     def is_valid(self) -> bool:
         return self.chunk in _CHUNKS and all(self.smem_bytes(hd) <= SMEM_LIMIT for hd in _HEAD_DIMS)
@@ -67,8 +83,8 @@ def config_space() -> tuple[WkvConfig, ...]:
 
 DEFAULT_WKV_CONFIG = WkvConfig(16)
 
-# Launch counters: config name -> launches.  wkv_cuda adds one per kernel
-# launch and nowhere else; callers reset with reset_launches().
+# Launch counters: config name -> calls.  wkv_cuda adds one per call (its
+# two kernel launches) and nowhere else; callers reset with reset_launches().
 LAUNCHES: dict[str, int] = {c.name(): 0 for c in config_space()}
 
 
@@ -103,7 +119,7 @@ def _lib() -> ctypes.CDLL:
 
     lib = load("wkv")
     ptr, i = ctypes.c_void_p, ctypes.c_int
-    lib.repro_wkv.argtypes = [i, i, i, i, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i, i, i, ptr]
+    lib.repro_wkv.argtypes = [i, i, i, i, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i, i, i, ptr]
     lib.repro_wkv.restype = i
     lib.repro_wkv_configs.argtypes = [ctypes.POINTER(ctypes.c_int), i]
     lib.repro_wkv_configs.restype = i
@@ -137,6 +153,12 @@ def launch_chunk(config: WkvConfig, s: int) -> int:
     return min(c for c in _CHUNKS if c >= max(s, 8))
 
 
+def workspace_bytes(b: int, s: int, h: int, hd: int, config: WkvConfig = DEFAULT_WKV_CONFIG) -> int:
+    """Bytes of ``hs``, the f32 state at the start of every chunk, that a
+    ``wkv_cuda`` call allocates: B x H x n_chunks x hd x hd x 4."""
+    return b * h * -(-s // launch_chunk(config, s)) * hd * hd * 4
+
+
 def wkv_cuda(r, k, v, logw, u, state=None, config: WkvConfig = DEFAULT_WKV_CONFIG):
     """Chunked WKV through the CUDA kernel under ``config``.
 
@@ -144,7 +166,13 @@ def wkv_cuda(r, k, v, logw, u, state=None, config: WkvConfig = DEFAULT_WKV_CONFI
     u: (H, hd) in r's dtype or f32; state: (B, H, hd, hd) f32 or None
     (zeros).  All contiguous, on one CUDA device, hd in {16, 64}.  Returns
     (o (B, S, H, hd) f32, final state (B, H, hd, hd) f32).  Raises on anything
-    the kernel does not take, and when the launch reports an error.
+    the kernel does not take, and when either launch reports an error.
+
+    Each call allocates the workspace ``hs`` (:func:`workspace_bytes`) with
+    ``torch.empty`` and launches the state pass, then the output kernel, on
+    the current stream, with no host sync.  Both read r/k/v/logw (and the
+    state) in 16-byte pieces, so one of them whose base is not 16-byte
+    aligned is copied to a fresh tensor first.
     """
     dev = r.device
     tensors = (r, k, v, logw, u) + ((state,) if state is not None else ())
@@ -173,13 +201,19 @@ def wkv_cuda(r, k, v, logw, u, state=None, config: WkvConfig = DEFAULT_WKV_CONFI
     if not config.is_valid():
         raise ValueError(f"{config} is not a compiled wkv config")
     lib = _lib()
+    r, k, v, logw = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (r, k, v, logw))
+    if state is not None and state.data_ptr() % 16:
+        state = state.clone()
+    chunk = launch_chunk(config, s)
     o = torch.empty((b, s, h, hd), dtype=torch.float32, device=dev)
     s_out = torch.empty((b, h, hd, hd), dtype=torch.float32, device=dev)
+    hs = torch.empty((b, h, -(-s // chunk), hd, hd), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.repro_wkv(
-        launch_chunk(config, s), hd, int(r.dtype == torch.bfloat16), int(u.dtype == torch.float32),
+        chunk, hd, int(r.dtype == torch.bfloat16), int(u.dtype == torch.float32),
         r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(), u.data_ptr(),
-        None if state is None else state.data_ptr(), o.data_ptr(), s_out.data_ptr(), b, s, h, stream,
+        None if state is None else state.data_ptr(), o.data_ptr(), s_out.data_ptr(), hs.data_ptr(), b, s, h,
+        stream,
     )
     if err != 0:
         msg = lib.repro_wkv_error_string(err).decode()

@@ -5,14 +5,18 @@ held against the reference's ``wkv_chunked`` and against ``wkv_pallas`` in
 interpret mode, on the same numpy inputs drawn as ``tests/test_wkv_kernel.py``
 draws them.  The CUDA kernel runs only on the card (``cuda`` marker;
 chip_smoke.py holds every compiled config against the plain version there).
-Here a numpy mirror of the kernel's arithmetic (``_kernel_mirror``: decay
-factors as exponentials of differences <= 0, a masked tail instead of
-padding) is held against the reference at every chunk length, so the
-formulation the kernel computes is checked before any card runs it.
+Here a numpy mirror of the kernels' two passes (``_two_pass_mirror``: the
+state at every chunk boundary into a workspace, then every chunk's output
+from it alone; decay factors as exponentials of differences <= 0, a masked
+tail instead of padding) is held against the reference at every chunk
+length, each boundary state included, so the formulation the kernels
+compute is checked before any card runs it.
 
 Tolerance: rtol = atol = 1e-4 (f32 on both sides; the sums differ in order,
 and 1e-4 is the reference's own kernel-test tolerance).
 """
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -71,32 +75,52 @@ def _pallas(r, k, v, logw, u, state, chunk):
     return o, s_out
 
 
-def _kernel_mirror(r, k, v, logw, u, state, chunk):
-    """csrc/wkv.cu's arithmetic in numpy (f32), one (batch, head) at a time:
-    chunks of ``wk.launch_chunk`` rows, rows past the end loaded as zero r/k/v
-    and logw 0, every decay an exponential of a difference <= 0."""
+def _two_pass_mirror(r, k, v, logw, u, state, chunk):
+    """csrc/wkv.cu's two kernels in numpy (f32).  Chunks of
+    ``wk.launch_chunk`` rows, rows past the end zero r/k/v and logw 0, every
+    decay an exponential of a difference <= 0 (below the diagonal 4 x 4
+    blocks of scores, factored about the key block's last position as the
+    output kernel factors it).
+
+    Pass 1 (``wkv_state_kernel``) walks the chunks in order carrying only the
+    state: it writes the state at each chunk's start into ``hs``, then
+    applies S <- e^{cum_L} S + k^T v with k^_tau = k_tau e^{cum_L - cum_tau}.
+    Pass 2 (``wkv_output_kernel``) computes every chunk's output at once from
+    that chunk's r/k/v/logw and ``hs`` alone.  Returns (o, final state, hs).
+    """
     b, s, h, hd = r.shape
     L = wk.launch_chunk(wk.WkvConfig(chunk), s)
-    o = np.zeros((b, s, h, hd), np.float32)
-    s_out = np.zeros((b, h, hd, hd), np.float32)
-    for bi in range(b):
-        for hi in range(h):
-            S = np.zeros((hd, hd), np.float32) if state is None else state[bi, hi].copy()
-            for c0 in range(0, s, L):
-                n = min(L, s - c0)
-                tile = lambda t: np.pad(t[bi, c0:c0 + n, hi], ((0, L - n), (0, 0)))
-                rr, kk, vv, ww = tile(r), tile(k), tile(v), tile(logw)
-                cum = np.cumsum(ww, axis=0)
-                cprev = np.concatenate([np.zeros((1, hd), np.float32), cum[:-1]])
-                expo = cprev[:, None, :] - cum[None, :, :]  # (t, tau, c)
-                tri = np.tril(np.ones((L, L), bool), -1)
-                A = np.einsum("tc,jc,tjc->tj", rr, kk, np.exp(np.where(tri[..., None], expo, 0.0)))
-                A = np.where(tri, A, 0.0) + np.diag(np.einsum("tc,c,tc->t", rr, u[hi], kk))
-                out = A @ vv + (rr * np.exp(cprev)) @ S
-                o[bi, c0:c0 + n, hi] = out[:n]
-                S = np.exp(cum[-1])[:, None] * S + (kk * np.exp(cum[-1] - cum)).T @ vv
-            s_out[bi, hi] = S
-    return o, s_out
+    n = -(-s // L)
+    # (B, H, n, L, hd), zero past the end
+    tiles = [np.pad(t, ((0, 0), (0, n * L - s), (0, 0), (0, 0))).reshape(b, n, L, h, hd).transpose(0, 3, 1, 2, 4)
+             for t in (r, k, v, logw)]
+    rr, kk, vv, ww = (t.astype(np.float32) for t in tiles)
+    hs = np.zeros((b, h, n, hd, hd), np.float32)
+    S = np.zeros((b, h, hd, hd), np.float32) if state is None else state.astype(np.float32).copy()
+    for c in range(n):
+        hs[:, :, c] = S
+        w = ww[:, :, c]
+        after = np.cumsum(w[:, :, ::-1], axis=2)[:, :, ::-1] - w  # sum of logw past tau = cum_L - cum_tau
+        khat = kk[:, :, c] * np.exp(after)
+        S = np.exp(w.sum(axis=2))[..., None] * S + np.einsum("bhlc,bhlv->bhcv", khat, vv[:, :, c])
+    cum = np.cumsum(ww, axis=3)
+    cprev = np.concatenate([np.zeros_like(cum[:, :, :, :1]), cum[:, :, :, :-1]], axis=3)  # cum_{t-1}
+    tri = np.tril(np.ones((L, L), bool), -1)
+    # The decay of a score: e^{cum_{t-1} - cum_tau} inside a 4 x 4 block of (t, tau) on the
+    # diagonal; below it, factored about R = cum at the key block's last position,
+    # e^{cum_{t-1} - R} e^{R - cum_tau}. Every exponent is <= 0.
+    ref = cum[..., np.arange(L) // 4 * 4 + 3, :]  # (tau, c)
+    below = (np.arange(L)[:, None] // 4 > np.arange(L)[None, :] // 4)[..., None]
+    diag_expo = np.where(tri[..., None], cprev[..., :, None, :] - cum[..., None, :, :], 0.0)  # (t, tau, c)
+    t_expo = np.where(below, cprev[..., :, None, :] - ref[..., None, :, :], 0.0)
+    tau_expo = np.where(below, (ref - cum)[..., None, :, :], 0.0)
+    assert (t_expo <= 0).all() and (tau_expo <= 0).all() and (diag_expo <= 0).all()
+    decay = np.where(below, np.exp(t_expo) * np.exp(tau_expo), np.exp(diag_expo))
+    A = np.where(tri, np.einsum("bhntc,bhnjc,bhntjc->bhntj", rr, kk, decay), 0.0)
+    A = A + np.einsum("bhntc,hc,bhntc->bhnt", rr, u.astype(np.float32), kk)[..., None] * np.eye(L)
+    out = A @ vv + (rr * np.exp(cprev)) @ hs
+    o = out.transpose(0, 2, 3, 1, 4).reshape(b, n * L, h, hd)[:, :s]
+    return o.astype(np.float32), S, hs
 
 
 @pytest.mark.parametrize("s", [7, 16, 50, 128])
@@ -140,9 +164,63 @@ def test_kernel_arithmetic_matches_reference(chunk, case):
     kind, s = case.split("-S")
     logw = {"dist": None, "clamp": _CLAMP["all -5"], "mix": _CLAMP["mix -5 / -1e-3"]}[kind]
     args = _inputs(1, int(s), 2, 16, seed=int(s) + chunk, logw=logw)
-    got = _kernel_mirror(*args, chunk)
+    got = _two_pass_mirror(*args, chunk)
     assert all(np.isfinite(g).all() for g in got)
-    _close(got, wkv_chunked(*_jax(args)))
+    _close(got[:2], wkv_chunked(*_jax(args)))
+
+
+_CHUNKS = [c.chunk for c in wk.config_space()]
+_RAGGED = (1, 7, 50, 100, 300)
+
+
+@functools.cache
+def _chunked(s, with_state, decay="dist"):
+    """Inputs at (1, s, 2, 16) and wkv_chunked's answer, shared by the chunk lengths."""
+    args = _inputs(1, s, 2, 16, seed=s + 2 * with_state, with_state=with_state, logw=_CLAMP.get(decay))
+    return args, tuple(np.asarray(w) for w in wkv_chunked(*_jax(args)))
+
+
+@pytest.mark.parametrize("chunk", _CHUNKS)
+@pytest.mark.parametrize("s", _RAGGED)
+@pytest.mark.parametrize("with_state", [True, False])
+def test_two_pass_matches_chunked_and_pallas(chunk, s, with_state):
+    """The two passes equal wkv_chunked and wkv_pallas(interpret=True) at
+    every compiled chunk length and ragged S, with and without a state."""
+    args, want = _chunked(s, with_state)
+    got = _two_pass_mirror(*args, chunk)[:2]
+    _close(got, want)
+    _close(got, _pallas(*args, chunk))
+
+
+@pytest.mark.parametrize("chunk", _CHUNKS)
+@pytest.mark.parametrize("decay", sorted(_CLAMP))
+@pytest.mark.parametrize("with_state", [True, False])
+def test_two_pass_finite_at_the_clamp(chunk, decay, with_state):
+    """At logw = -5 and the -5 / -1e-3 mix, where wkv_pallas's midpoint
+    factoring overflows at large chunks (ROADMAP queue 2 item 3), the two
+    passes stay finite and equal wkv_chunked."""
+    args, want = _chunked(100, with_state, decay)
+    got = _two_pass_mirror(*args, chunk)
+    assert all(np.isfinite(g).all() for g in got)
+    _close(got[:2], want)
+
+
+@pytest.mark.parametrize("chunk", _CHUNKS)
+@pytest.mark.parametrize("with_state", [True, False])
+def test_workspace_holds_each_chunk_start_state(chunk, with_state):
+    """hs[:, :, c] is the state wkv_chunked ends with after the first c * L
+    tokens (the given state at c = 0): what the output pass reads."""
+    s = 50
+    args = _inputs(1, s, 2, 16, seed=11, with_state=with_state)
+    L = wk.launch_chunk(wk.WkvConfig(chunk), s)
+    hs = _two_pass_mirror(*args, chunk)[2]
+    assert hs.shape == (1, 2, -(-s // L), 16, 16) and hs.nbytes == wk.workspace_bytes(1, s, 2, 16, wk.WkvConfig(chunk))
+    for c in range(hs.shape[2]):
+        if c == 0:
+            want = np.zeros_like(hs[:, :, 0]) if args[5] is None else args[5]
+        else:
+            want = np.asarray(wkv_chunked(*_jax([a[:, : c * L] for a in args[:4]] + list(args[4:])))[1])
+        np.testing.assert_allclose(hs[:, :, c], want, **TOL)
 
 
 def test_state_chaining_equals_full_run():
@@ -189,6 +267,16 @@ def test_config_space_is_the_compiled_set():
     assert wk.DEFAULT_WKV_CONFIG == wk.WkvConfig(16) and wk.DEFAULT_WKV_CONFIG in space
     assert set(wk.LAUNCHES) == {c.name() for c in space}
     assert all(c.smem_bytes(64) <= wk.SMEM_LIMIT for c in space)
+    # The largest of the two kernels' CTAs: the output kernel's four (L, hd + 4) tiles, (L, L + 4)
+    # scores, v and state columns of its value block and u, or the state pass's ring of four
+    # (k, v, logw) stages of its key rows with their decays (f32 r/k/v; three at chunk 128).
+    assert [wk.value_block(c.chunk, 64) for c in space] == [64, 64, 64, 64, 16]
+    assert [c.smem_bytes(64) for c in space] == [27776, 39424, 66048, 131584, 219392]
+    assert [c.smem_bytes(16) for c in space] == [6400, 12544, 24832, 49408, 117824]
+    # hs: the f32 state at every chunk's start, 8.4 MB at rwkv6-7b's (1, 128, 64, 64), chunk 16.
+    assert wk.workspace_bytes(1, 128, 64, 64) == 64 * 8 * 64 * 64 * 4 == 8_388_608
+    assert wk.workspace_bytes(1, 2048, 64, 64, wk.WkvConfig(8)) == 268_435_456
+    assert wk.workspace_bytes(2, 7, 3, 16, wk.WkvConfig(128)) == 2 * 3 * 1 * 16 * 16 * 4
     assert not wk.WkvConfig(256).is_valid()
 
 
