@@ -62,31 +62,43 @@ Phases (each one fails the run if its check fails):
    operations per token and head / 67e12) and the plain version, and the
    kernels one call launches (the state pass and the output kernel); the
    GEMM at rwkv6-7b's decode shapes as in phase 7;
-3c. (run with phase 3) SSM against plain: every compiled (block_d, chunk)
-   config, state sizes 8 and 16, with and without an initial state, S in
-   {1, 7, 50, 128, 300} at a ragged d = 100, and the served (1, S, 1600, 16)
-   at S in {32, 64, 128}, dta drawn as the reference test draws it
-   (-exp(0.3 normal)), against ``ssm_plain``.  Limit 1e-4 relative to
-   max|plain| for y and the final state; every output finite;
+3c. (run with phase 3) SSM against plain: both entries (``ssm_cuda`` from dtx
+   and dta, ``ssm_cuda_fused`` from x, dt and a) at every compiled (block_d,
+   chunk) config, state sizes 8 and 16, with and without an initial state, S
+   in {1, 7, 50, 128, 300} at a ragged d = 100 and at d = 50 (not a multiple
+   of 4: the 4-byte copies), the served (1, S, 1600, 16) at S in {32, 64,
+   128}, and (1, 2048, 1600, 16) with a state, dta drawn as the reference test
+   draws it (-exp(0.3 normal)) and dt * a alike, against ``ssm_plain`` /
+   ``ssm_fused_plain``, each config called twice on the same inputs, each call
+   launching the segments ``ssm.launch_segments`` names, the 300- and
+   2048-step cases also cut into 2, 3, 5 and 7 segments (as far as the chunks
+   reach).  Limit 1e-4 relative to max|plain| for y and the final state; every
+   output finite; both calls bitwise equal;
 12. full-width hymba-1.5b serving, after rwkv6-7b's weights are released:
    unreduced (32 layers, d_model 1600, 25 heads, 5 KV heads of 64, d_ff 5504,
    vocab 32001, ssm_state 16, window 2048), bf16, the same engine and
    requests.  Every forward launches the GEMM 13 * n_layers + 1 times; every
-   prefill launches the SSM kernel n_layers times and every decode step 0
+   prefill launches the SSM kernel n_layers times, all through
+   ``ssm_cuda_fused`` (none through the dta entry), and every decode step 0
    times;
 13. selection reaches the SSM kernel: one request under
    FixedPolicy(ssm_config=SsmConfig(8, 16)) launches ssm_bd8_c16 n_layers
    times and the default not at all;
-13b. profile: one hymba-1.5b prefill and two decode steps (torch.profiler);
+13b. profile: one hymba-1.5b prefill and two decode steps (torch.profiler),
+   the SSM device time of ssm_state_kernel and ssm_output_kernel beside
+   their sum;
 14. CPU against card on Hymba, in process: reduced hymba-1.5b at 4 layers
    (one sliding-window layer, window 32), f32, cache_len 128, prompts of 20
    and 45 tokens (buckets 32 and 64: the ring is written by the ring-buffer
    prefill and wraps in decode), 16 new tokens each: equal greedy token
    streams on cuda and cpu;
-15. timing: the SSM kernel at (1, S, 1600, 16), S in {32, 64, 128}, every
-   config, beside its bound max(bytes / 3.35e12, 6 f32 operations per (t,
-   channel, state) / 67e12) and the plain version; the GEMM at hymba-1.5b's
-   decode shapes as in phase 7;
+15. timing: both SSM entries at (1, S, 1600, 16), S in {32, 64, 128, 2048},
+   every config, each beside its own bound max(bytes / 3.35e12, 6 f32
+   operations per (t, channel, state) / 67e12) (the fused entry reads x, dt
+   and a; the dta entry dtx and the (B, S, d, N) dta), the plain version, the
+   segments the default config launches and the kernels one call launches
+   (torch.profiler: ssm_output_kernel, and ssm_state_kernel where the call is
+   cut); the GEMM at hymba-1.5b's decode shapes as in phase 7;
 16. attention against plain: every compiled (block_q, block_kv) config, q/k/v in
    bf16 and f32, head dims 64 and 128, causal and not, at (2, 3) heads for (sq,
    skv) in {(1, 1), (1, 300), (7, 7), (50, 130), (128, 128), (64, 1000), (300,
@@ -135,6 +147,10 @@ Phases (each one fails the run if its check fails):
    parent), every config at every problem of phases 18 and 20, and checks
    each decode shape at least 2x the parent and no prefill shape more than 5%
    slower (reported, not required);
+20d. only where ``build/parent`` holds the parent commit: ``scripts/ssm_ab.py``
+   times its selective scan and this tree's in turns (parent, this, this,
+   parent) at (1, S, 1600, 16), S in {32, 64, 128, 2048}, every config of the
+   dta entry (both trees have it) and of the fused entry (this tree);
 21. the ``kernels`` JSON line, then the card line, then the result line.
 
 Everything measured also goes to ``build/chip_smoke.json``.
@@ -164,6 +180,7 @@ HYMBA_KN = [(1600, 1600), (1600, 320), (1600, 3200), (1600, 48), (48, 1600), (16
             (5504, 1600), (1600, 32128)]
 VOCAB_KN = {(4096, 49152), (4096, 65536), (1600, 32128)}
 SSM_TOL = 1e-4  # both sides compute in f32 from the same values; the reference kernel test's rtol
+SSM_LONG = 2048  # a long prompt: the harvest's shortest long length, cut into segments across CTAs
 PROMPT_LENGTHS = (8, 37, 64, 100)
 # Attention against plain, relative to max |plain|: a bf16 output is one rounding (2^-8) from
 # the f32 answer on each side; f32 sums in another order.
@@ -317,31 +334,75 @@ def _ssm_inputs(torch, g, b, s, d, n, with_state):
     return dtx, dta, bv, cv, (randn(b, d, n) * 0.1 if with_state else None)
 
 
+def _ssm_fused_inputs(torch, g, b, s, d, n, with_state):
+    """x, dt (softplus of a normal, as models/mamba.py makes it), a (-exp of 0.3 normal:
+    dt * a lies where the reference test's dta does), b, c (and the state), all f32."""
+    randn = lambda *sh: torch.randn(sh, device="cuda", generator=g)
+    x, dt = randn(b, s, d) * 0.5, torch.nn.functional.softplus(randn(b, s, d))
+    a = -torch.exp(randn(d, n) * 0.3)
+    bv, cv = randn(b, s, n) * 0.5, randn(b, s, n) * 0.5
+    return x, dt, a, bv, cv, (randn(b, d, n) * 0.1 if with_state else None)
+
+
+# Segment counts forced at the cut cases of phase 3c besides the rule's own (2, 3, 5 and a
+# count whose segments are uneven), so every fold length runs whatever the rule picks.
+SSM_FORCED_SEGMENTS = (1, 2, 3, 5, 7)
+
+
 def phase_ssm_vs_plain(torch, ss) -> dict:
-    """Every compiled (block_d, chunk) config against the plain version."""
+    """Both entries (dta and fused) at every compiled (block_d, chunk) config against
+    the plain version, each called twice (bitwise equal), each call launching the
+    segments ``ssm.launch_segments`` names; the long case also under forced segment
+    counts."""
     g = torch.Generator(device="cuda").manual_seed(6)
-    shapes = [(2, s, 100, n) for n in (8, 16) for s in (1, 7, 50, 128, 300)]
+    shapes = [(2, s, d, n) for d in (100, 50) for n in (8, 16) for s in (1, 7, 50, 128, 300)]
     shapes += [(1, s, 1600, 16) for s in (32, 64, 128)]  # what hymba-1.5b prefill gives the kernel
-    worst = {"rel": 0.0, "abs": 0.0}
-    checks = 0
-    for b, s, d, n in shapes:
-        for with_state in (True, False):
-            args = _ssm_inputs(torch, g, b, s, d, n, with_state)
-            want = ss.ssm_plain(*args)
+    cases = [(shape, with_state) for shape in shapes for with_state in (True, False)]
+    cases.append(((1, SSM_LONG, 1600, 16), True))
+    entries = {"dta": (_ssm_inputs, ss.ssm_cuda, ss.ssm_plain),
+               "fused": (_ssm_fused_inputs, ss.ssm_cuda_fused, ss.ssm_fused_plain)}
+    worst = {e: {"rel": 0.0, "abs": 0.0} for e in entries}
+    checks, cut = 0, 0
+    rule = ss.ssm_segments
+    for (b, s, d, n), with_state in cases:
+        for entry, (draw, kernel, plain) in entries.items():
+            args = draw(torch, g, b, s, d, n, with_state)
+            want = plain(*args)
             scales = [w.abs().max().item() for w in want]
             for cfg in ss.config_space():
-                got = ss.ssm_cuda(*args, config=cfg)
-                for name, x, w, scale in zip(("y", "state"), got, want, scales):
-                    require(bool(torch.isfinite(x).all()), f"{cfg.name()} {name} not finite at {(b, s, d, n)}")
-                    err = (x - w).abs().max().item()
-                    require(err <= SSM_TOL * scale, f"{cfg.name()} {name} at {(b, s, d, n)} state={with_state}: "
-                                                    f"rel err {err / scale:.3g} > {SSM_TOL}")
-                    worst["rel"], worst["abs"] = max(worst["rel"], err / scale), max(worst["abs"], err)
-                checks += 1
+                segs = ss.launch_segments(b, s, d, n, cfg, entry == "fused", 0)
+                forced = SSM_FORCED_SEGMENTS if s in (300, SSM_LONG) else ()
+                # The rule's count (unforced), then each forced count the chunks reach.
+                counts = [None] + sorted({ss.reachable_segments(s, cfg, f) for f in forced} - {segs})
+                for count in counts:
+                    where = f"{cfg.name()} {entry} at {(b, s, d, n)} state={with_state} segments={count or segs}"
+                    before = ss.SEGMENTS_LAUNCHED[cfg.name()]
+                    try:
+                        if count is not None:
+                            ss.ssm_segments = lambda *_, c=count: c
+                        first = kernel(*args, config=cfg)
+                        second = kernel(*args, config=cfg)
+                    finally:
+                        ss.ssm_segments = rule
+                    ran = ss.SEGMENTS_LAUNCHED[cfg.name()] - before
+                    require(ran == 2 * (count or segs), f"{where}: launched {ran / 2} segments a call")
+                    require(all(torch.equal(x, y) for x, y in zip(first, second)), f"{where}: two calls differ")
+                    for name, x, w, scale in zip(("y", "state"), first, want, scales):
+                        require(bool(torch.isfinite(x).all()), f"{where}: {name} not finite")
+                        err = (x - w).abs().max().item()
+                        require(err <= SSM_TOL * scale, f"{where}: {name} rel err {err / scale:.3g} > {SSM_TOL}")
+                        w_ = worst[entry]
+                        w_["rel"], w_["abs"] = max(w_["rel"], err / scale), max(w_["abs"], err)
+                    checks += 1
+                    cut += (count or segs) > 1
     torch.cuda.synchronize()
-    print(f"  {checks} checks ({len(shapes)} shapes x 2 states x {len(ss.config_space())} configs): worst rel err "
-          f"{worst['rel']:.3g} (limit {SSM_TOL}), worst abs err {worst['abs']:.3g}; every output finite")
-    return worst | {"checks": checks}
+    print(f"  {checks} checks ({len(shapes)} shapes x 2 states and (1, {SSM_LONG}, 1600, 16) with a state, x 2 "
+          f"entries x {len(ss.config_space())} configs, the 300- and {SSM_LONG}-step cases also at segments "
+          f"{SSM_FORCED_SEGMENTS}; {cut} of them cut into segments), each called twice: worst rel err "
+          + ", ".join(f"{e} {w['rel']:.3g} (abs {w['abs']:.3g})" for e, w in worst.items())
+          + f" (limit {SSM_TOL}); every output finite; both calls bitwise equal; segments as launch_segments says")
+    return {"rel": max(w["rel"] for w in worst.values()), "abs": max(w["abs"] for w in worst.values()),
+            "by_entry": worst, "checks": checks, "cut": cut}
 
 
 # Per arch: GEMM launches per forward, and launches per prefill of each
@@ -430,6 +491,7 @@ def phase_serve(torch, mm, seq: dict, arch: str, policy=None) -> dict:
     paths = dict(mm.PATH_LAUNCHES)
     encodes = mm.map_encodes() - encodes
     seq_launches = {name: dict(mod.LAUNCHES) for name, mod in seq.items()}
+    seq_entries = {name: dict(mod.ENTRY_LAUNCHES) for name, mod in seq.items() if hasattr(mod, "ENTRY_LAUNCHES")}
 
     require(status.completed == 4 and not status.exhausted, f"not every request completed: {status}")
     require(all(len(t.request.output) == 16 for t in tickets), "a request got fewer than 16 tokens")
@@ -485,6 +547,7 @@ def phase_serve(torch, mm, seq: dict, arch: str, policy=None) -> dict:
         "decode_configs": decode_configs, "outputs": [list(t.request.output) for t in tickets],
         "engine": engine, "model": model, "params": params, "prompts": prompts,
     } | {f"{name}_launches": seq_launches[name] for name in seq} | {
+        f"{name}_entry_launches": launches for name, launches in seq_entries.items()} | {
         f"{name}_per_prefill": per_prefill[name] for name in seq}
 
 
@@ -637,8 +700,8 @@ def phase_profile(torch, serve: dict, n_prefill: int) -> dict:
             name = "matmul (gemm_*_kernel)"
         elif "wkv_state_kernel" in evt.key or "wkv_output_kernel" in evt.key:
             name = f"wkv ({'wkv_state_kernel' if 'wkv_state_kernel' in evt.key else 'wkv_output_kernel'})"
-        elif "ssm_kernel" in evt.key:
-            name = "ssm_scan (ssm_kernel)"
+        elif "ssm_state_kernel" in evt.key or "ssm_output_kernel" in evt.key:
+            name = f"ssm_scan ({'ssm_state_kernel' if 'ssm_state_kernel' in evt.key else 'ssm_output_kernel'})"
         else:
             name = evt.key[:60]
         by_kernel[name] = by_kernel.get(name, 0.0) + us / 1e3
@@ -655,9 +718,13 @@ def phase_profile(torch, serve: dict, n_prefill: int) -> dict:
     if wkv_state or wkv_output:
         print(f"  wkv: state pass {wkv_state:.3f} ms + output kernel {wkv_output:.3f} ms = "
               f"{wkv_state + wkv_output:.3f} ms")
+    ssm_state, ssm_output = (by_kernel.get(f"ssm_scan ({k})", 0.0) for k in ("ssm_state_kernel", "ssm_output_kernel"))
+    if ssm_state or ssm_output:
+        print(f"  ssm_scan: state pass {ssm_state:.3f} ms + output pass {ssm_output:.3f} ms = "
+              f"{ssm_state + ssm_output:.3f} ms")
     return {"window": what, "wall_ms": wall_ms, "busy_ms": busy, "idle_share": 1 - busy / wall_ms, "top": top,
             "wkv_ms": wkv_state + wkv_output, "wkv_state_ms": wkv_state, "wkv_output_ms": wkv_output,
-            "ssm_ms": by_kernel.get("ssm_scan (ssm_kernel)", 0.0)}
+            "ssm_ms": ssm_state + ssm_output, "ssm_state_ms": ssm_state, "ssm_output_ms": ssm_output}
 
 
 def _time_ms(fn, n_warm=3, n_runs=20, queued=True) -> float:
@@ -761,6 +828,20 @@ def phase_attention_parent_ab() -> dict | None:
     return result | {"verdict": attn_ab.verdict(result)}
 
 
+def phase_ssm_parent_ab() -> dict | None:
+    """The parent's selective scan against this one, in turns, where build/parent holds the parent's tree."""
+    base = ROOT / "build" / "parent"
+    if not (base / "src" / "repro_torch" / "kernels" / "csrc" / "ssm.cu").is_file():
+        print("  no build/parent: the parent's kernel is not measured in this run")
+        return None
+    sys.path.insert(0, str(ROOT / "scripts"))
+    import ssm_ab
+
+    result = ssm_ab.run_turns(base)
+    ssm_ab.report(result)
+    return result
+
+
 def phase_wkv_timing(torch, wk) -> list[dict]:
     """The WKV kernel at what rwkv6-7b's batch-1 prefill gives it (bf16 r/k/v
     and u, f32 logw, a zero f32 state), every config, beside its bound."""
@@ -818,33 +899,44 @@ def _kernel_launches(fn, names, calls=4) -> dict | None:
 
 
 def phase_ssm_timing(torch, ss) -> list[dict]:
-    """The SSM kernel at what hymba-1.5b's batch-1 prefill gives it (f32
-    dtx, dta, b, c and no initial state), every config, beside its bound."""
+    """Both SSM entries at what hymba-1.5b's batch-1 prefill gives them (f32, no
+    initial state), S in the served buckets and SSM_LONG, every config, each beside
+    its own bound, the plain version, and the kernels one call launches."""
     rows = []
     g = torch.Generator(device="cuda").manual_seed(8)
     b, d, n = 1, 1600, 16
-    for s in (32, 64, 128):
-        args = _ssm_inputs(torch, g, b, s, d, n, False)[:4]
-        # Each input read once (no initial state on the served path), y and the final state written once.
-        nbytes = sum(t.numel() * t.element_size() for t in args) + b * s * d * 4 + b * d * n * 4
-        # Per (t, channel, state): exp, dtx * b, the fma into h, h * c and its sum: 6 f32 operations.
-        ops = 6 * b * s * d * n
-        bound = max(nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS) * 1e3
-        per_cfg = {cfg.name(): _time_ms(lambda i, c=cfg: ss.ssm_cuda(*args, config=c))
-                   for cfg in ss.config_space()}
-        call = _time_ms(lambda i: ss.ssm_cuda(*args), queued=False)
-        plain = _time_ms(lambda i: ss.ssm_plain(*args))
-        best = min(per_cfg, key=per_cfg.get)
-        row = {"s": s, "shape": [b, s, d, n], "ms": per_cfg[ss.DEFAULT_SSM_CONFIG.name()], "best_config": best,
-               "best_ms": per_cfg[best], "call_ms": call, "plain_ms": plain, "bound_ms": bound,
-               "bytes": nbytes, "ops": ops,
-               "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= ops / F32_FLOPS else "operations",
-               "per_config_ms": per_cfg}
-        rows.append(row)
-        cfgs = ", ".join(f"{name} {ms:.4f}" for name, ms in per_cfg.items())
-        print(f"  (1, {s}, 1600, 16) f32: {cfgs} ms; bound {bound:.4f} ms ({row['bound_by']}: "
-              f"{nbytes / 1e6:.2f} MB, {ops / 1e6:.1f} Mop f32); one {ss.DEFAULT_SSM_CONFIG.name()} call from idle "
-              f"{call:.4f} ms; plain {plain:.4f} ms")
+    entries = {"fused": (_ssm_fused_inputs, ss.ssm_cuda_fused, ss.ssm_fused_plain),
+               "dta": (_ssm_inputs, ss.ssm_cuda, ss.ssm_plain)}
+    for s in (32, 64, 128, SSM_LONG):
+        for entry, (draw, kernel, plain_fn) in entries.items():
+            args = draw(torch, g, b, s, d, n, False)[:-1]
+            # Each input read once (no initial state on the served path), y and the final
+            # state written once: the fused entry reads x, dt, a, b, c; the dta entry dtx,
+            # dta (B, S, d, N), b, c.
+            nbytes = sum(t.numel() * t.element_size() for t in args) + b * s * d * 4 + b * d * n * 4
+            # Per (t, channel, state): exp, dtx * b, the fma into h, h * c and its sum: 6 f32 operations
+            # (the fused entry's dt * x and dt * a add 1 + 1 / N).
+            ops = 6 * b * s * d * n
+            bound = max(nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS) * 1e3
+            per_cfg = {cfg.name(): _time_ms(lambda i, c=cfg: kernel(*args, config=c)) for cfg in ss.config_space()}
+            call = _time_ms(lambda i: kernel(*args), queued=False)
+            plain = _time_ms(lambda i: plain_fn(*args), n_runs=5 if s == SSM_LONG else 20)
+            segments = ss.launch_segments(b, s, d, n, ss.DEFAULT_SSM_CONFIG, entry == "fused", 0)
+            launches = _kernel_launches(lambda: kernel(*args), ("ssm_state_kernel", "ssm_output_kernel"))
+            want = {"ssm_state_kernel": float(segments > 1), "ssm_output_kernel": 1.0}
+            require(launches is None or launches == want,
+                    f"one {entry} call at S = {s} ({segments} segments) should launch {want}: {launches}")
+            best = min(per_cfg, key=per_cfg.get)
+            row = {"s": s, "entry": entry, "shape": [b, s, d, n], "ms": per_cfg[ss.DEFAULT_SSM_CONFIG.name()],
+                   "best_config": best, "best_ms": per_cfg[best], "call_ms": call, "plain_ms": plain,
+                   "bound_ms": bound, "bytes": nbytes, "ops": ops,
+                   "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= ops / F32_FLOPS else "operations",
+                   "segments": segments, "kernel_launches_per_call": launches, "per_config_ms": per_cfg}
+            rows.append(row)
+            cfgs = ", ".join(f"{name} {ms * 1e3:.2f}" for name, ms in per_cfg.items())
+            print(f"  (1, {s}, 1600, 16) f32 {entry}: {cfgs} us; bound {bound * 1e3:.2f} us ({row['bound_by']}: "
+                  f"{nbytes / 1e6:.2f} MB, {ops / 1e6:.1f} Mop f32); one {ss.DEFAULT_SSM_CONFIG.name()} call from "
+                  f"idle {call * 1e3:.2f} us; plain {plain:.4f} ms; {segments} segments, kernels per call {launches}")
     return rows
 
 
@@ -1208,6 +1300,10 @@ def main() -> int:
 
     print("[12] full-width hymba-1.5b serving")
     hymba = phase_serve(torch, mm, seq, "hymba-1.5b")
+    want = {"fused": sum(hymba["ssm_launches"].values()), "dta": 0}
+    require(hymba["ssm_entry_launches"] == want and want["fused"] > 0,
+            f"hymba-1.5b prefills should reach the SSM only through ssm_cuda_fused: {hymba['ssm_entry_launches']}")
+    print(f"  SSM launches by entry: {hymba['ssm_entry_launches']} (ssm_cuda_fused only)")
     print("[13] selection reaches the SSM kernel")
     ssm_policy = phase_seq_policy(ss, "ssm", ss.SsmConfig(8, 16), hymba)
     print("[13b] where a hymba-1.5b prefill's and decode step's time goes")
@@ -1257,12 +1353,16 @@ def main() -> int:
     parent_ab = phase_parent_ab({"granite-8b": serve, "rwkv6-7b": rwkv, "hymba-1.5b": hymba})
     print("[20c] attention: the parent's kernel against this one, in turns")
     attn_parent_ab = phase_attention_parent_ab()
+    print("[20d] selective scan: the parent's kernel against this one, in turns")
+    ssm_parent_ab = phase_ssm_parent_ab()
     # The rwkv6-7b run's WKV launches: n_layers per prefill, at each prefill's bucket.
     by_s = {r["s"]: r for r in wkv_rows}
     wkv_total = lambda key: rwkv["wkv_per_prefill"] * sum(by_s[s][key] for s in rwkv["prefill_buckets"])
-    # The hymba-1.5b run's SSM launches: n_layers per prefill, at each prefill's bucket.
-    ssm_by_s = {r["s"]: r for r in ssm_rows}
-    ssm_total = lambda key: hymba["ssm_per_prefill"] * sum(ssm_by_s[s][key] for s in hymba["prefill_buckets"])
+    # The hymba-1.5b run's SSM launches: n_layers per prefill, at each prefill's bucket, through the
+    # fused entry (the dta entry's time over the same launches beside it).
+    ssm_by = {(r["s"], r["entry"]): r for r in ssm_rows}
+    ssm_total = lambda key, entry="fused": hymba["ssm_per_prefill"] * sum(ssm_by[s, entry][key]
+                                                                         for s in hymba["prefill_buckets"])
     gemm_launches = {run["arch"]: sum(run["launches"].values()) for run in (serve, rwkv, hymba)}
     gemm_launches["granite-8b (tuned)"] = sum(tuned["launches"].values())
     gemm_launches["quickstart"] = sum(quick["launches"]["matmul"].values())
@@ -1314,6 +1414,7 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/ssm.cu",
         "replaces": "src/repro/kernels/ssm.py:90",
         "launches": sum(hymba["ssm_launches"].values()),
+        "launches_by_entry": hymba["ssm_entry_launches"],
         "max_abs_err": ssm_errors["abs"],
         "max_rel_err": ssm_errors["rel"],
         "ms": ssm_total("ms"),
@@ -1322,8 +1423,16 @@ def main() -> int:
         "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in ssm_rows) else "operations",
         "library_ms": None,
         "library_note": "no single PyTorch call computes the selective scan",
+        "dta_entry_ms": ssm_total("ms", "dta"),
+        "dta_entry_bound_ms": ssm_total("bound_ms", "dta"),
+        "dta_entry_plain_ms": ssm_total("plain_ms", "dta"),
+        "design": "per CTA block_d channels of 4 threads (N / 4 states each), a ring of cp.async stages on "
+                  "mbarriers, dt * x and dt * a formed in registers (fused entry); where the grid is under one "
+                  "wave the sequence is cut into segments: ssm_state_kernel (each segment's end state and decay "
+                  "product) then ssm_output_kernel (the earlier segments folded in order, then y)",
         "timed_as": f"all SSM launches of the hymba-1.5b run's prefills (buckets {hymba['prefill_buckets']}, "
-                    f"{hymba['ssm_per_prefill']} each), summed from per-length medians",
+                    f"{hymba['ssm_per_prefill']} each, all through the fused entry), summed from per-length "
+                    f"medians; dta_entry_*: the dta entry over the same launches",
     }, {
         "name": "attention",
         "route": "cuda",
@@ -1351,7 +1460,7 @@ def main() -> int:
         "card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
         "build_seconds": _build.build_seconds, "errors": errors, "wkv_errors": wkv_errors,
         "serve": serve, "policy": policy, "profile": profile, "cpu_vs_card": parity, "timing": rows, "tall": tall,
-        "parent_ab": parent_ab, "attention_parent_ab": attn_parent_ab,
+        "parent_ab": parent_ab, "attention_parent_ab": attn_parent_ab, "ssm_parent_ab": ssm_parent_ab,
         "rwkv_serve": rwkv, "wkv_policy": wkv_policy, "rwkv_profile": rwkv_profile,
         "rwkv_cpu_vs_card": rwkv_parity, "wkv_timing": wkv_rows, "rwkv_timing": rwkv_rows,
         "ssm_errors": ssm_errors, "hymba_serve": hymba, "ssm_policy": ssm_policy, "hymba_profile": hymba_profile,

@@ -2,12 +2,14 @@
 
 Every matmul of the port's models routes through :func:`matmul`, every
 multi-token RWKV6 WKV recurrence through :func:`wkv`, and every multi-token
-Mamba selective scan through :func:`ssm_scan`; :func:`attention` is the
+Mamba selective scan through :func:`ssm_scan_fused` (:func:`ssm_scan` is the
+same scan from dt * x and dt * a, the TPU kernel's inputs); :func:`attention` is the
 tuned flash-attention op (no model calls it: their attention is plain torch
 code, as in the reference).  Each asks the current
 :class:`~repro_torch.core.runtime.KernelRuntime` for the deployed config of
 the problem and runs it.  On a CUDA tensor that is always the hand-written
-kernel (``matmul_cuda``, ``wkv_cuda``, ``ssm_cuda``, ``attention_cuda``); a
+kernel (``matmul_cuda``, ``wkv_cuda``, ``ssm_cuda`` / ``ssm_cuda_fused``,
+``attention_cuda``); a
 failure raises, and nothing falls back to the plain version.  The plain
 version runs only for tensors on the CPU.
 """
@@ -21,10 +23,10 @@ import torch
 from ..core.runtime import current_runtime
 from .attention import DEFAULT_ATTN_CONFIG, AttentionConfig, attention_cuda, attention_plain
 from .matmul import DEFAULT_CONFIG, MatmulConfig, matmul_cuda, matmul_plain
-from .ssm import DEFAULT_SSM_CONFIG, SsmConfig, ssm_cuda, ssm_plain
+from .ssm import DEFAULT_SSM_CONFIG, SsmConfig, ssm_cuda, ssm_cuda_fused, ssm_fused_plain, ssm_plain
 from .wkv import DEFAULT_WKV_CONFIG, WkvConfig, wkv_cuda, wkv_plain
 
-__all__ = ["FixedPolicy", "KernelPolicy", "attention", "matmul", "ssm_scan", "wkv"]
+__all__ = ["FixedPolicy", "KernelPolicy", "attention", "matmul", "ssm_scan", "ssm_scan_fused", "wkv"]
 
 
 class KernelPolicy(Protocol):
@@ -144,3 +146,20 @@ def ssm_scan(dtx, dta, b, c, state=None):
     if dtx.device.type == "cpu":
         return ssm_plain(dtx, dta, b, c, state)
     return ssm_cuda(dtx, dta, b, c, state, config or DEFAULT_SSM_CONFIG)
+
+
+def ssm_scan_fused(x, dt, a, b, c, state=None):
+    """:func:`ssm_scan` of dtx = dt * x and dta = dt[..., None] * a, formed in the kernel.
+
+    x/dt: (B, S, d); a: (d, N); b/c: (B, S, N); state: (B, d, N) or None.
+    Returns (y (B, S, d) f32, final state (B, d, N) f32).  Selected as
+    :func:`ssm_scan` is (the ssm_scan family, features (S, d)).  On CPU
+    tensors the plain version runs; on a CUDA tensor ``ssm_cuda_fused``, so
+    the (B, S, d, N) dta is never formed.
+    """
+    _, s, d = x.shape
+    config = current_runtime().select_ssm_config(s, d)
+    if x.device.type == "cpu":
+        return ssm_fused_plain(x, dt, a, b, c, state)
+    return ssm_cuda_fused(x.contiguous(), dt.contiguous(), a.contiguous(), b.contiguous(), c.contiguous(), state,
+                          config or DEFAULT_SSM_CONFIG)

@@ -1,8 +1,8 @@
 """Selective SSM (Mamba-style) head of Hymba, ported from ``repro/models/mamba.py``.
 
 Functional, params-in, with the reference's layout.  A multi-token call
-(prefill) runs the scan through ``kernels.ops.ssm_scan`` (the hand-written
-kernel on the card); a one-token step with a state (decode) runs
+(prefill) runs the scan through ``kernels.ops.ssm_scan_fused`` (the
+hand-written kernel on the card, which forms dt * x and dt * a itself); a one-token step with a state (decode) runs
 :func:`mamba_decode_step`, plain PyTorch, as the reference runs jnp code there.
 Every projection routes through ``kernels.ops.matmul``: 6 GEMMs a layer
 (in, dt1, dt2, b, c, out).  The depthwise conv of full Mamba is omitted, as
@@ -61,9 +61,8 @@ def mamba_layer(p: dict, x: torch.Tensor, cfg) -> tuple[torch.Tensor, torch.Tens
     final state (B, d, N) f32)."""
     xin, z, dt, b, c, a = _ssm_inputs(p, x)
     xf = xin.float()
-    dtx = dt * xf  # (B, S, d)
-    dta = dt[..., None] * a  # (B, S, d, N)
-    y, h_last = ops.ssm_scan(dtx, dta, b, c)
+    # The kernel forms dt * x and dt * a itself: no (B, S, d, N) tensor is built.
+    y, h_last = ops.ssm_scan_fused(xf, dt, a, b, c)
     y = y + p["d_skip"].float() * xf
     y = y * F.silu(z.float())
     return ops.matmul(y.to(x.dtype), p["w_out"]), h_last
