@@ -28,14 +28,31 @@ Phases (each one fails the run if its check fails):
    the final state; every output finite; both calls bitwise equal;
 4. full-width granite-8b serving: unreduced (d_model 4096, 32 heads, 8 KV
    heads, d_ff 14336, vocab 49152, 36 layers), bf16, random weights from a
-   CUDA generator, ServingEngine(max_batch=4, cache_len=256), 4 requests of
-   8-100 tokens, 16 new tokens each.  Every forward (prefill or decode step)
-   must launch the GEMM kernel exactly 7 * n_layers + 1 times, every launch
-   on the TMA path (phases 8, 12 and 19 likewise);
+   CUDA generator, ServingEngine(max_batch=4, cache_len=256), which serves
+   through CUDA graphs (one per prefill bucket and decode width), 4 requests
+   of 8-100 tokens, 16 new tokens each, twice on one engine: a cold drain
+   (every program warmed up and captured) and a warm drain (replays only),
+   with equal streams; tokens/s, prefill times and the decode step for both.
+   The wrappers count launches in Python, so they count each program's
+   warm-up and capture: the GEMM launches must be 2 x (7 * n_layers + 1) per
+   program, every one on the TMA path, none in the warm drain, the selection
+   consulted at every one; the engine's replays must equal the forwards
+   (phases 8, 12 and 19 likewise);
 5. selection reaches the kernel: one request under a FixedPolicy with a
    non-default matmul config launches that config and not the default;
-5b. profile: device time by kernel and the device's idle share over two
-   full-width granite decode steps (torch.profiler);
+5b. profile (torch.profiler, which sees the kernels inside a replay): two warm
+   decode replays and one warm prefill replay at bucket 32, each with 7 *
+   n_layers + 1 GEMM kernels a forward, one window each and an exact count;
+   device time by kernel, idle share (1 - busy / the window's host wall), and
+   from the device timeline the idle time inside each replay's span and
+   between the replays;
+5c. the eager engine (``cuda_graphs=False``) on the same weights and
+   requests (its programs warmed up once, then one warm drain): a captured
+   decode replay bitwise equal to its body run eagerly; token streams equal
+   to the graphed engine's; warm decode step, idle share
+   (profiled, and an estimate from the unprofiled median), tokens/s, seconds
+   building programs and memory reserved side by side
+   (phases 9c and 13c likewise);
 6. CPU against card: the serving CLI on reduced granite-8b in f32, once with
    ``--device cuda`` and once with ``--device cpu``, same seed: equal greedy
    token streams;
@@ -48,13 +65,13 @@ Phases (each one fails the run if its check fails):
    (16384, 4096, 14336) under every config with its TFLOP/s;
 8. full-width rwkv6-7b serving, after granite's weights are released:
    unreduced (32 layers, d_model 4096, 64 WKV heads of 64, d_ff 14336, vocab
-   65536), bf16, the same engine and requests.  Every forward launches the
-   GEMM 10 * n_layers + 1 times; every prefill launches the WKV kernel
-   n_layers times and every decode step 0 times;
+   65536), bf16, the same engine and requests.  A forward launches the
+   GEMM 10 * n_layers + 1 times, a prefill the WKV kernel n_layers times and
+   a decode step 0 times (counted at warm-ups and captures);
 9. selection reaches the WKV kernel: one request under
    FixedPolicy(wkv_config=WkvConfig(64)) launches wkv_c64 and not wkv_c16;
-9b. profile: one rwkv6-7b prefill and two decode steps (torch.profiler),
-   the WKV device time of each of its two kernels beside their sum;
+9b. profile: as 5b; the prefill replay runs n_layers of each WKV kernel;
+9c. eager against graphed, as 5c;
 10. CPU against card: the serving CLI on reduced rwkv6-7b in f32, cuda and
    cpu: equal greedy token streams;
 11. timing: the WKV kernels at (1, S, 64, 64), S in {32, 64, 128, 2048},
@@ -77,16 +94,17 @@ Phases (each one fails the run if its check fails):
 12. full-width hymba-1.5b serving, after rwkv6-7b's weights are released:
    unreduced (32 layers, d_model 1600, 25 heads, 5 KV heads of 64, d_ff 5504,
    vocab 32001, ssm_state 16, window 2048), bf16, the same engine and
-   requests.  Every forward launches the GEMM 13 * n_layers + 1 times; every
-   prefill launches the SSM kernel n_layers times, all through
-   ``ssm_cuda_fused`` (none through the dta entry), and every decode step 0
-   times;
+   requests.  A forward launches the GEMM 13 * n_layers + 1 times, a
+   prefill the SSM kernel n_layers times, all through ``ssm_cuda_fused``
+   (none through the dta entry), and a decode step 0 times;
 13. selection reaches the SSM kernel: one request under
    FixedPolicy(ssm_config=SsmConfig(8, 16)) launches ssm_bd8_c16 n_layers
-   times and the default not at all;
-13b. profile: one hymba-1.5b prefill and two decode steps (torch.profiler),
-   the SSM device time of ssm_state_kernel and ssm_output_kernel beside
-   their sum;
+   times at its prefill program's warm-up and again at its capture, and the
+   default not at all;
+13b. profile: as 5b; the prefill replay runs n_layers ``ssm_output_kernel``;
+13c. eager against graphed, as 5c; then a cut SSM call on a stream with no
+   workspace yet raises under a capture (a workspace is allocated only outside
+   one, at its fixed bound);
 14. CPU against card on Hymba, in process: reduced hymba-1.5b at 4 layers
    (one sliding-window layer, window 32), f32, cache_len 128, prompts of 20
    and 45 tokens (buckets 32 and 64: the ring is written by the ring-buffer
@@ -131,7 +149,10 @@ Phases (each one fails the run if its check fails):
    tokens/s, the decode step, and one decode step's GEMM device time under the
    tree's choices (from phase 7's per-config times) beside the default config's
    and each shape's best; whether the greedy streams equal phase 4's;
-19b. profile: two decode steps of the tuned run (torch.profiler), as phase 5b;
+19b. profile: as 5b, under the tuned tree;
+19c. ``FixedPolicy()`` installed mid-run in the tuned engine's runtime: the
+   programs are captured again under the new epoch (prefill and decode), and
+   their launches take the default config;
 20. attention timing: every config at granite-8b's (1, 32, S, 128) and
    hymba-1.5b's (1, 25, S, 64), causal S in {512, 2048, 4096} and a decode step
    at 4096 and 32768 cached tokens, beside the bound max(FLOPs / 989e12, bytes /
@@ -151,12 +172,18 @@ Phases (each one fails the run if its check fails):
    times its selective scan and this tree's in turns (parent, this, this,
    parent) at (1, S, 1600, 16), S in {32, 64, 128, 2048}, every config of the
    dta entry (both trees have it) and of the fused entry (this tree);
-21. the ``kernels`` JSON line, then the card line, then the result line.
+21. no Python collection ran during any CUDA graph capture (one there could
+   free a dead engine's graphs and invalidate the capture); the ``kernels``
+   JSON line, then the card line, then the result line.
+
+Each phase's header shows the seconds since the start.
 
 Everything measured also goes to ``build/chip_smoke.json``.
 """
 from __future__ import annotations
 
+import dataclasses
+import gc
 import json
 import statistics
 import subprocess
@@ -182,6 +209,14 @@ VOCAB_KN = {(4096, 49152), (4096, 65536), (1600, 32128)}
 SSM_TOL = 1e-4  # both sides compute in f32 from the same values; the reference kernel test's rtol
 SSM_LONG = 2048  # a long prompt: the harvest's shortest long length, cut into segments across CTAs
 PROMPT_LENGTHS = (8, 37, 64, 100)
+# What a wrapper's launch counter counts on the served paths: the engine captures each
+# program as a CUDA graph, so a wrapper call launches onto the card at the program's one
+# eager warm-up and into the graph at its capture. A replay launches the captured kernels
+# without a wrapper call: the profiler counts them in the profiled replays
+# (kernels_in_profiled_replays), and the engine counts its replays (program_replays).
+LAUNCHES_COUNTED_AS = ("wrapper calls: per program built, one at its warm-up (run on the card) and one at its "
+                       "capture (recorded into the graph); replays make none (see kernels_in_profiled_replays "
+                       "and program_replays)")
 # Attention against plain, relative to max |plain|: a bf16 output is one rounding (2^-8) from
 # the f32 answer on each side; f32 sums in another order.
 ATTN_TOL = {"bf16": 1e-2, "f32": 1e-4}
@@ -425,9 +460,60 @@ def _expected(cfg) -> tuple[int, dict[str, int]]:
 _FAMILY = {"wkv": "wkv", "ssm": "ssm_scan"}  # launch counter -> selection family
 
 
+def _drain(torch, engine, prompts, mm, seq: dict) -> dict:
+    """Serve ``prompts`` x 16 tokens through ``engine`` (submit, drain), timing every
+    forward on the host clock after a synchronize. Per forward: (kind, size, GEMM
+    launches counted, {sequence kernel: launches counted}, programs built, seconds)."""
+    events: list[tuple[str, int, int, dict, int, float]] = []
+    mark = {"gemm": mm.total_launches(), "built": len(engine.program_log)} | {
+        name: mod.total_launches() for name, mod in seq.items()}
+
+    def record(kind):
+        def hook(size):
+            torch.cuda.synchronize()
+            now, gemm, built = time.perf_counter(), mm.total_launches(), len(engine.program_log)
+            counts = {name: mod.total_launches() for name, mod in seq.items()}
+            events.append((kind, size, gemm - mark["gemm"], {k: v - mark[k] for k, v in counts.items()},
+                           built - mark["built"], now - mark["t"]))
+            mark.update(counts, gemm=gemm, built=built, t=now)
+        return hook
+
+    engine.on_prefill, engine.on_decode = record("prefill"), record("decode")
+    torch.cuda.synchronize()
+    mark["t"] = t0 = time.perf_counter()
+    tickets = [engine.submit(p, max_new_tokens=16) for p in prompts]
+    status = engine.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    engine.on_prefill = engine.on_decode = None
+    require(status.completed == len(prompts) and not status.exhausted, f"not every request completed: {status}")
+    require(all(len(t.request.output) == 16 for t in tickets), "a request got fewer than 16 tokens")
+    toks = sum(len(t.request.output) for t in tickets)
+    decode_ms = [sec * 1e3 for kind, *_, sec in events if kind == "decode"]
+    return {"events": events, "wall_s": wall, "tokens": toks, "tok_per_s": toks / wall,
+            "prefill_ms": [round(sec * 1e3, 3) for kind, *_, sec in events if kind == "prefill"],
+            "prefill_buckets": [size for kind, size, *_ in events if kind == "prefill"],
+            "decode_ms": decode_ms, "decode_median_ms": statistics.median(decode_ms),
+            "decode_min_ms": min(decode_ms), "decode_max_ms": max(decode_ms),
+            "outputs": [list(t.request.output) for t in tickets]}
+
+
+def _print_drain(name: str, d: dict) -> None:
+    print(f"  {name}: {d['tokens']} tokens in {d['wall_s']:.3f}s ({d['tok_per_s']:.1f} tok/s); prefill ms "
+          f"{d['prefill_ms']} (buckets {d['prefill_buckets']}); decode step ms median {d['decode_median_ms']:.3f} "
+          f"(min {d['decode_min_ms']:.3f}, max {d['decode_max_ms']:.3f}) over {len(d['decode_ms'])} steps")
+
+
 def phase_serve(torch, mm, seq: dict, arch: str, policy=None) -> dict:
-    """Serve 4 requests x 16 tokens at full width; every forward's launches checked.
-    ``policy`` (default ``FixedPolicy()``) is installed in the engine's runtime."""
+    """Serve 4 requests x 16 tokens at full width through the engine's CUDA graphs,
+    twice on one engine: a cold drain (every program warmed up and captured) and a
+    warm drain (replays only). ``policy`` (default ``FixedPolicy()``) is installed in
+    the engine's runtime.
+
+    The kernels' launch counters count in Python, so they count a program's warm-up
+    and its capture (each one forward), never a replay: every program built adds
+    2 x per_forward GEMM launches (a prefill program also 2 x n_layers WKV / SSM
+    launches), and the warm drain adds none. The engine counts its replays."""
     from repro_torch.configs import registry
     from repro_torch.core.runtime import KernelRuntime
     from repro_torch.kernels.ops import FixedPolicy
@@ -453,67 +539,62 @@ def phase_serve(torch, mm, seq: dict, arch: str, policy=None) -> dict:
             f"prefill logits {tuple(logits.shape)} {logits.dtype}")
     require(bool(torch.isfinite(logits).all()), "non-finite prefill logits")
 
-    # (kind, size, GEMM launches, {sequence kernel: launches}, seconds) per forward
-    events: list[tuple[str, int, int, dict, float]] = []
-    mark = {"gemm": 0, "t": 0.0} | {name: 0 for name in seq}
-
-    def record(kind):
-        def hook(size):
-            torch.cuda.synchronize()
-            now, gemm = time.perf_counter(), mm.total_launches()
-            counts = {name: mod.total_launches() for name, mod in seq.items()}
-            events.append((kind, size, gemm - mark["gemm"], {k: v - mark[k] for k, v in counts.items()},
-                           now - mark["t"]))
-            mark.update(counts, gemm=gemm, t=now)
-        return hook
-
     rt = KernelRuntime(name=f"chip_smoke[{arch}]")
     rt.install(FixedPolicy() if policy is None else policy)
     rt.set_selection_logging(True, cap=1 << 16)
-    engine = ServingEngine(model, params, max_batch=4, cache_len=256, runtime=rt,
-                           on_prefill=record("prefill"), on_decode=record("decode"))
+    engine = ServingEngine(model, params, max_batch=4, cache_len=256, runtime=rt)
+    require(engine.cuda_graphs, "the engine does not take CUDA graphs on a CUDA model")
     rng = torch.Generator().manual_seed(2)
     prompts = [torch.randint(0, cfg.vocab, (n,), generator=rng).numpy() for n in PROMPT_LENGTHS]
 
-    # The main path: counts to 0 just before, read just after.
+    # The main path, both drains: counts to 0 just before, read just after.
     torch.cuda.synchronize()
     mm.reset_launches()
     for mod in seq.values():
         mod.reset_launches()
-    mark.update({name: 0 for name in seq}, gemm=0)
     encodes = mm.map_encodes()
-    mark["t"] = t0 = time.perf_counter()
-    tickets = [engine.submit(p, max_new_tokens=16) for p in prompts]
-    status = engine.drain()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    cold = _drain(torch, engine, prompts, mm, seq)
+    launches_cold = mm.total_launches()
+    warm = _drain(torch, engine, prompts, mm, seq)
     launches = dict(mm.LAUNCHES)
     paths = dict(mm.PATH_LAUNCHES)
     encodes = mm.map_encodes() - encodes
     seq_launches = {name: dict(mod.LAUNCHES) for name, mod in seq.items()}
     seq_entries = {name: dict(mod.ENTRY_LAUNCHES) for name, mod in seq.items() if hasattr(mod, "ENTRY_LAUNCHES")}
 
-    require(status.completed == 4 and not status.exhausted, f"not every request completed: {status}")
-    require(all(len(t.request.output) == 16 for t in tickets), "a request got fewer than 16 tokens")
-    bad = [(kind, n) for kind, _, n, _, _ in events if n != per_forward]
-    require(not bad, f"forwards with a GEMM launch count other than {per_forward}: {bad}")
-    require(sum(launches.values()) == per_forward * len(events), "GEMM launches outside the forwards")
-    require(paths["tma"] == sum(launches.values()), f"served bf16 GEMMs off the TMA path: {paths}")
+    built = engine.program_log
+    programs = engine.programs()
+    require(all(r.captured for r in built) and all(
+        isinstance(p.graph, torch.cuda.CUDAGraph) for c in (engine._prefill_cache, engine._decode_cache)
+        for p in c.values()), f"a program was not captured: {built}")
+    require(len(built) == len(programs), f"programs built {built} but live {sorted(programs)}")
+    n_prefill_progs = sum(r.kind == "prefill" for r in built)
+    forwards = len(cold["events"]) + len(warm["events"])
+    replays = sum(v["runs"] for v in programs.values())
+    require(replays == forwards, f"{replays} replays for {forwards} forwards")
+    replays_by_program = {f"{kind} {size}": v["runs"] for (kind, size), v in programs.items()}
+    require(warm["outputs"] == cold["outputs"], "the warm drain's streams differ from the cold drain's")
+    total = sum(launches.values())
+    require(total == launches_cold == 2 * per_forward * len(built),
+            f"GEMM launches {launches_cold} (cold) / {total} (both drains): want 2 x {per_forward} x "
+            f"{len(built)} programs (a warm-up and a capture each), none in the warm drain")
+    bad = [(kind, size, n, b) for kind, size, n, _, b, _ in cold["events"] + warm["events"] if n != 2 * per_forward * b]
+    require(not bad, f"forwards whose GEMM launches are not 2 x {per_forward} x programs built: {bad}")
+    require(paths["tma"] == total, f"served bf16 GEMMs off the TMA path: {paths}")
     stats = rt.shape_cache_stats()
     fam = stats["per_family"]
     for name in seq:
-        want = per_prefill[name]
-        bad = [(kind, c[name]) for kind, _, _, c, _ in events if c[name] != (want if kind == "prefill" else 0)]
-        require(not bad, f"forwards with a {name} launch count other than {want} per prefill, 0 per decode: {bad}")
-        require(sum(seq_launches[name].values()) == sum(e[3][name] for e in events),
-                f"{name} launches outside the forwards")
-    for op, n in [("matmul", sum(launches.values()))] + [(_FAMILY[k], sum(v.values())) for k, v in seq_launches.items()]:
+        want = 2 * per_prefill[name] * n_prefill_progs
+        got = sum(seq_launches[name].values())
+        require(got == want, f"{name} launches {got}: want 2 x {per_prefill[name]} x {n_prefill_progs} prefill programs")
+    for op, n in [("matmul", total)] + [(_FAMILY[k], sum(v.values())) for k, v in seq_launches.items()]:
         got = fam.get(op, {"hits": 0, "misses": 0})
-        require(got["hits"] + got["misses"] == n, f"{op} selection not consulted on every launch: {got} vs {n}")
+        require(got["hits"] + got["misses"] == n, f"{op} selection not consulted at every captured launch: "
+                                                  f"{got} vs {n}")
     require(fam["matmul"]["hits"] > 0, f"matmul shape cache never hit: {fam}")
-    n_prefill = sum(1 for e in events if e[0] == "prefill")
-    n_decode = len(events) - n_prefill
-    # Launches per decode step, per (k, n), read from the selection log.
+    # GEMM launches per width-4 decode forward, per (k, n), from the selection log: each
+    # width-4 decode program ran the step twice in Python (its warm-up and its capture).
+    decode4 = 2 * sum(1 for r in built if r.kind == "decode" and r.size == 4)
     counts: dict[str, int] = {}
     for op, problem, _cfg in rt.selection_log():
         # Decode GEMMs have 4 rows: a (4, 1, D) activation is (m, batch) = (1, 4), and Mamba's
@@ -521,34 +602,41 @@ def phase_serve(torch, mm, seq: dict, arch: str, policy=None) -> dict:
         if op == "matmul" and problem[0] * problem[3] == 4:
             kn = f"{problem[1]}x{problem[2]}"
             counts[kn] = counts.get(kn, 0) + 1
-    per_step = {kn: c / n_decode for kn, c in counts.items()}
+    per_step = {kn: c / decode4 for kn, c in counts.items()}
     decode_configs = sorted({(f"{p[1]}x{p[2]}", c.name()) for op, p, c in rt.selection_log()
                              if op == "matmul" and p[0] * p[3] == 4})
     require(sum(per_step.values()) == per_forward, f"decode-step GEMMs by shape {per_step} do not sum to {per_forward}")
-    toks = sum(len(t.request.output) for t in tickets)
-    prefill_ms = [round(sec * 1e3, 3) for kind, _, _, _, sec in events if kind == "prefill"]
-    buckets = [size for kind, size, _, _, _ in events if kind == "prefill"]
-    decode_ms = [sec * 1e3 for kind, _, _, _, sec in events if kind == "decode"]
-    print(f"  served 4 requests (prompts {PROMPT_LENGTHS}) x 16 tokens: {toks} tokens in {wall:.3f}s "
-          f"({toks / wall:.1f} tok/s); {n_prefill} prefills, {n_decode} decode steps")
-    print(f"  prefill ms {prefill_ms} (buckets {buckets}); decode step ms median "
-          f"{statistics.median(decode_ms):.3f} (min {min(decode_ms):.3f}, max {max(decode_ms):.3f})")
-    seq_text = "; ".join(f"{name.upper()} launches: {per_prefill[name]} per prefill, 0 per decode step "
-                         f"({sum(seq_launches[name].values())} in all)" for name in seq)
-    print(f"  GEMM launches: {per_forward} per forward on every one of {len(events)} forwards, all on the TMA path "
-          f"({paths}), {encodes} tensor maps encoded; {seq_text}; shape cache {stats['hits']} hits / "
-          f"{stats['misses']} misses")
-    print(f"  decode-step GEMM launches per (k x n): {per_step}")
+    capture_s = sum(r.seconds for r in built)
+    _print_drain("cold drain (captures included)", cold)
+    _print_drain("warm drain (replays only)", warm)
+    print(f"  programs: {len(built)} captured ({', '.join(f'{r.kind} {r.size}' for r in built)}) in "
+          f"{capture_s:.3f}s (warm-up and capture), {replays} replays over both drains {replays_by_program}; "
+          f"warm / cold streams equal")
+    seq_text = "; ".join(f"{name.upper()} launches: {sum(seq_launches[name].values())} = 2 x {per_prefill[name]} x "
+                         f"{n_prefill_progs} prefill programs" for name in seq)
+    print(f"  GEMM launches (counted in Python: warm-ups and captures): {total} = 2 x {per_forward} per forward x "
+          f"{len(built)} programs, 0 in the warm drain, all on the TMA path ({paths}), {encodes} tensor maps "
+          f"encoded; {seq_text}; selection consulted at every captured launch (shape cache {stats['hits']} hits / "
+          f"{stats['misses']} misses)")
+    print(f"  width-4 decode-step GEMM launches per (k x n): {per_step}")
     return {
-        "arch": arch, "n_layers": cfg.n_layers, "weight_bytes": weight_bytes, "tokens": toks, "wall_s": wall,
-        "tok_per_s": toks / wall, "prefill_ms": prefill_ms, "prefill_buckets": buckets, "decode_ms": decode_ms,
-        "launches": launches, "path_launches": paths, "map_encodes": encodes, "per_forward": per_forward, "forwards": len(events), "per_decode_step": per_step,
+        "arch": arch, "n_layers": cfg.n_layers, "weight_bytes": weight_bytes, "cold": cold, "warm": warm,
+        "tokens": cold["tokens"], "wall_s": cold["wall_s"], "tok_per_s": cold["tok_per_s"],
+        "prefill_ms": cold["prefill_ms"], "prefill_buckets": cold["prefill_buckets"], "decode_ms": cold["decode_ms"],
+        "programs": [dataclasses.asdict(r) for r in built], "capture_s": capture_s, "replays": replays,
+        "program_replays": replays_by_program,
+        "launches": launches, "path_launches": paths, "map_encodes": encodes, "per_forward": per_forward,
+        "forwards": forwards, "per_decode_step": per_step,
         "shape_cache": {k: stats[k] for k in ("hits", "misses")}, "per_family": fam,
-        "decode_configs": decode_configs, "outputs": [list(t.request.output) for t in tickets],
-        "engine": engine, "model": model, "params": params, "prompts": prompts,
+        "decode_configs": decode_configs, "outputs": cold["outputs"],
+        "engine": engine, "model": model, "params": params, "prompts": prompts, "policy": policy,
     } | {f"{name}_launches": seq_launches[name] for name in seq} | {
         f"{name}_entry_launches": launches for name, launches in seq_entries.items()} | {
         f"{name}_per_prefill": per_prefill[name] for name in seq}
+
+
+def _programs_built(engine, kind: str | None = None) -> int:
+    return sum(1 for r in engine.program_log if kind is None or r.kind == kind)
 
 
 def phase_policy(mm, serve: dict) -> dict:
@@ -565,16 +653,18 @@ def phase_policy(mm, serve: dict) -> dict:
     engine.submit(serve["prompts"][0], max_new_tokens=4)
     engine.drain()
     got, default = mm.LAUNCHES[other.name()], mm.LAUNCHES[mm.DEFAULT_CONFIG.name()]
-    require(got == 4 * serve["per_forward"] and default == 0,
-            f"FixedPolicy({other.name()}) launched it {got} times, the default {default} times")
-    print(f"  FixedPolicy({other.name()}): {got} launches of it, {default} of the default")
+    want = 2 * serve["per_forward"] * _programs_built(engine)
+    require(got == want and default == 0,
+            f"FixedPolicy({other.name()}) launched it {got} times (want {want}), the default {default} times")
+    print(f"  FixedPolicy({other.name()}): {got} launches of it at its {_programs_built(engine)} programs' warm-ups and "
+          f"captures, {default} of the default")
     return {"config": other.name(), "launches": got, "default_launches": default}
 
 
 def phase_seq_policy(mod, name: str, other, serve: dict) -> dict:
     """One request under ``FixedPolicy(<name>_config=other)`` launches the
-    sequence kernel's config ``other`` n_layers times (its one prefill) and
-    the default config not at all."""
+    sequence kernel's config ``other`` n_layers times at its prefill program's
+    warm-up and again at its capture, and the default config not at all."""
     from repro_torch.core.runtime import KernelRuntime
     from repro_torch.kernels.ops import FixedPolicy
     from repro_torch.serve.engine import ServingEngine
@@ -588,18 +678,18 @@ def phase_seq_policy(mod, name: str, other, serve: dict) -> dict:
     engine.submit(serve["prompts"][0], max_new_tokens=4)
     engine.drain()
     got, n_default = mod.LAUNCHES[other.name()], mod.LAUNCHES[default.name()]
-    require(got == serve[f"{name}_per_prefill"] and n_default == 0 and mod.total_launches() == got,
-            f"FixedPolicy({name}_config={other.name()}) launched it {got} times, the default {n_default} times")
-    print(f"  FixedPolicy({name}_config={other.name()}): {got} launches of it (one prefill), "
-          f"{n_default} of {default.name()}")
+    want = 2 * serve[f"{name}_per_prefill"] * _programs_built(engine, "prefill")
+    require(got == want and n_default == 0 and mod.total_launches() == got,
+            f"FixedPolicy({name}_config={other.name()}) launched it {got} times (want {want}), the default "
+            f"{n_default} times")
+    print(f"  FixedPolicy({name}_config={other.name()}): {got} launches of it (one prefill program: its warm-up and "
+          f"capture), {n_default} of {default.name()}")
     return {"config": other.name(), "launches": got, "default_launches": n_default}
 
 
 def phase_hymba_cpu_vs_card(torch) -> dict:
     """Reduced hymba-1.5b at 4 layers (its layer 1 slides a 32-token window),
     served in process on cuda and on cpu from the same weights."""
-    import dataclasses
-
     import numpy as np
 
     from repro_torch.configs import registry
@@ -669,62 +759,274 @@ def _report_divergence(arch, card, cpu) -> None:
               f"gap {(top.values[0] - top.values[1]).item():.3g}")
 
 
-def phase_profile(torch, serve: dict, n_prefill: int) -> dict:
-    """Device time by kernel over ``n_prefill`` prefills and two decode steps
-    (torch.profiler)."""
+GEMM_KERNELS = "matmul (gemm_*_kernel)"
+
+
+def _kernel_name(key: str) -> str:
+    """The port's kernels by name (cuBLAS kernels, which the models' plain attention
+    reaches through einsum, also hold "gemm_" in theirs)."""
+    if any(f"gemm_{path}_kernel" in key for path in ("tma", "bf16", "f32")):
+        return GEMM_KERNELS
+    for kernel in ("wkv_state_kernel", "wkv_output_kernel", "ssm_state_kernel", "ssm_output_kernel"):
+        if kernel in key:
+            return f"{kernel.split('_')[0].replace('ssm', 'ssm_scan')} ({kernel})"
+    return key[:60]
+
+
+def _profile_window(torch, fn, runs: int) -> dict:
+    """``fn()``, which runs ``runs`` programs in turn, under torch.profiler (device
+    activity only): host wall ms (after a synchronize), device ms and kernel count by
+    kernel, and from the device's timeline (host copies left out) the ms one program
+    run spans on the device, the idle ms inside the runs (the gaps between a run's
+    device operations) and between them (the ``runs`` - 1 widest gaps)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    engine, prompts = serve["engine"], serve["prompts"]
-    for p in prompts[n_prefill:]:
-        engine.submit(p, max_new_tokens=4)
-    engine.step()  # the other prefills + a decode step, outside the window
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for p in prompts[:n_prefill]:
-            engine.submit(p, max_new_tokens=4)
-        engine.step()
-        engine.step()
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    engine.drain()
-    by_kernel: dict[str, float] = {}
+    ms: dict[str, float] = {}
+    count: dict[str, int] = {}
     for evt in prof.key_averages():
         if evt.device_type != DeviceType.CUDA:
             continue
         us = getattr(evt, "self_device_time_total", None)
         if us is None:
             us = evt.self_cuda_time_total
-        if "gemm_" in evt.key:
-            name = "matmul (gemm_*_kernel)"
-        elif "wkv_state_kernel" in evt.key or "wkv_output_kernel" in evt.key:
-            name = f"wkv ({'wkv_state_kernel' if 'wkv_state_kernel' in evt.key else 'wkv_output_kernel'})"
-        elif "ssm_state_kernel" in evt.key or "ssm_output_kernel" in evt.key:
-            name = f"ssm_scan ({'ssm_state_kernel' if 'ssm_state_kernel' in evt.key else 'ssm_output_kernel'})"
-        else:
-            name = evt.key[:60]
-        by_kernel[name] = by_kernel.get(name, 0.0) + us / 1e3
-    busy = sum(by_kernel.values())
-    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]
-    what = f"{n_prefill} prefill(s) + 2 decode steps" if n_prefill else "2 decode steps (batch 4)"
-    if busy == 0:
-        print("  the profiler recorded no device time: device busy share not measured")
-        return {"window": what, "wall_ms": wall_ms, "busy_ms": None}
-    print(f"  {what}: wall {wall_ms:.1f} ms, device busy {busy:.1f} ms, idle share {1 - busy / wall_ms:.3f}")
-    for name, ms in top:
-        print(f"    {ms:9.3f} ms  {name}")
-    wkv_state, wkv_output = (by_kernel.get(f"wkv ({k})", 0.0) for k in ("wkv_state_kernel", "wkv_output_kernel"))
-    if wkv_state or wkv_output:
-        print(f"  wkv: state pass {wkv_state:.3f} ms + output kernel {wkv_output:.3f} ms = "
-              f"{wkv_state + wkv_output:.3f} ms")
-    ssm_state, ssm_output = (by_kernel.get(f"ssm_scan ({k})", 0.0) for k in ("ssm_state_kernel", "ssm_output_kernel"))
-    if ssm_state or ssm_output:
-        print(f"  ssm_scan: state pass {ssm_state:.3f} ms + output pass {ssm_output:.3f} ms = "
-              f"{ssm_state + ssm_output:.3f} ms")
-    return {"window": what, "wall_ms": wall_ms, "busy_ms": busy, "idle_share": 1 - busy / wall_ms, "top": top,
-            "wkv_ms": wkv_state + wkv_output, "wkv_state_ms": wkv_state, "wkv_output_ms": wkv_output,
-            "ssm_ms": ssm_state + ssm_output, "ssm_state_ms": ssm_state, "ssm_output_ms": ssm_output}
+        name = _kernel_name(evt.key)
+        ms[name] = ms.get(name, 0.0) + us / 1e3
+        count[name] = count.get(name, 0) + evt.count
+    busy = sum(ms.values())
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA and "HtoD" not in e.name and "DtoH" not in e.name)
+    timeline = {}
+    if spans:
+        gaps, end = [], spans[0][1]
+        for start, stop in spans[1:]:
+            if start > end:
+                gaps.append(start - end)
+            end = max(end, stop)
+        between = sorted(gaps)[len(gaps) - runs + 1:]
+        run_us = end - spans[0][0] - sum(between)
+        inside = sum(gaps) - sum(between)
+        timeline = {"run_ms": run_us / runs / 1e3, "idle_in_runs_ms": inside / 1e3,
+                    "idle_share_in_runs": inside / run_us, "between_runs_ms": sum(between) / 1e3,
+                    "outside_device_span_ms": wall_ms - (end - spans[0][0]) / 1e3}
+    return {"wall_ms": wall_ms, "busy_ms": busy, "idle_share": 1 - busy / wall_ms if busy else None,
+            "ms": ms, "count": count, "timeline": timeline}
+
+
+def phase_profile(torch, serve: dict, engine=None) -> dict:
+    """Two windows under torch.profiler on warm programs: two decode steps at width
+    4, and one prefill replay at bucket 32 alone. The profiler sees the kernels
+    inside a graph replay: every window's GEMM kernels must be per_forward a forward,
+    its WKV / SSM kernels n_layers a prefill (0 a decode step). ``engine`` defaults
+    to the served (graphed) one."""
+    import numpy as np
+
+    engine = engine or serve["engine"]
+    prompts, per_forward = serve["prompts"], serve["per_forward"]
+    kinds = "graphed" if engine.cuda_graphs else "eager"
+
+    engine.drain()
+    for p in prompts:
+        engine.submit(p, max_new_tokens=4)
+    engine.step()  # 4 prefills + a decode step, outside the window
+    decode = _profile_window(torch, lambda: (engine.step(), engine.step()), 2)
+    engine.drain()
+    prog = engine._prefill_fn(32)
+    require(prog.runs > 0, "the bucket-32 prefill program was not warm")
+    tokens = np.zeros((1, 32), dtype=np.int64)
+    tokens[0, -len(prompts[0]):] = prompts[0]  # left-padded, as the engine stages it
+    prog.stage(tokens=tokens)
+    prefill = _profile_window(torch, lambda: prog.run(engine.runtime), 1)
+    per_prefill = {"wkv": serve.get("wkv_per_prefill", 0), "ssm": serve.get("ssm_per_prefill", 0)}
+    for what, window, forwards, prefills in (("2 decode steps", decode, 2, 0), ("1 prefill", prefill, 1, 1)):
+        c = window["count"]
+        if not c:
+            print(f"  {what}: the profiler recorded no device time: not measured")
+            continue
+        got = c.get(GEMM_KERNELS, 0)
+        require(got == per_forward * forwards, f"{kinds} {what}: the profiler saw {got} GEMM kernels, want "
+                                               f"{per_forward} x {forwards}")
+        for kernel, fam in (("wkv_state_kernel", "wkv"), ("wkv_output_kernel", "wkv"), ("ssm_output_kernel", "ssm")):
+            n = c.get(_kernel_name(kernel), 0)
+            require(n == per_prefill[fam] * prefills, f"{kinds} {what}: the profiler saw {n} {kernel}, want "
+                                                      f"{per_prefill[fam]} x {prefills}")
+        top = sorted(window["ms"].items(), key=lambda kv: -kv[1])[:6]
+        print(f"  {kinds} {what}: wall {window['wall_ms']:.2f} ms, device busy {window['busy_ms']:.2f} ms, idle share "
+              f"{window['idle_share']:.3f}; kernels seen: {got} GEMM (= {per_forward} x {forwards})"
+              + "".join(f", {c[_kernel_name(k)]} {k}" for k in ("wkv_state_kernel", "wkv_output_kernel",
+                                                               "ssm_state_kernel", "ssm_output_kernel")
+                        if c.get(_kernel_name(k))))
+        t = window["timeline"]
+        print(f"    device timeline: one {'replay' if engine.cuda_graphs else 'eager run'} spans {t['run_ms']:.3f} ms, "
+              f"idle inside the runs {t['idle_in_runs_ms']:.3f} ms (share {t['idle_share_in_runs']:.3f}), between "
+              f"them {t['between_runs_ms']:.3f} ms, outside the device's span {t['outside_device_span_ms']:.3f} ms")
+        for name, ms in top:
+            print(f"    {ms:9.3f} ms  {name}")
+    d, pf = decode["ms"], prefill["ms"]
+    return {"decode": decode, "prefill": prefill, "wall_ms": decode["wall_ms"], "busy_ms": decode["busy_ms"],
+            "idle_share": decode["idle_share"], "busy_per_step_ms": decode["busy_ms"] / 2,
+            "wkv_state_ms": pf.get("wkv (wkv_state_kernel)", 0.0), "wkv_output_ms": pf.get("wkv (wkv_output_kernel)", 0.0),
+            "ssm_state_ms": pf.get("ssm_scan (ssm_state_kernel)", 0.0),
+            "ssm_output_ms": pf.get("ssm_scan (ssm_output_kernel)", 0.0),
+            "gemm_decode_ms": d.get(GEMM_KERNELS, 0.0)}
+
+
+def phase_eager(torch, mm, seq: dict, serve: dict, graphed_profile: dict) -> dict:
+    """The graphed engine against the eager one (``cuda_graphs=False``, the same
+    programs' bodies run op by op) on the same model, weights, policy and requests:
+    a captured decode replay equal bitwise to its body run eagerly; memory reserved
+    with the graphed engine's programs and after dropping them; then the eager
+    engine's same programs, each warmed up once, and a warm drain whose token
+    streams must equal the graphed engine's, and its profile; warm numbers side
+    by side."""
+    from repro_torch.core.runtime import KernelRuntime
+    from repro_torch.kernels.ops import FixedPolicy
+    from repro_torch.serve.engine import ServingEngine
+
+    graphed = serve["engine"]
+    prog, pool = graphed._decode_cache[4], graphed.pool
+    snap = {k: t.clone() for k, t in pool._store.items()}
+    prog.replay()
+    replayed = prog.outputs["logits"].clone()
+    for k, t in pool._store.items():
+        t.copy_(snap[k])
+    with graphed.runtime.activate():
+        eager_logits = prog.body()["logits"]
+    require(torch.equal(replayed, eager_logits), "a captured decode replay differs from its body run eagerly")
+    for k, t in pool._store.items():
+        t.copy_(snap[k])
+    del snap, replayed, eager_logits, prog
+    with_graphs = _reserved(torch)
+    graphed._prefill_cache.clear()
+    graphed._rejit_decode()
+    without = _reserved(torch)
+
+    rt = KernelRuntime(name=f"chip_smoke-eager[{serve['arch']}]")
+    rt.install(FixedPolicy() if serve["policy"] is None else serve["policy"])
+    engine = ServingEngine(serve["model"], serve["params"], max_batch=4, cache_len=256, runtime=rt, cuda_graphs=False)
+    require(not engine.cuda_graphs, "cuda_graphs=False took graphs")
+    # The programs the graphed engine's drains built, warmed up without a drain of their own.
+    for kind, size in sorted({(r["kind"], r["size"]) for r in serve["programs"]}):
+        (engine._prefill_fn if kind == "prefill" else engine._decode_fn)(size)
+    warm = _drain(torch, engine, serve["prompts"], mm, seq)
+    per_forward = serve["per_forward"]
+    bad = [(kind, size, n, b) for kind, size, n, _, b, _ in warm["events"] if n != per_forward or b]
+    require(not bad, f"warm eager forwards whose GEMM launches are not {per_forward}, or that built a program: {bad}")
+    require(warm["outputs"] == serve["outputs"],
+            f"{serve['arch']}: the eager engine's token streams differ from the graphed engine's")
+    profile = phase_profile(torch, serve, engine)
+    eager_reserved = _reserved(torch)
+    g, e = serve["warm"], warm
+    # The profiler slows the host around every launch and traces every device operation.
+    # An estimate without it mixes two drains: the profiled busy time per step over the
+    # unprofiled warm median.
+    unprofiled = lambda prof, drain: 1 - prof["busy_per_step_ms"] / drain["decode_median_ms"]
+    timeline = lambda prof, key: prof["decode"]["timeline"].get(key)
+    rows = {
+        "decode step ms, median": (g["decode_median_ms"], e["decode_median_ms"]),
+        "decode step ms, min": (g["decode_min_ms"], e["decode_min_ms"]),
+        "decode step ms, max": (g["decode_max_ms"], e["decode_max_ms"]),
+        "idle share, 2 profiled decode steps": (graphed_profile["idle_share"], profile["idle_share"]),
+        "device busy ms per decode step (profiled)": (graphed_profile["busy_per_step_ms"],
+                                                      profile["busy_per_step_ms"]),
+        "idle share inside a step's device span (profiled timeline)": (
+            timeline(graphed_profile, "idle_share_in_runs"), timeline(profile, "idle_share_in_runs")),
+        "ms between the 2 profiled steps' device spans (timeline)": (
+            timeline(graphed_profile, "between_runs_ms"), timeline(profile, "between_runs_ms")),
+        "estimate: 1 - profiled busy per step / unprofiled warm median": (unprofiled(graphed_profile, g),
+                                                                          unprofiled(profile, e)),
+        "tokens/s": (g["tok_per_s"], e["tok_per_s"]),
+        "seconds building programs (warm-up, capture)": (serve["capture_s"],
+                                                         sum(r.seconds for r in engine.program_log)),
+        "memory reserved GB, engine live, after empty_cache": (with_graphs / 1e9, eager_reserved / 1e9),
+    }
+    print(f"  {serve['arch']}: eager and graphed token streams equal (warm drains); a captured decode "
+          f"replay equals its body run eagerly, bitwise")
+    print(f"  {'warm, same card, same run':<60} {'graphed':>10} {'eager':>10}")
+    for name, (gv, ev) in rows.items():
+        fmt = (lambda v: "n/m" if v is None else f"{v:10.3f}")
+        print(f"  {name:<60} {fmt(gv):>10} {fmt(ev):>10}")
+    print(f"  warm tokens/s, graphed / eager: {g['tok_per_s'] / e['tok_per_s']:.2f}x; decode step median: "
+          f"{e['decode_median_ms'] / g['decode_median_ms']:.2f}x shorter; the graphed engine's programs hold "
+          f"{(with_graphs - without) / 1e9:.3f} GB reserved ({with_graphs / 1e9:.3f} with them, "
+          f"{without / 1e9:.3f} after dropping them)")
+    return {"warm": warm, "profile": profile, "side_by_side": rows,
+            "memory_reserved": {"with_graphs": with_graphs, "without_graphs": without, "eager": eager_reserved}}
+
+
+def _reserved(torch) -> int:
+    """Bytes the caching allocator holds once its free cached blocks are released."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_reserved()
+
+
+def phase_ssm_capture_guard(torch, ss) -> dict:
+    """A cut selective-scan call on a stream that has no workspace yet raises while a
+    CUDA graph is being captured: the workspace is allocated (at its fixed bound)
+    only outside a capture, so no graph captures one that could move."""
+    g = torch.Generator(device="cuda").manual_seed(14)
+    b, s, d, n = 1, 2048, 64, 16
+    x, dt, bv, cv = (torch.randn(shape, device="cuda", generator=g)
+                     for shape in ((b, s, d), (b, s, d), (b, s, n), (b, s, n)))
+    a = -torch.rand((d, n), device="cuda", generator=g)
+    segments = ss.launch_segments(b, s, d, n, ss.DEFAULT_SSM_CONFIG, True, 0)
+    require(segments > 1, f"(1, {s}, {d}, {n}) is not cut ({segments} segment)")
+    from repro_torch.serve.engine import _no_gc
+
+    graph, stream = torch.cuda.CUDAGraph(), torch.cuda.Stream()
+    require((0, stream.cuda_stream) not in ss._WORKSPACE, "the fresh stream already holds an ssm workspace")
+    err = None
+    try:
+        with _no_gc(), torch.cuda.graph(graph, stream=stream):
+            ss.ssm_cuda_fused(x, dt.abs(), a, bv, cv)
+    except RuntimeError as e:
+        err = f"{e} / {e.__context__}"
+    require(err is not None and "ssm workspace" in err, f"a workspace allocation during a capture did not raise: {err}")
+    torch.cuda.synchronize()
+    del graph
+    print(f"  a cut call ({segments} segments) on a fresh stream under capture raised: {err.split(';')[0]}")
+    return {"segments": segments, "raised": err}
+
+
+def phase_reinstall(torch, mm, serve: dict) -> dict:
+    """Install another policy mid-run on the tuned engine's runtime: every program
+    is captured again under the new epoch, and its launches take the new policy's
+    config."""
+    from repro_torch.kernels.ops import FixedPolicy
+
+    engine = serve["engine"]
+    rt = engine.runtime
+    epoch0 = rt.policy_epoch()
+    prompts = serve["prompts"]
+    for p in prompts[:2]:
+        engine.submit(p, max_new_tokens=6)
+    engine.step()
+    engine.step()
+    n0 = len(engine.program_log)
+    mm.reset_launches()
+    rt.install(FixedPolicy())
+    for p in prompts[2:]:  # their prefills, and the decodes, after the install
+        engine.submit(p, max_new_tokens=6)
+    status = engine.drain()
+    require(status.completed == 4 and not status.exhausted, f"after the install: {status}")
+    new = engine.program_log[n0:]
+    live = engine.programs()
+    require(new and all(r.epoch == epoch0 + 1 and r.captured for r in new), f"programs after the install: {new}")
+    require({r.kind for r in new} == {"prefill", "decode"}, f"not every kind of program was captured again: {new}")
+    require(all(v["epoch"] == epoch0 + 1 for v in live.values()), f"a live program of an old epoch: {live}")
+    got = {name: c for name, c in mm.LAUNCHES.items() if c}
+    want = {mm.DEFAULT_CONFIG.name(): 2 * serve["per_forward"] * len(new)}
+    require(got == want, f"GEMM launches after the install {got}, want {want}")
+    print(f"  installed FixedPolicy() mid-run (epoch {epoch0} -> {epoch0 + 1}): {len(new)} programs captured again "
+          f"({', '.join(f'{r.kind} {r.size}' for r in new)}); their GEMM launches {got}")
+    return {"epoch": epoch0 + 1, "recaptured": [dataclasses.asdict(r) for r in new], "launches": got}
 
 
 def _time_ms(fn, n_warm=3, n_runs=20, queued=True) -> float:
@@ -1236,11 +1538,25 @@ def main() -> int:
     from repro_torch.kernels import wkv as wk
 
     t_start = time.perf_counter()
-    print("[1] card")
+
+    def phase(title: str) -> None:
+        print(f"{title} (at {time.perf_counter() - t_start:.1f}s)")
+
+    # Python's cyclic collector must never run during a capture: it may free a dead
+    # engine's graphs, which invalidates the capture (the engine holds it off).
+    collected_in_capture: list[int] = []
+
+    def watch_gc(stage: str, info: dict) -> None:
+        if stage == "start" and torch.cuda.is_current_stream_capturing():
+            collected_in_capture.append(info["generation"])
+
+    gc.callbacks.append(watch_gc)
+
+    phase("[1] card")
     card = card_line()
     print(f"  {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
-    print("[2] build")
+    phase("[2] build")
     t0 = time.perf_counter()
     _build.load_all(["matmul", "wkv", "ssm", "attention"])
     tiles, wkv_cfgs, ssm_cfgs = mm.compiled_tiles(), wk.compiled_configs(), ss.compiled_configs()
@@ -1260,75 +1576,84 @@ def main() -> int:
         spills = sorted({line.strip() for line in log if "spill" in line and "0 bytes spill" not in line})
         print(f"  ptxas {name}: {len(regs)} kernels; {sorted(set(regs))}; spills {spills or 'none'}")
 
-    print("[3] GEMM against plain")
+    phase("[3] GEMM against plain")
     errors = phase_kernel_vs_plain(torch, mm)
-    print("[3b] WKV against plain")
+    phase("[3b] WKV against plain")
     wkv_errors = phase_wkv_vs_plain(torch, wk)
-    print("[3c] SSM against plain")
+    phase("[3c] SSM against plain")
     ssm_errors = phase_ssm_vs_plain(torch, ss)
     seq = {"wkv": wk, "ssm": ss}
 
-    print("[4] full-width granite-8b serving")
+    phase("[4] full-width granite-8b serving")
     serve = phase_serve(torch, mm, seq, "granite-8b")
-    print("[5] selection reaches the kernel")
+    phase("[5] selection reaches the kernel")
     policy = phase_policy(mm, serve)
-    print("[5b] where a granite-8b decode step's time goes")
-    profile = phase_profile(torch, serve, 0)
+    phase("[5b] where a granite-8b decode step's and prefill's time goes (warm replays)")
+    profile = phase_profile(torch, serve)
+    phase("[5c] granite-8b: the eager engine against the graphed one")
+    eager = {"granite-8b": phase_eager(torch, mm, seq, serve, profile)}
     _release(torch, serve)  # granite's weights go before rwkv6-7b's load
 
-    print("[6] cpu against card, granite-8b")
+    phase("[6] cpu against card, granite-8b")
     parity = phase_cpu_vs_card("granite-8b")
 
-    print("[7] GEMM timing, granite-8b shapes (bf16, DEFAULT_CONFIG = the config served)")
+    phase("[7] GEMM timing, granite-8b shapes (bf16, DEFAULT_CONFIG = the config served)")
     rows = phase_timing(torch, mm, serve["per_decode_step"], GRANITE_KN)
     tall = phase_tall(torch, mm)
 
-    print("[8] full-width rwkv6-7b serving")
+    phase("[8] full-width rwkv6-7b serving")
     rwkv = phase_serve(torch, mm, seq, "rwkv6-7b")
-    print("[9] selection reaches the WKV kernel")
+    phase("[9] selection reaches the WKV kernel")
     wkv_policy = phase_seq_policy(wk, "wkv", wk.WkvConfig(64), rwkv)
-    print("[9b] where an rwkv6-7b prefill's and decode step's time goes")
-    rwkv_profile = phase_profile(torch, rwkv, 1)
+    phase("[9b] where an rwkv6-7b decode step's and prefill's time goes (warm replays)")
+    rwkv_profile = phase_profile(torch, rwkv)
+    phase("[9c] rwkv6-7b: the eager engine against the graphed one")
+    eager["rwkv6-7b"] = phase_eager(torch, mm, seq, rwkv, rwkv_profile)
     _release(torch, rwkv)
 
-    print("[10] cpu against card, rwkv6-7b")
+    phase("[10] cpu against card, rwkv6-7b")
     rwkv_parity = phase_cpu_vs_card("rwkv6-7b")
 
-    print("[11] WKV timing (DEFAULT_WKV_CONFIG = the config served), GEMM timing at rwkv6-7b decode shapes")
+    phase("[11] WKV timing (DEFAULT_WKV_CONFIG = the config served), GEMM timing at rwkv6-7b decode shapes")
     wkv_rows = phase_wkv_timing(torch, wk)
     rwkv_rows = phase_timing(torch, mm, rwkv["per_decode_step"], RWKV_KN, ms=(4,))
 
-    print("[12] full-width hymba-1.5b serving")
+    phase("[12] full-width hymba-1.5b serving")
     hymba = phase_serve(torch, mm, seq, "hymba-1.5b")
     want = {"fused": sum(hymba["ssm_launches"].values()), "dta": 0}
     require(hymba["ssm_entry_launches"] == want and want["fused"] > 0,
             f"hymba-1.5b prefills should reach the SSM only through ssm_cuda_fused: {hymba['ssm_entry_launches']}")
     print(f"  SSM launches by entry: {hymba['ssm_entry_launches']} (ssm_cuda_fused only)")
-    print("[13] selection reaches the SSM kernel")
+    phase("[13] selection reaches the SSM kernel")
     ssm_policy = phase_seq_policy(ss, "ssm", ss.SsmConfig(8, 16), hymba)
-    print("[13b] where a hymba-1.5b prefill's and decode step's time goes")
-    hymba_profile = phase_profile(torch, hymba, 1)
+    phase("[13b] where a hymba-1.5b decode step's and prefill's time goes (warm replays)")
+    hymba_profile = phase_profile(torch, hymba)
+    phase("[13c] hymba-1.5b: the eager engine against the graphed one; the SSM workspace under capture")
+    eager["hymba-1.5b"] = phase_eager(torch, mm, seq, hymba, hymba_profile)
+    ssm_guard = phase_ssm_capture_guard(torch, ss)
     _release(torch, hymba)
 
-    print("[14] cpu against card, hymba-1.5b at 4 layers")
+    phase("[14] cpu against card, hymba-1.5b at 4 layers")
     hymba_parity = phase_hymba_cpu_vs_card(torch)
 
-    print("[15] SSM timing (DEFAULT_SSM_CONFIG = the config served), GEMM timing at hymba-1.5b decode shapes")
+    phase("[15] SSM timing (DEFAULT_SSM_CONFIG = the config served), GEMM timing at hymba-1.5b decode shapes")
     ssm_rows = phase_ssm_timing(torch, ss)
     hymba_rows = phase_timing(torch, mm, hymba["per_decode_step"], HYMBA_KN, ms=(4,))
 
-    print("[16] attention against plain")
+    phase("[16] attention against plain")
     attn_errors = phase_attention_vs_plain(torch, at)
-    print("[17] tune on the card: measured tables -> cluster-select -> decision tree -> Deployment")
+    phase("[17] tune on the card: measured tables -> cluster-select -> decision tree -> Deployment")
     tuning = phase_tune(torch, mm, at)
-    print("[18] the quickstart's path: the tuned Deployment in a fresh runtime, ops.attention and ops.matmul")
+    phase("[18] the quickstart's path: the tuned Deployment in a fresh runtime, ops.attention and ops.matmul")
     quick = phase_quickstart(torch, mm, at, ops)
-    print("[19] full-width granite-8b served under the tuned Deployment")
+    phase("[19] full-width granite-8b served under the tuned Deployment")
     from repro_torch.core.dispatch import Deployment
 
     tuned = phase_serve(torch, mm, seq, "granite-8b", policy=Deployment.load(DEPLOY_PATH))
-    print("[19b] where a tuned granite-8b decode step's time goes")
-    tuned_profile = phase_profile(torch, tuned, 0)
+    phase("[19b] where a tuned granite-8b decode step's and prefill's time goes (warm replays)")
+    tuned_profile = phase_profile(torch, tuned)
+    phase("[19c] another policy installed mid-run: the programs are captured again")
+    reinstall = phase_reinstall(torch, mm, tuned)
     _release(torch, tuned)
     # One granite decode step's GEMMs at m=4: sum of count x time over the shapes it launches,
     # under the default config, each shape's best compiled config, and the tree's choices.
@@ -1347,13 +1672,13 @@ def main() -> int:
     print(f"  one decode step's GEMMs (CUDA-event device time from phase 7, summed over shapes): tree "
           f"{tuned_step_ms:.2f} ms, default {total('ms'):.2f}, best per shape {total('best_ms'):.2f}, "
           f"bound {total('bound_ms'):.2f}; greedy streams equal phase 4's: {tuned['streams_equal_phase_4']}")
-    print("[20] attention timing at the served shapes")
+    phase("[20] attention timing at the served shapes")
     attn_rows = phase_attention_timing(torch, at)
-    print("[20b] GEMM: the parent's kernel against this one, in turns")
+    phase("[20b] GEMM: the parent's kernel against this one, in turns")
     parent_ab = phase_parent_ab({"granite-8b": serve, "rwkv6-7b": rwkv, "hymba-1.5b": hymba})
-    print("[20c] attention: the parent's kernel against this one, in turns")
+    phase("[20c] attention: the parent's kernel against this one, in turns")
     attn_parent_ab = phase_attention_parent_ab()
-    print("[20d] selective scan: the parent's kernel against this one, in turns")
+    phase("[20d] selective scan: the parent's kernel against this one, in turns")
     ssm_parent_ab = phase_ssm_parent_ab()
     # The rwkv6-7b run's WKV launches: n_layers per prefill, at each prefill's bucket.
     by_s = {r["s"]: r for r in wkv_rows}
@@ -1374,6 +1699,13 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/matmul.cu",
         "replaces": "src/repro/kernels/matmul.py:120",
         "launches": sum(gemm_launches.values()),
+        "launches_counted_as": LAUNCHES_COUNTED_AS,
+        "kernels_in_profiled_replays": {run["arch"] + (" (tuned)" if run is tuned else ""): {
+            "2 decode replays": prof["decode"]["count"].get(GEMM_KERNELS, 0),
+            "1 prefill replay": prof["prefill"]["count"].get(GEMM_KERNELS, 0)}
+            for run, prof in ((serve, profile), (rwkv, rwkv_profile), (hymba, hymba_profile), (tuned, tuned_profile))},
+        "program_replays": {run["arch"] + (" (tuned)" if run is tuned else ""): run["program_replays"]
+                            for run in (serve, rwkv, hymba, tuned)},
         "launches_by_path": gemm_launches,
         "launches_by_route": gemm_routes,
         "max_abs_err": max(errors[pair]["abs"] for pair in GEMM_PAIRS),
@@ -1393,6 +1725,10 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/wkv.cu",
         "replaces": "src/repro/kernels/wkv.py:114",
         "launches": sum(rwkv["wkv_launches"].values()),
+        "launches_counted_as": LAUNCHES_COUNTED_AS,
+        "kernels_in_profiled_replays": {f"1 prefill replay, {k}": rwkv_profile["prefill"]["count"].get(
+            _kernel_name(k), 0) for k in ("wkv_state_kernel", "wkv_output_kernel")},
+        "program_replays": rwkv["program_replays"],
         "max_abs_err": wkv_errors["abs"],
         "max_rel_err": wkv_errors["rel"],
         "ms": wkv_total("ms"),
@@ -1414,6 +1750,10 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/ssm.cu",
         "replaces": "src/repro/kernels/ssm.py:90",
         "launches": sum(hymba["ssm_launches"].values()),
+        "launches_counted_as": LAUNCHES_COUNTED_AS,
+        "kernels_in_profiled_replays": {f"1 prefill replay, {k}": hymba_profile["prefill"]["count"].get(
+            _kernel_name(k), 0) for k in ("ssm_state_kernel", "ssm_output_kernel")},
+        "program_replays": hymba["program_replays"],
         "launches_by_entry": hymba["ssm_entry_launches"],
         "max_abs_err": ssm_errors["abs"],
         "max_rel_err": ssm_errors["rel"],
@@ -1454,6 +1794,9 @@ def main() -> int:
                     f"({len(quick['rows'])}) at (1, 32) heads, bf16, causal, under the tree's config, summed "
                     f"(the run made each call twice, the second a shape-cache hit)",
     }]}
+    gc.callbacks.remove(watch_gc)
+    require(not collected_in_capture, f"Python collections ran during a capture: generations {collected_in_capture}")
+    print("  no Python collection ran during a CUDA graph capture")
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps({
@@ -1466,7 +1809,8 @@ def main() -> int:
         "ssm_errors": ssm_errors, "hymba_serve": hymba, "ssm_policy": ssm_policy, "hymba_profile": hymba_profile,
         "hymba_cpu_vs_card": hymba_parity, "ssm_timing": ssm_rows, "hymba_timing": hymba_rows,
         "attention_errors": attn_errors, "tuning": tuning, "quickstart": quick, "tuned_serve": tuned,
-        "tuned_profile": tuned_profile,
+        "tuned_profile": tuned_profile, "eager_vs_graphed": eager, "ssm_capture_guard": ssm_guard,
+        "reinstall": reinstall,
         "attention_timing": attn_rows,
         "kernels": kernels["kernels"], "seconds": time.perf_counter() - t_start,
     }, indent=1, default=str))

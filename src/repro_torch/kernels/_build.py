@@ -35,6 +35,17 @@ _libs: dict[str, ctypes.CDLL] = {}
 build_seconds: dict[str, float] = {}  # source name -> nvcc wall time (0.0 when reused)
 
 
+def refuse_under_capture(what: str) -> None:
+    """Raise if the current stream is capturing a CUDA graph: a kernel's
+    workspace allocated (or grown) there would be captured, not made, and a
+    graph keeps the address it captured."""
+    import torch
+
+    if torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(f"{what} would be allocated during a CUDA graph capture; run the captured body once "
+                           f"on the capture stream first (or reserve the workspace)")
+
+
 def nvcc_path() -> str:
     """The CUDA compiler: ``$CUDA_HOME/bin/nvcc``, else ``nvcc`` on PATH."""
     home = os.environ.get("CUDA_HOME", "/usr/local/cuda")

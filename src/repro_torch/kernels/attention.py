@@ -45,6 +45,7 @@ import itertools
 
 import torch
 
+from ._build import refuse_under_capture
 from .ref import flash_attention_ref
 
 SMEM_LIMIT = 232_448  # bytes of shared memory one H100 CTA may use (227 KB)
@@ -285,7 +286,8 @@ def launch_splits(bh: int, sq: int, skv: int, d: int, config: AttentionConfig, c
 # half as many (query block, head) counters.  The first allocation holds the most any
 # config needs on an H100 (whose occupancy caps the target at 3 x 132 CTAs of the smallest
 # slots; 132 of the largest) and stays at one address; a card with more SMs would grow it.
-# The kernel leaves every counter at 0.
+# The kernel leaves every counter at 0. As the GEMM's, it is never allocated during a CUDA
+# graph capture.
 WORKSPACE_FLOATS = max(split_target(c, hd, H100_SMS, 64) * c.block_q * (hd + 8)
                        for c in config_space() for hd in _HEAD_DIMS)
 WORKSPACE_COUNTERS = max(split_target(c, hd, H100_SMS, 64) for c in config_space() for hd in _HEAD_DIMS) // 2
@@ -295,6 +297,8 @@ _WORKSPACE: dict[tuple[int, int], tuple[torch.Tensor, torch.Tensor]] = {}
 def _workspace(device: torch.device, stream: int, floats: int, tiles: int) -> tuple[int, int]:
     key = (device.index, stream)
     ws, counters = _WORKSPACE.get(key, (None, None))
+    if ws is None or ws.numel() < floats or counters.numel() < tiles:
+        refuse_under_capture("the attention split-KV workspace")
     if ws is None or ws.numel() < floats:
         ws = torch.empty(max(floats, WORKSPACE_FLOATS), dtype=torch.float32, device=device)
     if counters is None or counters.numel() < tiles:

@@ -30,6 +30,7 @@ import functools
 
 import torch
 
+from ._build import refuse_under_capture
 from .ref import matmul_ref
 
 SMEM_LIMIT = 232_448  # bytes of shared memory one H100 CTA may use (227 KB)
@@ -236,7 +237,9 @@ def _sm_count(index: int) -> int:
 # SPLIT_CTAS tiles and at most ceil(SPLIT_CTAS / tiles) splits, so it needs fewer than
 # 2 * SPLIT_CTAS tile-sized slots: the first allocation holds that many of the largest
 # tile and stays at one address; a larger need would grow it. The kernel leaves every
-# counter at 0.
+# counter at 0. A CUDA graph bakes the addresses in, so the pair is never allocated during
+# a capture (the counters' zeroing would be captured, not run): a warm-up call on the
+# capture stream allocates it first.
 WORKSPACE_FLOATS = 2 * SPLIT_CTAS * max(bm * bn for bm, bn, _ in _TILES)
 _WORKSPACE: dict[tuple[int, int], tuple[torch.Tensor, torch.Tensor]] = {}
 
@@ -244,6 +247,8 @@ _WORKSPACE: dict[tuple[int, int], tuple[torch.Tensor, torch.Tensor]] = {}
 def _workspace(device: torch.device, stream: int, floats: int, tiles: int) -> tuple[int, int]:
     key = (device.index, stream)
     ws, counters = _WORKSPACE.get(key, (None, None))
+    if ws is None or ws.numel() < floats or counters.numel() < tiles:
+        refuse_under_capture("the matmul split-k workspace")
     if ws is None or ws.numel() < floats:
         ws = torch.empty(max(floats, WORKSPACE_FLOATS), dtype=torch.float32, device=device)
     if counters is None or counters.numel() < tiles:

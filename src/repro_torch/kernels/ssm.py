@@ -34,6 +34,7 @@ import functools
 
 import torch
 
+from ._build import refuse_under_capture
 from .ref import ssm_scan_ref
 
 _BLOCK_DS = (8, 16, 32)  # csrc/ssm.cu REPRO_SSM_BLOCK_DS
@@ -242,9 +243,20 @@ def launch_segments(b: int, s: int, d: int, n: int, config: SsmConfig, fused: bo
     return ssm_segments(b, s, d, config, _sm_count(index), resident_ctas(config, n, fused, index))
 
 
+@functools.cache
+def workspace_bound(index: int) -> int:
+    """f32 values the workspace of any cut call on CUDA device ``index`` may need.  A
+    call is cut into at most sm_count x resident // ctas segments, with ctas = B x
+    ceil(d / block_d), so its 2 B (segments - 1) d N values stay below 2 x sm_count x
+    resident x block_d x N: the largest of these over the compiled configs."""
+    return max(2 * _sm_count(index) * resident_ctas(c, n, fused, index) * c.block_d * n
+               for c in config_space() for n in _STATES for fused in (False, True))
+
+
 # (device index, stream) -> the f32 workspace of cut calls, one per stream so two streams
-# never share it. It grows to the largest call made on the stream and stays there; a CUDA
-# graph captures it after one call at its largest shape.
+# never share it. The first allocation holds workspace_bound values, the most any call
+# needs, and stays at one address; as the GEMM's, it is never allocated during a CUDA
+# graph capture.
 _WORKSPACE: dict[tuple[int, int], torch.Tensor] = {}
 
 
@@ -252,7 +264,8 @@ def _workspace(device: torch.device, stream: int, floats: int) -> int:
     key = (device.index, stream)
     ws = _WORKSPACE.get(key)
     if ws is None or ws.numel() < floats:
-        ws = torch.empty(floats, dtype=torch.float32, device=device)
+        refuse_under_capture(f"the ssm workspace ({floats} floats)")
+        ws = torch.empty(max(floats, workspace_bound(device.index)), dtype=torch.float32, device=device)
         _WORKSPACE[key] = ws
     return ws.data_ptr()
 

@@ -6,7 +6,9 @@ is given.  ``--reduced`` (the default) serves the tiny same-family config;
 ``--no-reduced`` serves at full width.  The reduced model runs in f32, as the
 reference's launcher runs it; the full-width one in bf16, its serving dtype.
 Weights come from a CPU generator seeded with 0 and are moved to the device,
-so a ``cpu`` and a ``cuda`` run serve the same model.
+so a ``cpu`` and a ``cuda`` run serve the same model.  On ``cuda`` the engine
+serves through CUDA graphs, one per prefill bucket and decode width; the
+programs and the seconds their warm-up and capture took are printed.
 """
 from __future__ import annotations
 
@@ -69,6 +71,10 @@ def main(argv=None) -> list[list[int]]:
     print(f"served {len(reqs)} requests on {args.device} ({cfg.name}, d_model {cfg.d_model}, "
           f"{cfg.n_layers} layers, {str(dtype).removeprefix('torch.')}): {toks} tokens, {dt:.2f}s "
           f"({toks / max(dt, 1e-9):.1f} tok/s), {engine.steps} decode steps")
+    built = engine.program_log
+    how = "captured as CUDA graphs" if engine.cuda_graphs else "run eagerly"
+    print(f"programs: {len(built)} {how} ({', '.join(f'{r.kind} {r.size}' for r in built)}); "
+          f"{sum(r.seconds for r in built):.2f}s building them (warm-up{' and capture' * engine.cuda_graphs})")
     stats = rt.shape_cache_stats()
     print(f"kernel selections: {stats['hits'] + stats['misses']} "
           f"({stats['hits']} shape-cache hits) on runtime {rt.name!r}")

@@ -18,18 +18,38 @@ tokens attended as real tokens, or run through RWKV6's or Mamba's recurrence, as
 reference; first token from the last position's logits), then one
 batched decode advances every active lane at the smallest power-of-two width
 bucket that fits, padded with idle lanes (whose recurrent-state rows advance
-too, as in the reference).  Kernel selection runs against the
-engine's :class:`~repro_torch.core.runtime.KernelRuntime`; eager PyTorch
-selects on every GEMM call, so the runtime's shape cache is consulted on
-every forward (the reference selects once per jit trace).
+too, as in the reference).
+
+Compiled programs, as in the reference: one program per prefill bucket
+(``_prefill_fn``, ``_prefill_cache``) and one per decode width bucket
+(``_decode_fn``, ``_decode_cache``).  A program owns static buffers (the
+prompt tokens; the decode tokens, positions and the pool's block and lane
+row ids, and a fixed decode view of the cache) that the host fills through
+host staging buffers (pinned on the card) before each call.  On a CUDA model
+each program is a CUDA graph, captured once and replayed on every later
+call, on a stream of the engine's own (ordered after the caller's stream and
+before its next work): a decode replay gathers the selected lanes into the view, runs
+``model.decode_step``, scatters the view back into the pool (re-zeroing
+scratch block 0) and takes the argmax; a prefill replay runs
+``model.prefill`` and the argmax, and ``pool.admit`` copies its cache out.
+Kernel selection runs against the engine's
+:class:`~repro_torch.core.runtime.KernelRuntime` when a program is captured,
+as the reference selects when it traces; each program records the runtime's
+policy epoch, and a moved epoch (an ``install``) drops every program, so the
+next call captures under the new policy.  A failed capture or replay raises.
+On a CPU model (or with ``cuda_graphs=False``) the same programs run their
+body eagerly, selecting on every call.
 
 Streaming admission, SLO mode, retuning, deployment offers and rollback wait
 for later parts of the port.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import gc
 import itertools
+import time
 
 import numpy as np
 import torch
@@ -118,6 +138,79 @@ def _extend_ladder(buckets: tuple[int, ...], cache_len: int) -> tuple[int, ...]:
     return tuple(out)
 
 
+@contextlib.contextmanager
+def _no_gc():
+    """Hold off Python's cyclic collector: a collection during a capture could free
+    a dead engine's graphs, and destroying a graph while a stream captures is an
+    operation CUDA forbids there (it invalidates the capture)."""
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
+
+
+@dataclasses.dataclass(frozen=True)
+class ProgramRecord:
+    """One program an engine built: what, under which policy epoch, how."""
+
+    kind: str  # "prefill" | "decode"
+    size: int  # prefill bucket or decode width
+    epoch: int
+    captured: bool  # a CUDA graph (else the body runs eagerly on every call)
+    seconds: float  # warm-up and capture
+
+
+class _Program:
+    """One prefill bucket's or decode width's step: static input buffers, the
+    body that reads them, and its CUDA graph where it was captured.
+
+    ``outputs`` holds the body's outputs: the graph's own tensors once
+    captured (each replay rewrites them in place), else the latest eager
+    run's."""
+
+    def __init__(self, kind: str, size: int, epoch: int, inputs: dict[str, torch.Tensor], body):
+        self.kind, self.size, self.epoch = kind, size, epoch
+        self.inputs = inputs
+        pin = next(iter(inputs.values())).device.type == "cuda"
+        self._host = {name: torch.empty(t.shape, dtype=t.dtype, pin_memory=pin) for name, t in inputs.items()}
+        self.body = body
+        self.graph: torch.cuda.CUDAGraph | None = None
+        self.stream: torch.cuda.Stream | None = None  # the graph's capture and replay stream
+        self.view: dict | None = None  # a decode program's fixed cache view
+        self.outputs: dict = {}
+        self.runs = 0
+
+    def stage(self, **values) -> None:
+        """Copy host values into the static inputs, through the staging buffers."""
+        for name, value in values.items():
+            host = self._host[name]
+            host.numpy()[...] = value
+            self.inputs[name].copy_(host, non_blocking=True)
+
+    def replay(self) -> None:
+        """Replay the graph on its capture stream, ordered after the caller's
+        stream (the staged inputs) and before the caller's next work (the
+        outputs): the kernels' workspaces the graph captured are that
+        stream's, so only work on that stream ever touches them."""
+        caller = torch.cuda.current_stream(self.stream.device)
+        self.stream.wait_stream(caller)
+        with torch.cuda.stream(self.stream):
+            self.graph.replay()
+        caller.wait_stream(self.stream)
+
+    def run(self, runtime) -> dict:
+        if self.graph is not None:
+            self.replay()
+        else:
+            with runtime.activate():
+                self.outputs = self.body()
+        self.runs += 1
+        return self.outputs
+
+
 class ServingEngine:
     def __init__(
         self,
@@ -133,7 +226,13 @@ class ServingEngine:
         scheduler: SchedulerConfig | None = None,
         on_prefill=None,
         on_decode=None,
+        cuda_graphs: bool | None = None,
     ):
+        """``cuda_graphs``: None captures every program as a CUDA graph on a
+        CUDA model and runs the bodies eagerly on a CPU one; True on a CPU
+        model raises.  False on a CUDA model runs the bodies eagerly: the
+        eager engine, kept only to compare against the graphs (the
+        counterpart of the reference under ``jax.disable_jit()``)."""
         # Every prefill and decode dispatches against ONE runtime (the caller's
         # current one when not given), activated around each forward.
         self.runtime = runtime if runtime is not None else current_runtime()
@@ -160,6 +259,22 @@ class ServingEngine:
         self._width_buckets = tuple(buckets)
         self.on_prefill = on_prefill
         self.on_decode = on_decode
+        on_card = self.device.type == "cuda"
+        if cuda_graphs and not on_card:
+            raise ValueError(f"cuda_graphs=True needs a model on a CUDA device, not {self.device}")
+        self.cuda_graphs = on_card if cuda_graphs is None else bool(cuda_graphs)
+        # Compiled programs, keyed as the reference keys its jit caches; never
+        # shared between engines.  Both are dropped when the runtime's policy
+        # epoch moves.
+        self._prefill_cache: dict[int, _Program] = {}
+        self._decode_cache: dict[int, _Program] = {}
+        self._programs_epoch = self.runtime.policy_epoch()
+        self.program_log: list[ProgramRecord] = []  # every program built, dropped ones included
+        # The stream this engine warms up, captures and replays on.  The kernels key
+        # their workspaces by stream and a graph keeps the ones it captured, so no
+        # work on another stream touches them (engines that torch's stream pool puts
+        # on one stream run in turn).
+        self._stream: torch.cuda.Stream | None = None
 
     @property
     def device(self) -> torch.device:
@@ -169,6 +284,92 @@ class ServingEngine:
     def cache(self) -> dict:
         """Dense read view of all lanes, for inspection."""
         return self.pool.gather(range(self.max_batch))
+
+    # -- compiled programs ------------------------------------------------------
+    def _sync_programs(self) -> None:
+        """Drop every program captured under an older policy epoch (the
+        counterpart of the reference dropping its programs on adoption)."""
+        epoch = self.runtime.policy_epoch()
+        if epoch != self._programs_epoch:
+            self._prefill_cache.clear()
+            self._rejit_decode()
+            self._programs_epoch = epoch
+
+    def _rejit_decode(self) -> None:
+        self._decode_cache.clear()
+
+    def _prefill_fn(self, plen: int) -> _Program:
+        self._sync_programs()
+        if plen not in self._prefill_cache:
+            tokens = torch.zeros((1, plen), dtype=torch.int64, device=self.device)
+
+            def body():
+                logits, cache1 = self.model.prefill(self.params, {"tokens": tokens}, self.cache_len)
+                return {"cache": cache1, "next": torch.argmax(logits[0, -1])}
+
+            # No side effect: pool.admit copies the cache out after the call.
+            self._prefill_cache[plen] = self._build("prefill", plen, {"tokens": tokens}, body, body)
+        return self._prefill_cache[plen]
+
+    def _decode_fn(self, width: int) -> _Program:
+        self._sync_programs()
+        if width not in self._decode_cache:
+            dev = self.device
+            inputs = {"tokens": torch.zeros((width, 1), dtype=torch.int64, device=dev)}
+            for name in ("positions", "blocks", "lanes"):
+                inputs[name] = torch.zeros(width, dtype=torch.int64, device=dev)
+            view = self.pool.decode_view(width)  # raises on a replicated leaf, which scatter rebinds
+
+            def forward():
+                self.pool.gather_rows(inputs["blocks"], inputs["lanes"], out=view)
+                return self.model.decode_step(self.params, view, inputs["tokens"], inputs["positions"])
+
+            def body():
+                logits, new_cache = forward()
+                self.pool.scatter_rows(inputs["blocks"], inputs["lanes"], new_cache)
+                return {"logits": logits, "next": torch.argmax(logits[:, -1], dim=-1)}
+
+            def warm():
+                # The whole body but the scatter, its one side effect: the model
+                # advances only the gathered copy.
+                logits, _ = forward()
+                torch.argmax(logits[:, -1], dim=-1)
+
+            prog = self._build("decode", width, inputs, body, warm)
+            prog.view = view
+            self._decode_cache[width] = prog
+        return self._decode_cache[width]
+
+    def _build(self, kind: str, size: int, inputs: dict, body, warm) -> _Program:
+        """A program over ``inputs`` running ``body``: warmed up once (``warm``,
+        without side effects), then captured where the engine takes CUDA graphs."""
+        t0 = time.perf_counter()
+        prog = _Program(kind, size, self._programs_epoch, inputs, body)
+        if not self.cuda_graphs:
+            with self.runtime.activate():
+                warm()
+        else:
+            dev = self.device
+            if self._stream is None:
+                self._stream = torch.cuda.Stream(dev)
+            stream = prog.stream = self._stream
+            # Torch's recipe: the warm-up runs on the capture stream, which allocates
+            # the kernels' workspaces for that stream outside the capture.
+            stream.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(stream), self.runtime.activate():
+                warm()
+            torch.cuda.current_stream(dev).wait_stream(stream)
+            prog.graph = torch.cuda.CUDAGraph()
+            with _no_gc(), torch.cuda.graph(prog.graph, stream=stream), self.runtime.activate():
+                prog.outputs = body()
+        self.program_log.append(ProgramRecord(kind, size, prog.epoch, prog.graph is not None,
+                                              time.perf_counter() - t0))
+        return prog
+
+    def programs(self) -> dict:
+        """Live programs by (kind, size): policy epoch, captured, calls so far."""
+        return {(p.kind, p.size): {"epoch": p.epoch, "captured": p.graph is not None, "runs": p.runs}
+                for cache in (self._prefill_cache, self._decode_cache) for p in cache.values()}
 
     # -- lane admission -------------------------------------------------------
     def _free_lane(self) -> int | None:
@@ -197,17 +398,17 @@ class ServingEngine:
         prompt = np.zeros(plen, dtype=np.int64)
         if len(tail):
             prompt[-len(tail):] = tail  # left-pad with id 0 (causal end-aligned)
-        batch = {"tokens": torch.from_numpy(prompt[None, :]).to(self.device)}
-        with self.runtime.activate():
-            logits, cache1 = self.model.prefill(self.params, batch, self.cache_len)
+        prog = self._prefill_fn(plen)
+        prog.stage(tokens=prompt[None, :])
+        out = prog.run(self.runtime)
         self.pool.release(slot)
         if not self.pool.ensure(slot, plen):
             raise RuntimeError(f"admitted request {req.uid} with no blocks for plen={plen}")
-        self.pool.admit(slot, cache1)
+        self.pool.admit(slot, out["cache"])  # before any other call of this program
         self.pool.note_tokens(slot, min(len(tail), plen))
         if self.on_prefill is not None:
             self.on_prefill(plen)
-        req.output.append(int(torch.argmax(logits[0, -1])))
+        req.output.append(int(out["next"].cpu()))
         req.state = "active"
         self.slots[slot] = req
         self.positions[slot] = plen
@@ -241,18 +442,13 @@ class ServingEngine:
         tokens = np.zeros((width, 1), dtype=np.int64)
         for row, lane in enumerate(active):
             tokens[row, 0] = self.slots[lane].output[-1]
-        dev = self.device
-        with self.runtime.activate():
-            logits, new_cache = self.model.decode_step(
-                self.params,
-                self.pool.gather(sel),
-                torch.from_numpy(tokens).to(dev),
-                torch.from_numpy(self.positions[sel]).to(dev),
-            )
-        self.pool.scatter(sel, new_cache)
+        prog = self._decode_fn(width)
+        blocks, lanes = self.pool.row_ids(sel)
+        prog.stage(tokens=tokens, positions=self.positions[sel], blocks=blocks, lanes=lanes)
+        out = prog.run(self.runtime)
         if self.on_decode is not None:
             self.on_decode(width)
-        nxt = torch.argmax(logits[:, -1], dim=-1).cpu().numpy()
+        nxt = out["next"].cpu().numpy()  # the step's one host sync
         got = []
         for row, lane in enumerate(active):
             r = self.slots[lane]

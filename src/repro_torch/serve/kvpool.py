@@ -24,7 +24,9 @@ and return the model's own tree.
   sliding-window rings shorter than ``cache_len``).  They live one row per
   lane.  ``gather`` and ``scatter`` read and write the row of every lane in
   the decode batch, idle lanes included, as the reference does.
-* **replicated** leaves have neither; stored once.
+* **replicated** leaves have neither; stored once.  ``scatter`` rebinds
+  one to the view's tensor, so a fixed :meth:`KVPool.decode_view` (what the
+  engine's CUDA graphs read and write) refuses a pool that has one.
 
 Paging and prefix sharing raise ``NotImplementedError`` until the serving
 tier is ported.
@@ -232,14 +234,18 @@ class KVPool:
             if spec.kind == "paged":
                 self._store[key].select(spec.batch_axis, blk).zero_()
 
-    def _rows(self, lane_ids) -> tuple[torch.Tensor, torch.Tensor]:
-        """(block id, lane id) per row: block 0 (scratch) for a lane with no table."""
+    def row_ids(self, lane_ids) -> tuple[np.ndarray, np.ndarray]:
+        """(block id, lane id) per row, on the host: block 0 (scratch) for a
+        lane with no table."""
         blocks = np.zeros(len(lane_ids), dtype=np.int64)
         for row, lane in enumerate(lane_ids):
             if self._tables[lane]:
                 blocks[row] = self._tables[lane][0]
-        lanes = np.asarray(lane_ids, dtype=np.int64)
-        return torch.from_numpy(blocks).to(self._device), torch.from_numpy(lanes).to(self._device)
+        return blocks, np.asarray(lane_ids, dtype=np.int64)
+
+    def _rows(self, lane_ids) -> tuple[torch.Tensor, torch.Tensor]:
+        """:meth:`row_ids` as index tensors on the pool's device."""
+        return tuple(torch.from_numpy(ids).to(self._device) for ids in self.row_ids(lane_ids))
 
     def _flat(self, cache: dict) -> dict[str, torch.Tensor]:
         return {_keystr(k): t for k, t in flatten_cache(cache).items()}
@@ -258,21 +264,45 @@ class KVPool:
         """The dense decode view (a copy, in the model's tree) for
         ``lane_ids``.  Paged leaves of a lane without a block read the zero
         scratch block; lane leaves read each lane's own row."""
-        blocks, lanes = self._rows(list(lane_ids))
+        return self.gather_rows(*self._rows(list(lane_ids)))
+
+    def decode_view(self, rows: int) -> dict:
+        """An uninitialised dense view of ``rows`` rows (the model's tree), for
+        :meth:`gather_rows` to fill in place.  Replicated leaves have no rows."""
+        if any(spec.kind == "replicated" for spec in self.specs.values()):
+            raise NotImplementedError("a replicated cache leaf has no rows to gather into a fixed view")
         out = {}
         for key, spec in self.specs.items():
             arr = self._store[key]
-            if spec.kind == "replicated":
-                out[self._paths[key]] = arr
-            else:
-                out[self._paths[key]] = arr.index_select(spec.batch_axis, blocks if spec.kind == "paged" else lanes)
+            shape = list(arr.shape)
+            shape[spec.batch_axis] = rows
+            out[self._paths[key]] = torch.empty(shape, dtype=arr.dtype, device=arr.device)
         return unflatten_cache(out)
+
+    def gather_rows(self, blocks: torch.Tensor, lanes: torch.Tensor, out: dict | None = None) -> dict:
+        """:meth:`gather` from index tensors (:meth:`row_ids` on the device),
+        into the leaves of ``out`` (a :meth:`decode_view`) in place when given."""
+        dst = self._flat(out) if out is not None else {}
+        res = {}
+        for key, spec in self.specs.items():
+            arr = self._store[key]
+            if spec.kind == "replicated":
+                res[self._paths[key]] = arr
+            else:
+                idx = blocks if spec.kind == "paged" else lanes
+                res[self._paths[key]] = torch.index_select(arr, spec.batch_axis, idx, out=dst.get(key))
+        return unflatten_cache(res)
 
     def scatter(self, lane_ids, cache: dict) -> None:
         """Write an updated dense view (the model's tree) back.  Paged rows of
         lanes without a block went to scratch block 0, which is re-zeroed
         afterwards."""
-        blocks, lanes = self._rows(list(lane_ids))
+        self.scatter_rows(*self._rows(list(lane_ids)), cache)
+
+    def scatter_rows(self, blocks: torch.Tensor, lanes: torch.Tensor, cache: dict) -> None:
+        """:meth:`scatter` from index tensors.  Only a replicated leaf is
+        rebound (to the view's tensor); every other store tensor is written in
+        place and keeps its address."""
         leaves = self._flat(cache)
         touched_scratch = False
         for key, spec in self.specs.items():

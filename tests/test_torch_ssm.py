@@ -270,6 +270,28 @@ def test_segment_rule_invariants():
                     assert g == 1 or b * -(-d // cfg.block_d) * g <= 132 * resident
 
 
+def test_workspace_bound_holds_every_cut_call(monkeypatch):
+    """No cut call needs more workspace than workspace_bound, the size a stream's
+    first allocation takes and keeps (the CTAs an SM holds from a stub of the
+    occupancy query, which needs the card)."""
+    resident = {cfg: 1 + i % 3 for i, cfg in enumerate(sm.config_space())}
+    monkeypatch.setattr(sm, "_sm_count", lambda index: 132)
+    monkeypatch.setattr(sm, "resident_ctas", lambda cfg, n, fused, index: resident[cfg] + fused)
+    bound = sm.workspace_bound.__wrapped__(0)
+    assert bound == max(2 * 132 * (resident[cfg] + fused) * cfg.block_d * n
+                        for cfg in sm.config_space() for n in sm._STATES for fused in (0, 1))
+    cut = 0
+    for cfg in sm.config_space():
+        for n in sm._STATES:
+            for fused in (0, 1):
+                for b, d in ((1, 1600), (2, 100), (4, 64), (1, 32), (1, 48)):
+                    for s in (96, 200, 1000, 2048, 4099, 32768):
+                        g = sm.ssm_segments(b, s, d, cfg, 132, resident[cfg] + fused)
+                        cut += g > 1
+                        assert sm.workspace_floats(b, d, n, g) <= bound
+    assert cut > 0
+
+
 def test_fused_plain_matches_reference():
     """ssm_fused_plain == the JAX path: dt[..., None] * a and dt * x into ssm_scan_ref."""
     for with_state in (True, False):
