@@ -129,12 +129,36 @@ Phases (each one fails the run if its check fails):
    ``attention.launch_splits`` names (every decode shape splits); then 8 more
    passes over the bf16 shapes with fresh inputs.  Limits relative to
    max|plain|: 1e-2 for a bf16 output, 1e-4 for f32; every output finite;
-17. tune on the card: ``python -m repro_torch.launch.tune --archs
-   granite-8b,hymba-1.5b --families attention --n-kernels 4 --out
-   build/deploy_h100.json`` in process: the matmul table (93 problems x 10
-   configs) and the attention table (11 problems x 9 configs) measured with the
-   port's kernels, the paper's pipeline, the Deployment written; the table
-   sizes, seconds, deployed configs and fractions recorded;
+17. tune on the card, every family, as the fleet of the card and host_cpu:
+   ``python -m repro_torch.launch.tune --devices <card>,host_cpu --archs
+   granite-8b,rwkv6-7b,hymba-1.5b --n-kernels 4 --cpu-problems 8 --bundle
+   build/bundle_h100.json --out build/deploy_h100.json`` in process (one
+   tune: ``--out`` is the fleet's card Deployment): the matmul (99 problems x 10 configs), attention (11 x 9), WKV
+   (4 x 5, through ``wkv_cuda`` at 64 heads, bf16) and scan (3 x 9, through
+   ``ssm_cuda_fused``) tables measured with the port's kernels, every cell
+   (``measured_fraction`` 1.0, full config-space widths, every family's
+   launch counter moving), the paper's pipeline, the bundle and the Deployment
+   written; the seconds and the oracle and classifier fractions of each family
+   (and each deployment's oracle over the whole measured table);
+17b. the staged bring-up: the same tune with ``--transfer-from`` phase 17's
+   deployment, ``--prune-ratio 0.5`` and ``--measure-budget auto``: each
+   family's measured fraction at most its resolved budget; its measured
+   cells, seconds against phase 17's, the H100 model's error on the measured
+   cells, and the staged deployment's oracle fraction over phase 17's full
+   table;
+17c. the fleet bundle of phase 17, loaded back (v6, checksums verified, no load
+   errors); detection resolves the card's entry, and ``REPRO_DEVICE="NVIDIA
+   A100-SXM4-80GB"`` resolves it through the same-platform step; the
+   reference's TPU fixture ``tests/data/bundle_v5.json`` must not install on
+   the card. Then rwkv6-7b and hymba-1.5b, full width in f32, serve phase 8's
+   and 12's batches from the bundle through ``launch.serve``'s ``--bundle``
+   path (``build_engine``) under CUDA graphs, beside the ``FixedPolicy()``
+   engine: the WKV and scan configs the served prefills launched, by
+   bucket, are the tree's; whether the greedy streams are equal.  The
+   logits of each prompt's captured prefill program against
+   ``FixedPolicy()``'s: within 1e-4 of max|FixedPolicy()'s| on engines of
+   the model's first 8 layers built the same way (required), and at full
+   depth (reported: a deep random-weight model amplifies f32 rounding);
 18. the quickstart's path: the Deployment loaded into a fresh KernelRuntime
    (selection logging on); under ``rt.activate()``, ``ops.attention`` at every
    harvested attention problem at (1, 32) heads in bf16, twice (the second a
@@ -220,8 +244,13 @@ LAUNCHES_COUNTED_AS = ("wrapper calls: per program built, one at its warm-up (ru
 # Attention against plain, relative to max |plain|: a bf16 output is one rounding (2^-8) from
 # the f32 answer on each side; f32 sums in another order.
 ATTN_TOL = {"bf16": 1e-2, "f32": 1e-4}
-TUNED_ARCHS = ("granite-8b", "hymba-1.5b")
+TUNED_ARCHS = ("granite-8b", "rwkv6-7b", "hymba-1.5b")
 DEPLOY_PATH = ROOT / "build" / "deploy_h100.json"
+STAGED_PATH = ROOT / "build" / "deploy_h100_staged.json"
+BUNDLE_PATH = ROOT / "build" / "bundle_h100.json"
+TPU_FIXTURE = ROOT / "tests" / "data" / "bundle_v5.json"
+SERVED_ARCHS = ("rwkv6-7b", "hymba-1.5b")  # phase 17c serves them from the bundle
+LOGIT_DEPTH = 8  # 17c: layers over which bundle and FixedPolicy() logits must agree within WKV_TOL
 TALL = (16384, 4096, 14336)  # the harvest's tallest single GEMM (core/gpubench.FOLD_ROWS rows)
 
 
@@ -1345,38 +1374,288 @@ def phase_attention_vs_plain(torch, at) -> dict:
     return {"worst": worst, "checks": checks, "paths": paths, "splits": splits_seen}
 
 
-def phase_tune(torch, mm, at) -> dict:
-    """The tuning entry point on the card, in process: measured tables ->
-    cluster-select -> decision tree -> build/deploy_h100.json."""
+def _full_tables(result) -> dict:
+    """Per family: {problem: row over the whole config space} of a tune that measured
+    every cell (phase 17): matmul's train and test splits, each family's own table."""
+    from repro_torch.core.families import get_family
+
+    out = {"matmul": {tuple(p): row for ds in (result.train, result.test) for p, row in zip(ds.problems, ds.perf)}}
+    for name, fr in result.family_results.items():
+        require(fr.kept == tuple(range(len(get_family(name).config_space()))), f"{name}: not the whole space")
+        out[name] = {tuple(p): row for p, row in zip(fr.problems, fr.perf)}
+    return out
+
+
+def _oracle_on(table: dict, configs, family: str) -> float:
+    """Oracle fraction of the deployed ``configs`` over a full measured table."""
+    import numpy as np
+
+    from repro_torch.core.families import get_family
+    from repro_torch.core.selection import achievable_fraction
+
+    space = list(get_family(family).config_space())
+    perf = np.stack([table[p] for p in sorted(table)])
+    return achievable_fraction(perf, sorted({space.index(c) for c in configs}))
+
+
+def phase_tune(torch, mm, at, wk, ss) -> dict:
+    """The tuning entry point on the card, in process, every family, as a fleet of the
+    card and host_cpu: measured tables -> cluster-select -> decision trees ->
+    build/bundle_h100.json, and the card's Deployment from the same run ->
+    build/deploy_h100.json."""
+    from repro_torch.core.dispatch import Deployment
+    from repro_torch.core.families import family_names, get_family
+    from repro_torch.core.gpubench import card_name
     from repro_torch.launch import tune as tune_cli
 
-    mm.reset_launches()
-    at.reset_launches()
+    card = card_name()
+    mods = {"matmul": mm, "attention": at, "wkv": wk, "ssm_scan": ss}
+    for mod in mods.values():
+        mod.reset_launches()
     t0 = time.perf_counter()
-    result = tune_cli.main(["--archs", ",".join(TUNED_ARCHS), "--families", "attention", "--n-kernels", "4",
-                            "--out", str(DEPLOY_PATH)])
+    fleet = tune_cli.main(["--devices", f"{card},host_cpu", "--archs", ",".join(TUNED_ARCHS), "--n-kernels", "4",
+                           "--cpu-problems", "8", "--bundle", str(BUNDLE_PATH), "--out", str(DEPLOY_PATH)])
     wall = time.perf_counter() - t0
+    launches = {fam: mod.total_launches() for fam, mod in mods.items()}
+    require(sorted(fleet.results) == sorted([card, "host_cpu"]), f"fleet tuned {sorted(fleet.results)}")
+    result = fleet.results[card]
     dep = result.deployment
-    require(DEPLOY_PATH.is_file(), f"{DEPLOY_PATH} not written")
-    require(result.train.source == "measured" and dep.device.startswith("gpu_"),
+    require(DEPLOY_PATH.is_file() and BUNDLE_PATH.is_file(), f"{DEPLOY_PATH} or {BUNDLE_PATH} not written")
+    require(Deployment.load(DEPLOY_PATH).to_blob() == dep.to_blob(), "--out is not the fleet's card Deployment")
+    require(result.train.source == "measured" and dep.device == card,
             f"not a measured card table: {result.train.source} on {dep.device}")
-    lineage, tables = dep.meta["tuning_lineage"], dep.meta["tables"]
-    require(set(tables) == {"matmul", "attention"}, f"families tuned: {sorted(tables)}")
-    require(tables["matmul"][1] == len(mm.config_space()) and tables["attention"][1] == len(at.config_space()),
-            f"tables {tables}")
-    for fam in ("matmul", "attention"):
+    lineage, tables, seconds = dep.meta["tuning_lineage"], dep.meta["tables"], dep.meta["measure_seconds"]
+    require(set(tables) == set(family_names()) == set(mods), f"families tuned: {sorted(tables)}")
+    for fam in tables:
+        require(tables[fam][1] == len(get_family(fam).config_space()), f"{fam}: table {tables[fam]} is not the "
+                                                                       f"full config space")
         require(lineage[fam]["measured_fraction"] == 1.0, f"{fam}: not every cell measured: {lineage[fam]}")
+        require(launches[fam] > 0, f"{fam}: no launches while measuring: {launches}")
+    full = _full_tables(result)
+    fractions = {"matmul": [result.oracle_fraction, result.classifier_fraction]} | {
+        name: [r.oracle_fraction, r.classifier_fraction] for name, r in result.family_results.items()}
     out = {
-        "device": dep.device, "wall_s": wall, "tables": tables,
-        "measure_seconds": {fam: lineage[fam]["measure_seconds"] for fam in tables},
+        "device": dep.device, "wall_s": wall, "tables": tables, "measure_seconds": seconds,
         "deployed": {fam: [c.name() for c in dep.family_tuning(fam).configs] for fam in tables},
-        "fractions": {"matmul": [result.oracle_fraction, result.classifier_fraction]} | {
-            name: [r.oracle_fraction, r.classifier_fraction] for name, r in result.family_results.items()},
-        "launches_while_measuring": {"matmul": mm.total_launches(), "attention": at.total_launches()},
+        "fractions": fractions,
+        "oracle_on_full_table": {fam: _oracle_on(full[fam], dep.family_tuning(fam).configs, fam) for fam in tables},
+        "launches_while_measuring": launches, "full": full,
+        "fleet": {name: {"oracle": r.oracle_fraction, "classifier": r.classifier_fraction}
+                  for name, r in fleet.results.items()},
     }
-    print(f"  tuned on {dep.device} in {wall:.1f}s; tables {tables} (problems x configs), measured in "
-          f"{out['measure_seconds']} s; launches while measuring {out['launches_while_measuring']}")
+    print(f"  fleet {sorted(fleet.results)} tuned in {wall:.1f}s; {dep.device}: tables {tables} (problems x configs), "
+          f"measured in {seconds} s; launches while measuring {launches}; host_cpu: oracle "
+          f"{out['fleet']['host_cpu']['oracle']:.4f} / classifier {out['fleet']['host_cpu']['classifier']:.4f}")
+    for fam in tables:
+        print(f"  {fam}: oracle {fractions[fam][0]:.4f} / classifier {fractions[fam][1]:.4f} "
+              f"(oracle over the whole table {out['oracle_on_full_table'][fam]:.4f}); deployed {out['deployed'][fam]}")
     return out
+
+
+def phase_staged(torch, mods: dict, tuning: dict) -> dict:
+    """The staged bring-up on the card: phase 17's deployment as donor, half of each
+    config space pruned on the H100 model, the budget sized from the donor's lineage;
+    each family's measured cells against its budget, its seconds against phase 17's, the
+    model's error on the measured cells, and the staged deployment's oracle fraction over
+    phase 17's full measured table."""
+    from repro_torch.core.dispatch import Deployment
+    from repro_torch.core.pipeline import resolve_measure_budget
+    from repro_torch.launch import tune as tune_cli
+
+    for mod in mods.values():
+        mod.reset_launches()
+    t0 = time.perf_counter()
+    result = tune_cli.main(["--archs", ",".join(TUNED_ARCHS), "--n-kernels", "4", "--transfer-from", str(DEPLOY_PATH),
+                            "--prune-ratio", "0.5", "--measure-budget", "auto", "--out", str(STAGED_PATH)])
+    wall = time.perf_counter() - t0
+    launches = {fam: mod.total_launches() for fam, mod in mods.items()}
+    dep, donor = result.deployment, Deployment.load(DEPLOY_PATH)
+    lineage, seconds = dep.meta["tuning_lineage"], dep.meta["measure_seconds"]
+    rows = {}
+    for fam in mods:
+        rec = lineage[fam]
+        budget = resolve_measure_budget("auto", donor, family=fam)
+        require(budget is not None and rec["measured_fraction"] <= budget,
+                f"{fam}: measured {rec['measured_fraction']} of the cells, budget {budget}")
+        require(rec["source_device"] == donor.device, f"{fam}: donor {rec['source_device']}")
+        rows[fam] = {
+            "n_measured": rec["n_measured"], "full_cost": rec["full_cost"],
+            "measured_fraction": rec["measured_fraction"], "budget": budget, "prune_ratio": rec["prune_ratio"],
+            "seconds": seconds[fam], "seconds_phase_17": tuning["measure_seconds"][fam],
+            "model_error": rec["model_error"],
+            "oracle_on_full_table": _oracle_on(tuning["full"][fam], dep.family_tuning(fam).configs, fam),
+            "oracle_on_full_table_phase_17": tuning["oracle_on_full_table"][fam],
+            "deployed": [c.name() for c in dep.family_tuning(fam).configs],
+            "launches_while_measuring": launches[fam],
+        }
+        r = rows[fam]
+        print(f"  {fam}: measured {r['n_measured']}/{r['full_cost']} cells ({r['measured_fraction']:.3f}, budget "
+              f"{budget:.3f}, kept {r['prune_ratio']:.2f} of the space) in {r['seconds']:.2f}s (phase 17: "
+              f"{r['seconds_phase_17']:.2f}s); model error {r['model_error']}; oracle over phase 17's full table "
+              f"{r['oracle_on_full_table']:.4f} (phase 17's own deployment: {r['oracle_on_full_table_phase_17']:.4f})")
+    print(f"  staged tune in {wall:.1f}s (phase 17: {tuning['wall_s']:.1f}s)")
+    return {"wall_s": wall, "families": rows}
+
+
+def _first_layers(tree, n: int):
+    """The stacked per-layer weights of a params subtree, cut to the first ``n`` layers."""
+    if isinstance(tree, dict):
+        return {k: _first_layers(v, n) for k, v in tree.items()}
+    return tree[:n]
+
+
+def _bucket_configs(rt, family: str) -> dict:
+    """{prefill bucket: config name} of ``family``'s selections in ``rt``'s log."""
+    return {problem[0]: cfg.name() for op, problem, cfg in rt.selection_log() if op == family}
+
+
+def _served_prefill_logits(torch, eng, prompt):
+    """The logits of the captured prefill program ``eng`` admits ``prompt`` with:
+    its bucket's program (``_prefill_fn``), staged as ``_admit`` stages it (left-
+    padded with 0) and replayed."""
+    import numpy as np
+
+    from repro_torch.serve.engine import _bucket
+
+    plen = _bucket(len(prompt), eng._ladder)
+    tokens = np.zeros((1, plen), dtype=np.int64)
+    tokens[0, plen - len(prompt):] = prompt
+    prog = eng._prefill_fn(plen)
+    require(prog.graph is not None, f"{eng.runtime.name}: prefill {plen} is not a captured program")
+    prog.stage(tokens=tokens)
+    logits = prog.run(eng.runtime)["logits"].clone()
+    require(bool(torch.isfinite(logits).all()), f"{eng.runtime.name}: non-finite prefill logits at {plen}")
+    return plen, logits
+
+
+def phase_fleet_serve(torch, mods: dict, tuning: dict) -> dict:
+    """The fleet bundle of phase 17 (the card and host_cpu), loaded into a fresh
+    runtime (checksums verified), resolved by detection and by REPRO_DEVICE, then
+    rwkv6-7b and hymba-1.5b served from it through launch.serve's --bundle path under
+    CUDA graphs, beside the FixedPolicy() engine; a TPU bundle must not install."""
+    from repro_torch import load_bundle
+    from repro_torch.configs import registry
+    from repro_torch.core import devices
+    from repro_torch.core.runtime import KernelRuntime
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.models.model import build_model
+
+    card = tuning["device"]
+    bundle = load_bundle(BUNDLE_PATH)
+    require(bundle.load_errors == [] and bundle.devices == sorted([card, "host_cpu"]),
+            f"bundle {bundle.devices}, load errors {bundle.load_errors}")
+    blob = json.loads(BUNDLE_PATH.read_text())
+    require(blob["version"] == 6 and blob["checksums"], f"not a v6 bundle with checksums: {blob.get('version')}")
+    detected = devices.detect_device(env={})
+    a100 = devices.detect_device(env={devices.DEVICE_ENV_VAR: "NVIDIA A100-SXM4-80GB"})
+    require(devices.resolve_device(detected, bundle.devices) == card, f"detected {detected} resolves elsewhere")
+    # The A100 has no entry and no FALLBACKS chain: the same-platform step picks the card.
+    require(a100 not in bundle.devices and not devices.fallback_order(a100) and a100.startswith("gpu_")
+            and devices.resolve_device(a100, bundle.devices, strict=True) == card,
+            f"REPRO_DEVICE A100 ({a100}) does not resolve to {card} by platform")
+    rt = bundle.runtime()
+    require(rt.active_device() == card, f"fresh runtime serves {rt.active_device()}")
+    try:
+        KernelRuntime(name="tpu-fixture").install_bundle(TPU_FIXTURE)
+        tpu_err = None
+    except ValueError as e:
+        tpu_err = str(e)
+    require(tpu_err is not None and "compiled space" in tpu_err, "a TPU bundle installed for the card")
+    print(f"  bundle of phase 17: {bundle.devices}, v6, {len(blob['checksums'])} checksums verified, "
+          f"load_errors []; detected {detected} -> {card}; REPRO_DEVICE A100 -> {a100} -> {card} (same platform); "
+          f"TPU fixture refused: {tpu_err[:120]}...")
+    card_dep = bundle.deployments[card]
+    served = {}
+    for arch in SERVED_ARCHS:
+        cfg = registry.get(arch)
+        per_forward, per_prefill = _expected(cfg)
+        model = build_model(cfg, dtype=torch.float32, param_dtype=torch.float32, device="cuda")
+        params = model.init(torch.Generator(device="cuda").manual_seed(0))
+        rng = torch.Generator().manual_seed(2)
+        prompts = [torch.randint(0, cfg.vocab, (n,), generator=rng).numpy() for n in PROMPT_LENGTHS]
+        engines = {
+            "bundle": serve_cli.build_engine(model, params, bundle=str(BUNDLE_PATH), name=f"bundle[{arch}]",
+                                             max_batch=4, cache_len=256),
+            "fixed": serve_cli.build_engine(model, params, name=f"fixed[{arch}]", max_batch=4, cache_len=256),
+        }
+        require(engines["bundle"].device == card and engines["bundle"].cuda_graphs, "bundle engine")
+        outs, counts = {}, {}
+        for label, eng in engines.items():
+            eng.runtime.set_selection_logging(True, cap=1 << 16)
+            torch.cuda.synchronize()
+            for mod in mods.values():  # the main path: counts to 0 just before, read just after
+                mod.reset_launches()
+            tickets = [eng.submit(p, max_new_tokens=16) for p in prompts]
+            status = eng.drain()
+            torch.cuda.synchronize()
+            require(status.completed == 4 and all(len(t.request.output) == 16 for t in tickets), f"{label}: {status}")
+            require(all(r.captured for r in eng.program_log), f"{label}: a program was not captured")
+            outs[label] = [list(t.request.output) for t in tickets]
+            counts[label] = {fam: dict(mod.LAUNCHES) for fam, mod in mods.items()}
+        seq_fam, seq_mod = ("wkv", "wkv") if cfg.family == "ssm" else ("ssm_scan", "ssm_scan")
+        by_bucket = _bucket_configs(engines["bundle"].runtime, seq_fam)
+        want = {s: card_dep.select(seq_fam, (s, 64 if seq_fam == "wkv" else cfg.d_model)).name() for s in by_bucket}
+        require(by_bucket == want and by_bucket, f"{arch}: served {seq_fam} configs {by_bucket}, the tree names {want}")
+        launched = {n: c for n, c in counts["bundle"][seq_mod].items() if c}
+        require(set(launched) == set(by_bucket.values()), f"{arch}: launched {launched}, selected {by_bucket}")
+        n_prefill = sum(r.kind == "prefill" for r in engines["bundle"].program_log)
+        key = "wkv" if seq_fam == "wkv" else "ssm"
+        require(sum(launched.values()) == 2 * per_prefill[key] * n_prefill,
+                f"{arch}: {seq_fam} launches {launched}, want 2 x {per_prefill[key]} x {n_prefill} prefill programs")
+        # Prefill logits of each prompt from each engine's captured prefill program (the
+        # one it served the prompt with) against FixedPolicy()'s. Two configs of the WKV /
+        # scan kernel sum in other orders, and a deep random-weight model amplifies f32
+        # rounding, so the gate is WKV_TOL on engines of the model's first LOGIT_DEPTH
+        # layers (the same weights), built through the same build_engine path; the full-
+        # depth engines' difference is reported.
+        shallow = dataclasses.replace(cfg, n_layers=LOGIT_DEPTH)
+        shallow_model = build_model(shallow, dtype=torch.float32, param_dtype=torch.float32, device="cuda")
+        shallow_params = dict(params, blocks=_first_layers(params["blocks"], LOGIT_DEPTH))
+        gate = {
+            "bundle": serve_cli.build_engine(shallow_model, shallow_params, bundle=str(BUNDLE_PATH),
+                                             name=f"bundle[{arch}, {LOGIT_DEPTH} layers]", max_batch=4,
+                                             cache_len=256),
+            "fixed": serve_cli.build_engine(shallow_model, shallow_params, name=f"fixed[{arch}, {LOGIT_DEPTH} layers]",
+                                            max_batch=4, cache_len=256),
+        }
+        gate["bundle"].runtime.set_selection_logging(True, cap=1 << 16)
+        rel = lambda a, b: (a - b).abs().max().item() / b.abs().max().item()
+        logit_rows = []
+        for p in prompts:
+            plen, full_b = _served_prefill_logits(torch, engines["bundle"], p)
+            _, full_f = _served_prefill_logits(torch, engines["fixed"], p)
+            _, gate_b = _served_prefill_logits(torch, gate["bundle"], p)
+            _, gate_f = _served_prefill_logits(torch, gate["fixed"], p)
+            row = {"bucket": plen, f"first_{LOGIT_DEPTH}_layers": rel(gate_b, gate_f),
+                   "full_depth": rel(full_b, full_f)}
+            require(row[f"first_{LOGIT_DEPTH}_layers"] <= WKV_TOL,
+                    f"{arch}: the bundle engine's captured prefill logits over the first {LOGIT_DEPTH} layers differ "
+                    f"from FixedPolicy()'s by {row[f'first_{LOGIT_DEPTH}_layers']:.3g} (rel) > {WKV_TOL}")
+            logit_rows.append(row)
+            del full_b, full_f, gate_b, gate_f
+        gate_by_bucket = _bucket_configs(gate["bundle"].runtime, seq_fam)
+        require(gate_by_bucket == {b: by_bucket[b] for b in gate_by_bucket} and gate_by_bucket,
+                f"{arch}: the {LOGIT_DEPTH}-layer bundle engine launched {gate_by_bucket}, the served one {by_bucket}")
+        del gate, shallow_model, shallow_params
+        served[arch] = {
+            "device": engines["bundle"].device, f"{seq_fam}_configs_by_bucket": by_bucket,
+            "default": (mods[seq_mod].DEFAULT_WKV_CONFIG if seq_fam == "wkv" else mods[seq_mod].DEFAULT_SSM_CONFIG).name(),
+            "launches": {label: {fam: sum(c.values()) for fam, c in cnt.items()} for label, cnt in counts.items()},
+            "prefill_logits": logit_rows, "streams_equal": outs["bundle"] == outs["fixed"],
+            "programs": {label: len(eng.program_log) for label, eng in engines.items()},
+        }
+        print(f"  {arch} (f32, full width) from the bundle ({engines['bundle'].device}): {seq_fam} configs by prefill "
+              f"bucket {by_bucket} (default {served[arch]['default']}), launches {launched}; greedy streams equal "
+              f"FixedPolicy()'s: {served[arch]['streams_equal']}")
+        for row in logit_rows:
+            print(f"    bucket {row['bucket']}: captured prefill logits vs FixedPolicy()'s (rel): first {LOGIT_DEPTH} "
+                  f"layers {row[f'first_{LOGIT_DEPTH}_layers']:.3g} (limit {WKV_TOL}); full depth "
+                  f"{row['full_depth']:.3g} (reported)")
+        del engines, model, params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return {"devices": bundle.devices, "checksums": len(blob["checksums"]),
+            "detected": detected, "a100": a100, "tpu_fixture_refused": tpu_err, "served": served}
 
 
 def phase_quickstart(torch, mm, at, ops) -> dict:
@@ -1642,8 +1921,13 @@ def main() -> int:
 
     phase("[16] attention against plain")
     attn_errors = phase_attention_vs_plain(torch, at)
-    phase("[17] tune on the card: measured tables -> cluster-select -> decision tree -> Deployment")
-    tuning = phase_tune(torch, mm, at)
+    phase("[17] tune on the card, every family: measured tables -> cluster-select -> decision trees -> Deployment")
+    tuning = phase_tune(torch, mm, at, wk, ss)
+    mods = {"matmul": mm, "attention": at, "wkv": wk, "ssm_scan": ss}
+    phase("[17b] the staged bring-up: phase 17's deployment as donor, pruned, measured within the auto budget")
+    staged = phase_staged(torch, mods, tuning)
+    phase("[17c] the fleet bundle (card + host_cpu), installed and served: rwkv6-7b and hymba-1.5b from the bundle")
+    fleet = phase_fleet_serve(torch, mods, tuning)
     phase("[18] the quickstart's path: the tuned Deployment in a fresh runtime, ops.attention and ops.matmul")
     quick = phase_quickstart(torch, mm, at, ops)
     phase("[19] full-width granite-8b served under the tuned Deployment")
@@ -1691,6 +1975,13 @@ def main() -> int:
     gemm_launches = {run["arch"]: sum(run["launches"].values()) for run in (serve, rwkv, hymba)}
     gemm_launches["granite-8b (tuned)"] = sum(tuned["launches"].values())
     gemm_launches["quickstart"] = sum(quick["launches"]["matmul"].values())
+    # Every family's launches on the tuning paths: the tables measured in phases 17 and 17b,
+    # and the bundle's serving of rwkv6-7b and hymba-1.5b in 17c.
+    tune_launches = {fam: {"tables, phase 17": tuning["launches_while_measuring"][fam],
+                           "tables, phase 17b (staged)": staged["families"][fam]["launches_while_measuring"]} | {
+        f"{arch} from the bundle (17c)": run["launches"]["bundle"][fam] for arch, run in fleet["served"].items()}
+        for fam in ("matmul", "attention", "wkv", "ssm_scan")}
+    gemm_launches.update(tune_launches["matmul"])
     gemm_routes = {path: sum(run["path_launches"][path] for run in (serve, rwkv, hymba, tuned))
                    + quick["paths"][path] for path in ("tma", "cp_async")}
     kernels = {"kernels": [{
@@ -1724,7 +2015,9 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/wkv.cu",
         "replaces": "src/repro/kernels/wkv.py:114",
-        "launches": sum(rwkv["wkv_launches"].values()),
+        "launches": sum(rwkv["wkv_launches"].values()) + sum(tune_launches["wkv"].values()),
+        "launches_by_path": {"rwkv6-7b (phase 8)": sum(rwkv["wkv_launches"].values())} | tune_launches["wkv"],
+        "served_configs_from_bundle": fleet["served"]["rwkv6-7b"]["wkv_configs_by_bucket"],
         "launches_counted_as": LAUNCHES_COUNTED_AS,
         "kernels_in_profiled_replays": {f"1 prefill replay, {k}": rwkv_profile["prefill"]["count"].get(
             _kernel_name(k), 0) for k in ("wkv_state_kernel", "wkv_output_kernel")},
@@ -1749,7 +2042,9 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssm.cu",
         "replaces": "src/repro/kernels/ssm.py:90",
-        "launches": sum(hymba["ssm_launches"].values()),
+        "launches": sum(hymba["ssm_launches"].values()) + sum(tune_launches["ssm_scan"].values()),
+        "launches_by_path": {"hymba-1.5b (phase 12)": sum(hymba["ssm_launches"].values())} | tune_launches["ssm_scan"],
+        "served_configs_from_bundle": fleet["served"]["hymba-1.5b"]["ssm_scan_configs_by_bucket"],
         "launches_counted_as": LAUNCHES_COUNTED_AS,
         "kernels_in_profiled_replays": {f"1 prefill replay, {k}": hymba_profile["prefill"]["count"].get(
             _kernel_name(k), 0) for k in ("ssm_state_kernel", "ssm_output_kernel")},
@@ -1778,8 +2073,10 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/attention.cu",
         "replaces": "src/repro/kernels/attention.py:98",
-        "launches": sum(quick["launches"]["attention"].values()),
-        "launches_by_path": quick["attention_paths"],
+        "launches": sum(quick["launches"]["attention"].values()) + sum(tune_launches["attention"].values()),
+        "launches_by_path": {"quickstart (phase 18)": sum(quick["launches"]["attention"].values())} | tune_launches[
+            "attention"],
+        "launches_by_kernel_path": quick["attention_paths"],
         "kv_splits_launched": quick["attention_splits"],
         "max_abs_err": max([w["abs"] for w in attn_errors["worst"].values()] + [quick["worst"]["abs"]]),
         "max_rel_err": max([w["rel"] for w in attn_errors["worst"].values()] + [quick["worst"]["rel"]]),
@@ -1808,7 +2105,8 @@ def main() -> int:
         "rwkv_cpu_vs_card": rwkv_parity, "wkv_timing": wkv_rows, "rwkv_timing": rwkv_rows,
         "ssm_errors": ssm_errors, "hymba_serve": hymba, "ssm_policy": ssm_policy, "hymba_profile": hymba_profile,
         "hymba_cpu_vs_card": hymba_parity, "ssm_timing": ssm_rows, "hymba_timing": hymba_rows,
-        "attention_errors": attn_errors, "tuning": tuning, "quickstart": quick, "tuned_serve": tuned,
+        "attention_errors": attn_errors, "tuning": {k: v for k, v in tuning.items() if k != "full"},
+        "staged": staged, "fleet": fleet, "quickstart": quick, "tuned_serve": tuned,
         "tuned_profile": tuned_profile, "eager_vs_graphed": eager, "ssm_capture_guard": ssm_guard,
         "reinstall": reinstall,
         "attention_timing": attn_rows,

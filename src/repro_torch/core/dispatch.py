@@ -15,9 +15,11 @@ matmul/attention fields; unknown family names in a newer blob are ignored
 on load (forward compat).
 
 Ported from ``repro/core/dispatch.py``: ``from_blob`` rebuilds the port's
-Hopper config classes, so a blob of the reference's TPU configs does not
-load here (reading those fixtures joins with bundles);
-``select_for_objective`` joins with SLO objectives.
+config classes, whose fields are the reference's, so a blob of the
+reference's TPU configs loads (``core/bundle.py`` reads the reference's
+fixtures); its configs are selections only, and installing them for a CUDA
+target raises (``KernelRuntime.install_bundle``).  ``select_for_objective``
+joins with SLO objectives.
 """
 from __future__ import annotations
 
@@ -92,6 +94,16 @@ class Deployment:
         if family == "attention":
             return FamilyTuning(self.attention_configs, self.attention_tree)
         return self.families.get(family, FamilyTuning([], None))
+
+    def family_names(self) -> list[str]:
+        """Families this artifact carries a non-empty tuning for."""
+        out = []
+        if self.configs:
+            out.append("matmul")
+        if self.attention_configs:
+            out.append("attention")
+        out.extend(sorted(self.families))
+        return out
 
     def set_family_tuning(self, family: str, configs: list, tree: object | None) -> None:
         if family == "matmul":

@@ -5,28 +5,24 @@ everything the tune -> deploy -> dispatch pipeline needs to know about one
 op, and every layer iterates the registry instead of special-casing
 matmul/attention:
 
-  * ``tuner.tune`` / ``tune_for_archs``  tune each requested family;
+  * ``tuner.tune`` / ``tune_for_archs`` / ``tune_fleet``  tune each requested family;
   * ``dispatch.Deployment``             stores per-family ``(configs, tree)``
                                         and answers ``select(family, problem)``;
   * ``core.runtime``                    memoizes by family-qualified shape key.
 
-Four families are registered, with the port's Hopper config spaces:
+Four families are registered, with the port's Hopper config spaces.  Each
+takes its ``perf_matrix`` from the card (``core/gpubench.py``: every
+compiled config timed on every harvested problem with the port's own
+kernel) and its ``model_matrix`` from the H100 model (``core/perfmodel.py``,
+``core/attnmodel.py``, ``core/recmodel.py``), the measurement-free
+predictor the staged pipeline prunes, plans and fills with.
 
-  * ``matmul`` and ``attention`` take their ``perf_matrix`` from the card
-    (``core/gpubench.py``: every compiled config timed on every problem).
-    **``attention`` is device-sensitive here.**  The reference tunes it once
-    per fleet against its TPU v5e model (``device_sensitive=False``, and its
-    pipeline passes ``device_name=None``); the port has no such model, and
-    its table is the card's own, so a tuning holds for the card it was
-    measured on.
-  * ``wkv`` and ``ssm_scan`` carry their config space, default and features
-    only, so that a ``Deployment`` with no tuning for them answers the
-    default config, as the reference does.  Their harvests and measured
-    tables join with their tuning; until then ``harvest`` and
-    ``perf_matrix`` raise ``NotImplementedError``.
-
-The reference's ``model_matrix`` (a measurement-free predictor read by the
-staged pipeline's prune/transfer/budget stages) joins with that pipeline.
+**Every family is device-sensitive here.**  The reference tunes attention,
+wkv and ssm_scan once per fleet against their TPU v5e models
+(``device_sensitive=False``, and its pipeline passes ``device_name=None``)
+and shares the tuning across devices; the port's tables are the card's own,
+so a tuning holds for the card it was measured on, and nothing is shared
+across a fleet.
 """
 from __future__ import annotations
 
@@ -42,7 +38,14 @@ from ..kernels import wkv as _wkv
 from .attnmodel import ATTN_FEATURE_NAMES, attn_problem_features, harvest_attn_problems
 from .dataset import FEATURE_NAMES as MATMUL_FEATURE_NAMES
 from .dataset import harvest_problems, problem_features
-from .recmodel import SSM_FEATURE_NAMES, WKV_FEATURE_NAMES, ssm_problem_features, wkv_problem_features
+from .recmodel import (
+    SSM_FEATURE_NAMES,
+    WKV_FEATURE_NAMES,
+    harvest_ssm_problems,
+    harvest_wkv_problems,
+    ssm_problem_features,
+    wkv_problem_features,
+)
 
 
 class FamilyTuning(NamedTuple):
@@ -77,6 +80,10 @@ class KernelFamily:
     # Decision-tree hyperparameters for this family's runtime classifier.
     tree_max_depth: int = 6
     tree_min_samples_leaf: int = 1
+    # Measurement-free perf predictor, same signature as ``perf_matrix``: the
+    # staged pipeline's prune / transfer / budget stages read it (None: the
+    # family keeps its whole space and measures every cell).
+    model_matrix: Callable[[list[tuple], Sequence, str | None], np.ndarray] | None = None
 
     def make_tree(self, seed: int = 0):
         """A fresh (unfit) runtime classifier for this family."""
@@ -138,14 +145,28 @@ def _measured(family: str):
     return perf_matrix
 
 
-def _not_yet(family: str, what: str):
-    def missing(*_args):
-        raise NotImplementedError(
-            f"the {family} family has no {what} in the port yet: its harvest and measured "
-            f"H100 table join with its tuning (ROADMAP.md queue 1)"
-        )
+def _matmul_model(problems, configs, device_name):
+    from .perfmodel import build_perf_matrix
 
-    return missing
+    return build_perf_matrix(problems, list(configs), device_name)
+
+
+def _attn_model(problems, configs, device_name):
+    from .attnmodel import build_attn_matrix
+
+    return build_attn_matrix(problems, list(configs), device_name)
+
+
+def _wkv_model(problems, configs, device_name):
+    from .recmodel import build_wkv_matrix
+
+    return build_wkv_matrix(problems, list(configs), device_name)
+
+
+def _ssm_model(problems, configs, device_name):
+    from .recmodel import build_ssm_matrix
+
+    return build_ssm_matrix(problems, list(configs), device_name)
 
 
 MATMUL = register_family(
@@ -160,6 +181,7 @@ MATMUL = register_family(
         perf_matrix=_measured("matmul"),
         default_n_kernels=8,
         device_sensitive=True,
+        model_matrix=_matmul_model,
     )
 )
 
@@ -175,6 +197,7 @@ ATTENTION = register_family(
         perf_matrix=_measured("attention"),
         default_n_kernels=4,
         device_sensitive=True,
+        model_matrix=_attn_model,
     )
 )
 
@@ -186,9 +209,11 @@ WKV = register_family(
         default_config=_wkv.DEFAULT_WKV_CONFIG,
         feature_names=tuple(WKV_FEATURE_NAMES),
         features=wkv_problem_features,
-        harvest=_not_yet("wkv", "harvest"),
-        perf_matrix=_not_yet("wkv", "benchmark table"),
+        harvest=harvest_wkv_problems,
+        perf_matrix=_measured("wkv"),
         default_n_kernels=3,
+        device_sensitive=True,
+        model_matrix=_wkv_model,
     )
 )
 
@@ -200,8 +225,10 @@ SSM_SCAN = register_family(
         default_config=_ssm.DEFAULT_SSM_CONFIG,
         feature_names=tuple(SSM_FEATURE_NAMES),
         features=ssm_problem_features,
-        harvest=_not_yet("ssm_scan", "harvest"),
-        perf_matrix=_not_yet("ssm_scan", "benchmark table"),
+        harvest=harvest_ssm_problems,
+        perf_matrix=_measured("ssm_scan"),
         default_n_kernels=4,
+        device_sensitive=True,
+        model_matrix=_ssm_model,
     )
 )

@@ -2,9 +2,10 @@
 
 The counterpart of ``repro/core/cpubench.py``: the paper's claim is that
 tuning needs nothing but benchmark data, so the port's tables are timed on
-the card with the port's own kernels, never taken from a model.  Every
-config of a family's compiled space is timed on every problem, in bf16, with
-CUDA events (:func:`time_ms`, the clock ``chip_smoke.py`` times with too);
+the card with the port's own kernels, never taken from a model (the H100
+model, ``core/perfmodel.py``, only fills the cells a staged tune chose not
+to measure).  Every config of a family's compiled space is timed on every
+problem, in the dtypes the served path passes the kernel, with CUDA events (:func:`time_ms`, the clock ``chip_smoke.py`` times with too);
 each timed call is queued behind a device sleep, so that the events hold the
 device's time and not the host's launch work.  The loop is adaptive: at
 least 2 timed runs, more until about 20 ms of device time (at most 10), and
@@ -27,6 +28,19 @@ the median is kept.  A table holds GFLOP/s.
     the reference's ``predict_attn_gflops`` does: 4 sq skv d per head, halved
     when sq == skv.  Each problem's buffers are released before the next
     (``(1, 524288, 64)`` at 32 heads holds 4.3 GB of K/V).
+  * **wkv**: a problem ``(s, hd)`` is timed through ``wkv_cuda`` at leading
+    dims (1, heads of the harvesting arch: ``recmodel.wkv_heads``, rwkv6-7b's
+    64), in the dtypes the served prefill passes it (r/k/v and u in bf16,
+    logw in f32, decays in [-5, -1e-3] as the model clamps them); its rate
+    is the reference's useful FLOPs, 8 s hd^2 per head.  At (32768, 64) each
+    f32 operand is 0.54 GB and the chunk-8 workspace 4.3 GB, so each
+    problem's buffers are released before the next.
+  * **ssm_scan**: a problem ``(s, d)`` is timed through ``ssm_cuda_fused``,
+    the entry ``mamba_layer`` serves through, at batch 1 with N = 16 (f32
+    x, dt, a, b, c); its rate is the reference's useful FLOPs, 6 s d N.
+
+A config that cannot launch at a problem raises (the wrappers raise on a
+failed launch); no cell is quietly set to 0.
 
 There is no fallback: with no card, or asked to time on the CPU, it raises.
 """
@@ -148,16 +162,59 @@ def measure_attention(problems, configs, device=None, *, heads: int = ATTN_HEADS
     return perf
 
 
-_MEASURE = {"matmul": measure_matmul, "attention": measure_attention}
+def measure_wkv(problems, configs, device=None, *, seed: int = 0) -> np.ndarray:
+    """(problems x configs) GFLOP/s of ``wkv_cuda`` at (1, S, heads, hd), bf16 r/k/v."""
+    from ..kernels.wkv import wkv_cuda
+    from .recmodel import wkv_flops, wkv_heads
+
+    dev = _cuda_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    perf = np.zeros((len(problems), len(configs)))
+    for i, (s, hd) in enumerate(problems):
+        h = wkv_heads(hd)
+        shape = (1, s, h, hd)
+        r, k, v = (torch.randn(shape, device=dev, generator=gen, dtype=torch.bfloat16) for _ in range(3))
+        logw = -torch.rand(shape, device=dev, generator=gen).mul_(5.0).clamp_(min=1e-3)
+        u = torch.randn((h, hd), device=dev, generator=gen, dtype=torch.bfloat16)
+        flops = wkv_flops(s, hd, h)
+        for j, cfg in enumerate(configs):
+            ms = time_ms(lambda _, c=cfg: wkv_cuda(r, k, v, logw, u, None, c))
+            perf[i, j] = flops / (ms * 1e-3) / 1e9
+        del r, k, v, logw, u
+        torch.cuda.empty_cache()
+    return perf
+
+
+def measure_ssm(problems, configs, device=None, *, n_state: int = 16, seed: int = 0) -> np.ndarray:
+    """(problems x configs) GFLOP/s of ``ssm_cuda_fused`` at (1, S, d, N), f32."""
+    from ..kernels.ssm import ssm_cuda_fused
+    from .recmodel import ssm_flops
+
+    dev = _cuda_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    perf = np.zeros((len(problems), len(configs)))
+    for i, (s, d) in enumerate(problems):
+        x = torch.randn((1, s, d), device=dev, generator=gen)
+        dt = torch.nn.functional.softplus(torch.randn((1, s, d), device=dev, generator=gen) - 2.0)
+        a = -torch.exp(0.3 * torch.randn((d, n_state), device=dev, generator=gen))
+        b, c = (torch.randn((1, s, n_state), device=dev, generator=gen) for _ in range(2))
+        flops = ssm_flops(s, d, n_state)
+        for j, cfg in enumerate(configs):
+            ms = time_ms(lambda _, cf=cfg: ssm_cuda_fused(x, dt, a, b, c, None, cf))
+            perf[i, j] = flops / (ms * 1e-3) / 1e9
+        del x, dt, a, b, c
+        torch.cuda.empty_cache()
+    return perf
+
+
+_MEASURE = {"matmul": measure_matmul, "attention": measure_attention, "wkv": measure_wkv,
+            "ssm_scan": measure_ssm}
 
 
 def measure(family: str, problems, configs, device=None) -> np.ndarray:
-    """The family's measured table; raises for a family with no measured source yet."""
+    """The family's measured table; raises for a family with no measured source."""
     if family not in _MEASURE:
-        raise NotImplementedError(
-            f"no measured H100 source for the {family!r} family yet: its harvest and table "
-            f"join with its tuning"
-        )
+        raise NotImplementedError(f"no measured H100 source for the {family!r} family")
     return _MEASURE[family](problems, configs, device)
 
 

@@ -9,6 +9,14 @@ Weights come from a CPU generator seeded with 0 and are moved to the device,
 so a ``cpu`` and a ``cuda`` run serve the same model.  On ``cuda`` the engine
 serves through CUDA graphs, one per prefill bucket and decode width; the
 programs and the seconds their warm-up and capture took are printed.
+
+The kernel policy: ``--bundle b.json`` installs the ``DeploymentBundle``
+entry resolved for this host (``--serve-device`` names another device;
+``REPRO_DEVICE`` overrides detection), ``--deployment d.json`` a single
+``Deployment``, and neither ``FixedPolicy()``.  :func:`build_engine` is the
+same path for a caller that builds its own model:
+
+  python -m repro_torch.launch.serve --arch rwkv6-7b --no-reduced --bundle build/bundle_h100.json
 """
 from __future__ import annotations
 
@@ -19,10 +27,36 @@ import numpy as np
 import torch
 
 from ..configs import registry
-from ..core.runtime import KernelRuntime
+from ..core.runtime import KernelRuntime, check_compiled
 from ..kernels.ops import FixedPolicy
 from ..models.model import build_model
 from ..serve.engine import ServingEngine
+
+
+def build_engine(model, params, *, bundle=None, deployment=None, serve_device: str | None = None,
+                 name: str = "serve", **engine_kwargs) -> ServingEngine:
+    """The launcher's engine over ``model``: its own ``KernelRuntime`` holding the
+    bundle's entry resolved for ``serve_device`` (default: this host), or the
+    ``deployment``, or ``FixedPolicy()``.  ``bundle`` / ``deployment`` may be
+    paths.  On a CUDA model either raises when it holds a config the port
+    has not compiled."""
+    rt = KernelRuntime(name=name)
+    if bundle is not None:
+        return ServingEngine(model, params, bundle=bundle, device=serve_device, runtime=rt, **engine_kwargs)
+    if deployment is not None:
+        from ..core.dispatch import Deployment
+
+        if not isinstance(deployment, Deployment):
+            deployment = Deployment.load(deployment)
+        # As a bundle's install does: a config outside the compiled space fails
+        # here, not at its first launch inside a capture.
+        check_compiled(deployment, model.device.type, deployment.device)
+        rt.install(deployment)
+    else:
+        # The fixed default policy makes every selection consult the shape
+        # cache, whose counters are printed.
+        rt.install(FixedPolicy())
+    return ServingEngine(model, params, runtime=rt, **engine_kwargs)
 
 
 def main(argv=None) -> list[list[int]]:
@@ -36,7 +70,14 @@ def main(argv=None) -> list[list[int]]:
     ap.add_argument("--max-new-tokens", type=int, default=16)
     ap.add_argument("--max-batch", type=int, default=4)
     ap.add_argument("--cache-len", type=int, default=128)
+    ap.add_argument("--deployment", default=None, help="single-device Deployment json")
+    ap.add_argument("--bundle", default=None,
+                    help="multi-device DeploymentBundle json (installs the entry resolved for this host)")
+    ap.add_argument("--serve-device", default=None,
+                    help="device name for --bundle resolution (default: detect; REPRO_DEVICE overrides)")
     args = ap.parse_args(argv)
+    if args.bundle and args.deployment:
+        ap.error("--bundle and --deployment are exclusive")
 
     if args.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
@@ -49,12 +90,13 @@ def main(argv=None) -> list[list[int]]:
     dtype = torch.float32 if args.reduced else torch.bfloat16
     model = build_model(cfg, dtype=dtype, param_dtype=dtype, device=args.device)
     params = model.init(torch.Generator(device="cpu").manual_seed(0))
-    # The launcher owns its runtime; the fixed default policy makes every
-    # GEMM consult the shape cache, whose counters are printed below.
-    rt = KernelRuntime(name=f"serve[{args.arch}]")
-    rt.install(FixedPolicy())
-    engine = ServingEngine(model, params, max_batch=args.max_batch,
-                           cache_len=args.cache_len, runtime=rt)
+    engine = build_engine(model, params, bundle=args.bundle, deployment=args.deployment,
+                          serve_device=args.serve_device, name=f"serve[{args.arch}]",
+                          max_batch=args.max_batch, cache_len=args.cache_len)
+    rt = engine.runtime
+    if args.bundle:
+        requested, resolved = rt.device_resolution()
+        print(f"bundle installed: serving with the {engine.device!r} deployment (requested {requested!r})")
     rng = np.random.default_rng(0)
     t0 = time.perf_counter()
     tickets = [

@@ -220,6 +220,8 @@ class ServingEngine:
         max_batch: int = 4,
         cache_len: int = 256,
         prefill_buckets: tuple[int, ...] = (32, 64, 128),
+        bundle=None,
+        device: str | None = None,
         runtime=None,
         block_size: int | None = None,
         n_blocks: int | None = None,
@@ -232,10 +234,22 @@ class ServingEngine:
         CUDA model and runs the bodies eagerly on a CPU one; True on a CPU
         model raises.  False on a CUDA model runs the bodies eagerly: the
         eager engine, kept only to compare against the graphs (the
-        counterpart of the reference under ``jax.disable_jit()``)."""
+        counterpart of the reference under ``jax.disable_jit()``).
+
+        ``bundle`` (a ``DeploymentBundle`` or a path): installed into the
+        runtime before the first program is built, resolved for ``device``
+        (a device name; default: the detected host), as the reference does;
+        ``engine.device`` is then the resolved device name.  On a CUDA model
+        a bundle whose resolved deployment holds configs the port has not
+        compiled raises here."""
         # Every prefill and decode dispatches against ONE runtime (the caller's
         # current one when not given), activated around each forward.
         self.runtime = runtime if runtime is not None else current_runtime()
+        self.deployment = None
+        self.device = device
+        if bundle is not None:
+            self.deployment = self.runtime.install_bundle(bundle, device, target=model.device.type)
+            self.device = self.runtime.active_device()
         self.model = model
         self.params = params
         self.max_batch = max_batch
@@ -259,9 +273,9 @@ class ServingEngine:
         self._width_buckets = tuple(buckets)
         self.on_prefill = on_prefill
         self.on_decode = on_decode
-        on_card = self.device.type == "cuda"
+        on_card = model.device.type == "cuda"
         if cuda_graphs and not on_card:
-            raise ValueError(f"cuda_graphs=True needs a model on a CUDA device, not {self.device}")
+            raise ValueError(f"cuda_graphs=True needs a model on a CUDA device, not {model.device}")
         self.cuda_graphs = on_card if cuda_graphs is None else bool(cuda_graphs)
         # Compiled programs, keyed as the reference keys its jit caches; never
         # shared between engines.  Both are dropped when the runtime's policy
@@ -275,10 +289,6 @@ class ServingEngine:
         # work on another stream touches them (engines that torch's stream pool puts
         # on one stream run in turn).
         self._stream: torch.cuda.Stream | None = None
-
-    @property
-    def device(self) -> torch.device:
-        return self.model.device
 
     @property
     def cache(self) -> dict:
@@ -301,11 +311,11 @@ class ServingEngine:
     def _prefill_fn(self, plen: int) -> _Program:
         self._sync_programs()
         if plen not in self._prefill_cache:
-            tokens = torch.zeros((1, plen), dtype=torch.int64, device=self.device)
+            tokens = torch.zeros((1, plen), dtype=torch.int64, device=self.model.device)
 
             def body():
                 logits, cache1 = self.model.prefill(self.params, {"tokens": tokens}, self.cache_len)
-                return {"cache": cache1, "next": torch.argmax(logits[0, -1])}
+                return {"cache": cache1, "logits": logits, "next": torch.argmax(logits[0, -1])}
 
             # No side effect: pool.admit copies the cache out after the call.
             self._prefill_cache[plen] = self._build("prefill", plen, {"tokens": tokens}, body, body)
@@ -314,7 +324,7 @@ class ServingEngine:
     def _decode_fn(self, width: int) -> _Program:
         self._sync_programs()
         if width not in self._decode_cache:
-            dev = self.device
+            dev = self.model.device
             inputs = {"tokens": torch.zeros((width, 1), dtype=torch.int64, device=dev)}
             for name in ("positions", "blocks", "lanes"):
                 inputs[name] = torch.zeros(width, dtype=torch.int64, device=dev)
@@ -349,7 +359,7 @@ class ServingEngine:
             with self.runtime.activate():
                 warm()
         else:
-            dev = self.device
+            dev = self.model.device
             if self._stream is None:
                 self._stream = torch.cuda.Stream(dev)
             stream = prog.stream = self._stream

@@ -61,3 +61,29 @@ def test_served_path_calls_no_library_gemm():
         matmuls = [n for n in ast.walk(ast.parse(text))
                    if isinstance(n, ast.BinOp) and isinstance(n.op, ast.MatMult)]
         assert not matmuls or path.name == "ref.py", f"@ in {path.relative_to(pkg)}"
+
+
+def test_facade_is_lazy_and_imports_no_jax():
+    """``import repro_torch`` pulls in neither torch nor the tuning stack; its
+    names resolve to the port's own modules."""
+    probe = ("import sys, repro_torch; assert 'torch' not in sys.modules, 'torch'; "
+             "assert not any(m.startswith('repro_torch.core') for m in sys.modules); "
+             "b = repro_torch.DeploymentBundle; rt = repro_torch.KernelRuntime; "
+             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
+             "print(b.__module__, rt.__module__, bad)")
+    proc = subprocess.run([sys.executable, "-c", probe], capture_output=True, text=True,
+                          env={"PYTHONPATH": str(SRC), "PATH": "/usr/bin:/bin"}, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split() == ["repro_torch.core.bundle", "repro_torch.core.runtime", "[]"]
+
+
+def test_chip_smoke_imports_nothing_of_the_reference():
+    """The smoke script drives the port alone: no ``jax`` and no ``repro`` import."""
+    tree = ast.parse((SRC.parent / "chip_smoke.py").read_text())
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names.add(node.module.split(".")[0])
+    assert not names & {"jax", "jaxlib", "repro"}, names

@@ -146,6 +146,23 @@ def test_warm_up_leaves_the_pool_untouched(arch, n_layers):
     assert advanced, "the warm-up did not run the model"
 
 
+def test_prefill_program_outputs_the_reference_logits():
+    """A prefill program's outputs hold the model's logits, as the reference's jitted
+    prefill returns them: against the JAX engine's program on the same padded prompt
+    (1e-4), with ``next`` their last row's argmax."""
+    jm, jp, tm, tp = reduced_pair("rwkv6-7b")
+    jeng = JaxEngine(jm, jp, runtime=JaxRuntime(), **KW)
+    teng = ServingEngine(tm, tp, runtime=KernelRuntime(), **KW)
+    prompt = np.zeros((1, 32), dtype=np.int64)
+    prompt[0, -11:] = _prompts(tm.cfg.vocab, (11,), 4)[0]
+    prog = teng._prefill_fn(32)
+    prog.stage(tokens=prompt)
+    out = prog.run(teng.runtime)
+    jlogits, _ = jeng._prefill_fn(32)(jp, {"tokens": prompt.astype(np.int32)})
+    np.testing.assert_allclose(out["logits"].numpy(), np.asarray(jlogits), rtol=1e-4, atol=1e-4)
+    assert int(out["next"]) == int(torch.argmax(out["logits"][0, -1]))
+
+
 def test_install_drops_and_rebuilds_programs():
     _, _, tm, tp = reduced_pair("granite-8b")
     rt = KernelRuntime()

@@ -24,7 +24,7 @@ import torch
 from repro.configs import registry as jax_registry
 from repro.kernels.attention import attention_config_space as jax_attention_space
 from repro_torch.configs import registry
-from repro_torch.core import attnmodel, classify, cluster, codegen, dataset, families, gpubench, normalize, pca
+from repro_torch.core import attnmodel, classify, cluster, codegen, dataset, families, gpubench, normalize, pca, recmodel
 from repro_torch.core import pipeline, retune, tuner
 from repro_torch.core.dispatch import Deployment
 from repro_torch.core.runtime import KernelRuntime
@@ -221,6 +221,25 @@ def test_harvests_equal(arch):
         np.testing.assert_array_equal(attnmodel.attn_problem_features(attn), jax_attnmodel.attn_problem_features(attn))
 
 
+@pytest.mark.parametrize("arch", PORTED)
+def test_recurrence_harvests_equal(arch):
+    jax_recmodel = importlib.import_module("repro.core.recmodel")
+    assert recmodel.harvest_wkv_problems([arch]) == jax_recmodel.harvest_wkv_problems([arch])
+    assert recmodel.harvest_ssm_problems([arch]) == jax_recmodel.harvest_ssm_problems([arch])
+
+
+def test_recurrence_harvests_of_the_served_archs():
+    assert recmodel.harvest_wkv_problems(["rwkv6-7b"]) == [(1, 64), (2048, 64), (4096, 64), (32768, 64)]
+    assert recmodel.harvest_ssm_problems(["hymba-1.5b"]) == [(2048, 1600), (4096, 1600), (32768, 1600)]
+    assert recmodel.harvest_wkv_problems(["granite-8b"]) == [] == recmodel.harvest_ssm_problems(["granite-8b"])
+    jax_recmodel = importlib.import_module("repro.core.recmodel")
+    assert recmodel.harvest_wkv_problems(PORTED) == jax_recmodel.harvest_wkv_problems(PORTED)
+    assert recmodel.harvest_ssm_problems(None) == jax_recmodel.harvest_ssm_problems(PORTED)
+    probs = [(1, 64), (2048, 64), (32768, 1600)]
+    np.testing.assert_array_equal(recmodel.wkv_problem_features(probs), jax_recmodel.wkv_problem_features(probs))
+    np.testing.assert_array_equal(recmodel.ssm_problem_features(probs), jax_recmodel.ssm_problem_features(probs))
+
+
 def test_harvest_of_the_tuned_archs():
     archs = ["granite-8b", "hymba-1.5b"]
     got = dataset.harvest_problems(archs)
@@ -322,9 +341,10 @@ def test_families_registry():
         assert fam.feature_names == jax_families.get_family(name).feature_names
         np.testing.assert_array_equal(fam.features([(128, 64), (1, 1600)]),
                                       jax_families.get_family(name).features([(128, 64), (1, 1600)]))
-        with pytest.raises(NotImplementedError, match="join with its tuning"):
-            fam.harvest(None)
-        with pytest.raises(NotImplementedError):
+        # Harvested as the reference harvests; measured on the card only; device-sensitive.
+        assert fam.harvest(None) == jax_families.get_family(name).harvest(None)
+        assert fam.device_sensitive and fam.model_matrix is not None
+        with pytest.raises(RuntimeError, match="CUDA device"):
             fam.perf_matrix([(128, 64)], fam.config_space(), None)
     with pytest.raises(KeyError):
         families.get_family("nope")
@@ -332,8 +352,10 @@ def test_families_registry():
 
 @pytest.mark.parametrize("family", ["wkv", "ssm_scan"])
 def test_asking_for_an_unmeasured_family_raises(tables, family):
+    """A family's table is measured on the card: with none, tuning it raises
+    (nothing falls back to a model or to the CPU)."""
     _, port = tables
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(RuntimeError, match="CUDA device"):
         pipeline.tune_dataset(port, n_kernels=4, families=[family])
 
 
@@ -342,6 +364,15 @@ def test_measuring_needs_the_card():
         gpubench.measure_matmul([(8, 8, 8, 1)], mm.config_space())
     with pytest.raises(RuntimeError, match="CUDA device"):
         gpubench.measure_attention([(8, 8, 64)], at.config_space())
+    from repro_torch.kernels import ssm, wkv
+
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        gpubench.measure_wkv([(1, 64)], wkv.config_space())
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        gpubench.measure_ssm([(2048, 1600)], ssm.config_space())
+    with pytest.raises(ValueError, match="CUDA device"):
+        gpubench.measure("wkv", [(1, 64)], wkv.config_space(), device="cpu")
+    assert set(gpubench._MEASURE) == {"matmul", "attention", "wkv", "ssm_scan"}
     with pytest.raises(ValueError, match="CUDA device"):
         gpubench.measure_matmul([(8, 8, 8, 1)], mm.config_space(), device="cpu")
     with pytest.raises(RuntimeError, match="CUDA device"):
