@@ -35,9 +35,11 @@ Phases (each one fails the run if its check fails):
    with equal streams; tokens/s, prefill times and the decode step for both.
    The wrappers count launches in Python, so they count each program's
    warm-up and capture: the GEMM launches must be 2 x (7 * n_layers + 1) per
-   program, every one on the TMA path, none in the warm drain, the selection
-   consulted at every one; the engine's replays must equal the forwards
-   (phases 8, 12 and 19 likewise);
+   program, every one on the TMA path, none in the warm drain; the selection
+   consulted once per call of each program's warm-up (in the scanned
+   granite-8b and rwkv6-7b once per layer body: layer 0's calls and the
+   head's) and pinned for its capture; the engine's replays must equal the
+   forwards (phases 8, 12 and 19 likewise);
 5. selection reaches the kernel: one request under a FixedPolicy with a
    non-default matmul config launches that config and not the default;
 5b. profile (torch.profiler, which sees the kernels inside a replay): two warm
@@ -196,7 +198,35 @@ Phases (each one fails the run if its check fails):
    times its selective scan and this tree's in turns (parent, this, this,
    parent) at (1, S, 1600, 16), S in {32, 64, 128, 2048}, every config of the
    dta entry (both trees have it) and of the fused entry (this tree);
-21. no Python collection ran during any CUDA graph capture (one there could
+21. fault containment and continuous tuning on the tuned granite-8b (run after
+   19c, before its weights go):
+   21a. guarded dispatch on direct ``ops`` calls: ``dispatch.matmul:compile_error``
+   keyed on the config the tree serves at a decode shape is redirected to
+   ``DEFAULT_CONFIG``, bitwise equal to a direct launch, incident ``quarantined``;
+   ``QUARANTINE_BACKOFF`` more calls: redirected, then one re-probe, absolved; a
+   ``nan`` fault caught by output validation and redirected; the same redirect for
+   ``ops.wkv`` (1, 32, 64, 64) and ``ops.ssm_scan_fused`` (1, 32, 1600, 16); a fault
+   on ``DEFAULT_CONFIG`` itself raises with ``unrecoverable``; host µs per eager
+   call (direct ``matmul_cuda``, ``ops.matmul`` with no plan and with an armed plan
+   that never fires);
+   21b. phase 19's batch drained under ``engine.prefill:compile_error,
+   engine.decode:compile_error:1:5,dispatch.matmul:compile_error`` under CUDA
+   graphs: every request completes, 2 engine retries, the programs dropped and
+   captured again (and their seconds), health back to healthy, greedy streams
+   equal to phase 19's;
+   21c. an engine served from phase 17's bundle adopts the card's bundle entry
+   (offered, loaded again) at a step boundary, then, with ``retune_interval``,
+   drains the batch (whose buckets the harvest lacks), retunes matmul on
+   ``gpubench`` tables of the drifted problems, canaries the candidate on the
+   card (``matmul_cuda`` at its config; an ``attention_cuda`` probe too) and
+   hot-swaps it: events, seconds to measure, fit and canary, epochs, programs
+   captured again, warm decode median before and after; a
+   ``canary.matmul:nan`` candidate rejected; a forced swap rolled back by
+   ``rollback_threshold`` injected decode faults (captured again);
+   21d. ``OnlinePolicy`` with the CUDA-event measurer on direct ``ops.matmul``
+   calls at granite-8b's decode shapes: warm-up cost, commits per bucket, how
+   many equal phase 7's per-shape best;
+22. no Python collection ran during any CUDA graph capture (one there could
    free a dead engine's graphs and invalidate the capture); the ``kernels``
    JSON line, then the card line, then the result line.
 
@@ -471,6 +501,11 @@ def phase_ssm_vs_plain(torch, ss) -> dict:
 
 # Per arch: GEMM launches per forward, and launches per prefill of each
 # sequence kernel (every decode step launches none of them).
+# Models whose layer loop runs through ops.scan_layers, as the reference scans its layers:
+# a program build selects layer 0's kernels once and every later layer reuses them.
+SCANNED = ("granite-8b", "rwkv6-7b")
+
+
 def _expected(cfg) -> tuple[int, dict[str, int]]:
     n = cfg.n_layers
     if cfg.name == "granite-8b":
@@ -484,6 +519,15 @@ def _expected(cfg) -> tuple[int, dict[str, int]]:
     require((n, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_ff, cfg.vocab, cfg.ssm_state,
              cfg.window) == (32, 1600, 25, 5, 64, 5504, 32001, 16, 2048), f"unexpected hymba-1.5b config {cfg}")
     return 13 * n + 1, {"wkv": 0, "ssm": n}
+
+
+def _selections_per_build(cfg, launches: int) -> int:
+    """Selections one program build makes for ``launches`` kernel calls per forward:
+    one per call, or, in a scanned model, layer 0's and the head's."""
+    if cfg.name not in SCANNED:
+        return launches
+    body, head = divmod(launches, cfg.n_layers)
+    return body + head
 
 
 _FAMILY = {"wkv": "wkv", "ssm": "ssm_scan"}  # launch counter -> selection family
@@ -616,21 +660,34 @@ def phase_serve(torch, mm, seq: dict, arch: str, policy=None) -> dict:
         want = 2 * per_prefill[name] * n_prefill_progs
         got = sum(seq_launches[name].values())
         require(got == want, f"{name} launches {got}: want 2 x {per_prefill[name]} x {n_prefill_progs} prefill programs")
+    # One consultation per program build: its warm-up selects (once per call, or once per
+    # scanned layer body) and pins the configs, and the capture launches them again.
+    pins = {}
+    for cache in (engine._prefill_cache, engine._decode_cache):
+        for prog in cache.values():
+            for op, _problem, _cfg in prog.pins.entries:
+                pins[op] = pins.get(op, 0) + 1
+    per_build = {"matmul": _selections_per_build(cfg, per_forward)} | {
+        _FAMILY[k]: _selections_per_build(cfg, v) for k, v in per_prefill.items() if v}
     for op, n in [("matmul", total)] + [(_FAMILY[k], sum(v.values())) for k, v in seq_launches.items()]:
         got = fam.get(op, {"hits": 0, "misses": 0})
-        require(got["hits"] + got["misses"] == n, f"{op} selection not consulted at every captured launch: "
-                                                  f"{got} vs {n}")
+        builds = len(built) if op == "matmul" else n_prefill_progs
+        want = per_build.get(op, 0) * builds
+        require(got["hits"] + got["misses"] == pins.get(op, 0) == want,
+                f"{op}: {got} selections, {pins.get(op, 0)} pinned, want one per call of each build's "
+                f"warm-up ({per_build.get(op, 0)} x {builds} builds) for {n} launches")
     require(fam["matmul"]["hits"] > 0, f"matmul shape cache never hit: {fam}")
-    # GEMM launches per width-4 decode forward, per (k, n), from the selection log: each
-    # width-4 decode program ran the step twice in Python (its warm-up and its capture).
-    decode4 = 2 * sum(1 for r in built if r.kind == "decode" and r.size == 4)
+    # GEMM launches per width-4 decode forward, per (k, n), from the selection log: one entry
+    # per call of each width-4 decode build (each layer body's once in a scanned model).
+    decode4 = sum(1 for r in built if r.kind == "decode" and r.size == 4)
     counts: dict[str, int] = {}
     for op, problem, _cfg in rt.selection_log():
         # Decode GEMMs have 4 rows: a (4, 1, D) activation is (m, batch) = (1, 4), and Mamba's
         # output projection of a (4, D) one is (4, 1). Prefill GEMMs have >= 32 rows.
         if op == "matmul" and problem[0] * problem[3] == 4:
             kn = f"{problem[1]}x{problem[2]}"
-            counts[kn] = counts.get(kn, 0) + 1
+            layers = cfg.n_layers if arch in SCANNED and (problem[1], problem[2]) not in VOCAB_KN else 1
+            counts[kn] = counts.get(kn, 0) + layers
     per_step = {kn: c / decode4 for kn, c in counts.items()}
     decode_configs = sorted({(f"{p[1]}x{p[2]}", c.name()) for op, p, c in rt.selection_log()
                              if op == "matmul" and p[0] * p[3] == 4})
@@ -645,8 +702,8 @@ def phase_serve(torch, mm, seq: dict, arch: str, policy=None) -> dict:
                          f"{n_prefill_progs} prefill programs" for name in seq)
     print(f"  GEMM launches (counted in Python: warm-ups and captures): {total} = 2 x {per_forward} per forward x "
           f"{len(built)} programs, 0 in the warm drain, all on the TMA path ({paths}), {encodes} tensor maps "
-          f"encoded; {seq_text}; selection consulted at every captured launch (shape cache {stats['hits']} hits / "
-          f"{stats['misses']} misses)")
+          f"encoded; {seq_text}; selection consulted once per call of each build's warm-up, pinned for its "
+          f"capture ({per_build} a build; shape cache {stats['hits']} hits / {stats['misses']} misses)")
     print(f"  width-4 decode-step GEMM launches per (k x n): {per_step}")
     return {
         "arch": arch, "n_layers": cfg.n_layers, "weight_bytes": weight_bytes, "cold": cold, "warm": warm,
@@ -1802,6 +1859,369 @@ def _release(torch, serve: dict) -> None:
     torch.cuda.empty_cache()
 
 
+CHAOS = "engine.prefill:compile_error,engine.decode:compile_error:1:5,dispatch.matmul:compile_error"
+
+
+def _incident_summary(rt) -> dict:
+    out: dict[str, int] = {}
+    for rec in rt.incidents():
+        out[rec["action"]] = out.get(rec["action"], 0) + 1
+    return out
+
+
+def _rebuilt(engine, start: int = 0) -> list:
+    """Builds from ``program_log[start:]`` of a (kind, size) built before: programs
+    dropped (a retry, a swap, a rollback) and captured again."""
+    seen = {(r.kind, r.size) for r in engine.program_log[:start]}
+    out = []
+    for r in engine.program_log[start:]:
+        if (r.kind, r.size) in seen:
+            out.append(r)
+        seen.add((r.kind, r.size))
+    return out
+
+
+def _tree_pick(dep, family: str, problem: tuple, default, space):
+    """The tuned tree's config for ``problem``, else (when the tree serves the
+    default there) the first other compiled config: a fault needs a config the
+    breaker can redirect from."""
+    cfg = dep.select(family, problem)
+    if cfg != default:
+        return cfg, "tree"
+    return next(c for c in space if c != default), "not the tree's (it serves the default here)"
+
+
+def phase_guard(torch, mods: dict) -> dict:
+    """21a: the guard on direct ops calls on the card."""
+    from repro_torch.core import faults
+    from repro_torch.core.dispatch import Deployment
+    from repro_torch.core.runtime import QUARANTINE_BACKOFF, KernelRuntime
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ops import FixedPolicy
+
+    mm, wk, ss = mods["matmul"], mods["wkv"], mods["ssm_scan"]
+    dep = Deployment.load(DEPLOY_PATH)
+    g = torch.Generator(device="cuda").manual_seed(21)
+    out: dict = {}
+    # The GEMM: the first served decode shape (batch 4) whose tree config is not the default.
+    picks = [((1, k, n, 4), dep.select_matmul(1, k, n, 4)) for k, n in GRANITE_KN if (k, n) not in VOCAB_KN]
+    problem, cfg = next(((p, c) for p, c in picks if c != mm.DEFAULT_CONFIG), picks[0])
+    policy, why = dep, "tree"
+    if cfg == mm.DEFAULT_CONFIG:  # the tree serves the default at every decode shape
+        cfg = next(c for c in mm.config_space() if c != mm.DEFAULT_CONFIG)
+        policy, why = FixedPolicy(matmul_config=cfg), "not the tree's (it serves the default there)"
+    _, k, n, _ = problem
+    x = torch.randn((4, 1, k), device="cuda", generator=g, dtype=torch.bfloat16)
+    w = torch.randn((k, n), device="cuda", generator=g, dtype=torch.bfloat16)
+    direct = mm.matmul_cuda(x.reshape(4, k), w, mm.DEFAULT_CONFIG).reshape(4, 1, n)
+    rt = KernelRuntime(name="chip_smoke-guard")
+    rt.install(policy)
+    plan = faults.FaultPlan()
+    plan.inject("dispatch.matmul", "compile_error", times=1, match=cfg.name())
+    rt.set_fault_plan(plan)
+    mm.reset_launches()
+    with rt.activate():
+        got = ops.matmul(x, w)
+        require(torch.equal(got, direct), "the redirected GEMM is not bitwise equal to a direct DEFAULT_CONFIG launch")
+        require([i["action"] for i in rt.incidents()] == ["quarantined"], f"incidents {rt.incidents()}")
+        require(mm.LAUNCHES[cfg.name()] == 0 and mm.LAUNCHES[mm.DEFAULT_CONFIG.name()] == 1,
+                f"launches {dict(mm.LAUNCHES)}")
+        states = []
+        for _ in range(QUARANTINE_BACKOFF):
+            ops.matmul(x, w)
+            states.append([e["state"] for e in rt.quarantined()] or ["closed"])
+    torch.cuda.synchronize()
+    require([i["action"] for i in rt.incidents()] == ["quarantined", "absolved"] and not rt.quarantined(),
+            f"breaker did not re-probe and absolve: {rt.incidents()} {rt.quarantined()}")
+    require(mm.LAUNCHES[cfg.name()] == 1 and mm.LAUNCHES[mm.DEFAULT_CONFIG.name()] == QUARANTINE_BACKOFF,
+            f"after the cycle: {dict(mm.LAUNCHES)}")
+    out["matmul"] = {"problem": problem, "config": cfg.name(), "picked_by": why, "redirect": mm.DEFAULT_CONFIG.name(),
+                     "bitwise_equal_direct": True, "breaker_states": states, "incidents": _incident_summary(rt)}
+    print(f"  ops.matmul at {problem}: dispatch.matmul:compile_error on {cfg.name()} ({why}) -> redirected to "
+          f"{mm.DEFAULT_CONFIG.name()}, bitwise equal to a direct launch; quarantined, then {QUARANTINE_BACKOFF} "
+          f"calls (states {states}): {QUARANTINE_BACKOFF - 1} redirected, 1 re-probe at {cfg.name()}, absolved")
+    # NaN under output validation, on the eager path.
+    rt2 = KernelRuntime(name="chip_smoke-nan")
+    rt2.install(policy)
+    plan2 = faults.FaultPlan()
+    plan2.inject("dispatch.matmul", "nan", times=1, match=cfg.name())
+    rt2.set_fault_plan(plan2)
+    with rt2.activate():
+        got = ops.matmul(x, w)
+    require(bool(torch.isfinite(got).all()) and torch.equal(got, direct), "the NaN was served")
+    require(rt2.incidents()[0]["error"].startswith("NonFiniteOutputError"), f"{rt2.incidents()}")
+    out["nan"] = {"contained": True, "incident": rt2.incidents()[0]["error"]}
+    print(f"  dispatch.matmul:nan on {cfg.name()}: caught by output validation, redirected, finite and equal")
+    # WKV and the scan, at their served prefill shapes.
+    r, kk, v = (torch.randn((1, 32, 64, 64), device="cuda", generator=g, dtype=torch.bfloat16) for _ in range(3))
+    logw = -torch.rand((1, 32, 64, 64), device="cuda", generator=g) * 4.99 - 1e-3
+    u = torch.randn((64, 64), device="cuda", generator=g, dtype=torch.bfloat16)
+    xs, dt = (torch.randn((1, 32, 1600), device="cuda", generator=g) for _ in range(2))
+    dt = dt.abs() * 0.1
+    a = -torch.rand((1600, 16), device="cuda", generator=g) - 0.1
+    bs, cs = (torch.randn((1, 32, 16), device="cuda", generator=g) for _ in range(2))
+    for fam, mod, default, field, call, direct_fn, prob in (
+            ("wkv", wk, wk.DEFAULT_WKV_CONFIG, "wkv_config", lambda: ops.wkv(r, kk, v, logw, u),
+             lambda c: wk.wkv_cuda(r, kk, v, logw, u, None, c), (32, 64)),
+            ("ssm_scan", ss, ss.DEFAULT_SSM_CONFIG, "ssm_config", lambda: ops.ssm_scan_fused(xs, dt, a, bs, cs),
+             lambda c: ss.ssm_cuda_fused(xs, dt, a, bs, cs, None, c), (32, 1600))):
+        served, why = _tree_pick(dep, fam, prob, default, mod.config_space())
+        rt3 = KernelRuntime(name=f"chip_smoke-{fam}")
+        rt3.install(dep if why == "tree" else FixedPolicy(**{field: served}))
+        rt3.set_fault_plan(faults.FaultPlan.parse(f"dispatch.{fam}:compile_error"))
+        mod.reset_launches()
+        with rt3.activate():
+            got = call()
+        want = direct_fn(default)
+        require(all(torch.equal(gt, wt) for gt, wt in zip(got, want)),
+                f"{fam}: the redirected call is not bitwise equal to a direct {default.name()} launch")
+        require([(i["action"], i["config"]) for i in rt3.incidents()] == [("quarantined", served.name())],
+                f"{fam}: {rt3.incidents()}")
+        require(mod.LAUNCHES[served.name()] == 0 and mod.LAUNCHES[default.name()] == 2, f"{dict(mod.LAUNCHES)}")
+        out[fam] = {"config": served.name(), "picked_by": why, "redirect": default.name(), "bitwise_equal_direct": True}
+        print(f"  ops.{'wkv' if fam == 'wkv' else 'ssm_scan_fused'} at {prob}: dispatch.{fam}:compile_error on "
+              f"{served.name()} ({why}) -> {default.name()}, bitwise equal to a direct launch")
+    # A fault on the default config itself: nothing compiled is left.
+    rt4 = KernelRuntime(name="chip_smoke-unrecoverable")
+    rt4.install(FixedPolicy())
+    rt4.set_fault_plan(faults.FaultPlan.parse("dispatch.matmul:compile_error"))
+    try:
+        with rt4.activate():
+            ops.matmul(x, w)
+        raised = None
+    except faults.InjectedCompileError as e:
+        raised = type(e).__name__
+    require(raised and [i["action"] for i in rt4.incidents()] == ["unrecoverable"], f"{raised} {rt4.incidents()}")
+    out["unrecoverable"] = {"raised": raised, "incident": "unrecoverable"}
+    print(f"  a fault on {mm.DEFAULT_CONFIG.name()} itself: raised {raised}, incident 'unrecoverable'")
+    # The guard's host cost per eager call: no plan, and a plan that is armed but never fires.
+    never = faults.FaultPlan()
+    never.inject("dispatch.matmul", "compile_error", times=None, match="never-a-config")
+
+    def host_us(fn, calls=300, reps=9):
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            times.append((time.perf_counter() - t0) / calls * 1e6)
+            torch.cuda.synchronize()
+        return statistics.median(times)
+
+    rt5 = KernelRuntime(name="chip_smoke-cost")
+    rt5.install(policy)
+    x2 = x.reshape(4, k)
+    with rt5.activate():
+        cost = {"direct matmul_cuda": host_us(lambda: mm.matmul_cuda(x2, w, cfg)),
+                "ops.matmul, no plan": host_us(lambda: ops.matmul(x, w))}
+        rt5.set_output_validation(True)  # what an attached plan turns on: a host sync per call
+        cost["ops.matmul, output validation only"] = host_us(lambda: ops.matmul(x, w))
+        rt5.set_output_validation(False)
+        rt5.set_fault_plan(never)
+        cost["ops.matmul, armed plan that never fires (validation on)"] = host_us(lambda: ops.matmul(x, w))
+    out["host_us_per_call"] = cost
+    out["launches"] = {"matmul": mm.total_launches(), "wkv": wk.total_launches(), "ssm_scan": ss.total_launches()}
+    print(f"  host µs per eager call ({problem}, {cfg.name()}, median of 9 x 300 calls): "
+          + ", ".join(f"{name} {v:.2f}" for name, v in cost.items()))
+    return out
+
+
+def phase_engine_chaos(torch, mm, seq: dict, tuned: dict) -> dict:
+    """21b: phase 19's batch drained under CHAOS on the tuned granite-8b (CUDA graphs)."""
+    from repro_torch.core import faults
+    from repro_torch.core.dispatch import Deployment
+    from repro_torch.core.runtime import KernelRuntime
+    from repro_torch.serve.engine import ServingEngine
+
+    rt = KernelRuntime(name="chip_smoke-chaos")
+    rt.install(Deployment.load(DEPLOY_PATH))
+    plan = faults.FaultPlan.parse(CHAOS, seed=0)
+    rt.set_fault_plan(plan)
+    engine = ServingEngine(tuned["model"], tuned["params"], max_batch=4, cache_len=256, runtime=rt)
+    mm.reset_launches()
+    for mod in seq.values():
+        mod.reset_launches()
+    t0 = time.perf_counter()
+    tickets = [engine.submit(pr, max_new_tokens=16) for pr in tuned["prompts"]]
+    status = engine.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    outputs = [list(t.request.output) for t in tickets]
+    rebuilt = _rebuilt(engine)
+    res = {
+        "submitted": len(tickets), "completed": status.completed, "exhausted": status.exhausted,
+        "retries": sum(t.request.retries for t in tickets), "incidents": _incident_summary(rt),
+        "faults_fired": [(e.site, e.kind, e.key) for e in plan.events],
+        "programs_built": len(engine.program_log), "programs_captured_again": [(r.kind, r.size) for r in rebuilt],
+        "recapture_s": sum(r.seconds for r in rebuilt), "capture_s": sum(r.seconds for r in engine.program_log),
+        "health_events": engine.health_events, "health": status.health, "wall_s": wall,
+        "streams_equal_phase_19": outputs == tuned["outputs"],
+        "launches": {"matmul": mm.total_launches()} | {_FAMILY[k]: mod.total_launches() for k, mod in seq.items()},
+    }
+    require(status.completed == len(tickets) and not status.exhausted, f"requests dropped under chaos: {status}")
+    require(res["incidents"].get("retry") == 2, f"want 2 engine retries, got {res['incidents']}")
+    require(rebuilt, "no program was dropped and captured again")
+    require(status.health == "healthy" and engine.health_events and engine.health_events[-1][1] == "healthy",
+            f"health did not end healthy: {engine.health_events} / {status.health}")
+    require(res["streams_equal_phase_19"], "the greedy streams under chaos differ from phase 19's clean drain")
+    print(f"  {CHAOS}: {status.completed}/{len(tickets)} completed, {res['retries']} request retries, incidents "
+          f"{res['incidents']}, faults {res['faults_fired']}")
+    print(f"  programs captured again: {res['programs_captured_again']} in {res['recapture_s']:.3f}s (all captures "
+          f"{res['capture_s']:.3f}s); health {engine.health_events}; streams equal phase 19's: True")
+    return res
+
+
+def phase_retune_on_card(torch, mm, at, seq: dict, tuned: dict) -> dict:
+    """21c: on the tuned granite-8b served from phase 17's bundle, an adoption at a
+    step boundary, then drift -> retune on measured tables -> canary on the card ->
+    hot swap, a rejected candidate, and a rollback."""
+    from repro_torch.core import faults, retune
+    from repro_torch.core.bundle import DeploymentBundle
+    from repro_torch.core.gpubench import build_gpu_dataset
+    from repro_torch.core.runtime import KernelRuntime
+    from repro_torch.serve.engine import ServingEngine
+
+    measured: list[float] = []
+
+    def gpu_table(problems, device):
+        ds, sec = build_gpu_dataset("matmul", problems)
+        measured.append(sec)
+        return ds
+
+    rt = KernelRuntime(name="chip_smoke-retune")
+    # Served from phase 17's fleet bundle, as launch.serve --bundle serves: the card's entry.
+    engine = ServingEngine(tuned["model"], tuned["params"], max_batch=4, cache_len=256, runtime=rt,
+                           bundle=BUNDLE_PATH, retune_min_events=16, retune_dataset_builder=gpu_table)
+    dep = engine.deployment
+    rt.set_selection_logging(True, cap=1 << 16)
+    prompts = tuned["prompts"]
+    mm.reset_launches()
+    at.reset_launches()
+    _drain(torch, engine, prompts, mm, seq)
+    before = _drain(torch, engine, prompts, mm, seq)
+    # Adoption of phase 17's bundle entry for this card, loaded again (the incumbent's own
+    # tune, so the canary passes), at a step boundary.
+    offered = DeploymentBundle.load(BUNDLE_PATH).deployments[engine.device]
+    built_a = len(engine.program_log)
+    engine.submit(prompts[0], max_new_tokens=16)
+    engine.step()
+    step0 = engine.steps
+    engine.offer_deployment(offered)
+    engine.drain()
+    ev = engine.retune_events[0]
+    require(ev.source == "control-plane" and ev.swapped and ev.step == step0 and engine.deployment is offered,
+            f"adoption: {ev}; incidents {rt.incidents()[-2:]}")
+    adopt_recaptured = [r for r in engine.program_log[built_a:] if r.epoch >= ev.epoch]
+    require(adopt_recaptured, "the adoption did not capture the programs again")
+    adopt = dataclasses.asdict(ev)
+    print(f"  offer_deployment(phase 17's {engine.device} bundle entry): adopted at step {ev.step} (the boundary after "
+          f"step {step0 - 1}), epoch {ev.epoch}, canaried {ev.families}; its drain captured "
+          f"{[(r.kind, r.size) for r in adopt_recaptured]} again")
+    # Drift: the served buckets are not in the harvest; the check runs every 4 steps.
+    n_ev = len(engine.retune_events)
+    epoch0, built0 = rt.policy_epoch(), len(engine.program_log)
+    engine.retune_interval = 4
+    during = _drain(torch, engine, prompts, mm, seq)  # the first drift check swaps
+    engine.retune_interval = None
+    swaps = [e for e in engine.retune_events[n_ev:] if e.swapped]
+    require(swaps and swaps[0].families == ("matmul",),
+            f"no matmul retune swapped in: {engine.retune_events[n_ev:]}; incidents {rt.incidents()[-2:]}")
+    epoch1 = rt.policy_epoch()
+    after = _drain(torch, engine, prompts, mm, seq)
+    # Every build after the swap captures a program the swap dropped.
+    recaptured = [r for r in engine.program_log[built0:] if r.epoch >= epoch1]
+    require(recaptured, f"programs not captured again after the swap: {engine.program_log[built0:]}")
+    adopt["programs_captured_again"] = [(r.kind, r.size) for r in engine.program_log[built_a:]
+                                        if adopt["epoch"] <= r.epoch < epoch1]
+    res = {"adopt": adopt, "events": [dataclasses.asdict(e) for e in engine.retune_events[n_ev:]],
+           "seconds": engine.retune_seconds,
+           "measure_s": measured, "epoch_before": epoch0, "epoch_after": epoch1,
+           "programs_captured_again": [(r.kind, r.size) for r in recaptured],
+           "recapture_s": sum(r.seconds for r in recaptured),
+           "warm_decode_median_ms_before": before["decode_median_ms"],
+           "warm_decode_median_ms_after": after["decode_median_ms"],
+           "streams_equal_phase_19": [during["outputs"], after["outputs"]] == [tuned["outputs"]] * 2,
+           "new_configs": [c.name() for c in engine.deployment.configs]}
+    print(f"  retune events: {[(e.step, round(e.drift_score, 4), e.swapped, e.families) for e in engine.retune_events[n_ev:]]}")
+    print(f"  swap: epoch {epoch0} -> {epoch1}; seconds {engine.retune_seconds} (gpubench tables {measured}); "
+          f"{len(recaptured)} programs captured again (this drain and the next) in {res['recapture_s']:.3f}s; "
+          f"deployed {res['new_configs']}")
+    print(f"  warm decode median {before['decode_median_ms']:.3f} ms before, {after['decode_median_ms']:.3f} after; "
+          f"zero drops; streams equal phase 19's: {res['streams_equal_phase_19']}")
+    # The canary's attention probe on the card (granite-8b's traffic calls no ops.attention).
+    ok, why = retune._numeric_agreement("attention", dep.select_attention(1, 4096, 128), rt, device="cuda")
+    require(ok, f"attention canary probe: {why}")
+    # A NaN-poisoned candidate: rejected, never installed.
+    incumbent = engine.deployment
+    rt.set_fault_plan(faults.FaultPlan.parse("canary.matmul:nan:-1"))
+    ev = engine.maybe_retune(force=True)
+    rt.set_fault_plan(None)
+    require(ev is not None and not ev.swapped and "matmul" in ev.rejected and rt.policy() is incumbent,
+            f"a NaN-poisoned candidate was not rejected: {ev}")
+    res["rejected"] = dataclasses.asdict(ev) | {"reason": rt.incidents()[-1]["error"]}
+    print(f"  canary.matmul:nan candidate: rejected {ev.rejected} ({res['rejected']['reason']}), incumbent kept "
+          f"(epoch {rt.policy_epoch()})")
+    # A forced swap (its canary off: the H100 model may score a second retune of the same
+    # traffic below the first), then rollback_threshold injected incidents roll it back.
+    engine.canary = False
+    ev = engine.maybe_retune(force=True)
+    engine.canary = True
+    require(ev is not None and ev.swapped, f"forced retune did not swap: {ev}")
+    epoch2, built2 = rt.policy_epoch(), len(engine.program_log)
+    rt.set_fault_plan(faults.FaultPlan.parse(f"engine.decode:oom:{engine.rollback_threshold}"))
+    tickets = [engine.submit(pr, max_new_tokens=16) for pr in prompts]
+    status = engine.drain()
+    rt.set_fault_plan(None)
+    rolled = [e for e in engine.retune_events if e.rolled_back]
+    require(len(rolled) == 1 and engine.deployment is incumbent and status.completed == len(tickets),
+            f"no rollback: {engine.retune_events[-2:]} {status}")
+    rb_recaptured = _rebuilt(engine, built2)
+    require(rt.policy_epoch() > epoch2 and rb_recaptured, "the rollback did not move the epoch and capture again")
+    res["rollback"] = {"event": dataclasses.asdict(rolled[0]), "epoch": [epoch2, rt.policy_epoch()],
+                       "programs_captured_again": [(r.kind, r.size) for r in rb_recaptured],
+                       "streams_equal_phase_19": [list(t.request.output) for t in tickets] == tuned["outputs"]}
+    print(f"  forced swap (canary off) then {engine.rollback_threshold} injected engine.decode faults: rolled back at step "
+          f"{rolled[0].step}, epoch {epoch2} -> {rt.policy_epoch()}, {len(rb_recaptured)} programs captured again; "
+          f"{status.completed}/{len(tickets)} completed")
+    res["launches"] = {"matmul": mm.total_launches(), "attention": at.total_launches()}
+    return res
+
+
+def phase_online(torch, mm, rows: list) -> dict:
+    """21d: OnlinePolicy with the CUDA-event measurer on direct ops.matmul calls at
+    granite-8b's served decode shapes."""
+    from repro_torch.core.dispatch import Deployment
+    from repro_torch.core.online import OnlinePolicy, cuda_event_measure, shape_bucket
+    from repro_torch.core.runtime import KernelRuntime
+    from repro_torch.kernels import ops
+
+    pol = OnlinePolicy(cuda_event_measure(), mm.config_space(), prior=Deployment.load(DEPLOY_PATH))
+    rt = KernelRuntime(name="chip_smoke-online")
+    rt.install(pol)
+    g = torch.Generator(device="cuda").manual_seed(4)
+    mm.reset_launches()
+    shapes = [(k, n) for k, n in GRANITE_KN]
+    with rt.activate():
+        for k, n in shapes:
+            x = torch.randn((4, 1, k), device="cuda", generator=g, dtype=torch.bfloat16)
+            w = torch.randn((k, n), device="cuda", generator=g, dtype=torch.bfloat16)
+            out_dtype = torch.float32 if (k, n) in VOCAB_KN else None
+            for _ in range(len(mm.config_space()) + 1):
+                ops.matmul(x, w, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    committed = {str(b): c.name() for b, c in pol.committed().items()}
+    best = {shape_bucket((1, r["k"], r["n"], 4)): r["best_config"] for r in rows if r["m"] == 4}
+    agree = sum(pol.committed().get(b) is not None and pol.committed()[b].name() == name for b, name in best.items())
+    require(len(committed) == len(shapes), f"not every shape committed: {committed}")
+    res = {"warmup_cost_s": pol.warmup_cost(), "committed": committed, "stats": dict(pol.stats),
+           "phase_7_best": {str(b): c for b, c in best.items()}, "commits_equal_phase_7_best": agree,
+           "launches": {"matmul": mm.total_launches()}}
+    print(f"  warm-up cost {pol.warmup_cost() * 1e3:.3f} ms over {pol.stats['explore']} measured arms; commits "
+          f"{committed}; {agree} of {len(best)} equal phase 7's per-shape best")
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -1938,6 +2358,14 @@ def main() -> int:
     tuned_profile = phase_profile(torch, tuned)
     phase("[19c] another policy installed mid-run: the programs are captured again")
     reinstall = phase_reinstall(torch, mm, tuned)
+    phase("[21a] guarded dispatch on the card: redirect, quarantine, re-probe, absolve; NaN; unrecoverable; cost")
+    guard = phase_guard(torch, mods)
+    phase("[21b] engine chaos: phase 19's batch under " + CHAOS)
+    chaos = phase_engine_chaos(torch, mm, seq, tuned)
+    phase("[21c] retune on the card: drift -> measured retune -> canary -> hot swap; rejection; rollback; adoption")
+    retuned = phase_retune_on_card(torch, mm, at, seq, tuned)
+    phase("[21d] OnlinePolicy on the card: CUDA-event arms at granite-8b's decode shapes")
+    online = phase_online(torch, mm, rows)
     _release(torch, tuned)
     # One granite decode step's GEMMs at m=4: sum of count x time over the shapes it launches,
     # under the default config, each shape's best compiled config, and the tree's choices.
@@ -1981,6 +2409,13 @@ def main() -> int:
                            "tables, phase 17b (staged)": staged["families"][fam]["launches_while_measuring"]} | {
         f"{arch} from the bundle (17c)": run["launches"]["bundle"][fam] for arch, run in fleet["served"].items()}
         for fam in ("matmul", "attention", "wkv", "ssm_scan")}
+    # Phase 21's paths: the guard's direct calls, the chaos drain's builds, the retune's
+    # gpubench tables and on-card canary probes, the OnlinePolicy's measured arms.
+    resilience = {"guard (21a)": guard["launches"], "engine chaos (21b)": chaos["launches"],
+                  "retune: tables, canary probes, captures (21c)": retuned["launches"],
+                  "OnlinePolicy arms and calls (21d)": online["launches"]}
+    for fam, paths in tune_launches.items():
+        paths.update({path: counts[fam] for path, counts in resilience.items() if counts.get(fam)})
     gemm_launches.update(tune_launches["matmul"])
     gemm_routes = {path: sum(run["path_launches"][path] for run in (serve, rwkv, hymba, tuned))
                    + quick["paths"][path] for path in ("tma", "cp_async")}
@@ -2109,10 +2544,11 @@ def main() -> int:
         "staged": staged, "fleet": fleet, "quickstart": quick, "tuned_serve": tuned,
         "tuned_profile": tuned_profile, "eager_vs_graphed": eager, "ssm_capture_guard": ssm_guard,
         "reinstall": reinstall,
+        "guard": guard, "engine_chaos": chaos, "retune_on_card": retuned, "online": online,
         "attention_timing": attn_rows,
         "kernels": kernels["kernels"], "seconds": time.perf_counter() - t_start,
     }, indent=1, default=str))
-    print(f"[21] done in {time.perf_counter() - t_start:.1f}s")
+    print(f"[22] done in {time.perf_counter() - t_start:.1f}s")
     print(json.dumps(kernels))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

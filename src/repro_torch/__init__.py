@@ -25,9 +25,11 @@ __all__ = [
     "Deployment",
     "DeploymentBundle",
     "EngineStatus",
+    "FaultPlan",
     "KernelRuntime",
     "Request",
     "ServingEngine",
+    "TelemetrySnapshot",
     "Ticket",
     "__version__",
     "current_runtime",
@@ -43,9 +45,11 @@ _LAZY = {
     "DeploymentBundle": ("repro_torch.core.bundle", "DeploymentBundle"),
     "KernelRuntime": ("repro_torch.core.runtime", "KernelRuntime"),
     "EngineStatus": ("repro_torch.serve.engine", "EngineStatus"),
+    "FaultPlan": ("repro_torch.core.faults", "FaultPlan"),
     "Request": ("repro_torch.serve.engine", "Request"),
     "ServingEngine": ("repro_torch.serve.engine", "ServingEngine"),
     "Ticket": ("repro_torch.serve.engine", "Ticket"),
+    "TelemetrySnapshot": ("repro_torch.core.retune", "TelemetrySnapshot"),
     "current_runtime": ("repro_torch.core.runtime", "current_runtime"),
     "default_runtime": ("repro_torch.core.runtime", "default_runtime"),
     "install_bundle": ("repro_torch.core.bundle", "install_bundle"),

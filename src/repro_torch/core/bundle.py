@@ -330,8 +330,18 @@ class DeploymentBundle:
 
     @staticmethod
     def load(path: str | Path) -> "DeploymentBundle":
-        """Load a bundle (any blob version, v1-v6) from a file path."""
+        """Load a bundle (any blob version, v1-v6) from a file path.
+
+        The text rides the ``bundle.load`` chaos site of the current
+        runtime's fault plan (simulated bit rot) before it is parsed, so a
+        corrupted file surfaces as a structured ``BundleError``.
+        """
         text = Path(path).read_text()
+        from .runtime import current_runtime
+
+        plan = current_runtime().fault_plan
+        if plan is not None:
+            text = plan.corrupt_text("bundle.load", text, key=str(path))
         try:
             blob = json.loads(text)
         except json.JSONDecodeError as e:

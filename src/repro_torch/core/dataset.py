@@ -11,9 +11,10 @@ launcher, expressive enough for the shape regimes (square/skinny/deep) the
 paper identifies.
 
 Copied from ``repro/core/dataset.py``; the configs of a table are the port's
-Hopper ``MatmulConfig`` instances.  ``build_model_dataset`` stays behind: its table
-is the TPU analytic model, and no TPU figure carries over.  The card's own
-table comes from ``core/gpubench.py``.
+Hopper ``MatmulConfig`` instances.  The card's own table comes from
+``core/gpubench.py``; :func:`build_model_dataset` is the H100 model's table
+(``core/perfmodel.py``), where the reference's is its TPU model's: the
+default data source of ``core/retune.incremental_retune``.
 """
 from __future__ import annotations
 
@@ -23,7 +24,7 @@ from pathlib import Path
 
 import numpy as np
 
-from ..kernels.matmul import MatmulConfig
+from ..kernels.matmul import MatmulConfig, config_space
 
 Problem = tuple[int, int, int, int]
 
@@ -187,3 +188,18 @@ def synthetic_problems(n: int = 300, seed: int = 0) -> list[Problem]:
         batch = int(rng.choice([1, 1, 1, 8, 16, 32]))
         out.append((m, k, n_, batch))
     return sorted(set(out))
+
+
+def build_model_dataset(
+    problems: list[Problem] | None = None,
+    device_name: str = "gpu_nvidia_h100_80gb_hbm3",
+    configs: list[MatmulConfig] | None = None,
+) -> TuningDataset:
+    """Dense H100-model benchmark table (``core/perfmodel.py``), ``source="model"``."""
+    from .perfmodel import DEVICES, build_perf_matrix
+
+    problems = problems if problems is not None else synthetic_problems()
+    configs = list(configs if configs is not None else config_space())
+    device = DEVICES[device_name]
+    perf = build_perf_matrix(problems, configs, device.name)
+    return TuningDataset(device=device.name, problems=problems, configs=configs, perf=perf, source="model")

@@ -115,6 +115,19 @@ class Deployment:
         else:
             self.families[family] = FamilyTuning(list(configs), tree)
 
+    def clone(self) -> "Deployment":
+        """Shallow copy safe for per-family replacement (retune's swap unit)."""
+        return Deployment(
+            device=self.device,
+            configs=list(self.configs),
+            classifier=self.classifier,
+            classifier_name=self.classifier_name,
+            attention_configs=list(self.attention_configs),
+            attention_tree=self.attention_tree,
+            meta=dict(self.meta),
+            families=dict(self.families),
+        )
+
     # -- KernelPolicy -------------------------------------------------------
     def select(self, family: str, problem: tuple):
         """Generic launcher-side selection for any registered family."""

@@ -35,15 +35,60 @@ _libs: dict[str, ctypes.CDLL] = {}
 build_seconds: dict[str, float] = {}  # source name -> nvcc wall time (0.0 when reused)
 
 
+class KernelBuildError(RuntimeError):
+    """A kernel's library could not be built: nvcc is missing or failed."""
+
+
+class KernelLaunchError(RuntimeError):
+    """A kernel could not be launched: the launch (or its occupancy query)
+    returned a launch-local CUDA error, or its workspace would be allocated
+    during a capture.  The fault guard (``kernels/ops.py``) contains these."""
+
+
+# CUDA runtime codes a launch returns for a fault of that launch alone, which
+# leave the context usable: another config (or a rebuilt capture) may succeed.
+LAUNCH_LOCAL_ERRORS = {
+    1: "cudaErrorInvalidValue",
+    2: "cudaErrorMemoryAllocation",
+    9: "cudaErrorInvalidConfiguration",
+    98: "cudaErrorInvalidDeviceFunction",
+    200: "cudaErrorInvalidKernelImage",
+    209: "cudaErrorNoKernelImageForDevice",
+    400: "cudaErrorInvalidResourceHandle",
+    701: "cudaErrorLaunchOutOfResources",
+    720: "cudaErrorCooperativeLaunchTooLarge",
+    801: "cudaErrorNotSupported",
+    900: "cudaErrorStreamCaptureUnsupported",
+    901: "cudaErrorStreamCaptureInvalidated",
+}
+
+
+def launch_error(err: int, text: str) -> RuntimeError:
+    """The error to raise for a launch that returned CUDA code ``err``.
+
+    A launch returns ``cudaGetLastError()``, which also reports a sticky
+    error an earlier asynchronous kernel left (an illegal address, 700; a
+    launch failure, 719; 999, ...).  Such an error poisons the context, so
+    the config that happened to launch next is not at fault and nothing in
+    this process can retry: it is raised as ``torch.AcceleratorError``,
+    which the fault guard does not contain.  Only the codes of
+    :data:`LAUNCH_LOCAL_ERRORS` raise :class:`KernelLaunchError`."""
+    import torch
+
+    if err in LAUNCH_LOCAL_ERRORS:
+        return KernelLaunchError(text)
+    return getattr(torch, "AcceleratorError", RuntimeError)(f"{text}; the CUDA context is unusable (sticky error)")
+
+
 def refuse_under_capture(what: str) -> None:
-    """Raise if the current stream is capturing a CUDA graph: a kernel's
-    workspace allocated (or grown) there would be captured, not made, and a
-    graph keeps the address it captured."""
+    """Raise :class:`KernelLaunchError` if the current stream is capturing a
+    CUDA graph: a kernel's workspace allocated (or grown) there would be
+    captured, not made, and a graph keeps the address it captured."""
     import torch
 
     if torch.cuda.is_current_stream_capturing():
-        raise RuntimeError(f"{what} would be allocated during a CUDA graph capture; run the captured body once "
-                           f"on the capture stream first (or reserve the workspace)")
+        raise KernelLaunchError(f"{what} would be allocated during a CUDA graph capture; run the captured body once "
+                                f"on the capture stream first (or reserve the workspace)")
 
 
 def nvcc_path() -> str:
@@ -54,7 +99,7 @@ def nvcc_path() -> str:
         return str(cand)
     found = shutil.which("nvcc")
     if found is None:
-        raise RuntimeError(
+        raise KernelBuildError(
             "nvcc not found (looked in $CUDA_HOME/bin and PATH); the port's CUDA "
             "kernels are built from source at first use and need the CUDA toolkit"
         )
@@ -94,7 +139,7 @@ def _compile(name: str, nvcc: str, out: Path) -> None:
     log.write_text(f"$ {' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
+        raise KernelBuildError(
             f"nvcc failed to build {name}.cu (exit {proc.returncode}); see {log}\n"
             f"{proc.stderr[-4000:]}"
         )

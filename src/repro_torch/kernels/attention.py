@@ -45,7 +45,7 @@ import itertools
 
 import torch
 
-from ._build import refuse_under_capture
+from ._build import KernelLaunchError, launch_error, refuse_under_capture
 from .ref import flash_attention_ref
 
 SMEM_LIMIT = 232_448  # bytes of shared memory one H100 CTA may use (227 KB)
@@ -270,7 +270,7 @@ def resident_ctas(config: AttentionConfig, hd: int, index: int) -> int:
     with torch.cuda.device(index):
         n = _lib().repro_attention_occupancy(config.block_q, config.block_kv, hd)
     if n < 1:
-        raise RuntimeError(f"attention kernel {config.name()} at head dim {hd}: occupancy query failed ({n})")
+        raise KernelLaunchError(f"attention kernel {config.name()} at head dim {hd}: occupancy query failed ({n})")
     return n
 
 
@@ -375,7 +375,7 @@ def attention_cuda(
     )
     if err != 0:
         msg = lib.repro_attention_error_string(err).decode()
-        raise RuntimeError(f"attention kernel {config.name()} ({path}) failed to launch: cudaError {err} ({msg})")
+        raise launch_error(err, f"attention kernel {config.name()} ({path}) failed to launch: cudaError {err} ({msg})")
     LAUNCHES[config.name()] += 1
     PATH_LAUNCHES[path] += 1
     if splits > 1:

@@ -30,7 +30,7 @@ import functools
 
 import torch
 
-from ._build import refuse_under_capture
+from ._build import launch_error, refuse_under_capture
 from .ref import matmul_ref
 
 SMEM_LIMIT = 232_448  # bytes of shared memory one H100 CTA may use (227 KB)
@@ -318,7 +318,7 @@ def matmul_cuda(
         err = lib.repro_matmul_f32(bm, bn, bk, order, a, b, out.data_ptr(), m, n, k, stream)
     if err != 0:
         msg = lib.repro_cuda_error_string(err).decode()
-        raise RuntimeError(f"matmul kernel {config.name()} ({path}) failed to launch: cudaError {err} ({msg})")
+        raise launch_error(err, f"matmul kernel {config.name()} ({path}) failed to launch: cudaError {err} ({msg})")
     LAUNCHES[config.name()] += 1
     PATH_LAUNCHES[path] += 1
     return out

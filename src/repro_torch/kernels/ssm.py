@@ -34,7 +34,7 @@ import functools
 
 import torch
 
-from ._build import refuse_under_capture
+from ._build import KernelLaunchError, launch_error, refuse_under_capture
 from .ref import ssm_scan_ref
 
 _BLOCK_DS = (8, 16, 32)  # csrc/ssm.cu REPRO_SSM_BLOCK_DS
@@ -232,7 +232,7 @@ def resident_ctas(config: SsmConfig, n: int, fused: bool, index: int) -> int:
     with torch.cuda.device(index):
         got = _lib().repro_ssm_occupancy(config.block_d, config.chunk, n, int(fused))
     if got < 1:
-        raise RuntimeError(f"ssm kernel {config.name()} (N {n}, fused {fused}): occupancy query failed ({got})")
+        raise KernelLaunchError(f"ssm kernel {config.name()} (N {n}, fused {fused}): occupancy query failed ({got})")
     return got
 
 
@@ -313,8 +313,8 @@ def _launch(entry: str, fn, seq, b, c, state, n, config):
              segments, stream)
     if err != 0:
         msg = _lib().repro_ssm_error_string(err).decode()
-        raise RuntimeError(f"ssm kernel {config.name()} ({entry} entry, {segments} segments) failed to launch: "
-                           f"cudaError {err} ({msg})")
+        raise launch_error(err, f"ssm kernel {config.name()} ({entry} entry, {segments} segments) failed to launch: "
+                                f"cudaError {err} ({msg})")
     LAUNCHES[config.name()] += 1
     ENTRY_LAUNCHES[entry] += 1
     SEGMENTS_LAUNCHED[config.name()] += segments

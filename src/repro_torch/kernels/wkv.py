@@ -26,6 +26,7 @@ import functools
 
 import torch
 
+from ._build import launch_error
 from .ref import wkv_ref
 
 _CHUNKS = (8, 16, 32, 64, 128)  # csrc/wkv.cu REPRO_WKV_CHUNKS
@@ -217,6 +218,6 @@ def wkv_cuda(r, k, v, logw, u, state=None, config: WkvConfig = DEFAULT_WKV_CONFI
     )
     if err != 0:
         msg = lib.repro_wkv_error_string(err).decode()
-        raise RuntimeError(f"wkv kernel {config.name()} failed to launch: cudaError {err} ({msg})")
+        raise launch_error(err, f"wkv kernel {config.name()} failed to launch: cudaError {err} ({msg})")
     LAUNCHES[config.name()] += 1
     return o, s_out

@@ -12,7 +12,10 @@ Same functional surface as the reference's ``TransformerLM``, ``RWKV6LM`` and
 
 Params keep the reference's tree and layout: (in, out) matrices with a
 stacked leading layer axis.  The reference's ``lax.scan`` over layers is a
-Python loop over views of the stacked tensors.  MoE, VLM and
+Python loop over views of the stacked tensors, through ``ops.scan_layers``
+for the transformer and RWKV6 (whose reference scans): their kernel
+selections run for layer 0 and later layers reuse them, as a scan traces its
+body once.  Hymba loops over its layers in both packages.  MoE, VLM and
 encoder-decoder variants wait for later parts of the port.
 """
 from __future__ import annotations
@@ -20,6 +23,7 @@ from __future__ import annotations
 import torch
 
 from ..configs.base import ArchConfig
+from ..kernels import ops
 from . import layers as L
 from . import mamba as M
 from . import rwkv as R
@@ -146,7 +150,7 @@ class TransformerLM:
         cache = self.init_cache(b, cache_len)
         positions = torch.arange(s, device=self.device).expand(b, s)
         x = L.embed_tokens(params["emb"], tokens).to(self.dtype)
-        for i in range(c.n_layers):
+        for i in ops.scan_layers(c.n_layers):
             x = self._block(_layer_params(params["blocks"], i), x, positions, cache=(cache["k"][i], cache["v"][i]))
         x = L.rms_norm(x, params["final_norm"], c.norm_eps)
         return L.logits_from_hidden(params["emb"], x[:, -1:]), cache
@@ -157,7 +161,7 @@ class TransformerLM:
         c = self.cfg
         x = L.embed_tokens(params["emb"], tokens).to(self.dtype)
         pos2d = positions[:, None]
-        for i in range(c.n_layers):
+        for i in ops.scan_layers(c.n_layers):
             x = self._block(
                 _layer_params(params["blocks"], i), x, pos2d,
                 cache=(cache["k"][i], cache["v"][i]), cache_positions=positions,
@@ -213,7 +217,7 @@ class RWKV6LM:
     def _run(self, params: dict, x, cache: dict):
         """All layers; each layer's new state is written into ``cache`` in
         place (the reference returns a new cache)."""
-        for i in range(self.cfg.n_layers):
+        for i in ops.scan_layers(self.cfg.n_layers):
             blk = _layer_params(params["blocks"], i)
             x, new = self._layer(blk, x, (cache["wkv"][i], cache["x1"][i], cache["x2"][i]))
             for key, t in zip(("wkv", "x1", "x2"), new):

@@ -145,11 +145,15 @@ class _Recorder:
         return self.wkv_config
 
 
-def test_featurization_and_gemm_count_match_reference():
+def test_featurization_and_gemm_count_match_reference(monkeypatch):
     """Both packages select for the same matmul and wkv problems over one
     prefill and one decode step, and a forward runs 10 GEMMs a layer plus the
-    vocab GEMM.  JAX selects once per trace of the scanned layer body and
-    eager torch once per call, so only the port's count is a launch count."""
+    vocab GEMM.  Both select once per scanned layer body (JAX traces it once;
+    the port's ``ops.scan_layers`` replays layer 0's selections), so the
+    selection counts are equal; the port's GEMM calls are counted at the
+    plain version it runs on the CPU."""
+    from repro_torch.kernels import ops
+
     jm, jp, tm, tp = reduced_pair(ARCH)
     toks = _prompt(tm.cfg.vocab, 9, 32, seed=6)
     step, pos = np.array([[3], [5]], np.int32), np.array([32, 32], np.int32)
@@ -160,13 +164,16 @@ def test_featurization_and_gemm_count_match_reference():
         _, jcache = jm.prefill(jp, {"tokens": jnp.asarray(toks)}, 64)
         jm.decode_step(jp, jcache, jnp.asarray(step), jnp.asarray(pos))
 
+    gemms = []
+    plain = ops.matmul_plain
+    monkeypatch.setattr(ops, "matmul_plain", lambda *a: gemms.append(1) or plain(*a))
     trec, trt = _Recorder(DEFAULT_CONFIG, DEFAULT_WKV_CONFIG), KernelRuntime()
     trt.install(trec)
     with trt.activate():
         _, tcache = tm.prefill(tp, {"tokens": torch.from_numpy(toks).long()}, 64)
-        assert trec.calls == 10 * tm.cfg.n_layers + 1
+        assert trec.calls == 10 + 1 and len(gemms) == 10 * tm.cfg.n_layers + 1
         tm.decode_step(tp, tcache, torch.from_numpy(step).long(), torch.from_numpy(pos).long())
-        assert trec.calls == 2 * (10 * tm.cfg.n_layers + 1)
+        assert trec.calls == jrec.calls == 2 * (10 + 1) and len(gemms) == 2 * (10 * tm.cfg.n_layers + 1)
 
     assert trec.seen == jrec.seen and trec.wkv_seen == jrec.wkv_seen == {(32, 16)}
     assert (32, 64, 64, 2) in trec.seen and (1, 64, 256, 2) in trec.seen and (32, 64, 128, 2) in trec.seen
