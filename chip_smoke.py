@@ -226,7 +226,36 @@ Phases (each one fails the run if its check fails):
    21d. ``OnlinePolicy`` with the CUDA-event measurer on direct ``ops.matmul``
    calls at granite-8b's decode shapes: warm-up cost, commits per bucket, how
    many equal phase 7's per-shape best;
-22. no Python collection ran during any CUDA graph capture (one there could
+22. the paged serving tier on the card (after 20d):
+   22a. full-width granite-8b (bf16) under the tuned Deployment on the paged,
+   prefix-shared, chunked engine (``max_batch=4``, ``cache_len=256``,
+   ``block_size=16``, ``prefill_chunk_tokens=32``, 18 blocks) under CUDA
+   graphs: 8 requests sharing a 64-token system prompt (tails 8-40, 24 new
+   tokens; prompt 0 alone for two steps, the last two after decode step 4 at
+   priority 2): all complete, >= 1 preemption, >= 6 prefix hits; the eager
+   engine over the same traffic gives equal streams, ``EngineStatus`` and a
+   bitwise-equal pool; a dense engine beside it (warm decode medians, first
+   tokens, pool bytes, gather/scatter bytes a step from shapes, chunk
+   programs and their seconds);
+   22b. an 8-layer full-width granite-8b in f32: equal greedy streams at chunk
+   32, chunk 128 and with sharing off, the CPU's equal to the card's, and a
+   chunk program captured at start 0 replayed at starts 0 and 32 within 1e-5
+   of eager calls;
+   22c. SLO mode on 22a's engine: two requests targeted at 0.5x 22a's warm
+   decode median, then one at 3x behind a long prompt: the mode enters and
+   leaves, programs are captured again under the objective (their seconds),
+   the configs the objective changed;
+   22d. an int8 KV cache (paged, legacy admission): ``quantize_kv`` on the card
+   within half a step of its input (its values at most one step and its
+   scales 1e-6 off the CPU's); token agreement with the bf16 dense engine,
+   warm decode median and pool bytes;
+   22e. a ``Router`` over two engines on the card (own runtimes, one set of
+   weights): prefix affinity over load, both engines take traffic, a targeted
+   request avoids the engine in SLO mode, the aggregate status; the fleet
+   bundle's ``router(devices=[card])`` serves one request;
+   22f. full-width hymba-1.5b (bf16) under a paged pool: streams equal to the
+   dense engine's, every SSM launch through ``ssm_cuda_fused``;
+23. no Python collection ran during any CUDA graph capture (one there could
    free a dead engine's graphs and invalidate the capture); the ``kernels``
    JSON line, then the card line, then the result line.
 
@@ -2222,6 +2251,461 @@ def phase_online(torch, mm, rows: list) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the paged serving tier on the card
+# ---------------------------------------------------------------------------
+# 22a's engine: n_blocks small enough that the pool runs dry while the lanes decode (a CPU
+# rehearsal at these token counts preempts twice with 18 blocks and never with 20).
+PAGED = dict(max_batch=4, cache_len=256, block_size=16, prefill_chunk_tokens=32, n_blocks=18)
+SYSTEM_LEN = 64  # a system prompt of 4 full blocks
+PAGED_TAILS = (8, 40, 17, 29, 12, 35, 23, 31)  # distinct tails of 8-40 tokens
+PAGED_NEW = 24
+
+
+def _paged_prompts(cfg, seed: int = 22):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    system = rng.integers(0, cfg.vocab, SYSTEM_LEN)
+    return [np.concatenate([system, rng.integers(0, cfg.vocab, n)]).astype(np.int32) for n in PAGED_TAILS]
+
+
+def _to(tree, device):
+    return {k: _to(v, device) if isinstance(v, dict) else v.to(device) for k, v in tree.items()}
+
+
+def _pool_bytes(pool) -> int:
+    """Bytes a pool's storage holds: its blocks, the scratch block and the lane rows."""
+    return sum(t.numel() * t.element_size() for t in pool._store.values())
+
+
+def _paged_traffic(torch, engine, prompts, new: int = PAGED_NEW, targets: dict | None = None) -> dict:
+    """22a's traffic through ``engine``: prompt 0 alone for two steps (its chunks index the
+    system prompt's blocks), prompts 1-5, then, after decode step 4, prompts 6-7 at priority
+    2; stepped until drained. Per forward (on_prefill / on_decode, after a synchronize): kind,
+    size, ms since the previous one, programs built meanwhile. Per request: the decode step
+    and host ms (after the step's synchronize, from its submission) of its first token."""
+    events, mark = [], {"built": len(engine.program_log)}
+    targets = targets or {}
+
+    def hook(kind):
+        def record(size):
+            torch.cuda.synchronize()
+            now, built = time.perf_counter(), len(engine.program_log)
+            events.append((kind, size, (now - mark["t"]) * 1e3, built - mark["built"]))
+            mark.update(t=now, built=built)
+        return record
+
+    engine.on_prefill, engine.on_decode = hook("prefill"), hook("decode")
+    tickets, submitted, first = [], [], {}
+
+    def submit(i, priority=0):
+        tickets.append(engine.submit(prompts[i], max_new_tokens=new, priority=priority,
+                                     latency_target_ms=targets.get(i)))
+        submitted.append(time.perf_counter())
+
+    def step():
+        progressed = engine.step()
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        for i, t in enumerate(tickets):
+            if i not in first and t.request.output:
+                first[i] = (engine.steps, round((now - submitted[i]) * 1e3, 3))
+        return progressed
+
+    torch.cuda.synchronize()
+    mark["t"] = t0 = time.perf_counter()
+    submit(0)
+    step()
+    step()
+    for i in range(1, min(6, len(prompts))):
+        submit(i)
+    while engine.steps < 4 and engine.pending():
+        step()
+    for i in range(6, len(prompts)):
+        submit(i, priority=2)
+    while engine.pending():
+        if not step():
+            break
+    wall = time.perf_counter() - t0
+    status = engine.drain()
+    engine.on_prefill = engine.on_decode = None
+    warm = [ms for kind, _, ms, built in events if kind == "decode" and not built]
+    return {"status": status, "outputs": [list(t.request.output) for t in tickets],
+            "requests": [t.request for t in tickets], "first_token": [first.get(i) for i in range(len(tickets))],
+            "events": events, "wall_s": wall, "steps": engine.steps,
+            "warm_decode_median_ms": statistics.median(warm) if warm else None, "warm_decode_steps": len(warm)}
+
+
+def _status_dict(status) -> dict:
+    return dataclasses.asdict(status) | {"prefix_hit_rate": status.prefix_hit_rate}
+
+
+def _gather_scatter_bytes(pool, width: int) -> int:
+    """Bytes one decode step's gather and scatter move, from shapes: the gather reads the
+    width's blocks (``cache_len`` tokens a lane, every paged leaf) and writes the view, the
+    scatter reads the view and writes the blocks."""
+    per_token = sum(pool._store[key].numel() * pool._store[key].element_size()
+                    for key, spec in pool.specs.items() if spec.kind == "paged") / (
+        (pool.n_blocks + 1) * pool.block_size)
+    return int(4 * width * pool.cache_len * per_token)
+
+
+def _engine(model, params, policy, name: str, **kw):
+    from repro_torch.core.runtime import KernelRuntime
+    from repro_torch.serve.engine import ServingEngine
+
+    rt = KernelRuntime(name=name)
+    rt.install(policy)
+    rt.set_selection_logging(True, cap=1 << 16)
+    return ServingEngine(model, params, runtime=rt, **kw)
+
+
+def phase_paged(torch, mm, model, params, policy) -> dict:
+    """22a: full-width granite-8b (bf16) on the paged, prefix-shared, chunked engine under
+    CUDA graphs; the eager engine and a dense engine over the same traffic."""
+    cfg = model.cfg
+    prompts = _paged_prompts(cfg)
+    engine = _engine(model, params, policy, "chip_smoke-paged", **PAGED)
+    require(engine.cuda_graphs and engine._streaming and engine._sharing, "22a's engine is not streaming on graphs")
+    torch.cuda.synchronize()
+    mm.reset_launches()
+    run = _paged_traffic(torch, engine, prompts)
+    launches = mm.total_launches()
+    st = run["status"]
+    require(st.completed == len(prompts) and not st.exhausted and all(len(o) == PAGED_NEW for o in run["outputs"]),
+            f"22a: not every request completed: {st}")
+    require(st.preempted >= 1, f"22a: the pool never ran dry: {st}")
+    require(st.prefix_hits >= 6, f"22a: {st.prefix_hits} prefix hits of {st.prefix_lookups} lookups, want >= 6")
+    built = engine.program_log
+    require(all(r.captured for r in built), f"22a: a program was not captured: {built}")
+    chunks = [(r.size, round(r.seconds, 3)) for r in built if r.kind == "chunk"]
+    require(chunks and launches > 0, f"22a: no chunk program ({built}) or no GEMM launch ({launches})")
+    graphed_pool = {k: t.clone() for k, t in engine.pool._store.items()}
+
+    eager = _engine(model, params, policy, "chip_smoke-paged-eager", cuda_graphs=False, **PAGED)
+    erun = _paged_traffic(torch, eager, prompts)
+    require(erun["outputs"] == run["outputs"], "22a: the eager engine's streams differ from the graphed one's")
+    require(_status_dict(erun["status"]) == _status_dict(st),
+            f"22a: EngineStatus graphed {st} against eager {erun['status']}")
+    pool_equal = all(torch.equal(graphed_pool[k], t) for k, t in eager.pool._store.items())
+    require(pool_equal, "22a: the pool after the graphed drain differs from the eager drain's (bitwise)")
+    del eager
+
+    dense = _engine(model, params, policy, "chip_smoke-dense", max_batch=4, cache_len=256)
+    drun = _paged_traffic(torch, dense, prompts)
+    require(drun["status"].completed == len(prompts), f"22a dense: {drun['status']}")
+    res = {
+        "engine": engine, "prompts": prompts, "dense_outputs": drun["outputs"],
+        "status": _status_dict(st), "steps": run["steps"], "wall_s": run["wall_s"],
+        "prefill_tokens_skipped": engine._prefix_reused_tokens,
+        "prompt_tokens": int(sum(len(p) for p in prompts)),
+        "preemptions": [r.preemptions for r in run["requests"]],
+        "first_token_step_ms": run["first_token"], "dense_first_token_step_ms": drun["first_token"],
+        "warm_decode_median_ms": run["warm_decode_median_ms"], "eager_warm_decode_median_ms":
+            erun["warm_decode_median_ms"], "dense_warm_decode_median_ms": drun["warm_decode_median_ms"],
+        "chunk_programs_s": chunks, "programs": [dataclasses.asdict(r) for r in built],
+        "pool_bytes": _pool_bytes(engine.pool), "dense_pool_bytes": _pool_bytes(dense.pool),
+        "gather_scatter_bytes_per_step": {w: _gather_scatter_bytes(engine.pool, w) for w in engine._width_buckets},
+        "dense_gather_scatter_bytes_per_step": {w: _gather_scatter_bytes(dense.pool, w)
+                                                for w in dense._width_buckets},
+        "gemm_launches": launches, "eager_equal": True, "pool_bitwise_equal_eager": pool_equal,
+        "streams_equal_dense": sum(a == b for a, b in zip(run["outputs"], drun["outputs"])),
+    }
+    del dense
+    print(f"  granite-8b full width, bf16, paged: {PAGED}; 8 requests (a {SYSTEM_LEN}-token system prompt, tails "
+          f"{PAGED_TAILS}, {PAGED_NEW} new tokens; the last two after decode step 4 at priority 2)")
+    print(f"  {st.completed} completed in {run['steps']} decode steps, {run['wall_s']:.3f}s; preempted "
+          f"{st.preempted} ({res['preemptions']}); prefix hits {st.prefix_hits} / {st.prefix_lookups} lookups; "
+          f"{res['prefill_tokens_skipped']} of {res['prompt_tokens']} prompt tokens skipped by aliasing")
+    print(f"  first token (decode step, ms from submit): {run['first_token']} (dense engine: {drun['first_token']})")
+    print(f"  warm decode step median: paged {run['warm_decode_median_ms']:.3f} ms, eager paged "
+          f"{erun['warm_decode_median_ms']:.3f} ms, dense {drun['warm_decode_median_ms']:.3f} ms")
+    print(f"  chunk programs captured (width, s): {chunks}; programs {[(r.kind, r.size) for r in built]}")
+    print(f"  pool bytes: paged {res['pool_bytes'] / 1e6:.1f} MB ({engine.pool.n_blocks} blocks + scratch) against "
+          f"dense {res['dense_pool_bytes'] / 1e6:.1f} MB; gather + scatter a decode step (from shapes, by width): "
+          f"{ {w: f'{b / 1e6:.1f} MB' for w, b in res['gather_scatter_bytes_per_step'].items()} }")
+    print(f"  eager engine: equal streams, equal EngineStatus, pool bitwise equal after the drain; GEMM launches "
+          f"{launches}; streams equal to the dense engine's (left-padded prefill): "
+          f"{res['streams_equal_dense']} of {len(prompts)}")
+    return res
+
+
+def phase_paged_cpu_vs_card(torch) -> dict:
+    """22b: an 8-layer full-width granite-8b in f32, the same weights on the card and the CPU."""
+    from repro_torch.configs import registry
+    from repro_torch.kernels.ops import FixedPolicy
+    from repro_torch.models.model import build_model
+
+    cfg = dataclasses.replace(registry.get("granite-8b"), n_layers=8)
+    cpu_model = build_model(cfg, dtype=torch.float32, param_dtype=torch.float32, device="cpu")
+    cpu_params = cpu_model.init(torch.Generator(device="cpu").manual_seed(0))
+    model = build_model(cfg, dtype=torch.float32, param_dtype=torch.float32, device="cuda")
+    params = _to(cpu_params, "cuda")
+    prompts = _paged_prompts(cfg, seed=23)[:3]
+    base = dict(max_batch=2, cache_len=256, block_size=16)
+    variants = {"chunk 32": dict(prefill_chunk_tokens=32), "chunk 128": dict(prefill_chunk_tokens=128),
+                "sharing off": dict(prefill_chunk_tokens=32, prefix_sharing=False)}
+    streams, hits = {}, {}
+    for name, kw in variants.items():
+        eng = _engine(model, params, FixedPolicy(), f"chip_smoke-22b[{name}]", **base, **kw)
+        run = _paged_traffic(torch, eng, prompts, new=6)
+        streams[name], hits[name] = run["outputs"], run["status"].prefix_hits
+    cpu_eng = _engine(cpu_model, cpu_params, FixedPolicy(), "chip_smoke-22b[cpu]", **base, prefill_chunk_tokens=32)
+    cpu_run = _paged_traffic(torch, cpu_eng, prompts, new=6)
+    del cpu_eng
+    for name, s in streams.items():
+        if s != streams["chunk 32"]:
+            print(f"  {name}: {s}\n  chunk 32: {streams['chunk 32']}")
+    require(all(s == streams["chunk 32"] for s in streams.values()), "22b: streams differ between chunk widths")
+    if cpu_run["outputs"] != streams["chunk 32"]:
+        print(f"  cuda {streams['chunk 32']}\n  cpu  {cpu_run['outputs']}")
+    require(cpu_run["outputs"] == streams["chunk 32"], "22b: greedy streams differ between the CPU and the card")
+    res = {"streams": streams["chunk 32"], "prefix_hits": hits, "cpu_prefix_hits": cpu_run["status"].prefix_hits,
+           "cpu_s": cpu_run["wall_s"]}
+
+    # A chunk program captured with its inputs at zero (start 0), replayed at start 0 and 32,
+    # against eager prefill_chunk calls at 0 and 32 on a cache of its own.
+    eng = _engine(model, params, FixedPolicy(), "chip_smoke-22b[capture]", **base, prefill_chunk_tokens=32)
+    eng.pool.ensure(0, 256)
+    prog = eng._chunk_fn(32)
+    require(isinstance(prog.graph, torch.cuda.CUDAGraph), "22b: the chunk program was not captured")
+    blocks, lanes = eng.pool.row_ids([0])
+    ref = model.init_cache(1, 256)
+    errs = []
+    for start in (0, 32):
+        chunk = prompts[0][start:start + 32].astype("int64")[None]
+        prog.stage(tokens=chunk, start=start, last_row=31, blocks=blocks, lanes=lanes)
+        got = prog.run(eng.runtime)["logits"].clone()
+        with eng.runtime.activate():
+            want, ref = model.prefill_chunk(params, ref, torch.from_numpy(chunk).cuda(),
+                                            torch.tensor(start, device="cuda"), torch.tensor(31, device="cuda"))
+        errs.append(float((got - want).abs().max() / want.abs().max()))
+    view = eng.pool.gather([0])
+    cache_err = max(float((view[k][:, :, :64] - ref[k][:, :, :64]).abs().max()) for k in ("k", "v"))
+    require(max(errs) <= 1e-5 and cache_err <= 1e-5,
+            f"22b: the chunk program captured at start 0 against eager calls: logits {errs}, cache {cache_err}")
+    res |= {"capture_replay_rel_err": errs, "capture_replay_cache_err": cache_err}
+    print(f"  granite-8b at 8 layers, full width, f32, {base}: 3 prompts ({SYSTEM_LEN}-token system prompt), 6 new "
+          f"tokens: equal greedy streams at chunk 32, chunk 128 and sharing off (prefix hits {hits}); the CPU's "
+          f"equal to the card's ({res['cpu_s']:.1f}s on the CPU, prefix hits {res['cpu_prefix_hits']})")
+    print(f"  a chunk program captured at start 0, replayed at starts 0 and 32, against eager calls: logits "
+          f"rel err {errs}, cache abs err {cache_err:.2e}")
+    return res
+
+
+def _live_pins(engine) -> dict:
+    """(family, problem) -> config name over the engine's live programs' pins."""
+    out = {}
+    for cache in (engine._prefill_cache, engine._chunk_cache, engine._decode_cache):
+        for prog in cache.values():
+            for family, problem, cfg in prog.pins.entries:
+                out[(family, tuple(problem))] = cfg.name() if hasattr(cfg, "name") else str(cfg)
+    return out
+
+
+def phase_slo(torch, paged: dict) -> dict:
+    """22c: SLO mode on 22a's engine (the tuned Deployment, whose select_for_objective
+    ranks its configs on the H100 model): two requests targeted at 0.5x 22a's warm decode
+    median, then one at 3x it behind an untargeted long prompt."""
+    engine, prompts = paged["engine"], paged["prompts"]
+    median = paged["warm_decode_median_ms"]
+    rt = engine.runtime
+    before = _live_pins(engine)
+    n_events, n_built, epoch0 = len(engine.slo_events), len(engine.program_log), rt.policy_epoch()
+    steps, slo_pins = [], {}
+    rounds = ({1: 0.5 * median, 3: 0.5 * median}, {1: 3.0 * median})
+    for targets in rounds:
+        mark = {"built": len(engine.program_log)}
+        tickets = [engine.submit(p, max_new_tokens=PAGED_NEW, latency_target_ms=targets.get(i))
+                   for i, p in enumerate(prompts[:4])]
+        while engine.pending():
+            t0 = time.perf_counter()
+            progressed = engine.step()
+            torch.cuda.synchronize()
+            built = engine.program_log[mark["built"]:]
+            mark["built"] = len(engine.program_log)
+            steps.append({"step": engine.steps, "ms": round((time.perf_counter() - t0) * 1e3, 3),
+                          "slo": engine._slo_mode, "cap": engine._slo_cap, "chunk_cap": engine._chunk_cap(),
+                          "built": [(r.kind, r.size, round(r.seconds, 3)) for r in built]})
+            if engine._slo_mode:
+                slo_pins.update(_live_pins(engine))
+            if not progressed:
+                break
+        status = engine.drain()
+        require(status.completed == len(tickets) and not status.exhausted, f"22c: {status}")
+    events = engine.slo_events[n_events:]
+    kinds = [kind for _, kind, _ in events]
+    require("enter" in kinds and "exit" in kinds, f"22c: SLO mode did not enter and leave: {events}")
+    rebuilt = [r for r in engine.program_log[n_built:] if r.epoch > epoch0]
+    require(rebuilt and all(r.captured for r in rebuilt), "22c: no program captured again under the objective")
+    require(rt.objective() is None, f"22c: an objective is left installed: {rt.objective()}")
+    changed = {f"{fam} {problem}": (before[(fam, problem)], cfg) for (fam, problem), cfg in slo_pins.items()
+               if (fam, problem) in before and before[(fam, problem)] != cfg}
+    transitions = [s for s in steps if s["built"]]
+    res = {"decode_median_ms": median, "targets_ms": [sorted(r.values()) for r in rounds], "slo_events": events,
+           "caps": sorted({(s["cap"], s["chunk_cap"]) for s in steps if s["slo"]}, key=str),
+           "configs_changed_by_objective": changed, "selections_under_objective": len(slo_pins),
+           "programs_recaptured": [(r.kind, r.size, round(r.seconds, 3), r.epoch) for r in rebuilt],
+           "recapture_s": sum(r.seconds for r in rebuilt), "transition_steps": transitions, "steps": steps}
+    print(f"  targets {res['targets_ms']} ms against a warm decode median of {median:.3f} ms; slo_events {events}")
+    print(f"  in SLO mode (admission cap, chunk cap): {res['caps']}; {len(rebuilt)} programs captured again under "
+          f"the objective or after it, {res['recapture_s']:.3f}s: {res['programs_recaptured']}")
+    print(f"  steps that built programs (ms): {[(s['step'], s['ms'], s['built']) for s in transitions]}")
+    print(f"  configs the objective changed ({len(changed)} of {len(slo_pins)} selections): {changed}")
+    return res
+
+
+def phase_int8(torch, paged: dict, model, params, policy) -> dict:
+    """22d: granite-8b with an int8 KV cache, full width, paged (the legacy admission:
+    chunked prefill refuses int8 caches)."""
+    from repro_torch.models.layers import quantize_kv
+    from repro_torch.models.model import build_model
+
+    g = torch.Generator(device="cuda").manual_seed(4)
+    x = torch.randn((4, 256, 8, 128), generator=g, device="cuda").to(torch.bfloat16)
+    q, s = quantize_kv(x)
+    back_err = float(((q.float() * s[..., None] - x.float()).abs() / (s[..., None] * 0.5 + 1e-6)).max())
+    # The CPU's values beside them: torch divides by a Python scalar on the card through its
+    # reciprocal, so a scale may differ in its last bit and a value by one step.
+    qc, sc = quantize_kv(x.cpu())
+    q_diff = int((q.cpu().int() - qc.int()).abs().max())
+    q_equal = float((q.cpu() == qc).float().mean())
+    s_rel = float(((s.cpu() - sc).abs() / sc).max())
+    require(back_err <= 1.0 and q_diff <= 1 and s_rel <= 1e-6,
+            f"22d: quantize_kv on the card: round trip err/bound {back_err}, values off the CPU's by {q_diff}, "
+            f"scales by {s_rel}")
+    model8 = build_model(model.cfg, dtype=torch.bfloat16, param_dtype=torch.bfloat16, device="cuda", kv_quant=True)
+    kw = dict(max_batch=4, cache_len=256, block_size=16)
+    engine = _engine(model8, params, policy, "chip_smoke-int8", **kw)
+    require(not engine._streaming, "22d: an int8 cache must take the legacy admission")
+    run = _paged_traffic(torch, engine, paged["prompts"])
+    require(run["status"].completed == len(paged["prompts"]), f"22d: {run['status']}")
+    dense = paged["dense_outputs"]
+    same = sum(a == b for o8, o in zip(run["outputs"], dense) for a, b in zip(o8, o))
+    total = sum(len(o) for o in dense)
+    prefix = [next((i for i, (a, b) in enumerate(zip(o8, o)) if a != b), len(o))
+              for o8, o in zip(run["outputs"], dense)]
+    bf16 = _pool_bytes(_engine(model, params, policy, "chip_smoke-bf16-pool", **kw).pool)
+    int8 = _pool_bytes(engine.pool)
+    res = {"quantize_kv_equal_cpu_share": q_equal, "quantize_kv_max_step_off_cpu": q_diff,
+           "quantize_kv_scale_rel_off_cpu": s_rel, "roundtrip_err_over_half_step": back_err,
+           "token_agreement": same / total, "tokens_before_divergence": prefix,
+           "warm_decode_median_ms": run["warm_decode_median_ms"],
+           "dense_bf16_warm_decode_median_ms": paged["dense_warm_decode_median_ms"],
+           "pool_bytes": int8, "bf16_pool_bytes": bf16, "pool_ratio": int8 / bf16,
+           "status": _status_dict(run["status"])}
+    print(f"  quantize_kv on the card: round trip within {back_err:.5f} of half a step; {q_equal:.6f} of the int8 "
+          f"values equal the CPU's (the rest one step off), scales within {s_rel:.2e} relative")
+    print(f"  int8 cache, paged {kw}: {same} of {total} tokens agree with the bf16 dense engine's "
+          f"({res['token_agreement']:.3f}; equal for the first {prefix} tokens); warm decode median "
+          f"{run['warm_decode_median_ms']:.3f} ms (bf16 dense {paged['dense_warm_decode_median_ms']:.3f}); pool "
+          f"{res['pool_bytes'] / 1e6:.1f} MB against {bf16 / 1e6:.1f} MB in bf16 ({res['pool_ratio']:.3f}x)")
+    return res
+
+
+def phase_router(torch, paged: dict, model, params, policy, card: str) -> dict:
+    """22e: two engines on the card, each on its own runtime, over one set of weights,
+    behind a Router; then the fleet bundle's router for the card's entry."""
+    import numpy as np
+
+    from repro_torch.core.bundle import DeploymentBundle
+    from repro_torch.serve.router import Router
+
+    prompts = paged["prompts"]
+    kw = dict(max_batch=2, cache_len=256, block_size=16, prefill_chunk_tokens=32)
+    ea = _engine(model, params, policy, "chip_smoke-router[a]", **kw)
+    eb = _engine(model, params, policy, "chip_smoke-router[b]", **kw)
+    router = Router({"card-a": ea, "card-b": eb}, name="chip_smoke")
+    tickets = [router.submit(prompts[0], max_new_tokens=8)]
+    require(tickets[0].request.routed_to == "card-a", "22e: the first request should go to card-a (name)")
+    router.drain()
+    rng = np.random.default_rng(24)
+    other = [rng.integers(0, model.cfg.vocab, 40).astype(np.int32) for _ in range(3)]
+    tickets.append(ea.submit(other[0], max_new_tokens=8))  # card-a now carries more load
+    require(router.dispatch() == "card-b", "22e: load should pick card-b")
+    affinity = router.dispatch(prompt=prompts[1])
+    require(affinity == "card-a", f"22e: a shared-prompt request went to {affinity}, not the engine caching it")
+    tickets += [router.submit(p, max_new_tokens=8) for p in (prompts[1], prompts[2])]
+    tickets += [router.submit(p, max_new_tokens=8) for p in other[1:]]
+    ea._slo_mode = True  # as the reference's router tests press an engine
+    avoided = router.dispatch(latency_target_ms=5.0, prompt=prompts[3])
+    tickets.append(router.submit(prompts[3], max_new_tokens=8, latency_target_ms=1e9))
+    ea._slo_mode = False
+    require(avoided == "card-b" and tickets[-1].request.routed_to == "card-b",
+            f"22e: a targeted request went to the engine in SLO mode ({avoided})")
+    routes = [t.request.routed_to for t in tickets]
+    require({"card-a", "card-b"} <= set(r for r in routes if r), f"22e: one engine took all traffic: {routes}")
+    agg = router.drain()
+    done = sum(t.done for t in tickets)
+    per = [ea.status(), eb.status()]
+    require(all(t.done for t in tickets), "22e: a request did not complete")
+    require((agg.prefix_hits, agg.prefix_lookups, agg.shared_blocks, agg.steps) == (
+        sum(s.prefix_hits for s in per), sum(s.prefix_lookups for s in per), sum(s.shared_blocks for s in per),
+        max(ea.steps, eb.steps)), f"22e: aggregate {agg} against {per}")
+    require(agg.completed == done - 1,
+            f"22e: aggregate completed {agg.completed} for {done - 1} done since the first drain")
+    bundle = DeploymentBundle.load(BUNDLE_PATH)
+    brouter = bundle.router(model, params, devices=[card], name="chip_smoke-bundle", **kw)
+    bt = brouter.submit(prompts[4], max_new_tokens=4)
+    bstatus = brouter.drain()
+    beng = brouter.engines[card]
+    require(bt.done and len(bt.request.output) == 4 and bstatus.completed == 1 and beng.cuda_graphs
+            and beng.runtime.active_device() == card, f"22e: bundle.router on {card}: {bstatus}")
+    res = {"routes": routes, "affinity": affinity, "slo_avoided_to": avoided, "aggregate": _status_dict(agg),
+           "per_engine": [_status_dict(s) for s in per], "bundle_router_device": card,
+           "bundle_router_output": list(bt.request.output)}
+    print(f"  Router over two engines (own runtimes, one set of weights): routes {routes}; shared prompt -> "
+          f"{affinity} (prefix affinity over load); targeted request with card-a in SLO mode -> {avoided}")
+    print(f"  drain aggregate: completed {agg.completed}, prefix hits {agg.prefix_hits} / {agg.prefix_lookups}, "
+          f"steps {agg.steps} (per engine {[s.steps for s in per]}); bundle.router(devices=[{card!r}]) served "
+          f"{bt.request.output}")
+    return res
+
+
+def phase_paged_hymba(torch, mm, ss) -> dict:
+    """22f: full-width hymba-1.5b (bf16) under a paged pool: the legacy admission (no
+    prefill_chunk), every SSM launch through ssm_cuda_fused; streams equal to the dense
+    engine's over the same prompts."""
+    from repro_torch.configs import registry
+    from repro_torch.kernels.ops import FixedPolicy
+    from repro_torch.models.model import build_model
+
+    cfg = registry.get("hymba-1.5b")
+    model = build_model(cfg, dtype=torch.bfloat16, param_dtype=torch.bfloat16, device="cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    rng = torch.Generator().manual_seed(2)
+    prompts = [torch.randint(0, cfg.vocab, (n,), generator=rng).numpy() for n in PROMPT_LENGTHS]
+    outputs, res = {}, {}
+    for name, kw in (("dense", {}), ("paged", dict(block_size=16, n_blocks=40))):
+        eng = _engine(model, params, FixedPolicy(), f"chip_smoke-hymba[{name}]", max_batch=4, cache_len=256, **kw)
+        torch.cuda.synchronize()
+        mm.reset_launches()
+        ss.reset_launches()
+        tickets = [eng.submit(p, max_new_tokens=16) for p in prompts]
+        status = eng.drain()
+        torch.cuda.synchronize()
+        require(status.completed == len(prompts) and not status.exhausted, f"22f {name}: {status}")
+        outputs[name] = [list(t.request.output) for t in tickets]
+        res[name] = {"gemm_launches": mm.total_launches(), "ssm_launches": ss.total_launches(),
+                     "ssm_entry_launches": dict(ss.ENTRY_LAUNCHES), "status": _status_dict(status),
+                     "pool_bytes": _pool_bytes(eng.pool),
+                     "kinds": {k: s.kind for k, s in eng.pool.specs.items() if k.startswith("['layer1']")}}
+        if name == "paged":
+            require(not eng._streaming and eng.pool.blocks_per_lane == 16, "22f: not a paged legacy engine")
+        del eng
+    paged = res["paged"]
+    require(paged["ssm_entry_launches"] == {"fused": paged["ssm_launches"], "dta": 0} and paged["ssm_launches"] > 0,
+            f"22f: SSM launches {paged['ssm_entry_launches']} (want all through ssm_cuda_fused)")
+    require(outputs["paged"] == outputs["dense"], "22f: hymba-1.5b's paged streams differ from the dense engine's")
+    print(f"  hymba-1.5b full width, bf16, paged (16-token blocks, 40 blocks; layer 1's sliding-window ring of "
+          f"min(2048, 256) tracks cache_len: {paged['kinds']}): streams equal to the dense engine's over "
+          f"{len(prompts)} prompts x 16 tokens; GEMM launches {paged['gemm_launches']}, SSM launches "
+          f"{paged['ssm_entry_launches']}; pool {paged['pool_bytes'] / 1e6:.1f} MB against dense "
+          f"{res['dense']['pool_bytes'] / 1e6:.1f} MB")
+    return res | {"streams_equal_dense": True}
+
+
 def main() -> int:
     import torch
 
@@ -2392,6 +2876,41 @@ def main() -> int:
     attn_parent_ab = phase_attention_parent_ab()
     phase("[20d] selective scan: the parent's kernel against this one, in turns")
     ssm_parent_ab = phase_ssm_parent_ab()
+
+    from repro_torch.configs import registry
+    from repro_torch.models.model import build_model
+
+    gmodel = build_model(registry.get("granite-8b"), dtype=torch.bfloat16, param_dtype=torch.bfloat16, device="cuda")
+    gparams = gmodel.init(torch.Generator(device="cuda").manual_seed(0))
+    tuned_dep = Deployment.load(DEPLOY_PATH)
+    paged_launches = {}
+    phase("[22a] the paged tier: full-width granite-8b, paged, prefix-shared, chunked prefill, CUDA graphs")
+    paged = phase_paged(torch, mm, gmodel, gparams, tuned_dep)
+    paged_launches["granite-8b paged, prefix-shared, chunked (22a)"] = paged["gemm_launches"]
+    phase("[22b] chunk invariance and CPU against card: 8-layer full-width granite-8b in f32")
+    mm.reset_launches()
+    paged_cpu = phase_paged_cpu_vs_card(torch)
+    paged_launches["granite-8b 8 layers f32, chunk widths and capture (22b)"] = mm.total_launches()
+    phase("[22c] SLO mode on 22a's engine")
+    mm.reset_launches()
+    slo = phase_slo(torch, paged)
+    paged_launches["SLO mode (22c)"] = mm.total_launches()
+    phase("[22d] int8 KV cache: full-width granite-8b, paged")
+    mm.reset_launches()
+    int8 = phase_int8(torch, paged, gmodel, gparams, tuned_dep)
+    paged_launches["int8 KV (22d)"] = mm.total_launches()
+    phase("[22e] the Router: two engines on the card, and the fleet bundle's router")
+    mm.reset_launches()
+    routed = phase_router(torch, paged, gmodel, gparams, tuned_dep, tuning["device"])
+    paged_launches["Router (22e)"] = mm.total_launches()
+    for key in ("engine", "prompts", "dense_outputs"):
+        paged.pop(key)
+    del gmodel, gparams
+    torch.cuda.empty_cache()
+    phase("[22f] hymba-1.5b under a paged pool (legacy admission)")
+    paged_hymba = phase_paged_hymba(torch, mm, ss)
+    paged_launches["hymba-1.5b paged (22f)"] = paged_hymba["paged"]["gemm_launches"]
+    require(all(paged_launches.values()), f"a phase-22 path launched no GEMM: {paged_launches}")
     # The rwkv6-7b run's WKV launches: n_layers per prefill, at each prefill's bucket.
     by_s = {r["s"]: r for r in wkv_rows}
     wkv_total = lambda key: rwkv["wkv_per_prefill"] * sum(by_s[s][key] for s in rwkv["prefill_buckets"])
@@ -2417,6 +2936,7 @@ def main() -> int:
     for fam, paths in tune_launches.items():
         paths.update({path: counts[fam] for path, counts in resilience.items() if counts.get(fam)})
     gemm_launches.update(tune_launches["matmul"])
+    gemm_launches.update(paged_launches)
     gemm_routes = {path: sum(run["path_launches"][path] for run in (serve, rwkv, hymba, tuned))
                    + quick["paths"][path] for path in ("tma", "cp_async")}
     kernels = {"kernels": [{
@@ -2477,8 +2997,10 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssm.cu",
         "replaces": "src/repro/kernels/ssm.py:90",
-        "launches": sum(hymba["ssm_launches"].values()) + sum(tune_launches["ssm_scan"].values()),
-        "launches_by_path": {"hymba-1.5b (phase 12)": sum(hymba["ssm_launches"].values())} | tune_launches["ssm_scan"],
+        "launches": sum(hymba["ssm_launches"].values()) + sum(tune_launches["ssm_scan"].values())
+        + paged_hymba["paged"]["ssm_launches"],
+        "launches_by_path": {"hymba-1.5b (phase 12)": sum(hymba["ssm_launches"].values())} | tune_launches["ssm_scan"]
+        | {"hymba-1.5b paged (22f)": paged_hymba["paged"]["ssm_launches"]},
         "served_configs_from_bundle": fleet["served"]["hymba-1.5b"]["ssm_scan_configs_by_bucket"],
         "launches_counted_as": LAUNCHES_COUNTED_AS,
         "kernels_in_profiled_replays": {f"1 prefill replay, {k}": hymba_profile["prefill"]["count"].get(
@@ -2545,10 +3067,11 @@ def main() -> int:
         "tuned_profile": tuned_profile, "eager_vs_graphed": eager, "ssm_capture_guard": ssm_guard,
         "reinstall": reinstall,
         "guard": guard, "engine_chaos": chaos, "retune_on_card": retuned, "online": online,
-        "attention_timing": attn_rows,
+        "attention_timing": attn_rows, "paged": paged, "paged_cpu_vs_card": paged_cpu, "slo": slo, "int8": int8,
+        "router": routed, "paged_hymba": paged_hymba, "paged_launches": paged_launches,
         "kernels": kernels["kernels"], "seconds": time.perf_counter() - t_start,
     }, indent=1, default=str))
-    print(f"[22] done in {time.perf_counter() - t_start:.1f}s")
+    print(f"[23] done in {time.perf_counter() - t_start:.1f}s")
     print(json.dumps(kernels))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

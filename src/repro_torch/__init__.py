@@ -13,6 +13,7 @@ The tune -> deploy -> serve lifecycle, on the card::
     bundle.save("build/bundle_h100.json")
     rt = repro_torch.load_bundle("build/bundle_h100.json").runtime()
     engine = rt.serve(model, params)                         # CUDA graphs on the card
+    router = bundle.router(model, params, block_size=16)     # one engine per device entry
 
 Submodule imports stay lazy (PEP 562): ``import repro_torch`` pulls in
 neither torch nor the tuning stack until an attribute is touched.
@@ -28,6 +29,7 @@ __all__ = [
     "FaultPlan",
     "KernelRuntime",
     "Request",
+    "Router",
     "ServingEngine",
     "TelemetrySnapshot",
     "Ticket",
@@ -47,6 +49,10 @@ _LAZY = {
     "EngineStatus": ("repro_torch.serve.engine", "EngineStatus"),
     "FaultPlan": ("repro_torch.core.faults", "FaultPlan"),
     "Request": ("repro_torch.serve.engine", "Request"),
+    "Router": ("repro_torch.serve.router", "Router"),
+    # Reachable from the facade, as from repro_torch.serve; not in __all__,
+    # which keeps the reference's names.
+    "Objective": ("repro_torch.core.runtime", "Objective"),
     "ServingEngine": ("repro_torch.serve.engine", "ServingEngine"),
     "Ticket": ("repro_torch.serve.engine", "Ticket"),
     "TelemetrySnapshot": ("repro_torch.core.retune", "TelemetrySnapshot"),

@@ -32,9 +32,10 @@ the byte ``offset``.
 The port writes every device blob in the v5 flat layout.  Loading a TPU
 bundle works (its configs are only selections on the CPU); installing one
 for a CUDA target raises (``KernelRuntime.install_bundle``), because its
-configs are not in the port's compiled space.  The reference's registry
-URIs (``parse_registry_uri``, the control plane's) and ``router()``
-(``serve/router.py``) are not ported yet (ROADMAP.md).
+configs are not in the port's compiled space.  ``router()`` fronts one
+engine per device entry with ``serve/router.py``'s :class:`Router`.  The
+reference's registry URIs (``parse_registry_uri``, the control plane's) are
+not ported yet (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -230,6 +231,40 @@ class DeploymentBundle:
         rt = KernelRuntime(name=name or f"bundle[{'+'.join(self.devices)}]")
         rt.install_bundle(self, device, strict=strict)
         return rt
+
+    def router(self, model, params, *, devices=None, strict: bool = False,
+               name: str | None = None, **engine_kwargs):
+        """A fleet :class:`~repro_torch.serve.router.Router` over this bundle.
+
+        One isolated :class:`~repro_torch.core.runtime.KernelRuntime` per tuned
+        device (or the given ``devices`` subset), each driving its own
+        :class:`~repro_torch.serve.engine.ServingEngine` on that device's
+        tuning, so SLO objectives, retunes and quarantines on one engine never
+        leak into another::
+
+            router = bundle.router(model, params, max_batch=8, block_size=16)
+            ticket = router.submit(prompt, latency_target_ms=8.0)
+            print(ticket.result(), router.drain())
+
+        ``engine_kwargs`` flow to every engine (``max_batch``, ``cache_len``,
+        ``block_size``, ``retune_interval``, ...).  Every engine serves
+        ``model`` where it lives, so on one card the fleet's engines share its
+        weights; on a CUDA model a device entry holding configs the port has
+        not compiled raises, as ``ServingEngine(bundle=)`` does.
+        """
+        from ..serve.router import Router
+        from .runtime import KernelRuntime
+
+        devs = list(devices) if devices is not None else list(self.devices)
+        if not devs:
+            raise ValueError("bundle has no tuned devices to route across")
+        label = name or "router"
+        engines = {}
+        for dev in devs:
+            rt = KernelRuntime(name=f"{label}[{dev}]")
+            rt.install_bundle(self, dev, strict=strict, target=model.device.type)
+            engines[rt.active_device() or dev] = rt.serve(model, params, device=rt.active_device(), **engine_kwargs)
+        return Router(engines, name=label)
 
     def provenance(self) -> dict[str, dict]:
         """Per-device tuning provenance (the v4+ top-level block).

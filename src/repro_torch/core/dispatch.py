@@ -18,8 +18,11 @@ Ported from ``repro/core/dispatch.py``: ``from_blob`` rebuilds the port's
 config classes, whose fields are the reference's, so a blob of the
 reference's TPU configs loads (``core/bundle.py`` reads the reference's
 fixtures); its configs are selections only, and installing them for a CUDA
-target raises (``KernelRuntime.install_bundle``).  ``select_for_objective``
-joins with SLO objectives.
+target raises (``KernelRuntime.install_bundle``).  Under a serving
+objective (``core/runtime.py::Objective``) the runtime routes selection
+through :meth:`Deployment.select_for_objective`, which ranks the family's
+deployed configs on the port's own family model (``model_matrix``, the H100
+model) for the one problem.
 """
 from __future__ import annotations
 
@@ -159,6 +162,31 @@ class Deployment:
 
     def select_ssm(self, s: int, d: int):
         return self.select("ssm_scan", (s, d))
+
+    def select_for_objective(self, family: str, problem: tuple, objective):
+        """SLO-aware selection: pick by predicted per-problem speed.
+
+        The classifier maximises aggregate throughput over the training
+        distribution; under a latency objective the serving tier wants the
+        config the family's model predicts *fastest for this problem* (max
+        score).  Falls back to the plain path where the reference does: the
+        objective carries no target, the family has nothing to choose
+        between, it declares no model, or the model fails.
+        """
+        if getattr(objective, "latency_target_ms", None) is None:
+            return self.select(family, tuple(problem))
+        configs, _tree = self.family_tuning(family)
+        if len(configs) <= 1:
+            return self.select(family, tuple(problem))
+        fam = get_family(family)
+        model = fam.model_matrix or fam.perf_matrix
+        if model is None:
+            return self.select(family, tuple(problem))
+        try:
+            scores = np.asarray(model([tuple(problem)], list(configs), self.device))
+        except Exception:
+            return self.select(family, tuple(problem))
+        return configs[int(np.argmax(scores[0]))]
 
     def _attention_bucket_fallback(self, sq: int, skv: int, d: int) -> AttentionConfig:
         # Pick by KV-length bucket (untuned deployments).

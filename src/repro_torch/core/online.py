@@ -19,7 +19,8 @@ mispredictions at the cost of a bounded warm-up.
 A measurement launches and synchronizes, so it cannot run while a stream
 captures a CUDA graph: :func:`cuda_event_measure` raises there.  An
 ``OnlinePolicy`` serves direct ``ops.*`` calls and the eager engine
-(``cuda_graphs=False``).  ``select_for_objective`` waits for SLO mode.
+(``cuda_graphs=False``).  Under a serving objective it pauses exploration
+(``select_for_objective``).
 """
 from __future__ import annotations
 
@@ -151,6 +152,41 @@ class OnlinePolicy:
         from .families import get_family
 
         return get_family(family).default_config
+
+    def select_for_objective(self, family: str, problem: tuple, objective):
+        """SLO-aware selection: exploration pauses under a latency target.
+
+        A constrained selection serves the best *measured* arm of the bucket
+        (committed or mid-exploration leader); buckets with no evidence yet
+        defer to the prior's objective-aware pick (or its plain selection).
+        Measurements resume once the objective is lifted.
+        """
+        problem = tuple(problem)
+        if family == "matmul":
+            b = _bucket(problem)
+            hit = self._committed.get(b)
+            if hit is not None:
+                self.stats["slo_commit"] += 1
+                return hit
+            measured = [a for a in self._arms.get(b, []) if a.trials > 0]
+            if measured:
+                self.stats["slo_commit"] += 1
+                return min(measured, key=lambda a: a.mean).config
+            if self.prior is not None:
+                slo = getattr(self.prior, "select_for_objective", None)
+                if slo is not None:
+                    return slo(family, problem, objective)
+                return self.prior.select_matmul(*problem)
+            return self.candidates[0]
+        if self.prior is not None:
+            slo = getattr(self.prior, "select_for_objective", None)
+            if slo is not None:
+                return slo(family, problem, objective)
+        if family == "attention":
+            return self.select_attention(*problem)
+        from .runtime import POLICY_ATTR
+
+        return self._prior_family_select(family, POLICY_ATTR[family], problem)
 
     # -- continuous tuning ----------------------------------------------------
     def set_prior(self, prior: object | None) -> None:

@@ -29,11 +29,18 @@ exponential re-probe backoff, the bounded swap history and
 reference's do.
 
 Telemetry: ``telemetry(online=)`` folds the selection log into a
-:class:`~repro_torch.core.retune.TelemetrySnapshot`.  ``Objective`` /
-``set_objective`` wait for SLO mode (ROADMAP.md queue 1 item 5).
+:class:`~repro_torch.core.retune.TelemetrySnapshot`.
+
+SLO-aware selection, as in the reference: a serving engine in SLO mode
+installs an :class:`Objective` (``set_objective``, which moves the epoch, so
+the engine's CUDA graphs are captured again); while one with a latency
+target is live, every selector routes through the policy's
+``select_for_objective(family, problem, objective)`` where the policy has
+one.
 """
 from __future__ import annotations
 
+import dataclasses
 import itertools
 import threading
 from collections import OrderedDict, deque
@@ -54,6 +61,26 @@ POLICY_ATTR = {"matmul": "select_matmul", "attention": "select_attention", "wkv"
                "ssm_scan": "select_ssm"}
 
 _MISS = object()
+
+
+@dataclasses.dataclass(frozen=True)
+class Objective:
+    """A serving objective consulted at kernel-selection time.
+
+    ``latency_target_ms`` is a per-token SLO: while an objective with a
+    target is installed (:meth:`KernelRuntime.set_objective`), selection
+    routes through the policy's ``select_for_objective(family, problem,
+    objective)``.  Policies without it are unaffected.
+    ``prefill_chunk_tokens`` is the work-granularity hint an SLO-mode engine
+    sets beside the target: the largest prompt chunk one prefill program
+    covers.
+    """
+
+    latency_target_ms: float | None = None
+    prefill_chunk_tokens: int | None = None
+
+    def __bool__(self) -> bool:
+        return self.latency_target_ms is not None or self.prefill_chunk_tokens is not None
 
 
 class _RuntimeLocal(threading.local):
@@ -161,6 +188,8 @@ class KernelRuntime:
         self._incidents: deque[dict] = deque(maxlen=DEFAULT_INCIDENT_CAP)
         self._incident_count: int = 0
         self._swap_history: deque[tuple[str, object, int]] = deque(maxlen=DEFAULT_SWAP_HISTORY)
+        # -- SLO-aware selection (serving tier) --
+        self._objective: Objective | None = None
 
     def __repr__(self) -> str:
         if self._active_device is not None:
@@ -194,6 +223,25 @@ class KernelRuntime:
     def policy_epoch(self) -> int:
         """Monotonic counter bumped by every policy mutation, the breaker's included."""
         return self._epoch
+
+    # -- serving objective ----------------------------------------------------
+    def set_objective(self, objective: Objective | None) -> None:
+        """Install (or with ``None`` / an empty one, clear) the serving
+        objective.  Moves the epoch like a policy swap: every thread drops its
+        shape cache on its next selection, and a serving engine captures its
+        programs again."""
+        if objective is not None and not objective:
+            objective = None
+        with self._lock:
+            if objective == self._objective:
+                return
+            self._objective = objective
+            self._epoch += 1
+        self.clear_shape_cache()
+
+    def objective(self) -> Objective | None:
+        """The live serving objective (``None`` when unconstrained)."""
+        return self._objective
 
     # -- per-device registry ----------------------------------------------------
     def install_for_device(self, device: str, policy) -> None:
@@ -633,33 +681,50 @@ class KernelRuntime:
             self._selection_log.append((op, problem, cfg))
         return cfg
 
+    def _objective_hook(self, pol, family: str):
+        """The SLO-aware selection callable, or None when unconstrained or the
+        policy has no ``select_for_objective``."""
+        obj = self._objective
+        if obj is None:
+            return None
+        slo = getattr(pol, "select_for_objective", None)
+        if slo is None:
+            return None
+        return lambda problem: slo(family, problem, obj)
+
     def select_matmul_config(self, m: int, k: int, n: int, batch: int = 1):
         """The matmul selection ``ops.matmul`` runs on every call; ``None``
         with no policy installed."""
         pol = self._sync()
         if pol is None:
             return None
-        return self._select(
-            "matmul", (m, k, n, batch), pol, lambda: pol.select_matmul(m, k, n, batch)
-        )
+        problem = (m, k, n, batch)
+        hook = self._objective_hook(pol, "matmul")
+        if hook is not None:
+            return self._select("matmul", problem, pol, lambda: hook(problem))
+        return self._select("matmul", problem, pol, lambda: pol.select_matmul(m, k, n, batch))
 
     def select_config(self, family: str, problem: tuple):
         """Generic selection for any family, under the family-qualified shape
         key and recorded in the selection log as ``(family, problem, config)``;
         ``None`` with no policy installed or when the policy does not cover
-        the family (the op then runs its default config)."""
+        the family (the op then runs its default config).  Under a serving
+        objective it routes through the policy's ``select_for_objective``."""
         pol = self._sync()
         if pol is None:
             return None
+        problem = tuple(problem)
+        slo = self._objective_hook(pol, family)
         meth = getattr(pol, POLICY_ATTR.get(family, ""), None)
-        if meth is not None:
+        if slo is not None:
+            hook = lambda: slo(problem)
+        elif meth is not None:
             hook = lambda: meth(*problem)
         else:
             generic = getattr(pol, "select", None)
             if generic is None:
                 return None
             hook = lambda: generic(family, problem)
-        problem = tuple(problem)
         return self._select(family, problem, pol, hook)
 
     def select_attention_config(self, sq: int, skv: int, d: int):

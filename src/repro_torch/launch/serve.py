@@ -18,6 +18,14 @@ same path for a caller that builds its own model:
 
   python -m repro_torch.launch.serve --arch rwkv6-7b --no-reduced --bundle build/bundle_h100.json
 
+The paged tier, as the reference's launcher takes it: ``--block-size``
+pages the KV pool (and, on the transformer, admits through prefix sharing
+and chunked prefill), ``--n-blocks`` bounds it, and ``--latency-target-ms``
+gives every other request a per-token SLO (SLO mode on the wall clock).  The
+pool and preemption lines follow the run:
+
+  python -m repro_torch.launch.serve --arch granite-8b --device cpu --block-size 16 --latency-target-ms 5000
+
 Continuous tuning and chaos, as the reference's launcher takes them:
 ``--retune-interval N`` checks telemetry drift every N steps and retunes,
 canaries and hot-swaps the policy when it fires (``--drift-threshold``,
@@ -82,6 +90,12 @@ def main(argv=None) -> list[list[int]]:
     ap.add_argument("--max-new-tokens", type=int, default=16)
     ap.add_argument("--max-batch", type=int, default=4)
     ap.add_argument("--cache-len", type=int, default=128)
+    ap.add_argument("--block-size", type=int, default=None, metavar="TOKENS",
+                    help="paged KV cache block size (divides --cache-len; default: one dense block per lane)")
+    ap.add_argument("--n-blocks", type=int, default=None, help="total KV pool blocks (default: lanes * blocks/lane)")
+    ap.add_argument("--latency-target-ms", type=float, default=None,
+                    help="per-token latency SLO attached to every other request (exercises objective-aware "
+                         "selection)")
     ap.add_argument("--deployment", default=None, help="single-device Deployment json")
     ap.add_argument("--bundle", default=None,
                     help="multi-device DeploymentBundle json (installs the entry resolved for this host)")
@@ -123,6 +137,7 @@ def main(argv=None) -> list[list[int]]:
     engine = build_engine(model, params, bundle=args.bundle, deployment=args.deployment,
                           serve_device=args.serve_device, name=f"serve[{args.arch}]", fault_plan=plan,
                           max_batch=args.max_batch, cache_len=args.cache_len,
+                          block_size=args.block_size, n_blocks=args.n_blocks,
                           retune_interval=args.retune_interval, drift_threshold=args.drift_threshold,
                           retune_min_events=args.retune_min_events)
     rt = engine.runtime
@@ -132,9 +147,9 @@ def main(argv=None) -> list[list[int]]:
     rng = np.random.default_rng(0)
     t0 = time.perf_counter()
     tickets = [
-        engine.submit(rng.integers(0, cfg.vocab, size=8).astype(np.int32),
-                      max_new_tokens=args.max_new_tokens)
-        for _ in range(args.requests)
+        engine.submit(rng.integers(0, cfg.vocab, size=8).astype(np.int32), max_new_tokens=args.max_new_tokens,
+                      latency_target_ms=args.latency_target_ms if i % 2 else None)
+        for i in range(args.requests)
     ]
     status = engine.drain()
     if args.device == "cuda":
@@ -149,6 +164,13 @@ def main(argv=None) -> list[list[int]]:
     how = "captured as CUDA graphs" if engine.cuda_graphs else "run eagerly"
     print(f"programs: {len(built)} {how} ({', '.join(f'{r.kind} {r.size}' for r in built)}); "
           f"{sum(r.seconds for r in built):.2f}s building them (warm-up{' and capture' * engine.cuda_graphs})")
+    pool = engine.pool.stats()
+    print(f"kv pool: {pool['n_blocks']} blocks x {pool['block_size']} tokens, {pool['used_blocks']} in use at "
+          f"drain ({pool['utilization']:.0%}), {status.preempted} requests preempted; prefix hits "
+          f"{status.prefix_hits} / {status.prefix_lookups} lookups")
+    if engine.slo_events:
+        print(f"slo: {len(engine.slo_events)} mode transitions under latency target {args.latency_target_ms} ms "
+              f"{engine.slo_events}")
     stats = rt.shape_cache_stats()
     print(f"kernel selections: {stats['hits'] + stats['misses']} "
           f"({stats['hits']} shape-cache hits) on runtime {rt.name!r}")

@@ -42,9 +42,11 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10_000.0) -> t
 # ---------------------------------------------------------------------------
 # chunked flash attention (grouped-query layout, no KV repeat)
 # ---------------------------------------------------------------------------
-def _attn_chunk(q, k, v, row0: int, col0: int, scale: float, window: int = 0):
+def _attn_chunk(q, k, v, row0, col0: int, scale: float, window: int = 0):
     """One causal (q-chunk x kv-chunk) tile.  q: (B,KV,G,Lq,hd)  k/v: (B,KV,Lk,hd).
-    ``window`` > 0 also masks columns at or before ``row - window``."""
+    ``row0`` (an int, or a 0-d tensor in a chunk-append call) is the first
+    query's position.  ``window`` > 0 also masks columns at or before
+    ``row - window``."""
     logits = torch.einsum("bkgqh,bkth->bkgqt", q.float(), k.float()) * scale
     rows = row0 + torch.arange(q.shape[-2], device=q.device)[:, None]
     cols = col0 + torch.arange(k.shape[-2], device=q.device)[None, :]
@@ -65,11 +67,16 @@ def flash_attention(
     window: int = 0,
     q_chunk: int = 512,
     kv_chunk: int = 1024,
+    q_start: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Causal grouped-query online-softmax attention (``flash_attention_jnp``).
 
     q: (B, S, H, hd) with H = KV * G;  k/v: (B, T, KV, hd).  The causal
-    diagonal is aligned to the end of KV (query i sits at position T - S + i).
+    diagonal is aligned to the end of KV (query i sits at position T - S + i),
+    or, with ``q_start`` (a 0-d tensor: chunked prefill), query i sits at
+    position ``q_start + i`` and attends over the whole cache up to it.  The
+    mask is built from the tensor, so one captured program serves every
+    offset.
     ``window`` > 0 is sliding-window attention: a query at position r sees
     columns c with r - window < c <= r.  Memory is bounded by q_chunk x
     kv_chunk tiles.  The last chunk of each axis is simply shorter: the
@@ -85,7 +92,7 @@ def flash_attention(
     kt = k.permute(0, 2, 1, 3)  # (B,KV,T,hd)
     vt = v.permute(0, 2, 1, 3)
     qc, kc = min(q_chunk, s), min(kv_chunk, t)
-    diag_off = t - s
+    diag_off = t - s if q_start is None else q_start
     blocks = []
     for q0 in range(0, s, qc):
         qblk = qg[:, :, :, q0 : q0 + qc]
@@ -114,12 +121,19 @@ def decode_attention(
     k_cache: torch.Tensor,
     v_cache: torch.Tensor,
     valid_len: torch.Tensor,
+    *,
+    k_scale: torch.Tensor | None = None,
+    v_scale: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """One-token attention over a (B, T, KV, hd) cache (``decode_attention_jnp``).
 
     ``valid_len`` (B,): number of valid cache slots per sequence.  Logits
     accumulate in f32; the probabilities are cast to the cache dtype before
-    the value product, as in the reference.
+    the value product, as in the reference.  An int8 cache passes its
+    per-(B, T, KV) ``k_scale`` / ``v_scale``: the dequantization folds into
+    the logits (times ``k_scale`` along T) and into the probabilities (times
+    ``v_scale`` before the value product, cast to q's dtype), as the
+    reference folds it.
     """
     b, _, h, hd = q.shape
     t, kvh = k_cache.shape[1], k_cache.shape[2]
@@ -127,12 +141,42 @@ def decode_attention(
     scale = 1.0 / (hd**0.5)
     qg = q.reshape(b, kvh, g, hd)
     logits = torch.einsum("bkgh,btkh->bkgt", qg.float(), k_cache.float()) * scale
+    if k_scale is not None:
+        logits = logits * k_scale.permute(0, 2, 1)[:, :, None, :]  # (B,KV,1,T)
     cols = torch.arange(t, device=q.device)[None, :]
     mask = cols < valid_len[:, None]
     logits = logits.masked_fill(~mask[:, None, None, :], _NEG_INF)
     p = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bkgt,btkh->bkgh", p.to(v_cache.dtype).float(), v_cache.float())
+    if v_scale is not None:
+        p = p * v_scale.permute(0, 2, 1)[:, :, None, :]
+    v_dtype = q.dtype if v_cache.dtype == torch.int8 else v_cache.dtype
+    out = torch.einsum("bkgt,btkh->bkgh", p.to(v_dtype).float(), v_cache.float())
     return out.reshape(b, 1, h, hd).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# int8 KV quantization (per-token, per-kv-head absmax scales)
+# ---------------------------------------------------------------------------
+def quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(…, KV, hd) -> int8 values and f32 scales over the hd axis: absmax / 127,
+    rounded half to even (as ``jnp.round``) and clipped to ±127."""
+    xf = x.float()
+    s = torch.clamp(xf.abs().amax(dim=-1), min=1e-8) / 127.0
+    q = torch.clamp(torch.round(xf / s[..., None]), -127, 127).to(torch.int8)
+    return q, s
+
+
+def _write_chunk(cache: torch.Tensor, src: torch.Tensor, start: torch.Tensor) -> None:
+    """Write ``src`` (B, S, …) at cache positions ``[start, start + S)`` in place,
+    dropping rows past the cache's end (a padded final chunk), as the
+    reference's ``.at[:, pos].set(..., mode="drop")``.  Each cache slot takes
+    its chunk row or keeps its value, chosen from ``start`` as a tensor, so no
+    index repeats and no Python value depends on ``start``."""
+    t, s = cache.shape[1], src.shape[1]
+    rel = torch.arange(t, device=cache.device) - start
+    inside = (rel >= 0) & (rel < s)
+    rows = src.index_select(1, rel.clamp(0, s - 1))
+    cache.copy_(torch.where(inside.view(1, t, *([1] * (cache.ndim - 2))), rows, cache))
 
 
 # ---------------------------------------------------------------------------
@@ -144,21 +188,29 @@ def attention_layer(
     cfg,
     positions: torch.Tensor,
     *,
-    cache: tuple[torch.Tensor, torch.Tensor],
+    cache: tuple[torch.Tensor, ...],
     cache_positions: torch.Tensor | None = None,
     cache_valid: torch.Tensor | None = None,
     window: int = 0,
+    chunk_start: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """GQA self-attention for one layer (params already sliced to this layer).
 
-    ``cache = (k_cache, v_cache)``, each (B, T, KV, hd).  Modes:
+    ``cache = (k_cache, v_cache)``, each (B, T, KV, hd), or, for an int8 cache,
+    ``(k, v, k_scale, v_scale)`` with (B, T, KV) f32 scales.  Modes:
       * prefill: s > 1 — x attends over itself, causally (within ``window``
         when > 0).  With s < T, k/v are written to positions [0, s); with
         s >= T the cache is a ring buffer (a sliding window's): it keeps the
-        last T tokens, each at its ring slot p % T, so decode can continue;
+        last T tokens, each at its ring slot p % T, so decode can continue.
+        An int8 cache stores them quantized; attention runs on the
+        unquantized k/v;
       * decode: cache set, s == 1 — k/v are written at ``cache_positions``
         (B,) and the token attends over slots ``< cache_valid`` (default
-        ``cache_positions + 1``).
+        ``cache_positions + 1``);
+      * chunk append (chunked prefill): ``chunk_start`` a 0-d tensor — k/v
+        are written at ``[chunk_start, chunk_start + s)`` (rows past T are
+        dropped) and the chunk attends causally over the whole cache from
+        those positions.  An int8 cache refuses it, as the reference does.
 
     The cache is updated in place (the reference returns a new one); it is a
     view into the caller's cache, so no per-step copy is made.
@@ -170,16 +222,34 @@ def attention_layer(
     v = ops.matmul(x, p["wv"]).reshape(b, s, kvh, hd)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
-    k_cache, v_cache = cache
-    if s == 1:  # decode: write one token per row
+    quant = len(cache) == 4
+    k_cache, v_cache = cache[:2]
+    if s == 1 and chunk_start is None:  # decode: write one token per row
         bidx = torch.arange(b, device=x.device)
-        k_cache[bidx, cache_positions] = k[:, 0]
-        v_cache[bidx, cache_positions] = v[:, 0]
+        if quant:
+            (kq, ks), (vq, vs) = quantize_kv(k[:, 0]), quantize_kv(v[:, 0])
+            rows = (kq, vq, ks, vs)
+        else:
+            rows = (k[:, 0], v[:, 0])
+        for dst, src in zip(cache, rows):
+            dst[bidx, cache_positions] = src
         valid = cache_valid if cache_valid is not None else cache_positions + 1
-        out = decode_attention(q, k_cache, v_cache, valid)
+        out = decode_attention(q, k_cache, v_cache, valid,
+                               k_scale=cache[2] if quant else None, v_scale=cache[3] if quant else None)
+    elif chunk_start is not None:  # chunk append: write [start, start + s)
+        if quant:
+            raise NotImplementedError("chunked prefill does not support int8 KV caches")
+        _write_chunk(k_cache, k, chunk_start)
+        _write_chunk(v_cache, v, chunk_start)
+        out = flash_attention(q, k_cache, v_cache, window=window, q_start=chunk_start)
     else:  # prefill: write the whole prefix
         t_cache = k_cache.shape[1]
-        for dst, src in ((k_cache, k), (v_cache, v)):
+        if quant:
+            (kq, ks), (vq, vs) = quantize_kv(k), quantize_kv(v)
+            writes = zip(cache, (kq, vq, ks, vs))
+        else:
+            writes = ((k_cache, k), (v_cache, v))
+        for dst, src in writes:
             if s >= t_cache:  # ring buffer: token p lands in slot p % t_cache
                 dst.copy_(torch.roll(src[:, -t_cache:], (s - t_cache) % t_cache, dims=1))
             else:

@@ -5,10 +5,13 @@ Same functional surface as the reference's ``TransformerLM``, ``RWKV6LM`` and
 
   init(generator) -> params
   init_cache(batch, cache_len) -> cache dict (k/v per token for the
-      transformer; the recurrent wkv/x1/x2 state for RWKV6; per layer
-      ``{"k", "v", "ssm"}`` for Hymba, its sliding-window layers' k/v a ring)
+      transformer, int8 with f32 scales under ``kv_quant``; the recurrent
+      wkv/x1/x2 state for RWKV6; per layer ``{"k", "v", "ssm"}`` for Hymba,
+      its sliding-window layers' k/v a ring)
   prefill(params, batch, cache_len) -> (last-position logits, cache)
   decode_step(params, cache, tokens, positions) -> (logits, cache)
+  prefill_chunk(params, cache, tokens, start, last_row) -> (logits, cache)
+      (the transformer only: chunked prefill, as in the reference)
 
 Params keep the reference's tree and layout: (in, out) matrices with a
 stacked leading layer axis.  The reference's ``lax.scan`` over layers is a
@@ -29,14 +32,20 @@ from . import mamba as M
 from . import rwkv as R
 
 
-def build_model(cfg: ArchConfig, dtype=torch.bfloat16, param_dtype=torch.bfloat16, device="cuda"):
+def build_model(cfg: ArchConfig, dtype=torch.bfloat16, param_dtype=torch.bfloat16, device="cuda",
+                kv_quant: bool = False):
+    """The model of ``cfg``'s family on ``device``.  ``kv_quant`` gives a
+    transformer an int8 KV cache (the reference's ``build_model(kv_quant=)``;
+    other families ignore it, as there)."""
     if cfg.family == "ssm":
         return RWKV6LM(cfg, dtype, param_dtype, device)
     if cfg.family == "hybrid":
         return HymbaLM(cfg, dtype, param_dtype, device)
     if cfg.family != "dense" or cfg.moe is not None:
         raise NotImplementedError(f"the port serves dense transformers, RWKV6 and Hymba so far, not {cfg.family!r}")
-    return TransformerLM(cfg, dtype, param_dtype, device)
+    model = TransformerLM(cfg, dtype, param_dtype, device)
+    model.kv_quant = kv_quant
+    return model
 
 
 def _initializers(model, generator: torch.Generator | None):
@@ -105,6 +114,7 @@ class TransformerLM:
         self.dtype = dtype
         self.param_dtype = param_dtype
         self.device = torch.device(device)
+        self.kv_quant = False  # int8 KV cache (set through build_model)
 
     # -- params -----------------------------------------------------------
     def init(self, generator: torch.Generator | None = None) -> dict:
@@ -124,22 +134,38 @@ class TransformerLM:
         }
 
     # -- one transformer block ----------------------------------------------
-    def _block(self, blk: dict, x, positions, *, cache, cache_positions=None):
+    def _block(self, blk: dict, x, positions, *, cache, cache_positions=None, chunk_start=None):
         c = self.cfg
         x = x + L.attention_layer(
             blk["attn"], L.rms_norm(x, blk["ln1"], c.norm_eps), c, positions,
-            cache=cache, cache_positions=cache_positions,
+            cache=cache, cache_positions=cache_positions, chunk_start=chunk_start,
         )
         return x + L.mlp_layer(blk["ffn"], L.rms_norm(x, blk["ln2"], c.norm_eps))
 
     # -- caches / serving ---------------------------------------------------
     def init_cache(self, b: int, cache_len: int) -> dict:
+        """k/v per token, (n_layers, B, T, KV, hd); an int8 cache holds them
+        as int8 with (n_layers, B, T, KV) f32 ``k_scale`` / ``v_scale``."""
         c = self.cfg
         shape = (c.n_layers, b, cache_len, c.n_kv_heads, c.head_dim)
+        if self.kv_quant:
+            return {
+                "k": torch.zeros(shape, dtype=torch.int8, device=self.device),
+                "v": torch.zeros(shape, dtype=torch.int8, device=self.device),
+                "k_scale": torch.zeros(shape[:-1], dtype=torch.float32, device=self.device),
+                "v_scale": torch.zeros(shape[:-1], dtype=torch.float32, device=self.device),
+            }
         return {
             "k": torch.zeros(shape, dtype=self.dtype, device=self.device),
             "v": torch.zeros(shape, dtype=self.dtype, device=self.device),
         }
+
+    @property
+    def _cache_keys(self) -> tuple[str, ...]:
+        return ("k", "v", "k_scale", "v_scale") if self.kv_quant else ("k", "v")
+
+    def _layer_cache(self, cache: dict, i: int) -> tuple:
+        return tuple(cache[key][i] for key in self._cache_keys)
 
     def prefill(self, params: dict, batch: dict, cache_len: int):
         """Run the prompt ``batch["tokens"]`` (B, S); returns the f32 logits
@@ -151,9 +177,43 @@ class TransformerLM:
         positions = torch.arange(s, device=self.device).expand(b, s)
         x = L.embed_tokens(params["emb"], tokens).to(self.dtype)
         for i in ops.scan_layers(c.n_layers):
-            x = self._block(_layer_params(params["blocks"], i), x, positions, cache=(cache["k"][i], cache["v"][i]))
+            x = self._block(_layer_params(params["blocks"], i), x, positions, cache=self._layer_cache(cache, i))
         x = L.rms_norm(x, params["final_norm"], c.norm_eps)
         return L.logits_from_hidden(params["emb"], x[:, -1:]), cache
+
+    def supports_chunked_prefill(self) -> bool:
+        """Chunk-append prefill works on the plain k/v layout; an int8 cache
+        falls back to monolithic prefill, as in the reference."""
+        return not self.kv_quant
+
+    def prefill_chunk(self, params: dict, cache: dict, tokens: torch.Tensor, start, last_row=None):
+        """Append a prompt chunk at absolute positions ``[start, start + S)``.
+
+        ``tokens``: (B, S); ``start`` and ``last_row`` (default ``S - 1``,
+        the row whose logits are returned: a padded final chunk asks for its
+        last real row) are 0-d tensors or ints.  Nothing in the computation
+        reads their values on the host, so one captured program serves every
+        chunk offset, as the reference's traced ``start`` does.  Rows past the
+        real prompt are causally dead; cache writes past ``cache_len`` are
+        dropped.  The cache is updated in place and returned with the f32
+        logits (B, 1, V_padded).
+        """
+        if not self.supports_chunked_prefill():
+            raise NotImplementedError(f"chunked prefill unsupported for this layout (kv_quant={self.kv_quant})")
+        c = self.cfg
+        b, s = tokens.shape
+        start = torch.as_tensor(start, dtype=torch.int64, device=self.device)
+        positions = start + torch.arange(s, device=self.device).expand(b, s)
+        x = L.embed_tokens(params["emb"], tokens).to(self.dtype)
+        for i in ops.scan_layers(c.n_layers):
+            x = self._block(_layer_params(params["blocks"], i), x, positions, cache=self._layer_cache(cache, i),
+                            chunk_start=start)
+        x = L.rms_norm(x, params["final_norm"], c.norm_eps)
+        if last_row is None:
+            x_last = x[:, -1:]
+        else:
+            x_last = x.index_select(1, torch.as_tensor(last_row, dtype=torch.int64, device=self.device).reshape(1))
+        return L.logits_from_hidden(params["emb"], x_last), cache
 
     def decode_step(self, params: dict, cache: dict, tokens: torch.Tensor, positions: torch.Tensor):
         """tokens: (B, 1); positions: (B,) — index of the new token.  The
@@ -164,7 +224,7 @@ class TransformerLM:
         for i in ops.scan_layers(c.n_layers):
             x = self._block(
                 _layer_params(params["blocks"], i), x, pos2d,
-                cache=(cache["k"][i], cache["v"][i]), cache_positions=positions,
+                cache=self._layer_cache(cache, i), cache_positions=positions,
             )
         x = L.rms_norm(x, params["final_norm"], c.norm_eps)
         return L.logits_from_hidden(params["emb"], x), cache

@@ -1,47 +1,73 @@
-"""Continuous-batching serving engine, ported from ``repro/serve/engine.py``.
+"""Continuous-batching serving engine over a paged KV cache, ported from ``repro/serve/engine.py``.
 
-The engine owns ``max_batch`` decode **lanes** backed by a dense
+The engine owns ``max_batch`` decode **lanes** backed by a block-allocated
 :class:`~repro_torch.serve.kvpool.KVPool` (k/v blocks for a transformer, one
 recurrent-state row per lane for RWKV6, both for Hymba, whose SSM state and
 sliding-window rings shorter than ``cache_len`` are lane rows), a priority
-:class:`~repro_torch.serve.scheduler.Scheduler`, and the reference's legacy
-(monolithic-prefill) admission path:
+:class:`~repro_torch.serve.scheduler.Scheduler` with starvation aging and
+preemption, and one program per prefill bucket, chunk width and decode width:
 
-    ticket = engine.submit(prompt, max_new_tokens=32)
+    ticket = engine.submit(prompt, max_new_tokens=32, priority=1, latency_target_ms=8.0)
     for tok in ticket.tokens():   # streams; drives engine.step() as needed
         ...
     status = engine.drain()       # run everything submitted to completion
 
-One ``engine.step()`` is one scheduling round: admit waiting requests into
-free lanes (prompt left-padded to its prefill bucket with token 0, the pad
-tokens attended as real tokens, or run through RWKV6's or Mamba's recurrence, as in the
-reference; first token from the last position's logits), then one
-batched decode advances every active lane at the smallest power-of-two width
-bucket that fits, padded with idle lanes (whose recurrent-state rows advance
-too, as in the reference).
+One ``engine.step()`` is one scheduling round, in the reference's order:
+adopt an offered deployment, update SLO mode, admit waiting requests into
+free lanes (preempting a weaker resident when the pool is dry and a waiter
+outranks it), run the budgeted prefill chunks of lanes still prefilling,
+grow every active lane's block table to cover its next token (preempting the
+scheduler's victim when the pool runs dry), then one batched decode advances
+every active lane at the smallest power-of-two width bucket that fits,
+padded with idle lanes (whose recurrent-state rows advance too, as in the
+reference) and with lanes still prefilling.
+
+**Admission regimes**, as in the reference.  The *legacy* regime prefills a
+prompt left-padded to its bucket with token 0 in one program, the first token
+from the last position's logits.  When the pool is paged and the model
+supports ``prefill_chunk`` (the transformer with a plain k/v cache; an int8
+cache, RWKV6 and Hymba stay legacy), admission *streams*: the sequence is
+left-aligned, any cached prefix is aliased from the pool's prefix index
+(``prefix_sharing``), and the rest is prefilled in chunks of at most
+``prefill_chunk_tokens`` (the scheduler's per-step token budget) that
+interleave with decode rounds; the final chunk's last real row gives the
+first token.
+
+**SLO mode**: when a latency-targeted request's recent per-token time (on
+``clock``, the wall clock by default) or the engine's recent step time
+overruns its target, the engine installs an
+:class:`~repro_torch.core.runtime.Objective` on its runtime (selection then
+routes through the policy's ``select_for_objective``), caps admission below
+the current width bucket and the chunk width one ladder rung, and drops its
+programs so they are captured again under the objective; it leaves the mode
+after ``slo_patience`` calm steps or when no targeted work remains.
 
 Compiled programs, as in the reference: one program per prefill bucket
-(``_prefill_fn``, ``_prefill_cache``) and one per decode width bucket
-(``_decode_fn``, ``_decode_cache``).  A program owns static buffers (the
-prompt tokens; the decode tokens, positions and the pool's block and lane
-row ids, and a fixed decode view of the cache) that the host fills through
-host staging buffers (pinned on the card) before each call.  On a CUDA model
-each program is a CUDA graph, captured once and replayed on every later
-call, on a stream of the engine's own (ordered after the caller's stream and
-before its next work): a decode replay gathers the selected lanes into the view, runs
-``model.decode_step``, scatters the view back into the pool (re-zeroing
-scratch block 0) and takes the argmax; a prefill replay runs
-``model.prefill`` and the argmax, and ``pool.admit`` copies its cache out.
+(``_prefill_fn``, ``_prefill_cache``), chunk width (``_chunk_fn``,
+``_chunk_cache``) and decode width (``_decode_fn``, ``_decode_cache``).  A
+program owns static buffers (the prompt or chunk tokens; a chunk's ``start``,
+``last_row`` and its lane's block table; the decode tokens, positions and the
+``(W, blocks_per_lane)`` block table and lane ids, and a fixed dense view of
+the cache) that the host fills through host staging buffers (pinned on the
+card) before each call.  On a CUDA model each program is a CUDA graph,
+captured once and replayed on every later call, on a stream of the engine's
+own (ordered after the caller's stream and before its next work): a decode
+or chunk replay gathers its lanes' blocks into the view, runs
+``model.decode_step`` or ``model.prefill_chunk``, scatters the view back
+into the pool (re-zeroing scratch block 0) and takes the argmax; a prefill
+replay runs ``model.prefill`` and the argmax, and ``pool.admit`` copies its
+cache out.  Nothing in a chunk program reads ``start`` or ``last_row`` on the
+host, so one capture serves every chunk offset.
 Kernel selection runs against the engine's
 :class:`~repro_torch.core.runtime.KernelRuntime` once per program build, as
 the reference selects once per trace: the build's first run (the warm-up)
 selects and pins each call's config (``SelectionPins``), and the capture and
 every later eager run replay the pins.  A change of the live policy (an
-``install``, a retune's hot swap, a rollback) drops every program, so the
-next call captures under the new policy; the breaker's quarantines do not,
-as the reference's compiled programs keep their kernels.  On a CPU model (or
-with ``cuda_graphs=False``) the same programs run their body eagerly on
-every call, with the pinned configs.
+``install``, a retune's hot swap, a rollback) or of the serving objective
+drops every program, so the next call captures under the new policy; the
+breaker's quarantines do not, as the reference's compiled programs keep
+their kernels.  On a CPU model (or with ``cuda_graphs=False``) the same
+programs run their body eagerly on every call, with the pinned configs.
 
 Fault containment and continuous tuning, as in the reference (its DESIGN.md
 §8 and §11): every program runs through :meth:`ServingEngine._run_program`,
@@ -56,8 +82,7 @@ auto-rollback watchdog reinstalls the previous deployment after
 telemetry -> drift -> incremental retune -> canary -> hot swap every
 ``retune_interval`` steps; ``offer_deployment`` stages an external
 deployment that ``adopt_deployment`` canaries and swaps in at the next step
-boundary.  Streaming admission, SLO mode and preemption wait for the paged
-pool.
+boundary.
 """
 from __future__ import annotations
 
@@ -74,7 +99,7 @@ import torch
 
 from ..core.faults import GUARDED_EXCEPTIONS, incident
 from ..core.retune import DEFAULT_DRIFT_THRESHOLD, DEFAULT_MIN_EVENTS
-from ..core.runtime import DEFAULT_SWAP_HISTORY, SelectionPins, current_runtime
+from ..core.runtime import Objective, SelectionPins, current_runtime
 from .kvpool import KVPool
 from .scheduler import Scheduler, SchedulerConfig
 
@@ -86,13 +111,16 @@ class Request:
     max_new_tokens: int = 16
     eos_id: int | None = None
     priority: int = 0  # higher admits sooner (scheduler ages waiters up)
-    latency_target_ms: float | None = None  # ranks the wait queue (scheduler)
+    latency_target_ms: float | None = None  # per-token SLO -> kernel selection
     # filled by the engine
     output: list[int] = dataclasses.field(default_factory=list)
     done: bool = False
-    state: str = "queued"  # queued | active | done | starved
+    state: str = "queued"  # queued | prefilling | active | preempted | done | starved
     truncated_tokens: int = 0  # prompt tokens dropped by sliding-window admit
     retries: int = 0  # kernel-fault retries this request survived
+    preemptions: int = 0  # times evicted back to the wait queue
+    token_ms: list[float] = dataclasses.field(default_factory=list)  # per-token latency
+    routed_to: str | None = None  # engine key a Router dispatched this to
 
 
 @dataclasses.dataclass(frozen=True)
@@ -128,11 +156,14 @@ class RetuneEvent:
 class EngineStatus:
     """What a drain/status snapshot finished (and what it didn't).
 
-    ``completed + in_flight + queued`` partitions the serving epoch;
-    ``exhausted`` means the step budget ran out with work left.  ``health``
-    is ``"degraded"`` while dispatch incidents are arriving or configs sit in
-    quarantine, ``"healthy"`` once a check window is clean.  The reference's
-    preemption and prefix-sharing fields join with the paged pool.
+    ``exhausted`` means the step budget ran out with work left.  A request
+    evicted back to the wait queue counts once: in live snapshots it moves
+    from ``in_flight`` to ``preempted`` and back on re-admission, so
+    ``completed + in_flight + queued + preempted`` partitions the epoch; a
+    drain report instead uses ``preempted`` for how many requests were
+    evicted at least once while it served.  ``health`` is ``"degraded"``
+    while dispatch incidents are arriving or configs sit in quarantine,
+    ``"healthy"`` once a check window is clean.
     """
 
     completed: int
@@ -141,8 +172,17 @@ class EngineStatus:
     steps: int
     exhausted: bool
     health: str = "healthy"
+    preempted: int = 0
+    # -- pool health (the paged / prefix-reuse path) --------------------------
     pool_utilization: float = 0.0  # used / total blocks
     pool_fragmentation: float = 0.0  # 1 - used token slots / allocated slots
+    shared_blocks: int = 0  # blocks aliased by more than one lane
+    prefix_hits: int = 0  # admissions that reused a cached prefix
+    prefix_lookups: int = 0  # admissions that probed the prefix index
+
+    @property
+    def prefix_hit_rate(self) -> float:
+        return self.prefix_hits / self.prefix_lookups if self.prefix_lookups else 0.0
 
 
 @dataclasses.dataclass
@@ -168,6 +208,12 @@ class Ticket:
             if not self.source.step():
                 return
 
+    def result(self) -> list[int]:
+        """Block (stepping the source) until done; return the full output."""
+        for _ in self.tokens():
+            pass
+        return list(self.request.output)
+
 
 def _bucket(n: int, buckets: tuple[int, ...]) -> int:
     for b in buckets:
@@ -188,6 +234,13 @@ def _extend_ladder(buckets: tuple[int, ...], cache_len: int) -> tuple[int, ...]:
         last *= 2
         out.append(last)
     return tuple(out)
+
+
+def _recent_ms(req: Request, k: int = 3) -> float | None:
+    if not req.token_ms:
+        return None
+    xs = req.token_ms[-k:]
+    return sum(xs) / len(xs)
 
 
 @contextlib.contextmanager
@@ -229,16 +282,17 @@ def _capture(graph, body):
 class ProgramRecord:
     """One program an engine built: what, under which policy epoch, how."""
 
-    kind: str  # "prefill" | "decode"
-    size: int  # prefill bucket or decode width
+    kind: str  # "prefill" | "chunk" | "decode"
+    size: int  # prefill bucket, chunk width or decode width
     epoch: int  # the runtime's policy epoch at the build
     captured: bool  # a CUDA graph (else the body runs eagerly on every call)
     seconds: float  # warm-up and capture
 
 
 class _Program:
-    """One prefill bucket's or decode width's step: static input buffers, the
-    body that reads them, and its CUDA graph where it was captured.
+    """One prefill bucket's, chunk width's or decode width's step: static input
+    buffers, the body that reads them, and its CUDA graph where it was
+    captured.
 
     ``outputs`` holds the body's outputs: the graph's own tensors once
     captured (each replay rewrites them in place), else the latest eager
@@ -254,7 +308,7 @@ class _Program:
         self.body = body
         self.graph: torch.cuda.CUDAGraph | None = None
         self.stream: torch.cuda.Stream | None = None  # the graph's capture and replay stream
-        self.view: dict | None = None  # a decode program's fixed cache view
+        self.view: dict | None = None  # a decode or chunk program's fixed cache view
         self.outputs: dict = {}
         self.runs = 0
 
@@ -301,6 +355,11 @@ class ServingEngine:
         block_size: int | None = None,
         n_blocks: int | None = None,
         scheduler: SchedulerConfig | None = None,
+        prefill_chunk_tokens: int | None = None,
+        prefix_sharing: bool = True,
+        slo_aware: bool = True,
+        slo_patience: int = 4,
+        clock=None,
         on_prefill=None,
         on_decode=None,
         cuda_graphs: bool | None = None,
@@ -309,6 +368,7 @@ class ServingEngine:
         retune_min_events: int = DEFAULT_MIN_EVENTS,
         canary: bool = True,
         rollback_threshold: int = 3,
+        swap_history: int = 4,
         retune_dataset_builder=None,
     ):
         """``cuda_graphs``: None captures every program as a CUDA graph on a
@@ -324,11 +384,20 @@ class ServingEngine:
         a bundle whose resolved deployment holds configs the port has not
         compiled raises here.
 
+        The paged tier, as in the reference: ``block_size`` / ``n_blocks``
+        page the pool (``block_size=None``: one dense block per lane);
+        ``prefill_chunk_tokens`` caps a prefill chunk (and is the default
+        per-step prefill budget); ``prefix_sharing`` aliases cached prompt
+        prefixes; ``slo_aware`` / ``slo_patience`` drive SLO mode on
+        ``clock`` (a zero-argument function returning seconds; default
+        ``time.perf_counter``).
+
         Continuous tuning and containment, as in the reference:
         ``retune_interval`` (steps between drift checks; ``None``: never by
         itself), ``drift_threshold`` and ``retune_min_events`` (the drift
         check's), ``canary`` (gate candidates), ``rollback_threshold``
-        (incidents after a swap that roll it back).  ``retune_dataset_builder``
+        (incidents after a swap that roll it back), ``swap_history``
+        (previous deployments kept for rollback).  ``retune_dataset_builder``
         (``(problems, device) -> TuningDataset``) is the matmul table a
         retune fits: default the H100 model; on the card a ``gpubench``
         measurement."""
@@ -348,6 +417,19 @@ class ServingEngine:
         self._ladder = _extend_ladder(tuple(prefill_buckets), cache_len)
         self.pool = KVPool(model, lanes=max_batch, cache_len=cache_len,
                            block_size=block_size, n_blocks=n_blocks)
+        # Streaming admission (chunked prefill + prefix sharing) needs a
+        # chunk-capable model and either a chunk budget or a paged pool with
+        # sharing; everything else keeps the legacy admission.
+        chunk_capable = hasattr(model, "prefill_chunk") and model.supports_chunked_prefill()
+        paged = self.pool.block_size < self.cache_len
+        self.prefill_chunk_tokens = prefill_chunk_tokens
+        self._sharing = bool(prefix_sharing) and paged and chunk_capable
+        self._streaming = chunk_capable and (prefill_chunk_tokens is not None or self._sharing)
+        if (self._streaming and prefill_chunk_tokens is not None
+                and (scheduler is None or scheduler.prefill_token_budget is None)):
+            # The chunk cap doubles as the default per-step prefill budget.
+            scheduler = dataclasses.replace(scheduler or SchedulerConfig(),
+                                            prefill_token_budget=int(prefill_chunk_tokens))
         self.scheduler = Scheduler(scheduler)
         self.positions = np.zeros(max_batch, dtype=np.int64)  # next position to write
         self.slots: list[Request | None] = [None] * max_batch
@@ -372,6 +454,7 @@ class ServingEngine:
         # policy changes.
         self._prefill_cache: dict[int, _Program] = {}
         self._decode_cache: dict[int, _Program] = {}
+        self._chunk_cache: dict[int, _Program] = {}
         self._programs_policy = self._live_policy()
         self.program_log: list[ProgramRecord] = []  # every program built, dropped ones included
         # The stream this engine warms up, captures and replays on.  The kernels key
@@ -379,6 +462,17 @@ class ServingEngine:
         # work on another stream touches them (engines that torch's stream pool puts
         # on one stream run in turn).
         self._stream: torch.cuda.Stream | None = None
+
+        # -- SLO-aware selection -------------------------------------------------
+        self.slo_aware = slo_aware
+        self.slo_patience = max(int(slo_patience), 1)
+        self._prefix_reused_tokens = 0  # prefill tokens skipped through aliasing
+        self.slo_events: list[tuple[int, str, float | None]] = []
+        self._slo_mode = False
+        self._slo_cap: int | None = None
+        self._slo_ok = 0
+        self._step_ms: deque = deque(maxlen=8)  # recent per-step times
+        self._clock = clock if clock is not None else time.perf_counter
 
         # -- continuous tuning loop --------------------------------------------
         self.retune_interval = retune_interval
@@ -396,7 +490,7 @@ class ServingEngine:
         self._incidents_seen = self.runtime.incident_count()
         # Previous deployments, newest last: maybe_retune pushes the incumbent
         # before installing a candidate, the rollback watchdog pops it.
-        self._swap_history: deque = deque(maxlen=DEFAULT_SWAP_HISTORY)
+        self._swap_history: deque = deque(maxlen=max(int(swap_history), 1))
         self._incidents_at_swap: int | None = None
         # An externally offered deployment, staged from any thread and adopted
         # at the next step boundary, so a swap never lands mid-step.
@@ -413,17 +507,18 @@ class ServingEngine:
 
     # -- compiled programs ------------------------------------------------------
     def _live_policy(self) -> tuple:
-        """What the programs were built against: the runtime's live policy
-        and the device it serves.  The breaker is not part of it: a
-        quarantine redirects new selections and leaves programs already
-        built alone, as the reference's compiled programs keep theirs."""
-        return self.runtime.policy(), self.runtime.active_device()
+        """What the programs were built against: the runtime's live policy,
+        the device it serves and the serving objective.  The breaker is not
+        part of it: a quarantine redirects new selections and leaves programs
+        already built alone, as the reference's compiled programs keep theirs."""
+        return self.runtime.policy(), self.runtime.active_device(), self.runtime.objective()
 
     def _sync_programs(self) -> None:
-        """Drop every program built under another live policy (the
+        """Drop every program built under another live policy or objective (the
         counterpart of the reference dropping its programs on adoption)."""
-        policy, device = self._live_policy()
-        if policy is not self._programs_policy[0] or device != self._programs_policy[1]:
+        policy, device, objective = self._live_policy()
+        built = self._programs_policy
+        if policy is not built[0] or device != built[1] or objective != built[2]:
             self._drop_programs()
 
     def _drop_programs(self) -> None:
@@ -433,6 +528,7 @@ class ServingEngine:
 
     def _rejit_decode(self) -> None:
         self._decode_cache.clear()
+        self._chunk_cache.clear()
 
     def _prefill_fn(self, plen: int) -> _Program:
         self._sync_programs()
@@ -452,8 +548,9 @@ class ServingEngine:
         if width not in self._decode_cache:
             dev = self.model.device
             inputs = {"tokens": torch.zeros((width, 1), dtype=torch.int64, device=dev)}
-            for name in ("positions", "blocks", "lanes"):
+            for name in ("positions", "lanes"):
                 inputs[name] = torch.zeros(width, dtype=torch.int64, device=dev)
+            inputs["blocks"] = torch.zeros((width, self.pool.blocks_per_lane), dtype=torch.int64, device=dev)
             view = self.pool.decode_view(width)  # raises on a replicated leaf, which scatter rebinds
 
             def forward():
@@ -475,6 +572,39 @@ class ServingEngine:
             prog.view = view
             self._decode_cache[width] = prog
         return self._decode_cache[width]
+
+    def _chunk_fn(self, width: int) -> _Program:
+        """The chunk-append prefill program of one chunk width: one lane's
+        blocks gathered into a fixed one-row view, ``model.prefill_chunk`` at
+        the staged ``start`` and ``last_row``, the view scattered back."""
+        self._sync_programs()
+        if width not in self._chunk_cache:
+            dev = self.model.device
+            inputs = {"tokens": torch.zeros((1, width), dtype=torch.int64, device=dev),
+                      "start": torch.zeros((), dtype=torch.int64, device=dev),
+                      "last_row": torch.zeros((), dtype=torch.int64, device=dev),
+                      "blocks": torch.zeros((1, self.pool.blocks_per_lane), dtype=torch.int64, device=dev),
+                      "lanes": torch.zeros(1, dtype=torch.int64, device=dev)}
+            view = self.pool.decode_view(1)
+
+            def forward():
+                self.pool.gather_rows(inputs["blocks"], inputs["lanes"], out=view)
+                return self.model.prefill_chunk(self.params, view, inputs["tokens"], inputs["start"],
+                                                inputs["last_row"])
+
+            def body():
+                logits, cache = forward()
+                self.pool.scatter_rows(inputs["blocks"], inputs["lanes"], cache)
+                return {"logits": logits, "next": torch.argmax(logits[0, -1])}
+
+            def warm():
+                logits, _ = forward()  # the view only: the pool stays as it was
+                torch.argmax(logits[0, -1])
+
+            prog = self._build("chunk", width, inputs, body, warm)
+            prog.view = view
+            self._chunk_cache[width] = prog
+        return self._chunk_cache[width]
 
     def _build(self, kind: str, size: int, inputs: dict, body, warm) -> _Program:
         """A program over ``inputs`` running ``body``: warmed up once (``warm``,
@@ -514,7 +644,7 @@ class ServingEngine:
     def programs(self) -> dict:
         """Live programs by (kind, size): policy epoch, captured, calls so far."""
         return {(p.kind, p.size): {"epoch": p.epoch, "captured": p.graph is not None, "runs": p.runs}
-                for cache in (self._prefill_cache, self._decode_cache) for p in cache.values()}
+                for cache in (self._prefill_cache, self._chunk_cache, self._decode_cache) for p in cache.values()}
 
     # -- lane admission -------------------------------------------------------
     def _free_lane(self) -> int | None:
@@ -524,16 +654,25 @@ class ServingEngine:
         return None
 
     def _seq_tokens(self, req: Request) -> np.ndarray:
+        """Tokens a (re-)admission must prefill: the prompt plus anything already
+        generated (a preempted request resumes by prefilling both)."""
         prompt = np.asarray(req.prompt, dtype=np.int32)
         if req.output:
             return np.concatenate([prompt, np.asarray(req.output, dtype=np.int32)])
         return prompt
 
     def _fits(self, req: Request) -> bool:
+        if self._streaming:
+            return self.pool.can_fit(min(len(self._seq_tokens(req)), self._ladder[-1]))
         return self.pool.can_fit(_bucket(len(self._seq_tokens(req)), self._ladder))
 
-    def _admit(self, req: Request, slot: int) -> None:
-        """Prefill ``req`` into ``slot`` and emit its first token."""
+    def _admit(self, req: Request, slot: int) -> bool:
+        """Admit ``req`` into ``slot``; True if a first token was emitted
+        (legacy monolithic prefill), False if the lane entered the
+        ``"prefilling"`` state (streaming: chunks run in :meth:`_advance_prefills`)."""
+        if self._streaming:
+            self._admit_streaming(req, slot)
+            return False
         tail = self._seq_tokens(req)
         plen = _bucket(len(tail), self._ladder)
         if len(tail) > plen:
@@ -543,6 +682,7 @@ class ServingEngine:
         prompt = np.zeros(plen, dtype=np.int64)
         if len(tail):
             prompt[-len(tail):] = tail  # left-pad with id 0 (causal end-aligned)
+
         def run():
             prog = self._prefill_fn(plen)
             prog.stage(tokens=prompt[None, :])
@@ -550,6 +690,8 @@ class ServingEngine:
 
         out = self._run_program("engine.prefill", run, retrace=lambda: self._prefill_cache.pop(plen, None),
                                 request=req)
+        # Back the lane with blocks (its previous tenant is reclaimed) and copy
+        # the batch-1 prefill cache into them.
         self.pool.release(slot)
         if not self.pool.ensure(slot, plen):
             raise RuntimeError(f"admitted request {req.uid} with no blocks for plen={plen}")
@@ -561,32 +703,202 @@ class ServingEngine:
         req.state = "active"
         self.slots[slot] = req
         self.positions[slot] = plen
+        return True
+
+    # -- streaming admission (chunked prefill + prefix sharing) ---------------
+    def _chunk_cap(self) -> int:
+        """Largest chunk width one prefill program may cover right now: the
+        biggest ladder value at or under ``prefill_chunk_tokens`` (the whole
+        ladder if unset), one rung lower in SLO mode."""
+        limit = self.prefill_chunk_tokens
+        cap = self._ladder[0]
+        for b in self._ladder:
+            if limit is None or b <= limit:
+                cap = max(cap, b)
+        if self._slo_mode:
+            below = [b for b in self._ladder if b < cap]
+            cap = max(below) if below else self._ladder[0]
+        return cap
+
+    def _admit_streaming(self, req: Request, slot: int) -> None:
+        """Left-aligned admission: alias any cached prefix, allocate the rest,
+        and queue the sequence for budgeted chunked prefill.  No program runs
+        here; the final chunk emits the first token."""
+        seq = self._seq_tokens(req)
+        keep = self._ladder[-1]
+        if len(seq) > keep:
+            # As in the legacy regime: keep the most recent tokens.
+            req.truncated_tokens = len(seq) - keep
+            seq = seq[-keep:]
+        body = seq[:-1]
+        shared_tokens = 0
+        if self._sharing:
+            # Match-then-release in one call: the lane's outgoing tenant may
+            # own the matched blocks.
+            shared_tokens = self.pool.admit_prefix(slot, body)
+            self._prefix_reused_tokens += shared_tokens
+        else:
+            self.pool.release(slot)
+        # Lane leaves must start from zeros: nothing below rewrites them whole.
+        self.pool.reset_lane_state(slot)
+        if not self.pool.ensure(slot, len(seq)):
+            raise RuntimeError(f"admitted request {req.uid} with no blocks for {len(seq)} tokens")
+        self.pool.note_tokens(slot, len(seq))
+        # Chunks cover the whole sequence: the final chunk's last real row
+        # predicts the first output token.  Sharing matches and registers the
+        # body only, so the decode-frontier block stays private.
+        req._chunk_tokens = np.asarray(seq, dtype=np.int64)
+        req._chunk_pos = shared_tokens
+        req._first_token = None
+        req.state = "prefilling"
+        self.slots[slot] = req
+        self.positions[slot] = len(seq) - 1  # overwritten by the final chunk
+
+    def _run_chunk(self, lane: int, req: Request, width: int) -> None:
+        """One chunk-append program over ``[chunk_pos, chunk_pos + width)``."""
+        toks = req._chunk_tokens
+        s0 = req._chunk_pos
+        chunk = np.zeros(width, dtype=np.int64)
+        real = toks[s0:s0 + width]
+        chunk[:len(real)] = real
+        blocks, lanes = self.pool.row_ids([lane])
+
+        def run():
+            prog = self._chunk_fn(width)
+            prog.stage(tokens=chunk[None, :], start=s0, last_row=len(real) - 1, blocks=blocks, lanes=lanes)
+            return prog.run(self.runtime)
+
+        out = self._run_program("engine.prefill", run, retrace=lambda: self._chunk_cache.pop(width, None),
+                                request=req)
+        if self.on_prefill is not None:
+            self.on_prefill(width)
+        req._chunk_pos = min(s0 + width, len(toks))
+        if req._chunk_pos >= len(toks):
+            # Final chunk: its last real row predicts the first output token
+            # (read now: the program's outputs are rewritten by its next call).
+            req._first_token = int(out["next"].cpu())
+        if self._sharing:
+            # Index the blocks this chunk completed right away, so siblings
+            # admitted meanwhile can alias them (the body only: COW rule).
+            self.pool.register_prefix(lane, toks[:min(req._chunk_pos, len(toks) - 1)])
+
+    def _activate_lane(self, lane: int, req: Request) -> None:
+        """Sequence fully cached: emit the first token from the final chunk
+        and join the batched decode."""
+        seq = req._chunk_tokens
+        if self._sharing:
+            self.pool.register_prefix(lane, seq[:-1])
+        req.output.append(req._first_token)
+        req._first_token = None
+        req.state = "active"
+        self.positions[lane] = len(seq)
+        self.pool.note_tokens(lane, len(seq))
+
+    def _advance_prefills(self) -> tuple[list[Request], list[Request]]:
+        """Run chunk programs for ``"prefilling"`` lanes within this step's
+        prefill-token budget; activate lanes whose sequence is cached.
+        Returns ``(progressed, activated)``.  At least one chunk runs per step
+        when a lane is prefilling (the budget is a soft cap, never a stall)."""
+        progressed: list[Request] = []
+        activated: list[Request] = []
+        for lane, req in enumerate(self.slots):
+            if req is None or req.state != "prefilling":
+                continue
+            did = False
+            while req._chunk_pos < len(req._chunk_tokens):
+                remaining = len(req._chunk_tokens) - req._chunk_pos
+                width = min(self._chunk_cap(), _bucket(remaining, self._ladder))
+                left = self.scheduler.prefill_budget_left()
+                if width > left and self.scheduler._prefill_spent > 0:
+                    break  # budget spent; resume next step
+                self._run_chunk(lane, req, width)
+                self.scheduler.charge_prefill(width)
+                did = True
+            if did:
+                progressed.append(req)
+            if req._chunk_pos >= len(req._chunk_tokens):
+                self._activate_lane(lane, req)
+                activated.append(req)
+        return progressed, activated
+
+    # -- preemption -----------------------------------------------------------
+    def _preempt(self, lane: int) -> Request:
+        """Evict the lane's resident back to the wait queue, reclaiming its
+        blocks; it keeps its output and re-admits through prompt+output prefill."""
+        req = self.slots[lane]
+        self.slots[lane] = None
+        self.pool.release(lane)
+        req.state = "preempted"
+        req.preemptions += 1
+        self.scheduler.submit(req, step=self.steps)
+        return req
+
+    def _pick_victim(self, running: list) -> Request | None:
+        """The scheduler's victim, preferring lanes that hold no shared
+        blocks: shared-prefix holders are ``protect``ed and become candidates
+        only when no other victim exists."""
+        protect = [r for lane, r in enumerate(self.slots) if r is not None and self.pool.lane_holds_shared(lane)]
+        victim = self.scheduler.pick_victim(running, self.steps, protect=protect)
+        if victim is None and protect:
+            victim = self.scheduler.pick_victim(running, self.steps)
+        return victim
+
+    def _preempt_for_admission(self) -> Request | None:
+        """A waiter that outranks the weakest resident by the configured gap
+        may take its blocks."""
+        best = self.scheduler.peek_best(self.steps)
+        if best is None:
+            return None
+        running = [r for r in self.slots if r is not None]
+        victim = self._pick_victim(running)
+        if victim is None:
+            return None
+        gap = self.scheduler.config.preempt_priority_gap
+        if self.scheduler.effective_priority(best, self.steps) < victim.priority + gap:
+            return None
+        self._preempt(self.slots.index(victim))
+        if self._fits(best):
+            self.scheduler.remove(best)
+            return best
+        return None
 
     def _grow_active(self) -> None:
-        """Every active lane must own the block its next token writes into.
-        In the dense layout a lane's one block covers ``cache_len`` tokens,
-        so this never needs to preempt."""
+        """Every active lane must own the block its next token writes into;
+        under pool pressure the scheduler's victim (lowest priority, most
+        emitted tokens) is preempted until the allocation fits."""
         for lane, req in enumerate(self.slots):
-            if req is None:
-                continue
+            if req is None or req.state == "prefilling":
+                continue  # prefilling lanes allocated fully at admission
             need = int(self.positions[lane]) + 1
-            if not self.pool.ensure(lane, need):
-                raise RuntimeError(f"lane {lane} has no block for position {need - 1}")
-            self.pool.note_tokens(lane, need)
+            while not self.pool.ensure(lane, need):
+                running = [r for r in self.slots if r is not None]
+                victim = self._pick_victim(running)
+                if victim is None:
+                    break
+                vlane = self.slots.index(victim)
+                self._preempt(vlane)
+                if vlane == lane:
+                    break  # preempted ourselves; the lane is empty now
+            else:
+                self.pool.note_tokens(lane, need)
 
     # -- decode ---------------------------------------------------------------
     def _width(self, n_active: int) -> int:
         return _bucket(n_active, self._width_buckets)
 
     def _decode_active(self) -> list[Request]:
-        """One batched decode over the active lanes, padded with idle lanes
-        to the smallest width bucket that fits; returns the requests that
-        received a token."""
-        active = [i for i, r in enumerate(self.slots) if r is not None]
+        """One batched decode over the active lanes, padded to the smallest
+        width bucket that fits with idle lanes (their tables are empty or
+        retired, so their writes land in scratch or past their frontier), then
+        with lanes still prefilling (their pad write lands at the last prompt
+        position, which their final chunk overwrites); returns the requests
+        that received a token."""
+        active = [i for i, r in enumerate(self.slots) if r is not None and r.state == "active"]
         if not active:
             return []
         width = self._width(len(active))
         idle = [i for i, r in enumerate(self.slots) if r is None]
+        idle += [i for i, r in enumerate(self.slots) if r is not None and r.state == "prefilling"]
         sel = active + idle[: width - len(active)]
         tokens = np.zeros((width, 1), dtype=np.int64)
         for row, lane in enumerate(active):
@@ -620,6 +932,78 @@ class ServingEngine:
                 self.pool.retire(lane)  # blocks stay readable until reclaimed
         self.steps += 1
         return got
+
+    # -- SLO pressure (objective-aware selection) -----------------------------
+    def _admit_blocked(self) -> bool:
+        if not self._slo_mode or self._slo_cap is None:
+            return False
+        return sum(s is not None for s in self.slots) >= self._slo_cap
+
+    def _enter_slo(self, target: float) -> None:
+        self._slo_mode = True
+        self._slo_ok = 0
+        # Cap admission below the current width bucket, so the batch shrinks
+        # as residents finish instead of refilling.
+        cur = self._width(sum(s is not None for s in self.slots))
+        cap = 1
+        for b in self._width_buckets:
+            if b < cur:
+                cap = b
+        self._slo_cap = cap
+        self.slo_events.append((self.steps, "enter", target))
+        # SLO mode also shrinks the chunk cap one ladder rung (_chunk_cap reads
+        # _slo_mode, set above); the Objective publishes it.
+        self.runtime.set_objective(Objective(
+            latency_target_ms=float(target),
+            prefill_chunk_tokens=self._chunk_cap() if self._streaming else None,
+        ))
+        # The next call of each program captures it again under the objective.
+        self._drop_programs()
+
+    def _exit_slo(self) -> None:
+        self._slo_mode = False
+        self._slo_cap = None
+        self._slo_ok = 0
+        self.slo_events.append((self.steps, "exit", None))
+        self.runtime.set_objective(None)
+        self._drop_programs()
+
+    def _update_slo(self) -> None:
+        """Hysteresis around the latency objective.
+
+        Enter SLO mode when the engine's recent per-step time (or a targeted
+        resident's recent per-token latency) overruns the target of any
+        latency-targeted request, resident or queued.  Exit when no targeted
+        work remains, or after ``slo_patience`` consecutive calm (< 0.7x
+        target) steps.
+        """
+        if not self.slo_aware:
+            return
+        resident = [r for r in self.slots if r is not None and r.latency_target_ms is not None]
+        queued = [r for r in self.scheduler.waiting() if r.latency_target_ms is not None]
+        if not self._slo_mode:
+            recent = list(self._step_ms)[-3:]
+            step_ms = sum(recent) / len(recent) if recent else None
+            at_risk = [r for r in resident if _recent_ms(r) is not None and _recent_ms(r) > r.latency_target_ms]
+            if step_ms is not None:
+                at_risk += [r for r in resident + queued if r.latency_target_ms < step_ms]
+            if at_risk:
+                self._enter_slo(min(r.latency_target_ms for r in at_risk))
+            return
+        if not resident and not queued:
+            self._exit_slo()
+            return
+        # A targeted request still waiting holds the mode: dropping the cap
+        # now would widen the batch right before it lands.
+        calm = bool(resident) and all(
+            _recent_ms(r) is None or _recent_ms(r) < 0.7 * r.latency_target_ms for r in resident
+        )
+        if calm:
+            self._slo_ok += 1
+            if self._slo_ok >= self.slo_patience:
+                self._exit_slo()
+        else:
+            self._slo_ok = 0
 
     # -- failure containment ---------------------------------------------------
     def _run_program(self, site: str, fn, *, retrace, request: Request | None = None):
@@ -861,7 +1245,7 @@ class ServingEngine:
 
     # -- public ---------------------------------------------------------------
     def submit(self, prompt, *, max_new_tokens: int = 16, eos_id: int | None = None,
-               priority: int = 0, uid: int | None = None) -> Ticket:
+               priority: int = 0, latency_target_ms: float | None = None, uid: int | None = None) -> Ticket:
         """Enqueue one prompt; returns a streaming :class:`Ticket`."""
         req = Request(
             uid=uid if uid is not None else next(self._uid),
@@ -869,6 +1253,7 @@ class ServingEngine:
             max_new_tokens=max_new_tokens,
             eos_id=eos_id,
             priority=priority,
+            latency_target_ms=latency_target_ms,
         )
         return self.submit_request(req)
 
@@ -883,27 +1268,42 @@ class ServingEngine:
         return bool(len(self.scheduler) or any(s is not None for s in self.slots))
 
     def step(self) -> bool:
-        """One scheduling round (admit -> grow -> decode).
+        """One scheduling round (admit -> chunks -> grow/preempt -> decode ->
+        watchdogs), in the reference's order.
 
-        Returns False when no progress was possible (nothing admitted and no
-        active lane decoded).  An offered deployment is adopted first; the
-        health check, the rollback watchdog and (every ``retune_interval``
-        steps) the drift check run last.
+        Returns False when no progress was possible (nothing admitted, no
+        chunk run and no active lane decoded).  An offered deployment is
+        adopted first and SLO mode is updated before admission; the health
+        check, the rollback watchdog and (every ``retune_interval`` steps) the
+        drift check run last.  The step's time on ``clock`` feeds SLO mode.
         """
+        t0 = self._clock()
         offer = self._take_offer()
         if offer is not None:
             self.adopt_deployment(offer[0], source=offer[1])
-        self.scheduler.begin_step()
+        self._update_slo()
+        self.scheduler.begin_step()  # a fresh prefill-token budget
         emitted: list[Request] = []
+        preempted_once = False
         while len(self.scheduler):
             lane = self._free_lane()
-            if lane is None:
+            if lane is None or self._admit_blocked():
                 break
             req = self.scheduler.pop_next(self.steps, fits=self._fits)
             if req is None:
-                break
-            self._admit(req, lane)
-            emitted.append(req)
+                if preempted_once:
+                    break
+                preempted_once = True
+                req = self._preempt_for_admission()
+                if req is None:
+                    break
+                lane = self._free_lane()
+            if self._admit(req, lane):
+                emitted.append(req)  # legacy prefill emitted the first token
+        # A lane whose final chunk lands this step emits its first token here
+        # and joins this step's decode.
+        progressed, activated = self._advance_prefills()
+        emitted.extend(activated)
         self._grow_active()
         emitted.extend(self._decode_active())
         self._update_health()
@@ -911,33 +1311,53 @@ class ServingEngine:
         if self.retune_interval is not None and self.steps - self._last_retune_check >= self.retune_interval:
             self._last_retune_check = self.steps
             self.maybe_retune()
-        return bool(emitted)
+        dt_ms = (self._clock() - t0) * 1e3
+        self._step_ms.append(dt_ms)
+        for r in emitted:
+            r.token_ms.append(dt_ms)
+        return bool(emitted or progressed)
 
     def status(self) -> EngineStatus:
-        """Live snapshot over this serving epoch (since the last drain)."""
+        """Live snapshot over this serving epoch (since the last drain):
+        ``completed + in_flight + queued + preempted`` partitions it."""
         waiting = self.scheduler.waiting()
+        preempted_now = sum(1 for r in waiting if r.state == "preempted")
         in_flight = sum(s is not None for s in self.slots)
         return EngineStatus(
             completed=sum(r.done for r in self._epoch_requests),
             in_flight=in_flight,
-            queued=len(waiting),
+            queued=len(waiting) - preempted_now,
             steps=self.steps,
             exhausted=bool(waiting or in_flight),
             health=self.health,
+            preempted=preempted_now,
             **self._pool_health(),
         )
 
     def _pool_health(self) -> dict:
         ps = self.pool.stats()
-        return {"pool_utilization": ps["utilization"], "pool_fragmentation": ps["fragmentation"]}
+        return {"pool_utilization": ps["utilization"], "pool_fragmentation": ps["fragmentation"],
+                "shared_blocks": ps["shared_blocks"], "prefix_hits": ps["prefix_hits"],
+                "prefix_lookups": ps["prefix_lookups"]}
+
+    def prefix_overlap(self, prompt) -> int:
+        """Tokens of ``prompt`` this engine could serve from cached blocks: a
+        read-only probe (hit-rate counters untouched) for the Router's prefix
+        affinity; 0 when sharing is off here."""
+        if not self._sharing:
+            return 0
+        body = np.asarray(prompt, dtype=np.int32)[:-1]
+        return len(self.pool.match_prefix(body, peek=True)) * self.pool.block_size
 
     def drain(self, *, max_steps: int = 10_000) -> EngineStatus:
         """Serve everything submitted until done or the step budget runs out.
 
-        Waiting requests left when the budget is exhausted are marked
-        ``state="starved"`` and dropped from the queue (``done=False``).
-        Closes the serving epoch: the next drain reports only requests
-        submitted after this one (in-flight survivors carry over).
+        Waiting requests left when the budget is exhausted (queued or
+        preempted) are marked ``state="starved"`` and dropped from the queue
+        (``done=False``).  Closes the serving epoch: the next drain reports
+        only requests submitted after this one (in-flight survivors carry
+        over).  ``preempted`` reports how many of the epoch's requests were
+        evicted at least once.
         """
         while self.pending() and self.steps < max_steps:
             if not self.step():
@@ -955,6 +1375,7 @@ class ServingEngine:
             steps=self.steps,
             exhausted=exhausted,
             health=self.health,
+            preempted=sum(1 for r in reqs if r.preemptions),
             **self._pool_health(),
         )
         self._epoch_requests = [r for r in reqs if r.state == "active"]

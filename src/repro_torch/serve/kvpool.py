@@ -1,11 +1,13 @@
-"""Cache storage for the serving engine: the dense layout of ``repro/serve/kvpool.py``.
+"""Block-allocated paged KV cache for the serving tier, ported from ``repro/serve/kvpool.py``.
 
-The reference pool is block-allocated; with ``block_size=None`` it degenerates
-to one ``cache_len``-sized block per lane, which is the layout this port keeps
-so far.  The block bookkeeping is the reference's (a free list, per-lane block
-tables, lazy reclaim of retired lanes, block 0 as an always-zero scratch
-block), so admission decisions and pool statistics match it; refcounts wait
-for prefix sharing, since without it every block has one owner.
+Cache storage is a pool of ``n_blocks`` fixed-size **blocks** of
+``block_size`` tokens each, plus one permanently-zero **scratch block** (id
+0) that pads partially-filled lanes.  Every live request (a **lane**) owns an
+ordered **block table**: the blocks that back its tokens, allocated on admit
+and grown as decode advances.  Models never see blocks: ``gather`` builds a
+dense ``(W, cache_len, ...)`` decode view from the tables and ``scatter``
+writes an updated view back.  ``block_size=None`` degenerates to one
+``cache_len``-sized block per lane, the seed engine's dense layout.
 
 Cache leaves are classified structurally, as the reference's
 ``probe_cache_layout`` does: ``model.init_cache`` is probed at two (batch,
@@ -16,20 +18,48 @@ form (``"['layer1']['k']"``), and ``gather`` / ``scatter`` / ``admit`` take
 and return the model's own tree.
 
 * **paged** leaves have a batch axis and a length axis that tracks
-  ``cache_len`` exactly (k/v token caches).  They live in the block store,
-  whose batch axis indexes blocks: ``(n_blocks + 1)`` rows, row 0 the scratch
-  block.
+  ``cache_len`` exactly (k/v token caches, and an int8 cache's scales).  They
+  live in the block store, whose batch axis indexes blocks: ``(n_blocks + 1)``
+  rows of ``block_size`` tokens, row 0 the scratch block.  The length axis
+  follows the batch axis in every model of the port, so the blocks of a lane
+  gathered along the batch axis reshape, without a copy, into its
+  ``cache_len`` tokens.
 * **lane** leaves have a batch axis but no length axis that tracks
   ``cache_len`` (the RWKV6 wkv/x1/x2 and Hymba SSM recurrent state, and
-  sliding-window rings shorter than ``cache_len``).  They live one row per
-  lane.  ``gather`` and ``scatter`` read and write the row of every lane in
-  the decode batch, idle lanes included, as the reference does.
+  sliding-window rings shorter than ``cache_len``: a Hymba ring of
+  ``min(window, cache_len)`` classifies as paged only when it tracks both
+  probe lengths).  They live one row per lane.  ``gather`` and ``scatter``
+  read and write the row of every lane in the decode batch, idle lanes
+  included, as the reference does.
 * **replicated** leaves have neither; stored once.  ``scatter`` rebinds
   one to the view's tensor, so a fixed :meth:`KVPool.decode_view` (what the
   engine's CUDA graphs read and write) refuses a pool that has one.
 
-Paging and prefix sharing raise ``NotImplementedError`` until the serving
-tier is ported.
+Data movement is index-tensor driven (:meth:`row_ids` -> :meth:`gather_rows`
+/ :meth:`scatter_rows`), so a CUDA graph reads the ``(W, blocks_per_lane)``
+block table staged into its inputs before each replay.  Rows of a lane's
+table past its allocation read and write scratch block 0, which is zeroed
+again after every scatter.  Siblings that alias a shared prefix put the same
+block id in the scatter's index more than once; by the copy-on-write rule
+below their copies of it hold identical bytes, so the order of those writes
+does not matter.
+
+**Prefix sharing**, as in the reference: blocks are refcounted and indexed by
+a *chain hash* of the token ids they cache, ``h_i = hash((h_{i-1},
+tokens[i*bs:(i+1)*bs]))`` over Python ``int`` tuples, so the hashes equal the
+reference's.  A lane registers its fully covered blocks
+(:meth:`register_prefix`); a later admission with the same leading tokens
+aliases the longest indexed run (:meth:`match_prefix`, :meth:`admit_prefix`,
+:meth:`alias`) and skips prefill for it.  Only full blocks whose content is
+never rewritten are indexed (the block holding a lane's decode frontier
+stays private).  ``release`` decrements refcounts and frees a block only at
+zero, and its index entry dies with it.  Retired lanes keep their blocks
+indexed until block pressure harvests them.
+
+Invariant relied on for identity with the dense engine: models write cache
+content only at positions ``< position`` and mask reads beyond it, and fresh
+cache content is zero, so zero-filled growth blocks are indistinguishable
+from a dense slot's untouched tail.
 """
 from __future__ import annotations
 
@@ -116,23 +146,35 @@ def probe_cache_layout(init_cache, cache_len: int, block_size: int) -> dict[str,
 
 
 class KVPool:
-    """Dense cache storage: one cache_len block per lane plus scratch block 0,
-    and one row per lane for recurrent state."""
+    """Paged KV storage: block pool + per-lane block tables + lane state.
+
+    ``lanes`` bounds concurrent decode residents (the engine's ``max_batch``);
+    ``n_blocks`` bounds total live cache tokens (``n_blocks * block_size``).
+    With the defaults (``block_size=None``) the pool is the seed engine's
+    dense ``init_cache(lanes, cache_len)`` layout.
+    """
 
     def __init__(self, model, *, lanes: int, cache_len: int,
                  block_size: int | None = None, n_blocks: int | None = None):
-        if block_size is not None or n_blocks is not None:
-            raise NotImplementedError("paged KV storage (block_size / n_blocks) is not ported yet")
         if lanes < 1:
             raise ValueError("lanes must be >= 1")
         self.lanes = int(lanes)
         self.cache_len = int(cache_len)
-        self.block_size = self.cache_len
-        self.blocks_per_lane = 1
-        self.n_blocks = self.lanes
+        self.block_size = int(block_size) if block_size else self.cache_len
+        if self.cache_len % self.block_size:
+            raise ValueError(f"cache_len={cache_len} not divisible by block_size={self.block_size}")
+        self.blocks_per_lane = self.cache_len // self.block_size
+        self.n_blocks = int(n_blocks) if n_blocks else self.lanes * self.blocks_per_lane
+        if self.n_blocks < self.blocks_per_lane:
+            raise ValueError(f"n_blocks={self.n_blocks} cannot back even one full lane "
+                             f"({self.blocks_per_lane} blocks)")
         self.specs = probe_cache_layout(model.init_cache, self.cache_len, self.block_size)
+        for spec in self.specs.values():
+            if spec.kind == "paged" and spec.length_axis != spec.batch_axis + 1:
+                raise ValueError(f"paged cache leaf {spec.path}: its length axis must follow its batch axis")
         kinds = {spec.kind for spec in self.specs.values()}
-        per_block = flatten_cache(model.init_cache(self.n_blocks + 1, self.cache_len)) if "paged" in kinds else {}
+        # Block pool: the batch axis indexes blocks, id 0 the always-zero scratch block.
+        per_block = flatten_cache(model.init_cache(self.n_blocks + 1, self.block_size)) if "paged" in kinds else {}
         per_lane = flatten_cache(model.init_cache(self.lanes, self.cache_len)) if kinds - {"paged"} else {}
         # keystr path -> key path, to rebuild the model's tree.
         self._paths = {_keystr(k): k for k in (per_block or per_lane)}
@@ -144,7 +186,16 @@ class KVPool:
         self._tables: list[list[int]] = [[] for _ in range(self.lanes)]
         # Finished lanes whose blocks stay readable until an allocation needs them.
         self._retired: set[int] = set()
+        # Per-block refcounts (index 0 = scratch, never allocated).
+        self._rc = [0] * (self.n_blocks + 1)
         self._lane_tokens = [0] * self.lanes
+        # Prefix index: chain hash -> block id, and the reverse map so freeing a
+        # block drops its entry.
+        self._prefix_index: dict[int, int] = {}
+        self._block_hash: dict[int, int] = {}
+        self._prefix_lookups = 0
+        self._prefix_hits = 0
+        self._prefix_hit_tokens = 0
 
     # -- block accounting ---------------------------------------------------
     @property
@@ -155,12 +206,26 @@ class KVPool:
     def used_blocks(self) -> int:
         return self.n_blocks - len(self._free)
 
+    def block_table(self, lane: int) -> tuple[int, ...]:
+        return tuple(self._tables[lane])
+
+    def lane_capacity(self, lane: int) -> int:
+        return len(self._tables[lane]) * self.block_size
+
     def blocks_needed(self, n_tokens: int) -> int:
         return max(1, math.ceil(n_tokens / self.block_size))
 
+    def block_refcount(self, blk: int) -> int:
+        return self._rc[blk]
+
+    def lane_holds_shared(self, lane: int) -> bool:
+        """True if any block in ``lane``'s table is aliased by another lane."""
+        return any(self._rc[blk] > 1 for blk in self._tables[lane])
+
     @property
     def retired_blocks(self) -> int:
-        return sum(len(self._tables[lane]) for lane in self._retired)
+        """Blocks a harvest would free: refcount-1 blocks of retired lanes."""
+        return sum(1 for lane in self._retired for blk in self._tables[lane] if self._rc[blk] == 1)
 
     def retire(self, lane: int) -> None:
         """Mark a finished lane reclaimable without scrubbing it yet."""
@@ -189,6 +254,7 @@ class KVPool:
             return False
         for _ in range(need):
             blk = self._free.pop()
+            self._rc[blk] = 1
             self._zero_block(blk)
             table.append(blk)
         return True
@@ -199,19 +265,99 @@ class KVPool:
         self._lane_tokens[lane] = min(max(self._lane_tokens[lane], n_tokens), cap)
 
     def release(self, lane: int) -> int:
-        """Drop ``lane``'s claim on its blocks; returns how many were freed."""
+        """Drop ``lane``'s claim on its blocks (finish or preemption).  Each
+        block's refcount is decremented and only blocks reaching zero are
+        freed; returns how many were."""
         self._retired.discard(lane)
-        dropped = self._tables[lane]
+        dropped = []
+        for blk in self._tables[lane]:
+            self._rc[blk] -= 1
+            if self._rc[blk] == 0:
+                dropped.append(blk)
+                h = self._block_hash.pop(blk, None)
+                if h is not None and self._prefix_index.get(h) == blk:
+                    del self._prefix_index[h]
         self._free.extend(reversed(dropped))  # pop() reuses the lowest id first
         self._tables[lane] = []
         self._lane_tokens[lane] = 0
         return len(dropped)
+
+    # -- prefix sharing -----------------------------------------------------
+    def _chain_hashes(self, tokens) -> list[int]:
+        """Chain hash per *fully covered* block of ``tokens`` (token ids)."""
+        bs = self.block_size
+        toks = [int(t) for t in tokens]
+        out: list[int] = []
+        h = 0x9E3779B9  # fixed chain seed
+        for i in range(len(toks) // bs):
+            h = hash((h, tuple(toks[i * bs:(i + 1) * bs])))
+            out.append(h)
+        return out
+
+    def match_prefix(self, tokens, *, peek: bool = False) -> list[int]:
+        """Longest indexed block run caching a prefix of ``tokens``, in prefix
+        order.  ``peek=True`` leaves the hit-rate counters alone (the
+        router's affinity probes)."""
+        run: list[int] = []
+        for h in self._chain_hashes(tokens):
+            blk = self._prefix_index.get(h)
+            if blk is None:
+                break
+            run.append(blk)
+        if not peek:
+            self._prefix_lookups += 1
+            if run:
+                self._prefix_hits += 1
+                self._prefix_hit_tokens += len(run) * self.block_size
+        return run
+
+    def register_prefix(self, lane: int, tokens) -> int:
+        """Index ``lane``'s blocks that fully cover a prefix of ``tokens``
+        (first registration of a chain hash wins); returns how many are
+        shareable."""
+        n = 0
+        for h, blk in zip(self._chain_hashes(tokens), self._tables[lane]):
+            if h not in self._prefix_index:
+                self._prefix_index[h] = blk
+                self._block_hash[blk] = h
+            n += 1
+        return n
+
+    def admit_prefix(self, lane: int, tokens) -> int:
+        """Release ``lane``'s previous tenant and seed it with the longest
+        cached prefix of ``tokens``, atomically: the match is reserved
+        before the release, since the outgoing tenant may own it.  Returns
+        the prefix tokens served from cache."""
+        matched = self.match_prefix(tokens)
+        for blk in matched:
+            self._rc[blk] += 1  # reserve against the release below
+        self.release(lane)
+        self._tables[lane] = list(matched)
+        self._lane_tokens[lane] = len(matched) * self.block_size
+        return len(matched) * self.block_size
+
+    def alias(self, lane: int, blocks) -> None:
+        """Seed a fresh lane's table with shared ``blocks`` (incref each)."""
+        table = self._tables[lane]
+        if table:
+            raise ValueError(f"alias() requires an empty table (lane {lane})")
+        for blk in blocks:
+            if self._rc[blk] < 1:
+                raise ValueError(f"alias() of unallocated block {blk}")
+            self._rc[blk] += 1
+            table.append(blk)
+        self._lane_tokens[lane] = len(table) * self.block_size
 
     def reset_lane_state(self, lane: int) -> None:
         """Zero ``lane``'s row of every lane leaf (fresh-cache state)."""
         for key, spec in self.specs.items():
             if spec.kind == "lane":
                 self._store[key].select(spec.batch_axis, lane).zero_()
+
+    @property
+    def shared_blocks(self) -> int:
+        """Blocks currently aliased by more than one lane table."""
+        return sum(1 for blk in range(1, self.n_blocks + 1) if self._rc[blk] > 1)
 
     def stats(self) -> dict:
         alloc_slots = sum(len(t) for t in self._tables) * self.block_size
@@ -224,6 +370,11 @@ class KVPool:
             "used_blocks": self.used_blocks,
             "utilization": self.used_blocks / self.n_blocks,
             "fragmentation": 1.0 - used_slots / alloc_slots if alloc_slots else 0.0,
+            "shared_blocks": self.shared_blocks,
+            "prefix_lookups": self._prefix_lookups,
+            "prefix_hits": self._prefix_hits,
+            "prefix_hit_tokens": self._prefix_hit_tokens,
+            "prefix_hit_rate": self._prefix_hits / self._prefix_lookups if self._prefix_lookups else 0.0,
             "lanes": self.lanes,
             "lanes_used": sum(1 for t in self._tables if t),
         }
@@ -235,12 +386,13 @@ class KVPool:
                 self._store[key].select(spec.batch_axis, blk).zero_()
 
     def row_ids(self, lane_ids) -> tuple[np.ndarray, np.ndarray]:
-        """(block id, lane id) per row, on the host: block 0 (scratch) for a
-        lane with no table."""
-        blocks = np.zeros(len(lane_ids), dtype=np.int64)
+        """(block table, lane id) per row, on the host: a ``(W,
+        blocks_per_lane)`` table of block ids, scratch block 0 past each
+        lane's allocation, and the ``(W,)`` lane ids."""
+        blocks = np.zeros((len(lane_ids), self.blocks_per_lane), dtype=np.int64)
         for row, lane in enumerate(lane_ids):
-            if self._tables[lane]:
-                blocks[row] = self._tables[lane][0]
+            table = self._tables[lane]
+            blocks[row, :len(table)] = table
         return blocks, np.asarray(lane_ids, dtype=np.int64)
 
     def _rows(self, lane_ids) -> tuple[torch.Tensor, torch.Tensor]:
@@ -250,19 +402,34 @@ class KVPool:
     def _flat(self, cache: dict) -> dict[str, torch.Tensor]:
         return {_keystr(k): t for k, t in flatten_cache(cache).items()}
 
+    def _blocked(self, spec: LeafSpec, t: torch.Tensor) -> torch.Tensor:
+        """A (…, rows, cache_len, …) leaf seen as (…, rows x blocks_per_lane,
+        block_size, …): the pool's block layout, without a copy."""
+        b = spec.batch_axis
+        shape = t.shape
+        return t.view(*shape[:b], shape[b] * self.blocks_per_lane, self.block_size, *shape[b + 2:])
+
     def admit(self, lane: int, cache1: dict) -> None:
         """Write a batch-1 prefill cache (the model's tree, full ``cache_len``
-        length) into ``lane``'s block and lane-state row."""
+        length) into ``lane``'s allocated blocks and lane-state row.  Content
+        beyond the lane's blocks is zero in ``cache1`` by the masking
+        invariant (module docstring)."""
         leaves = self._flat(cache1)
+        table = self._tables[lane]
+        ids = torch.tensor(table, dtype=torch.int64).to(self._device) if table else None
         for key, spec in self.specs.items():
             if spec.kind == "replicated":
                 continue  # the reference keeps the pool's value
-            row = self._tables[lane][0] if spec.kind == "paged" else lane
-            self._store[key].select(spec.batch_axis, row).copy_(leaves[key].select(spec.batch_axis, 0))
+            leaf = leaves[key]
+            if spec.kind == "lane":
+                self._store[key].select(spec.batch_axis, lane).copy_(leaf.select(spec.batch_axis, 0))
+            elif ids is not None:
+                chunks = self._blocked(spec, leaf.contiguous()).narrow(spec.batch_axis, 0, len(table))
+                self._store[key].index_copy_(spec.batch_axis, ids, chunks)
 
     def gather(self, lane_ids) -> dict:
         """The dense decode view (a copy, in the model's tree) for
-        ``lane_ids``.  Paged leaves of a lane without a block read the zero
+        ``lane_ids``.  Table rows past a lane's allocation read the zero
         scratch block; lane leaves read each lane's own row."""
         return self.gather_rows(*self._rows(list(lane_ids)))
 
@@ -276,27 +443,40 @@ class KVPool:
             arr = self._store[key]
             shape = list(arr.shape)
             shape[spec.batch_axis] = rows
+            if spec.kind == "paged":
+                shape[spec.length_axis] = self.cache_len
             out[self._paths[key]] = torch.empty(shape, dtype=arr.dtype, device=arr.device)
         return unflatten_cache(out)
 
     def gather_rows(self, blocks: torch.Tensor, lanes: torch.Tensor, out: dict | None = None) -> dict:
-        """:meth:`gather` from index tensors (:meth:`row_ids` on the device),
-        into the leaves of ``out`` (a :meth:`decode_view`) in place when given."""
+        """:meth:`gather` from index tensors (:meth:`row_ids` on the device:
+        ``blocks`` (W, blocks_per_lane), ``lanes`` (W,)), into the leaves of
+        ``out`` (a :meth:`decode_view`) in place when given."""
         dst = self._flat(out) if out is not None else {}
+        idx = blocks.reshape(-1)
+        w = lanes.shape[0]
         res = {}
         for key, spec in self.specs.items():
             arr = self._store[key]
             if spec.kind == "replicated":
                 res[self._paths[key]] = arr
+            elif spec.kind == "lane":
+                res[self._paths[key]] = torch.index_select(arr, spec.batch_axis, lanes, out=dst.get(key))
             else:
-                idx = blocks if spec.kind == "paged" else lanes
-                res[self._paths[key]] = torch.index_select(arr, spec.batch_axis, idx, out=dst.get(key))
+                b = spec.batch_axis
+                view = dst.get(key)
+                if view is None:
+                    shape = list(arr.shape)
+                    shape[b:b + 2] = [w, self.cache_len]
+                    view = torch.empty(shape, dtype=arr.dtype, device=arr.device)
+                torch.index_select(arr, b, idx, out=self._blocked(spec, view))
+                res[self._paths[key]] = view
         return unflatten_cache(res)
 
     def scatter(self, lane_ids, cache: dict) -> None:
-        """Write an updated dense view (the model's tree) back.  Paged rows of
-        lanes without a block went to scratch block 0, which is re-zeroed
-        afterwards."""
+        """Write an updated dense view (the model's tree) back.  Table rows
+        past a lane's allocation went to scratch block 0, which is zeroed
+        again afterwards."""
         self.scatter_rows(*self._rows(list(lane_ids)), cache)
 
     def scatter_rows(self, blocks: torch.Tensor, lanes: torch.Tensor, cache: dict) -> None:
@@ -304,6 +484,7 @@ class KVPool:
         rebound (to the view's tensor); every other store tensor is written in
         place and keeps its address."""
         leaves = self._flat(cache)
+        idx = blocks.reshape(-1)
         touched_scratch = False
         for key, spec in self.specs.items():
             if spec.kind == "replicated":
@@ -311,7 +492,8 @@ class KVPool:
             elif spec.kind == "lane":
                 self._store[key].index_copy_(spec.batch_axis, lanes, leaves[key])
             else:
-                self._store[key].index_copy_(spec.batch_axis, blocks, leaves[key])
+                src = self._blocked(spec, leaves[key].contiguous())
+                self._store[key].index_copy_(spec.batch_axis, idx, src)
                 touched_scratch = True
         if touched_scratch:
             self._zero_block(0)

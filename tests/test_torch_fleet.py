@@ -204,5 +204,9 @@ def test_facade(tmp_path):
     rt = repro_torch.load_bundle(tmp_path / "b.json").runtime(device="host_cpu")
     assert isinstance(rt, repro_torch.KernelRuntime) and rt.active_device() == "host_cpu"
     assert rt.select_matmul_config(512, 784, 512, 16) in bundle.deployments["host_cpu"].configs
+    from repro_torch.serve.router import Router
+
+    assert repro_torch.Router is Router  # the fleet router is ported
+    assert repro_torch.Objective is repro_torch.serve.Objective
     with pytest.raises(AttributeError):
-        repro_torch.Router  # the fleet router is not ported yet
+        repro_torch.ControlPlane  # the control plane is not ported yet

@@ -74,9 +74,17 @@ def test_streaming_ticket_drives_the_engine():
 
 
 def test_paged_layout_is_not_ported_yet():
+    """The paged layout is ported: it builds with the reference's geometry and
+    refuses what the reference's refuses (tests/test_torch_paged_serve.py holds
+    its serving to the JAX engine)."""
     _, _, tm, tp = reduced_pair("granite-8b")
-    with pytest.raises(NotImplementedError):
-        ServingEngine(tm, tp, max_batch=2, cache_len=64, block_size=16)
+    eng = ServingEngine(tm, tp, max_batch=2, cache_len=64, block_size=16)
+    assert (eng.pool.block_size, eng.pool.blocks_per_lane, eng.pool.n_blocks) == (16, 4, 8)
+    assert eng._streaming and eng._sharing
+    with pytest.raises(ValueError):
+        ServingEngine(tm, tp, max_batch=2, cache_len=64, block_size=24)  # does not divide cache_len
+    with pytest.raises(ValueError):
+        ServingEngine(tm, tp, max_batch=2, cache_len=64, block_size=16, n_blocks=3)  # not one full lane
 
 
 def test_cli_serves_on_cpu(capsys):
