@@ -255,7 +255,35 @@ Phases (each one fails the run if its check fails):
    bundle's ``router(devices=[card])`` serves one request;
    22f. full-width hymba-1.5b (bf16) under a paged pool: streams equal to the
    dense engine's, every SSM launch through ``ssm_cuda_fused``;
-23. no Python collection ran during any CUDA graph capture (one there could
+23. the tuning control plane (``repro_torch.control``) in process on
+   127.0.0.1, driven over HTTP, with a registry under ``build/registry``
+   and every retune's matmul table measured on the card:
+   23a. a tune job (every family, ``TUNED_ARCHS``, 4 kernels, every cell
+   measured): queued -> running -> succeeded, every family measured with
+   launches, publishing the bundle again gives the same version, a
+   ``transfer`` spec and a ``tpu_v5e`` spec fail with the tune CLI's and
+   ``tune_fleet``'s messages; seconds and cells against phases 17 / 17b,
+   oracle over phase 17's full table, ``/healthz``;
+   23b. full-width granite-8b (bf16, CUDA graphs) served from
+   ``registry://`` by two engines (own runtimes, one set of weights) over
+   phase 19's prompts; their telemetry posted as two hosts: merged events
+   equal the sum, the drift starts one retune job (a post while it runs
+   starts none), measured on the card; the child (parent: 23a's version) is
+   announced, delivered to the subscribed engine, and adopted at the next
+   step with the programs captured again; latencies from post to adoption,
+   recapture seconds, warm decode median before and after, the GEMM
+   selections the child changed;
+   23c. a runtime subscribed from seq 0 holds the child; direct
+   ``ops.matmul`` calls at three granite-8b decode shapes launch the
+   child's configs within phase 3's tolerance of ``matmul_plain``;
+   23d. a retune job measures while the engine adopts and captures its
+   programs again (the capture drain starts inside the measurement): both
+   succeed, the replayed streams equal an eager engine's; the job's table
+   against 23b's on the common cells;
+   23e. ``launch.ctl status`` and ``artifacts`` list every version with its
+   lineage; the subscribers and the plane stop within the poll timeout +
+   15 s;
+24. no Python collection ran during any CUDA graph capture (one there could
    free a dead engine's graphs and invalidate the capture); the ``kernels``
    JSON line, then the card line, then the result line.
 
@@ -2706,6 +2734,407 @@ def phase_paged_hymba(torch, mm, ss) -> dict:
     return res | {"streams_equal_dense": True}
 
 
+# ---------------------------------------------------------------------------
+# phase 23: the tuning control plane on the card
+# ---------------------------------------------------------------------------
+REGISTRY_ROOT = ROOT / "build" / "registry"
+# 23a's tune job measures every cell, as phase 17 does. With phase 17b's knobs and no donor
+# (prune 0.5, budget 0.3) its parent held the H100 model's favourites, and the engine's canary,
+# which scores selections on that model, rejected the measured retune's child (PERF.md, PR 24).
+POLL_TIMEOUT = 2.0  # the subscribers' long-poll, seconds
+SUBSCRIBER_KN = [(4096, 4096), (4096, 14336), (4096, 49152)]  # 23c: three granite-8b decode shapes
+
+
+class _MeasuredTables:
+    """The plane's ``retune_dataset_builder``: each retune's matmul table measured on the
+    card (``gpubench.build_gpu_dataset``), every call kept with its wall-clock interval."""
+
+    def __init__(self, card: str):
+        self.card = card
+        self.calls: list[dict] = []
+        self.entered = 0  # calls begun (a call runs on the plane's worker thread)
+
+    def __call__(self, problems, device):
+        from repro_torch.core.gpubench import build_gpu_dataset
+
+        require(device == self.card, f"a retune asked for a table of {device!r}, not this card's")
+        self.entered += 1
+        t0 = time.time()
+        ds, seconds = build_gpu_dataset("matmul", problems)
+        self.calls.append({"t0": t0, "t1": time.time(), "seconds": seconds, "source": ds.source,
+                           "cells": {(tuple(p), c.name()): float(ds.perf[i, j]) for i, p in enumerate(ds.problems)
+                                     for j, c in enumerate(ds.configs)}})
+        return ds
+
+
+def _phase19_prompts(torch, cfg):
+    rng = torch.Generator().manual_seed(2)  # phase_serve's prompts
+    return [torch.randint(0, cfg.vocab, (n,), generator=rng).numpy() for n in PROMPT_LENGTHS]
+
+
+def _history(job: dict) -> dict:
+    return {state: t for state, t in job["history"]}
+
+
+def _await(cond, timeout: float, what: str) -> float:
+    deadline = time.monotonic() + timeout
+    while not cond():
+        require(time.monotonic() < deadline, f"no {what} after {timeout:.0f}s")
+        time.sleep(0.005)
+    return time.time()
+
+
+def _job_error(fn) -> str:
+    try:
+        fn()
+    except Exception as e:  # noqa: BLE001 — the message a failed job must carry
+        return f"{type(e).__name__}: {e}"
+    raise RuntimeError("chip_smoke: expected the direct call to raise")
+
+
+def phase_control_job(torch, mods: dict, tuning: dict, staged: dict, plane, client, card: str) -> dict:
+    """23a: a tune job over HTTP, measured on the card; idempotent publish; refused specs."""
+    from repro_torch.core.tuner import TRANSFER_REFUSED, tune_fleet
+
+    spec = {"devices": [card], "archs": list(TUNED_ARCHS), "n_kernels": 4}
+    for mod in mods.values():
+        mod.reset_launches()
+    job = client.submit(spec)
+    require(job["state"] == "queued", f"a submitted job is {job['state']!r}")
+    done = client.wait_job(job["id"], timeout=600)
+    launches = {fam: mod.total_launches() for fam, mod in mods.items()}
+    require(done["state"] == "succeeded", f"23a: the tune job {done['state']}: {done['error']}")
+    require([s for s, _ in done["history"]] == ["queued", "running", "succeeded"], f"job walk {done['history']}")
+    art = done["artifact"]
+    bundle = client.fetch_bundle("default", art["version"])
+    require(art["devices"] == bundle.devices == [card] and bundle.load_errors == [],
+            f"artifact {art}, devices {bundle.devices}, load errors {bundle.load_errors}")
+    dep = bundle.deployments[card]
+    lineage, seconds, tables = dep.meta["tuning_lineage"], dep.meta["measure_seconds"], dep.meta["tables"]
+    require(dep.meta["source"] == "measured" and set(lineage) == set(mods) == set(tables),
+            f"not a measured card table over every family: {dep.meta['source']}, {sorted(lineage)}")
+    for fam in mods:
+        rec = lineage[fam]
+        require(rec["measured_fraction"] == 1.0 and rec["n_measured"] == rec["full_cost"] > 0,
+                f"{fam}: measured {rec['n_measured']} of {rec['full_cost']} cells")
+        require(launches[fam] > 0, f"{fam}: no launches while the job measured: {launches}")
+    again = plane.registry.publish("default", bundle, spec=spec)
+    require(again.version == art["version"] and len(plane.registry.versions("default")) == 1,
+            f"publishing the same bundle again gave {again.version} (first {art['version']})")
+    refused = {}
+    for label, bad, want in (
+            ("transfer", {**spec, "transfer": True}, f"ValueError: {TRANSFER_REFUSED}"),
+            ("tpu_v5e", {**spec, "devices": ["tpu_v5e"]},
+             _job_error(lambda: tune_fleet(list(TUNED_ARCHS), device_names=("tpu_v5e",), n_kernels=4)))):
+        got = client.wait_job(client.submit(bad)["id"], timeout=60)
+        require(got["state"] == "failed" and got["error"] == want, f"the {label} spec: {got['state']} {got['error']!r}")
+        refused[label] = got["error"]
+    hist = _history(done)
+    health = client.healthz()
+    rows = {fam: {"n_measured": lineage[fam]["n_measured"], "full_cost": lineage[fam]["full_cost"],
+                  "measured_fraction": lineage[fam]["measured_fraction"], "seconds": seconds[fam],
+                  "seconds_phase_17": tuning["measure_seconds"][fam],
+                  "seconds_phase_17b": staged["families"][fam]["seconds"],
+                  "oracle_on_full_table": _oracle_on(tuning["full"][fam], dep.family_tuning(fam).configs, fam),
+                  "oracle_on_full_table_phase_17": tuning["oracle_on_full_table"][fam],
+                  "launches_while_measuring": launches[fam]} for fam in mods}
+    res = {"version": art["version"], "spec": spec, "job_s": hist["succeeded"] - hist["running"],
+           "queued_s": hist["running"] - hist["queued"], "families": rows, "refused": refused, "health": health,
+           "launches": launches}
+    print(f"  job {done['id']} queued -> running -> succeeded in {res['job_s']:.2f}s (phase 17: {tuning['wall_s']:.1f}s, "
+          f"17b: {staged['wall_s']:.1f}s); default@{art['version']}, published again: the same version")
+    for fam, r in rows.items():
+        print(f"  {fam}: measured {r['n_measured']}/{r['full_cost']} cells in {r['seconds']:.2f}s (17: "
+              f"{r['seconds_phase_17']:.2f}s, 17b: {r['seconds_phase_17b']:.2f}s); oracle over phase 17's full table "
+              f"{r['oracle_on_full_table']:.4f} (17's deployment {r['oracle_on_full_table_phase_17']:.4f}); "
+              f"launches {r['launches_while_measuring']}")
+    print(f"  refused: {refused}")
+    print(f"  /healthz: {health}")
+    return res
+
+
+def _serve_engine(model, params, bundle, name: str, **kw):
+    from repro_torch.core.runtime import KernelRuntime
+    from repro_torch.serve.engine import ServingEngine
+
+    rt = KernelRuntime(name=name)
+    rt.set_selection_logging(True, cap=1 << 16)
+    return ServingEngine(model, params, max_batch=4, cache_len=256, runtime=rt, bundle=bundle, **kw)
+
+
+def _ratios(cells: dict, base: dict) -> dict | None:
+    """GFLOP/s of ``cells`` over ``base`` on their common (problem, config) cells."""
+    ratios = [v / base[key] for key, v in cells.items() if key in base]
+    if not ratios:
+        return None
+    return {"cells": len(ratios), "median": statistics.median(ratios), "min": min(ratios), "max": max(ratios),
+            "below_half": sum(r < 0.5 for r in ratios)}
+
+
+def phase_control_serve(torch, mm, seq: dict, model, params, plane, client, card: str, tables, job: dict,
+                        tuning: dict) -> dict:
+    """23b: full-width granite-8b served from ``registry://``, two hosts' telemetry
+    federated, one retune measured on the card, its child pushed to the subscribed
+    engine and adopted at a step boundary under CUDA graphs."""
+    import repro_torch
+    from repro_torch.control import PolicySubscriber, content_version
+
+    bundle = repro_torch.load_bundle(f"registry://127.0.0.1:{plane.port}/default")
+    require(content_version(bundle.to_blob()) == job["version"], "registry:// did not load 23a's version")
+    prompts = _phase19_prompts(torch, model.cfg)
+    eng, eng_b = (_serve_engine(model, params, bundle, f"chip_smoke-23b[{h}]") for h in ("engine-a", "engine-b"))
+    require(eng.cuda_graphs and eng.device == eng_b.device == card, f"engine on {eng.device}, graphs {eng.cuda_graphs}")
+    sub = PolicySubscriber(client, card, eng, poll_timeout=POLL_TIMEOUT).start()
+    parent = eng.deployment
+    launches = {}
+    mm.reset_launches()
+    cold = _drain(torch, eng, prompts, mm, seq)
+    before = _drain(torch, eng, prompts, mm, seq)
+    _drain(torch, eng_b, prompts, mm, seq)
+    launches["control plane: served from registry://, two engines (23b)"] = mm.total_launches()
+    snaps = [e.runtime.telemetry() for e in (eng, eng_b)]
+    n_calls = len(tables.calls)
+    mm.reset_launches()
+    t_post = time.time()
+    acks = [client.post_telemetry(card, snaps[0], host="engine-a")]
+    acks.append(client.post_telemetry(card, snaps[1], host="engine-b"))
+    fired = [a["retune_job"] for a in acks if a["retune_job"]]
+    if not acks[0]["retune_job"]:  # the trigger came with the second host: one more post must start no other
+        acks.append(client.post_telemetry(card, snaps[0], host="engine-a"))
+        fired += [a["retune_job"] for a in acks[2:] if a["retune_job"]]
+    t_posted = time.time()
+    require(len(fired) == 1, f"the drift started {len(fired)} retune jobs: {acks}")
+    require(acks[1]["merged_events"] == snaps[0].n_events + snaps[1].n_events and acks[1]["hosts"] == 2,
+            f"federation: {acks[1]['merged_events']} events from {acks[1]['hosts']} hosts, snapshots "
+            f"{snaps[0].n_events} + {snaps[1].n_events}")
+    done = client.wait_job(fired[0], timeout=600)
+    launches["control plane: retune job's measured table (23b)"] = mm.total_launches()
+    require(done["state"] == "succeeded", f"23b: the retune job {done['state']}: {done['error']}")
+    hist = _history(done)
+    require(hist["succeeded"] > t_posted, "the retune ended before the last post: the dedup went unchecked")
+    measured = tables.calls[n_calls:]
+    require(measured and all(c["source"] == "measured" for c in measured) and launches[
+        "control plane: retune job's measured table (23b)"] > 0, "the retune did not measure its matmul table on the card")
+    art = done["artifact"]
+    require(art["parent"] == job["version"] and art["device"] == card and "matmul" in art["families"],
+            f"child artifact {art}")
+    require(plane.policy_state(card)["seq"] == 2, f"board {plane.policy_state(card)}")
+    t_delivered = _await(lambda: sub.updates or sub.errors, 30, "delivery to the subscribed engine")
+    require(sub.errors == [] and sub.updates[-1]["version"] == art["version"], f"subscriber {sub.updates} {sub.errors}")
+    child = client.fetch_bundle("default", art["version"]).deployments[card]
+    epoch0, built0, n_re, s0 = eng.runtime.policy_epoch(), len(eng.program_log), len(eng.retune_events), eng.steps
+    mm.reset_launches()
+    tickets = [eng.submit(p, max_new_tokens=16) for p in prompts]
+    torch.cuda.synchronize()
+    t_a0 = time.time()
+    eng.step()  # adopts the offered child first
+    torch.cuda.synchronize()
+    t_a1 = time.time()
+    eng.drain()
+    require(all(t.done and len(t.request.output) == 16 for t in tickets), "the drain after the adoption dropped a request")
+    after = _drain(torch, eng, prompts, mm, seq)
+    launches["control plane: adoption, recapture, drains (23b)"] = mm.total_launches()
+    ev = eng.retune_events[n_re] if len(eng.retune_events) > n_re else None
+    require(ev is not None and ev.source == "control-plane" and ev.swapped and ev.step == s0,
+            f"adoption: {ev}; incidents {eng.runtime.incidents()[-2:]}")
+    require(eng.deployment.to_blob() == child.to_blob() and eng.runtime.policy_epoch() > epoch0,
+            "the engine does not serve the child under a new epoch")
+    recaptured = _rebuilt(eng, built0)
+    require(recaptured and all(r.captured and r.epoch >= ev.epoch for r in recaptured),
+            f"programs not captured again after the adoption: {eng.program_log[built0:]}")
+    space = [c.name() for c in mm.config_space()]
+    phase17 = {(p, space[j]): float(v) for p, row in tuning["full"]["matmul"].items() for j, v in enumerate(row)}
+    table_vs_17 = _ratios({k: v for c in measured for k, v in c["cells"].items()}, phase17)
+    served = sorted(set(snaps[0].family_problems.get("matmul", {}).values()) | set(
+        snaps[1].family_problems.get("matmul", {}).values()))
+    changed = {str(p): [parent.select("matmul", p).name(), child.select("matmul", p).name()] for p in served
+               if parent.select("matmul", p) != child.select("matmul", p)}
+    res = {"uri": f"registry://127.0.0.1:{plane.port}/default", "snapshot_events": [s.n_events for s in snaps],
+           "acks": acks, "retune_job": done, "child": art["version"],
+           "post_to_job_s": hist["queued"] - t_post, "job_queued_s": hist["running"] - hist["queued"],
+           "retune_s": hist["succeeded"] - hist["running"], "retune_measure_s": sum(c["seconds"] for c in measured),
+           "job_to_announcement_s": hist["succeeded"] - hist["running"],
+           "announcement_to_delivery_s": t_delivered - hist["succeeded"],
+           "delivery_to_adoption_s": t_a0 - t_delivered, "adoption_step_s": t_a1 - t_a0,
+           "recaptured": [(r.kind, r.size) for r in recaptured], "recapture_s": sum(r.seconds for r in recaptured),
+           "warm_decode_median_ms_before": before["decode_median_ms"],
+           "warm_decode_median_ms_after": after["decode_median_ms"],
+           "cold_tok_per_s": cold["tok_per_s"], "streams_equal_across_swap": before["outputs"] == after["outputs"],
+           "selections_changed": changed, "served_problems": len(served), "event": dataclasses.asdict(ev),
+           "table_vs_phase_17": table_vs_17,
+           "launches": launches}
+    print(f"  {res['uri']} -> {len(bundle.devices)} device; two engines drained phase 19's prompts (cold "
+          f"{cold['tok_per_s']:.1f} tok/s); telemetry {res['snapshot_events']} events; acks "
+          f"{[(a['merged_events'], a['hosts'], a['retune_job'], a['drift']) for a in acks]}")
+    print(f"  post -> retune job queued {res['post_to_job_s'] * 1e3:.1f} ms; queued {res['job_queued_s']:.3f}s; "
+          f"retune {res['retune_s']:.2f}s (of it measuring {res['retune_measure_s']:.2f}s); announcement -> "
+          f"delivery {res['announcement_to_delivery_s']:.3f}s; adoption step {res['adoption_step_s']:.3f}s; "
+          f"recaptured {res['recaptured']} in {res['recapture_s']:.3f}s")
+    print(f"  child default@{art['version']} (parent {art['parent']}); epoch {epoch0} -> {eng.runtime.policy_epoch()}; "
+          f"{len(changed)} of {len(served)} served GEMM selections changed {changed}; warm decode median "
+          f"{before['decode_median_ms']:.3f} ms before, {after['decode_median_ms']:.3f} after")
+    print(f"  the retune's table against phase 17's on the common cells (GFLOP/s ratio, nothing served meanwhile): "
+          f"{table_vs_17}")
+    return res | {"engines": (eng, eng_b), "subscriber": sub, "prompts": prompts, "child_dep": child}
+
+
+def phase_control_runtime(torch, mm, ops, client, card: str, child, child_version: str) -> dict:
+    """23c: an engine-less runtime subscribed from seq 0 receives the child; direct
+    ops.matmul calls launch the child's configs and agree with the plain version."""
+    from repro_torch.control import PolicySubscriber
+    from repro_torch.core.runtime import KernelRuntime
+
+    rt = KernelRuntime(name="chip_smoke-23c")
+    sub = PolicySubscriber(client, card, rt, start_from=0, poll_timeout=POLL_TIMEOUT).start()
+    _await(lambda: sub.updates or sub.errors, 30, "delivery to the runtime")
+    require(sub.errors == [] and sub.updates[-1]["version"] == child_version, f"{sub.updates} {sub.errors}")
+    require(rt.active_device() == card and rt.policy().to_blob() == child.to_blob(),
+            f"the runtime's active deployment is not the child ({rt.active_device()})")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(23)
+    rows = []
+    mm.reset_launches()
+    for k, n in SUBSCRIBER_KN:
+        x = torch.randn((4, 1, k), device="cuda", generator=g, dtype=torch.bfloat16)
+        w = torch.randn((k, n), device="cuda", generator=g, dtype=torch.bfloat16)
+        out_dtype = torch.float32 if (k, n) in VOCAB_KN else torch.bfloat16
+        want_cfg = child.select("matmul", (1, k, n, 4))
+        before = dict(mm.LAUNCHES)
+        with rt.activate():
+            got = ops.matmul(x, w, out_dtype=None if out_dtype == torch.bfloat16 else out_dtype)
+        delta = {c: v - before[c] for c, v in mm.LAUNCHES.items() if v != before[c]}
+        require(delta == {want_cfg.name(): 1}, f"({k}, {n}): launched {delta}, the child selects {want_cfg.name()}")
+        want = mm.matmul_plain(x.reshape(4, k), w, out_dtype).float()
+        err = (got.reshape(4, n).float() - want).abs().max().item()
+        scale = want.abs().max().item()
+        tol = TOL[("bf16", "f32" if out_dtype == torch.float32 else "bf16")]
+        require(err / scale <= tol, f"({k}, {n}) under {want_cfg.name()}: rel err {err / scale:.3g} > {tol}")
+        rows.append({"k": k, "n": n, "config": want_cfg.name(), "max_abs_err": err, "rel_err": err / scale,
+                     "tol": tol})
+    res = {"updates": sub.updates, "rows": rows, "launches": mm.total_launches(), "subscriber": sub}
+    print(f"  runtime subscriber (start_from=0): received default@{child_version}, active on {rt.active_device()}; "
+          f"ops.matmul at (4, 1, k) x (k, n): {[(r['k'], r['n'], r['config'], round(r['rel_err'], 6)) for r in rows]}")
+    return res
+
+
+def phase_control_concurrent(torch, mm, seq: dict, model, params, client, card: str, tables, served: dict) -> dict:
+    """23d: a retune job measures on the plane's worker while the engine captures its
+    programs again (an adoption at a step boundary): both succeed; the replayed streams
+    equal an eager engine's."""
+    eng = served["engines"][0]
+    prompts = served["prompts"]
+    t0 = time.perf_counter()
+    served["subscriber"].stop()  # this engine adopts only what 23d offers it
+    sub_stop_s = time.perf_counter() - t0
+    snap = eng.runtime.telemetry()  # its window since 23b's adoption
+    n_calls, n_entered = len(tables.calls), tables.entered
+    mm.reset_launches()
+    ack = client.post_telemetry(card, snap, host="engine-a")
+    job_id = ack["retune_job"] or client.submit({"kind": "retune", "device": card, "families": ["matmul"]})["id"]
+    _await(lambda: tables.entered > n_entered, 60, "a retune measurement")
+    built0, n_re = len(eng.program_log), len(eng.retune_events)
+    eng.offer_deployment(eng.deployment, source="capture-while-measuring")  # same policy: programs captured again
+    t_c0 = time.time()
+    graphed = _drain(torch, eng, prompts, mm, seq)
+    t_c1 = time.time()
+    warm = _drain(torch, eng, prompts, mm, seq)
+    done = client.wait_job(job_id, timeout=600)
+    launches = mm.total_launches()
+    require(done["state"] == "succeeded", f"23d: the retune job {done['state']}: {done['error']}")
+    call = tables.calls[n_calls]
+    require(call["t0"] <= t_c0 <= call["t1"], f"the capture drain (from {t_c0:.3f}) did not start while the "
+                                              f"table was measured ({call['t0']:.3f}-{call['t1']:.3f})")
+    ev = eng.retune_events[n_re] if len(eng.retune_events) > n_re else None
+    recaptured = _rebuilt(eng, built0)
+    require(ev is not None and ev.swapped and recaptured and all(r.captured for r in recaptured),
+            f"the engine did not capture again during the job: {ev}, {eng.program_log[built0:]}")
+    eager_eng = _serve_engine(model, params, client.fetch_bundle("default", served["child"]), "chip_smoke-23d[eager]",
+                              cuda_graphs=False)
+    mm.reset_launches()
+    eager = _drain(torch, eager_eng, prompts, mm, seq)
+    eager_launches = mm.total_launches()
+    require(graphed["outputs"] == warm["outputs"] == eager["outputs"],
+            "the streams replayed after a capture beside a measurement differ from the eager engine's")
+    ratios = _ratios(call["cells"], {key: v for c in tables.calls[:n_calls] for key, v in c["cells"].items()})
+    res = {"job": done["artifact"], "job_s": _history(done)["succeeded"] - _history(done)["running"],
+           "measure_s": call["seconds"], "capture_drain": [t_c0, t_c1], "table": [call["t0"], call["t1"]],
+           "recaptured": [(r.kind, r.size) for r in recaptured], "recapture_s": sum(r.seconds for r in recaptured),
+           "decode_median_ms_capture_drain": graphed["decode_median_ms"], "decode_median_ms_next": warm["decode_median_ms"],
+           "table_vs_23b": ratios,
+           "streams_equal_eager": True, "launches": launches, "eager_launches": eager_launches,
+           "subscriber_stop_s": sub_stop_s}
+    print(f"  retune job {done['id']} measured {call['seconds']:.2f}s ({call['t0']:.3f}-{call['t1']:.3f}); the engine "
+          f"adopted at step {ev.step} and captured {res['recaptured']} again in {res['recapture_s']:.3f}s during it "
+          f"(drain {t_c0:.3f}-{t_c1:.3f}); job {res['job_s']:.2f}s, child default@{done['artifact']['version']}")
+    print(f"  its table against 23b's on the common cells (GFLOP/s ratio, the engine serving meanwhile): {ratios}; "
+          f"decode median {graphed['decode_median_ms']:.3f} ms during, {warm['decode_median_ms']:.3f} next; "
+          f"replayed streams equal the eager engine's")
+    return res
+
+
+def phase_control_cli(plane, versions: list) -> dict:
+    """23e: ``repro_torch.launch.ctl`` status and artifacts against the plane."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import ctl
+
+    outs = {}
+    for cmd in (["status", "--url", plane.url], ["artifacts", "--url", plane.url, "--name", "default"]):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            ctl.main(cmd)
+        outs[cmd[0]] = buf.getvalue()
+    lines = outs["artifacts"].splitlines()
+    require(lines[0] == f"default@{versions[0]} seq=0", f"ctl artifacts: {lines}")
+    for seq, (parent, child) in enumerate(zip(versions, versions[1:]), start=1):
+        require(f"default@{child} seq={seq} parent={parent}" in lines, f"ctl artifacts: {lines} (want {child})")
+    require('"status": "ok"' in outs["status"] and all(f"-> default@{v}" in outs["status"] for v in versions),
+            f"ctl status: {outs['status']}")
+    print("  ctl artifacts:\n    " + "\n    ".join(lines))
+    print("  ctl status (jobs):\n    " + "\n    ".join(ln for ln in outs["status"].splitlines() if ln.startswith("job-")))
+    return outs
+
+
+def phase_control_plane(torch, mods: dict, seq: dict, ops, tuning: dict, staged: dict, model, params, card: str) -> dict:
+    """Phase 23: the control plane in process, driven over HTTP (23a-e), then stopped."""
+    import shutil
+
+    from repro_torch.control import ControlPlane, ControlPlaneClient
+
+    shutil.rmtree(REGISTRY_ROOT, ignore_errors=True)
+    tables = _MeasuredTables(card)
+    plane = ControlPlane(port=0, registry_root=REGISTRY_ROOT, retune_dataset_builder=tables).start()
+    client = ControlPlaneClient(plane.url)
+    mm = mods["matmul"]
+    print(f"  control plane on {plane.url}, registry {REGISTRY_ROOT.relative_to(ROOT)}")
+    print("[23a] a tune job over HTTP")
+    job = phase_control_job(torch, mods, tuning, staged, plane, client, card)
+    print("[23b] serving from registry://, federated telemetry, a retune on the card, the push and the adoption")
+    served = phase_control_serve(torch, mm, seq, model, params, plane, client, card, tables, job, tuning)
+    print("[23c] a runtime subscriber")
+    runtime = phase_control_runtime(torch, mm, ops, client, card, served["child_dep"], served["child"])
+    print("[23d] capture and measurement together")
+    concurrent = phase_control_concurrent(torch, mm, seq, model, params, client, card, tables, served)
+    print("[23e] the ctl CLI")
+    versions = [job["version"], served["child"], concurrent["job"]["version"]]
+    cli = phase_control_cli(plane, versions)
+    stops = {"engine subscriber (23d)": concurrent["subscriber_stop_s"]}
+    for name, stoppable in (("runtime subscriber", runtime["subscriber"]), ("plane", plane)):
+        t0 = time.perf_counter()
+        stoppable.stop()
+        stops[name] = time.perf_counter() - t0
+    for name in stops:
+        require(stops[name] <= POLL_TIMEOUT + 15.0, f"{name}.stop() took {stops[name]:.1f}s")
+    require(REGISTRY_ROOT.is_dir() and len(list(REGISTRY_ROOT.glob("default/*.json"))) == len(versions),
+            f"the registry root holds {sorted(p.name for p in REGISTRY_ROOT.glob('*/*.json'))}")
+    print(f"  stop() seconds: {stops}; runtime subscriber updates {[u['seq'] for u in runtime['updates']]}")
+    for key in ("engines", "subscriber", "prompts", "child_dep"):
+        served.pop(key)
+    runtime.pop("subscriber")
+    return {"job": job, "served": served, "runtime": runtime, "concurrent": concurrent, "cli": cli, "stops": stops}
+
+
 def main() -> int:
     import torch
 
@@ -2905,12 +3334,29 @@ def main() -> int:
     paged_launches["Router (22e)"] = mm.total_launches()
     for key in ("engine", "prompts", "dense_outputs"):
         paged.pop(key)
-    del gmodel, gparams
     torch.cuda.empty_cache()
     phase("[22f] hymba-1.5b under a paged pool (legacy admission)")
     paged_hymba = phase_paged_hymba(torch, mm, ss)
     paged_launches["hymba-1.5b paged (22f)"] = paged_hymba["paged"]["gemm_launches"]
     require(all(paged_launches.values()), f"a phase-22 path launched no GEMM: {paged_launches}")
+    phase("[23] the tuning control plane: a tune job, serving from registry://, federation, a retune on the card, "
+          "the push, capture beside measurement, the ctl CLI")
+    t23 = time.perf_counter()
+    control = phase_control_plane(torch, mods, seq, ops, tuning, staged, gmodel, gparams, tuning["device"])
+    control["seconds"] = time.perf_counter() - t23
+    print(f"  phase 23 in {control['seconds']:.1f}s")
+    del gmodel, gparams
+    torch.cuda.empty_cache()
+    # Phase 23's paths, each counted from 0 just before it and read just after.
+    control_launches = {fam: {"control plane: tune job tables (23a)": control["job"]["launches"][fam]}
+                        for fam in mods}
+    control_launches["matmul"].update(control["served"]["launches"])
+    control_launches["matmul"].update({
+        "control plane: runtime subscriber's ops.matmul (23c)": control["runtime"]["launches"],
+        "control plane: retune table beside a recapture, two drains (23d)": control["concurrent"]["launches"],
+        "control plane: the eager engine's drain (23d)": control["concurrent"]["eager_launches"]})
+    require(all(v for paths in control_launches.values() for v in paths.values()),
+            f"a phase-23 path launched nothing: {control_launches}")
     # The rwkv6-7b run's WKV launches: n_layers per prefill, at each prefill's bucket.
     by_s = {r["s"]: r for r in wkv_rows}
     wkv_total = lambda key: rwkv["wkv_per_prefill"] * sum(by_s[s][key] for s in rwkv["prefill_buckets"])
@@ -2935,6 +3381,7 @@ def main() -> int:
                   "OnlinePolicy arms and calls (21d)": online["launches"]}
     for fam, paths in tune_launches.items():
         paths.update({path: counts[fam] for path, counts in resilience.items() if counts.get(fam)})
+        paths.update(control_launches[fam])
     gemm_launches.update(tune_launches["matmul"])
     gemm_launches.update(paged_launches)
     gemm_routes = {path: sum(run["path_launches"][path] for run in (serve, rwkv, hymba, tuned))
@@ -3068,10 +3515,10 @@ def main() -> int:
         "reinstall": reinstall,
         "guard": guard, "engine_chaos": chaos, "retune_on_card": retuned, "online": online,
         "attention_timing": attn_rows, "paged": paged, "paged_cpu_vs_card": paged_cpu, "slo": slo, "int8": int8,
-        "router": routed, "paged_hymba": paged_hymba, "paged_launches": paged_launches,
+        "router": routed, "paged_hymba": paged_hymba, "paged_launches": paged_launches, "control_plane": control,
         "kernels": kernels["kernels"], "seconds": time.perf_counter() - t_start,
     }, indent=1, default=str))
-    print(f"[23] done in {time.perf_counter() - t_start:.1f}s")
+    print(f"[24] done in {time.perf_counter() - t_start:.1f}s")
     print(json.dumps(kernels))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

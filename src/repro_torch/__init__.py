@@ -15,6 +15,10 @@ The tune -> deploy -> serve lifecycle, on the card::
     engine = rt.serve(model, params)                         # CUDA graphs on the card
     router = bundle.router(model, params, block_size=16)     # one engine per device entry
 
+Fleet-wide, a :class:`ControlPlane` runs tune jobs, versions their bundles
+(``repro_torch.load_bundle("registry://host:port/default")``), federates
+telemetry and pushes retuned versions to a :class:`PolicySubscriber`.
+
 Submodule imports stay lazy (PEP 562): ``import repro_torch`` pulls in
 neither torch nor the tuning stack until an attribute is touched.
 """
@@ -23,11 +27,15 @@ from __future__ import annotations
 __version__ = "0.7.0"
 
 __all__ = [
+    "ArtifactRegistry",
+    "ControlPlane",
+    "ControlPlaneClient",
     "Deployment",
     "DeploymentBundle",
     "EngineStatus",
     "FaultPlan",
     "KernelRuntime",
+    "PolicySubscriber",
     "Request",
     "Router",
     "ServingEngine",
@@ -43,11 +51,15 @@ __all__ = [
 
 # name -> (module, attribute): resolved on first access, cached in globals().
 _LAZY = {
+    "ArtifactRegistry": ("repro_torch.control.registry", "ArtifactRegistry"),
+    "ControlPlane": ("repro_torch.control.service", "ControlPlane"),
+    "ControlPlaneClient": ("repro_torch.control.client", "ControlPlaneClient"),
     "Deployment": ("repro_torch.core.dispatch", "Deployment"),
     "DeploymentBundle": ("repro_torch.core.bundle", "DeploymentBundle"),
     "KernelRuntime": ("repro_torch.core.runtime", "KernelRuntime"),
     "EngineStatus": ("repro_torch.serve.engine", "EngineStatus"),
     "FaultPlan": ("repro_torch.core.faults", "FaultPlan"),
+    "PolicySubscriber": ("repro_torch.control.client", "PolicySubscriber"),
     "Request": ("repro_torch.serve.engine", "Request"),
     "Router": ("repro_torch.serve.router", "Router"),
     # Reachable from the facade, as from repro_torch.serve; not in __all__,
@@ -86,7 +98,10 @@ def tune(archs=None, *, devices=None, n_kernels: int = 8, families=None, **kwarg
 def load_bundle(path):
     """Load a saved :class:`~repro_torch.core.bundle.DeploymentBundle` (any
     blob version, v1-v6); ``load_bundle(path).runtime()`` is the serving
-    host's bring-up path."""
+    host's bring-up path.  ``path`` may also be a control-plane registry URI
+    (``registry://host:port/name[/version]``) or a plain ``http(s)://`` URL:
+    the artifact is fetched from a running
+    :class:`repro_torch.control.ControlPlane`."""
     from repro_torch.core.bundle import DeploymentBundle
 
     return DeploymentBundle.load(path)

@@ -33,9 +33,13 @@ The port writes every device blob in the v5 flat layout.  Loading a TPU
 bundle works (its configs are only selections on the CPU); installing one
 for a CUDA target raises (``KernelRuntime.install_bundle``), because its
 configs are not in the port's compiled space.  ``router()`` fronts one
-engine per device entry with ``serve/router.py``'s :class:`Router`.  The
-reference's registry URIs (``parse_registry_uri``, the control plane's) are
-not ported yet (ROADMAP.md).
+engine per device entry with ``serve/router.py``'s :class:`Router`.
+:meth:`DeploymentBundle.load` also opens a control-plane URI:
+``registry://host:port/name[/version]`` (:func:`parse_registry_uri`) fetches
+an artifact from a running :class:`repro_torch.control.ControlPlane`'s
+registry, a plain ``http(s)://`` URL whatever bundle or registry envelope the
+endpoint serves; a malformed URI or a failed fetch raises
+:class:`BundleFormatError` with ``section="uri"``.
 """
 from __future__ import annotations
 
@@ -86,6 +90,46 @@ class BundleFormatError(BundleError):
 
 class BundleIntegrityError(BundleError):
     """Checksum verification left nothing servable (every device dropped)."""
+
+
+def parse_registry_uri(uri: str) -> tuple[str, str, str]:
+    """Split ``registry://host:port/name[/version]`` into (base_url, name, version).
+
+    ``base_url`` is the plain HTTP root of the control-plane service;
+    ``version`` defaults to ``"latest"``.
+    """
+    rest = uri[len("registry://"):]
+    netloc, _, tail = rest.partition("/")
+    parts = [p for p in tail.split("/") if p]
+    if not netloc or not parts or len(parts) > 2:
+        raise BundleFormatError(
+            f"malformed registry URI {uri!r} "
+            "(expected registry://host:port/name[/version])", section="uri")
+    name = parts[0]
+    version = parts[1] if len(parts) == 2 else "latest"
+    return f"http://{netloc}", name, version
+
+
+def _fetch_uri(uri: str) -> str:
+    """GET a bundle (or registry envelope) over HTTP; registry:// resolves first."""
+    import urllib.error
+    import urllib.request
+
+    if uri.startswith("registry://"):
+        base, name, version = parse_registry_uri(uri)
+        url = f"{base}/artifacts/{name}/{version}"
+    else:
+        url = uri
+    try:
+        with urllib.request.urlopen(url, timeout=30.0) as resp:
+            return resp.read().decode("utf-8")
+    except urllib.error.HTTPError as e:
+        raise BundleFormatError(
+            f"registry fetch of {uri} failed: HTTP {e.code} {e.reason}",
+            section="uri") from e
+    except (urllib.error.URLError, OSError, TimeoutError) as e:
+        raise BundleFormatError(
+            f"registry fetch of {uri} failed: {e}", section="uri") from e
 
 
 def _section_checksum(obj) -> str:
@@ -365,24 +409,35 @@ class DeploymentBundle:
 
     @staticmethod
     def load(path: str | Path) -> "DeploymentBundle":
-        """Load a bundle (any blob version, v1-v6) from a file path.
+        """Load a bundle (any blob version, v1-v6) from a file path — or a
+        control-plane URI.
 
-        The text rides the ``bundle.load`` chaos site of the current
-        runtime's fault plan (simulated bit rot) before it is parsed, so a
-        corrupted file surfaces as a structured ``BundleError``.
+        ``registry://host:port/name[/version]`` fetches the artifact from a
+        running :class:`repro_torch.control.ControlPlane`'s registry (version
+        defaults to ``latest``); plain ``http(s)://`` URLs fetch whatever
+        bundle (or registry envelope) the endpoint serves.  The text rides the
+        ``bundle.load`` chaos site of the current runtime's fault plan
+        (simulated bit rot) before it is parsed, so a corrupted file or wire
+        transfer surfaces as a structured ``BundleError``.
         """
-        text = Path(path).read_text()
+        path_str = str(path)
+        if path_str.startswith(("registry://", "http://", "https://")):
+            text = _fetch_uri(path_str)
+        else:
+            text = Path(path).read_text()
         from .runtime import current_runtime
 
         plan = current_runtime().fault_plan
         if plan is not None:
-            text = plan.corrupt_text("bundle.load", text, key=str(path))
+            text = plan.corrupt_text("bundle.load", text, key=path_str)
         try:
             blob = json.loads(text)
         except json.JSONDecodeError as e:
             raise BundleFormatError(
                 f"bundle file {path} is not valid JSON: {e.msg}", offset=e.pos
             ) from e
+        if isinstance(blob, dict) and blob.get("format") == "artifact" and "blob" in blob:
+            blob = blob["blob"]  # registry envelope: unwrap to the bundle blob
         return DeploymentBundle.from_blob(blob)
 
 

@@ -42,11 +42,23 @@ the median is kept.  A table holds GFLOP/s.
 A config that cannot launch at a problem raises (the wrappers raise on a
 failed launch); no cell is quietly set to 0.
 
+**Measuring beside a capture.**  A serving engine captures its CUDA graphs in
+the default (global) capture mode, where an allocating or synchronising CUDA
+call from any other thread during the capture makes the capture or that call
+fail, and a control plane measures tables on its worker thread while the
+main thread serves.  So the card is shared through :data:`CARD_LOCK`: every
+measurement here (and ``online.cuda_event_measure``) holds it for one
+problem at a time — the inputs' allocation, every timed call, the release —
+and the engine holds it around each capture (``serve/engine.py::_build``).
+A capture waits for at most one problem's measurement, and no measurement
+runs inside a capture.
+
 There is no fallback: with no card, or asked to time on the CPU, it raises.
 """
 from __future__ import annotations
 
 import statistics
+import threading
 import time
 
 import numpy as np
@@ -54,6 +66,9 @@ import torch
 
 from .dataset import TuningDataset
 from .devices import canonical_device_name
+
+# Held by a measurement (per problem) and by an engine's capture: see the module docstring.
+CARD_LOCK = threading.RLock()
 
 SLEEP_CYCLES = 2_000_000  # ~1 ms at the H100's 1.98 GHz boost clock: covers one launch's host work
 BUDGET_MS = 20.0
@@ -126,13 +141,14 @@ def measure_matmul(problems, configs, device=None, *, seed: int = 0) -> np.ndarr
     perf = np.zeros((len(problems), len(configs)))
     for i, (m, k, n, batch) in enumerate(problems):
         rows = folded_rows(m, batch)
-        a = torch.randn((rows, k), device=dev, generator=gen, dtype=torch.bfloat16)
         copies = max(1, -(-ROTATE_BYTES // (k * n * 2)))
-        bs = [torch.randn((k, n), device=dev, generator=gen, dtype=torch.bfloat16) for _ in range(copies)]
-        for j, cfg in enumerate(configs):
-            ms = time_ms(lambda r, c=cfg: matmul_cuda(a, bs[r % copies], c))
-            perf[i, j] = 2.0 * rows * k * n / (ms * 1e-3) / 1e9
-        del a, bs
+        with CARD_LOCK:
+            a = torch.randn((rows, k), device=dev, generator=gen, dtype=torch.bfloat16)
+            bs = [torch.randn((k, n), device=dev, generator=gen, dtype=torch.bfloat16) for _ in range(copies)]
+            for j, cfg in enumerate(configs):
+                ms = time_ms(lambda r, c=cfg: matmul_cuda(a, bs[r % copies], c))
+                perf[i, j] = 2.0 * rows * k * n / (ms * 1e-3) / 1e9
+            del a, bs
     return perf
 
 
@@ -150,15 +166,16 @@ def measure_attention(problems, configs, device=None, *, heads: int = ATTN_HEADS
     gen = torch.Generator(device=dev).manual_seed(seed)
     perf = np.zeros((len(problems), len(configs)))
     for i, (sq, skv, d) in enumerate(problems):
-        q = torch.randn((1, heads, sq, d), device=dev, generator=gen, dtype=torch.bfloat16)
-        k = torch.randn((1, heads, skv, d), device=dev, generator=gen, dtype=torch.bfloat16)
-        v = torch.randn((1, heads, skv, d), device=dev, generator=gen, dtype=torch.bfloat16)
         flops = attention_flops(sq, skv, d, heads, causal)
-        for j, cfg in enumerate(configs):
-            ms = time_ms(lambda r, c=cfg: attention_cuda(q, k, v, c, causal=causal))
-            perf[i, j] = flops / (ms * 1e-3) / 1e9
-        del q, k, v
-        torch.cuda.empty_cache()
+        with CARD_LOCK:
+            q = torch.randn((1, heads, sq, d), device=dev, generator=gen, dtype=torch.bfloat16)
+            k = torch.randn((1, heads, skv, d), device=dev, generator=gen, dtype=torch.bfloat16)
+            v = torch.randn((1, heads, skv, d), device=dev, generator=gen, dtype=torch.bfloat16)
+            for j, cfg in enumerate(configs):
+                ms = time_ms(lambda r, c=cfg: attention_cuda(q, k, v, c, causal=causal))
+                perf[i, j] = flops / (ms * 1e-3) / 1e9
+            del q, k, v
+            torch.cuda.empty_cache()
     return perf
 
 
@@ -173,15 +190,16 @@ def measure_wkv(problems, configs, device=None, *, seed: int = 0) -> np.ndarray:
     for i, (s, hd) in enumerate(problems):
         h = wkv_heads(hd)
         shape = (1, s, h, hd)
-        r, k, v = (torch.randn(shape, device=dev, generator=gen, dtype=torch.bfloat16) for _ in range(3))
-        logw = -torch.rand(shape, device=dev, generator=gen).mul_(5.0).clamp_(min=1e-3)
-        u = torch.randn((h, hd), device=dev, generator=gen, dtype=torch.bfloat16)
         flops = wkv_flops(s, hd, h)
-        for j, cfg in enumerate(configs):
-            ms = time_ms(lambda _, c=cfg: wkv_cuda(r, k, v, logw, u, None, c))
-            perf[i, j] = flops / (ms * 1e-3) / 1e9
-        del r, k, v, logw, u
-        torch.cuda.empty_cache()
+        with CARD_LOCK:
+            r, k, v = (torch.randn(shape, device=dev, generator=gen, dtype=torch.bfloat16) for _ in range(3))
+            logw = -torch.rand(shape, device=dev, generator=gen).mul_(5.0).clamp_(min=1e-3)
+            u = torch.randn((h, hd), device=dev, generator=gen, dtype=torch.bfloat16)
+            for j, cfg in enumerate(configs):
+                ms = time_ms(lambda _, c=cfg: wkv_cuda(r, k, v, logw, u, None, c))
+                perf[i, j] = flops / (ms * 1e-3) / 1e9
+            del r, k, v, logw, u
+            torch.cuda.empty_cache()
     return perf
 
 
@@ -194,16 +212,17 @@ def measure_ssm(problems, configs, device=None, *, n_state: int = 16, seed: int 
     gen = torch.Generator(device=dev).manual_seed(seed)
     perf = np.zeros((len(problems), len(configs)))
     for i, (s, d) in enumerate(problems):
-        x = torch.randn((1, s, d), device=dev, generator=gen)
-        dt = torch.nn.functional.softplus(torch.randn((1, s, d), device=dev, generator=gen) - 2.0)
-        a = -torch.exp(0.3 * torch.randn((d, n_state), device=dev, generator=gen))
-        b, c = (torch.randn((1, s, n_state), device=dev, generator=gen) for _ in range(2))
         flops = ssm_flops(s, d, n_state)
-        for j, cfg in enumerate(configs):
-            ms = time_ms(lambda _, cf=cfg: ssm_cuda_fused(x, dt, a, b, c, None, cf))
-            perf[i, j] = flops / (ms * 1e-3) / 1e9
-        del x, dt, a, b, c
-        torch.cuda.empty_cache()
+        with CARD_LOCK:
+            x = torch.randn((1, s, d), device=dev, generator=gen)
+            dt = torch.nn.functional.softplus(torch.randn((1, s, d), device=dev, generator=gen) - 2.0)
+            a = -torch.exp(0.3 * torch.randn((d, n_state), device=dev, generator=gen))
+            b, c = (torch.randn((1, s, n_state), device=dev, generator=gen) for _ in range(2))
+            for j, cfg in enumerate(configs):
+                ms = time_ms(lambda _, cf=cfg: ssm_cuda_fused(x, dt, a, b, c, None, cf))
+                perf[i, j] = flops / (ms * 1e-3) / 1e9
+            del x, dt, a, b, c
+            torch.cuda.empty_cache()
     return perf
 
 

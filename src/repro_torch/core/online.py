@@ -242,7 +242,7 @@ def cuda_event_measure(device=None, *, n_runs: int = 5, seed: int = 0):
     import torch
 
     from ..kernels.matmul import matmul_cuda
-    from .gpubench import _cuda_device, time_ms
+    from .gpubench import CARD_LOCK, _cuda_device, time_ms
 
     dev = _cuda_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -254,10 +254,11 @@ def cuda_event_measure(device=None, *, n_runs: int = 5, seed: int = 0):
                                "launches and synchronizes; serve it through direct ops calls or an engine with "
                                "cuda_graphs=False")
         m, k, n, batch = problem
-        if problem not in inputs:
-            inputs[problem] = (torch.randn((m * batch, k), device=dev, generator=gen, dtype=torch.bfloat16),
-                               torch.randn((k, n), device=dev, generator=gen, dtype=torch.bfloat16))
-        a, b = inputs[problem]
-        return time_ms(lambda _i: matmul_cuda(a, b, config), n_runs=n_runs) * 1e-3
+        with CARD_LOCK:  # never inside another thread's capture (gpubench's docstring)
+            if problem not in inputs:
+                inputs[problem] = (torch.randn((m * batch, k), device=dev, generator=gen, dtype=torch.bfloat16),
+                                   torch.randn((k, n), device=dev, generator=gen, dtype=torch.bfloat16))
+            a, b = inputs[problem]
+            return time_ms(lambda _i: matmul_cuda(a, b, config), n_runs=n_runs) * 1e-3
 
     return measure

@@ -360,12 +360,19 @@ class KernelRuntime:
         return bundle.deployments[resolved]
 
     def apply_policy_update(self, deployment, device: str | None = None) -> str | None:
-        """Adopt a pushed deployment without a serving engine.
+        """Adopt a control-plane-pushed deployment without a serving engine.
 
-        ``device=None`` targets the active device; the update goes through
-        :meth:`install_for_device` (the hot-swap a retune uses), or installs
-        directly when there is no target device.  Returns the canonical
-        device name the update landed on (``None`` for a direct install).
+        The engine-less counterpart of ``ServingEngine.adopt_deployment``: a
+        :class:`repro_torch.control.PolicySubscriber` attached directly to a
+        runtime lands pushed artifacts here.  ``device=None`` targets the
+        active device; the update goes through :meth:`install_for_device`, so
+        when the target is live this is the lock+epoch hot-swap a retune uses
+        (an engine on this runtime then captures its programs again), or
+        installs directly when there is no target device.  On a CUDA target
+        (a ``gpu_*`` device) a deployment holding configs the port has not
+        compiled raises before anything is installed, as
+        :meth:`install_bundle` does.  Returns the canonical device name the
+        update landed on (``None`` for a direct install).
         """
         from .devices import canonical_device_name
 
@@ -373,6 +380,7 @@ class KernelRuntime:
         if target is None:
             self.install(deployment)
             return None
+        check_compiled(deployment, _target(target, None), target)
         self.install_for_device(target, deployment)
         if self.active_device() is None:
             self.activate_device(target)

@@ -263,6 +263,15 @@ class FleetTuneResult:
     results: dict[str, TuneResult]
 
 
+# Why a fleet tune takes no card-to-card warm start (the reference's ``transfer``):
+# the tune CLI's ``--transfer`` and a control-plane job's ``transfer: true`` fail with it.
+TRANSFER_REFUSED = (
+    "--transfer warm-starts each card from another tuned card, but a fleet holds only this "
+    "host's card (another card's tables cannot be measured here); warm-start from an earlier "
+    "deployment of this card with --transfer-from"
+)
+
+
 def default_fleet() -> tuple[str, ...]:
     """The fleet a host can tune: its card (when torch finds one) and ``host_cpu``."""
     import torch

@@ -52,7 +52,15 @@ from ..core.codegen import tree_to_python
 from ..core.devices import canonical_device_name
 from ..core.families import family_names, get_family
 from ..core.normalize import NORMALIZATIONS
-from ..core.tuner import DEFAULT_MAX_PROBLEMS, save_fleet, save_result, tune, tune_fleet, tune_for_archs
+from ..core.tuner import (
+    DEFAULT_MAX_PROBLEMS,
+    TRANSFER_REFUSED,
+    save_fleet,
+    save_result,
+    tune,
+    tune_fleet,
+    tune_for_archs,
+)
 
 
 def _measure_budget(text: str):
@@ -144,9 +152,7 @@ def main(argv=None):
     if args.prune_ratio is not None and not 0.0 < args.prune_ratio < 1.0:
         ap.error(f"--prune-ratio must be a fraction in (0, 1), got {args.prune_ratio}")
     if args.transfer:
-        ap.error("--transfer warm-starts each card from another tuned card, but a fleet holds only this "
-                 "host's card (another card's tables cannot be measured here); warm-start from an earlier "
-                 "deployment of this card with --transfer-from")
+        ap.error(TRANSFER_REFUSED)
     if args.transfer_from and args.device == "host_cpu":
         ap.error("--transfer-from does not apply to host_cpu (it always measures)")
     archs = args.archs.split(",") if args.archs else None

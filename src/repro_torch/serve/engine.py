@@ -98,6 +98,7 @@ import numpy as np
 import torch
 
 from ..core.faults import GUARDED_EXCEPTIONS, incident
+from ..core.gpubench import CARD_LOCK
 from ..core.retune import DEFAULT_DRIFT_THRESHOLD, DEFAULT_MIN_EVENTS
 from ..core.runtime import Objective, SelectionPins, current_runtime
 from .kvpool import KVPool
@@ -631,11 +632,15 @@ class ServingEngine:
             torch.cuda.current_stream(dev).wait_stream(stream)
             prog.pins.seal()
             prog.graph = torch.cuda.CUDAGraph()
-            # What torch.cuda.graph does on entry; its exit is _capture's.
-            torch.cuda.synchronize(dev)
-            torch.cuda.empty_cache()
-            with _no_gc(), torch.cuda.stream(stream), rt.activate(), rt.pinning(prog.pins):
-                prog.outputs = _capture(prog.graph, body)
+            # The card is held against measurements on other threads (a control plane's
+            # tune job), whose allocations and synchronisations would fail a capture in
+            # the default (global) mode: gpubench's CARD_LOCK.
+            with CARD_LOCK:
+                # What torch.cuda.graph does on entry; its exit is _capture's.
+                torch.cuda.synchronize(dev)
+                torch.cuda.empty_cache()
+                with _no_gc(), torch.cuda.stream(stream), rt.activate(), rt.pinning(prog.pins):
+                    prog.outputs = _capture(prog.graph, body)
         prog.pins.seal()
         self.program_log.append(ProgramRecord(kind, size, prog.epoch, prog.graph is not None,
                                               time.perf_counter() - t0))

@@ -208,5 +208,9 @@ def test_facade(tmp_path):
 
     assert repro_torch.Router is Router  # the fleet router is ported
     assert repro_torch.Objective is repro_torch.serve.Objective
-    with pytest.raises(AttributeError):
-        repro_torch.ControlPlane  # the control plane is not ported yet
+    # The control plane is ported under the reference's names.
+    assert importlib.import_module("repro_torch.control").__all__ == importlib.import_module("repro.control").__all__
+    from repro_torch import control
+
+    for name in ("ControlPlane", "ControlPlaneClient", "PolicySubscriber", "ArtifactRegistry"):
+        assert name in repro_torch.__all__ and getattr(repro_torch, name) is getattr(control, name)
