@@ -1,7 +1,8 @@
 """Architecture registry: ``--arch`` lookup, input shapes, GEMM harvest.
 
-The port carries the dense transformer configs, RWKV6 and Hymba so far; the
-other families of ``repro.configs`` join when their models are ported.
+The port registers the reference's ten configs in its order, so the default
+harvests equal the reference's; ``build_model`` refuses seamless-m4t-large-v2
+(``EncDecLM``), which joins with the training slice.
 ``ShapeSpec``, ``SHAPES``, ``shapes_for``, ``gemm_problems`` and
 ``_chunk_widths`` are copied from ``repro/configs/registry.py`` (the tuning
 harvest); ``input_specs`` stays behind, it builds JAX shape structs.
@@ -11,12 +12,21 @@ from __future__ import annotations
 import dataclasses
 
 from .base import ArchConfig
+from .dbrx_132b import CONFIG as _dbrx
+from .glm4_9b import CONFIG as _glm4
 from .granite_8b import CONFIG as _granite
 from .hymba_1_5b import CONFIG as _hymba
+from .llama3_2_vision_90b import CONFIG as _llama_vis
 from .phi4_mini_3_8b import CONFIG as _phi4
+from .qwen2_5_32b import CONFIG as _qwen25
+from .qwen3_moe_235b import CONFIG as _qwen3moe
 from .rwkv6_7b import CONFIG as _rwkv6
+from .seamless_m4t_v2 import CONFIG as _seamless
 
-ARCHS: dict[str, ArchConfig] = {c.name: c for c in (_phi4, _granite, _rwkv6, _hymba)}
+ARCHS: dict[str, ArchConfig] = {
+    c.name: c
+    for c in (_phi4, _qwen25, _granite, _glm4, _llama_vis, _qwen3moe, _dbrx, _hymba, _seamless, _rwkv6)
+}
 
 
 @dataclasses.dataclass(frozen=True)

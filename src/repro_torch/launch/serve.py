@@ -6,7 +6,9 @@ is given.  ``--reduced`` (the default) serves the tiny same-family config;
 ``--no-reduced`` serves at full width.  The reduced model runs in f32, as the
 reference's launcher runs it; the full-width one in bf16, its serving dtype.
 Weights come from a CPU generator seeded with 0 and are moved to the device,
-so a ``cpu`` and a ``cuda`` run serve the same model.  On ``cuda`` the engine
+so a ``cpu`` and a ``cuda`` run serve the same model.  A VLM
+(llama-3.2-vision-90b) is given zero image embeddings of shape (1,
+n_image_tokens, d_model), as the reference's launcher gives them.  On ``cuda`` the engine
 serves through CUDA graphs, one per prefill bucket and decode width; the
 programs and the seconds their warm-up and capture took are printed.
 
@@ -129,6 +131,9 @@ def main(argv=None) -> list[list[int]]:
     dtype = torch.float32 if args.reduced else torch.bfloat16
     model = build_model(cfg, dtype=dtype, param_dtype=dtype, device=args.device)
     params = model.init(torch.Generator(device="cpu").manual_seed(0))
+    extra = {}
+    if cfg.family == "vlm":
+        extra["image_embs"] = torch.zeros((1, cfg.n_image_tokens, cfg.d_model), dtype=dtype)
     plan = None
     if args.chaos:
         from ..core.faults import FaultPlan
@@ -137,7 +142,7 @@ def main(argv=None) -> list[list[int]]:
     engine = build_engine(model, params, bundle=args.bundle, deployment=args.deployment,
                           serve_device=args.serve_device, name=f"serve[{args.arch}]", fault_plan=plan,
                           max_batch=args.max_batch, cache_len=args.cache_len,
-                          block_size=args.block_size, n_blocks=args.n_blocks,
+                          block_size=args.block_size, n_blocks=args.n_blocks, extra_inputs=extra,
                           retune_interval=args.retune_interval, drift_threshold=args.drift_threshold,
                           retune_min_events=args.retune_min_events)
     rt = engine.runtime

@@ -42,18 +42,20 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10_000.0) -> t
 # ---------------------------------------------------------------------------
 # chunked flash attention (grouped-query layout, no KV repeat)
 # ---------------------------------------------------------------------------
-def _attn_chunk(q, k, v, row0, col0: int, scale: float, window: int = 0):
-    """One causal (q-chunk x kv-chunk) tile.  q: (B,KV,G,Lq,hd)  k/v: (B,KV,Lk,hd).
+def _attn_chunk(q, k, v, row0, col0: int, scale: float, window: int = 0, causal: bool = True):
+    """One (q-chunk x kv-chunk) tile.  q: (B,KV,G,Lq,hd)  k/v: (B,KV,Lk,hd).
     ``row0`` (an int, or a 0-d tensor in a chunk-append call) is the first
-    query's position.  ``window`` > 0 also masks columns at or before
-    ``row - window``."""
+    query's position.  ``causal`` masks columns after the row and, with
+    ``window`` > 0, columns at or before ``row - window``; otherwise nothing
+    is masked."""
     logits = torch.einsum("bkgqh,bkth->bkgqt", q.float(), k.float()) * scale
-    rows = row0 + torch.arange(q.shape[-2], device=q.device)[:, None]
-    cols = col0 + torch.arange(k.shape[-2], device=q.device)[None, :]
-    masked = cols > rows
-    if window:
-        masked |= cols <= rows - window
-    logits = logits.masked_fill(masked, _NEG_INF)
+    if causal:
+        rows = row0 + torch.arange(q.shape[-2], device=q.device)[:, None]
+        cols = col0 + torch.arange(k.shape[-2], device=q.device)[None, :]
+        masked = cols > rows
+        if window:
+            masked |= cols <= rows - window
+        logits = logits.masked_fill(masked, _NEG_INF)
     m = logits.amax(dim=-1)
     p = torch.exp(logits - m[..., None])
     return m, p.sum(dim=-1), torch.einsum("bkgqt,bkth->bkgqh", p, v.float())
@@ -64,25 +66,27 @@ def flash_attention(
     k: torch.Tensor,
     v: torch.Tensor,
     *,
+    causal: bool = True,
     window: int = 0,
     q_chunk: int = 512,
     kv_chunk: int = 1024,
     q_start: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """Causal grouped-query online-softmax attention (``flash_attention_jnp``).
+    """Grouped-query online-softmax attention (``flash_attention_jnp``).
 
-    q: (B, S, H, hd) with H = KV * G;  k/v: (B, T, KV, hd).  The causal
-    diagonal is aligned to the end of KV (query i sits at position T - S + i),
-    or, with ``q_start`` (a 0-d tensor: chunked prefill), query i sits at
+    q: (B, S, H, hd) with H = KV * G;  k/v: (B, T, KV, hd).  ``causal=False``
+    lets every query see every column (cross-attention over T image tokens,
+    S != T).  The causal diagonal is aligned to the end of KV (query i sits
+    at position T - S + i), or, with ``q_start`` (a 0-d tensor: chunked prefill), query i sits at
     position ``q_start + i`` and attends over the whole cache up to it.  The
     mask is built from the tensor, so one captured program serves every
     offset.
-    ``window`` > 0 is sliding-window attention: a query at position r sees
+    ``window`` > 0 is causal sliding-window attention: a query at position r sees
     columns c with r - window < c <= r.  Memory is bounded by q_chunk x
     kv_chunk tiles.  The last chunk of each axis is simply shorter: the
     reference pads it and masks the pad columns at -1e30, which contributes
     exactly nothing to a row that has a real column, and every row has one
-    (its own diagonal).
+    (its own diagonal, or every column when not causal).
     """
     b, s, h, hd = q.shape
     t, kvh = k.shape[1], k.shape[2]
@@ -103,7 +107,7 @@ def flash_attention(
         for k0 in range(0, t, kc):
             m_c, l_c, o_c = _attn_chunk(
                 qblk, kt[:, :, k0 : k0 + kc], vt[:, :, k0 : k0 + kc],
-                q0 + diag_off, k0, scale, window,
+                q0 + diag_off, k0, scale, window, causal,
             )
             m_new = torch.maximum(m, m_c)
             corr = torch.exp(m - m_new)
@@ -186,16 +190,21 @@ def attention_layer(
     p: dict,
     x: torch.Tensor,
     cfg,
-    positions: torch.Tensor,
+    positions: torch.Tensor | None,
     *,
-    cache: tuple[torch.Tensor, ...],
+    cache: tuple[torch.Tensor, ...] | None = None,
     cache_positions: torch.Tensor | None = None,
     cache_valid: torch.Tensor | None = None,
     window: int = 0,
     chunk_start: torch.Tensor | None = None,
+    kv_input: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """GQA self-attention for one layer (params already sliced to this layer).
+    """GQA attention for one layer (params already sliced to this layer).
 
+    Optional ``bq`` / ``bk`` / ``bv`` biases (qwen2.5) are added after their
+    GEMMs, before the reshape and rope, as the reference adds them.
+    ``kv_input`` (B, T, d) makes it cross-attention: k/v come from it, with no
+    rope, no mask and no cache (``positions`` unused).  Otherwise
     ``cache = (k_cache, v_cache)``, each (B, T, KV, hd), or, for an int8 cache,
     ``(k, v, k_scale, v_scale)`` with (B, T, KV) f32 scales.  Modes:
       * prefill: s > 1 — x attends over itself, causally (within ``window``
@@ -217,11 +226,23 @@ def attention_layer(
     """
     b, s, _ = x.shape
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = ops.matmul(x, p["wq"]).reshape(b, s, h, hd)
-    k = ops.matmul(x, p["wk"]).reshape(b, s, kvh, hd)
-    v = ops.matmul(x, p["wv"]).reshape(b, s, kvh, hd)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
+    kv_src = x if kv_input is None else kv_input
+    q = ops.matmul(x, p["wq"])
+    if "bq" in p:
+        q = q + p["bq"]
+    k = ops.matmul(kv_src, p["wk"])
+    v = ops.matmul(kv_src, p["wv"])
+    if "bk" in p:
+        k, v = k + p["bk"], v + p["bv"]
+    q = q.reshape(b, s, h, hd)
+    k = k.reshape(b, kv_src.shape[1], kvh, hd)
+    v = v.reshape(b, kv_src.shape[1], kvh, hd)
+    if kv_input is None:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+    if cache is None:  # no cache: self-attention over x, or cross-attention over kv_input
+        out = flash_attention(q, k, v, causal=kv_input is None, window=window)
+        return ops.matmul(out.reshape(b, s, h * hd), p["wo"])
     quant = len(cache) == 4
     k_cache, v_cache = cache[:2]
     if s == 1 and chunk_start is None:  # decode: write one token per row

@@ -1,25 +1,31 @@
 """Model families, ported from ``repro/models/model.py``.
 
-Same functional surface as the reference's ``TransformerLM``, ``RWKV6LM`` and
+Same functional surface as the reference's ``TransformerLM`` (dense, MoE
+FFN, QKV bias, interleaved image cross-attention), ``RWKV6LM`` and
 ``HymbaLM``:
 
   init(generator) -> params
   init_cache(batch, cache_len) -> cache dict (k/v per token for the
-      transformer, int8 with f32 scales under ``kv_quant``; the recurrent
+      transformer, int8 with f32 scales under ``kv_quant``, and a VLM's
+      per-group ``cross_k`` / ``cross_v`` over the image tokens; the recurrent
       wkv/x1/x2 state for RWKV6; per layer ``{"k", "v", "ssm"}`` for Hymba,
       its sliding-window layers' k/v a ring)
   prefill(params, batch, cache_len) -> (last-position logits, cache)
+      (a VLM's batch also holds ``image_embs`` (B, n_image_tokens, d))
   decode_step(params, cache, tokens, positions) -> (logits, cache)
   prefill_chunk(params, cache, tokens, start, last_row) -> (logits, cache)
-      (the transformer only: chunked prefill, as in the reference)
+      (the transformer only, not a VLM or an int8 cache: chunked prefill, as
+      in the reference)
 
 Params keep the reference's tree and layout: (in, out) matrices with a
 stacked leading layer axis.  The reference's ``lax.scan`` over layers is a
 Python loop over views of the stacked tensors, through ``ops.scan_layers``
 for the transformer and RWKV6 (whose reference scans): their kernel
 selections run for layer 0 and later layers reuse them, as a scan traces its
-body once.  Hymba loops over its layers in both packages.  MoE, VLM and
-encoder-decoder variants wait for later parts of the port.
+body once.  A VLM scans its groups and, inside each, its self-attention
+layers, as the reference nests its scans.  Hymba loops over its layers in
+both packages.  The encoder-decoder (``audio``) family waits for the
+training slice: the reference serves it neither.
 """
 from __future__ import annotations
 
@@ -29,35 +35,54 @@ from ..configs.base import ArchConfig
 from ..kernels import ops
 from . import layers as L
 from . import mamba as M
+from . import moe as MOE
 from . import rwkv as R
 
 
 def build_model(cfg: ArchConfig, dtype=torch.bfloat16, param_dtype=torch.bfloat16, device="cuda",
                 kv_quant: bool = False):
     """The model of ``cfg``'s family on ``device``.  ``kv_quant`` gives a
-    transformer an int8 KV cache (the reference's ``build_model(kv_quant=)``;
-    other families ignore it, as there)."""
+    transformer (dense, MoE or VLM) an int8 KV cache (the reference's
+    ``build_model(kv_quant=)``; other families ignore it, as there)."""
     if cfg.family == "ssm":
         return RWKV6LM(cfg, dtype, param_dtype, device)
     if cfg.family == "hybrid":
         return HymbaLM(cfg, dtype, param_dtype, device)
-    if cfg.family != "dense" or cfg.moe is not None:
-        raise NotImplementedError(f"the port serves dense transformers, RWKV6 and Hymba so far, not {cfg.family!r}")
+    if cfg.family == "audio":
+        raise NotImplementedError(
+            f"{cfg.name!r} is an encoder-decoder (EncDecLM): it joins the port with the training slice, "
+            f"since the reference's engine cannot serve it either (its prefill adds a 'memory' cache leaf "
+            f"that init_cache lacks)")
+    if cfg.family not in ("dense", "moe", "vlm"):
+        raise ValueError(f"unknown family {cfg.family!r}")
     model = TransformerLM(cfg, dtype, param_dtype, device)
     model.kv_quant = kv_quant
     return model
 
 
+# Every weight is drawn in pieces of _DRAW_ELEMS f32 values, each scaled and cast into
+# the preallocated parameter as it lands: drawn whole in f32, qwen2.5-32b's stacked w_gate
+# alone would be a 36 GB transient beside its 65.5 GB of bf16 weights.
+_DRAW_ELEMS = 1 << 26
+
+
 def _initializers(model, generator: torch.Generator | None):
     """``normal(shape, scale)`` and ``full(shape, value)`` in the model's param
     dtype on its device.  Normals are drawn from ``generator`` (on its own
-    device, seed 0 on the model's device when None), then moved."""
+    device, seed 0 on the model's device when None) in pieces of
+    ``_DRAW_ELEMS`` in order, each scaled and cast into the preallocated
+    parameter."""
     if generator is None:
         generator = torch.Generator(device=model.device).manual_seed(0)
 
     def normal(shape, scale):
-        t = torch.randn(shape, generator=generator, device=generator.device)
-        return t.mul_(scale).to(device=model.device, dtype=model.param_dtype)
+        out = torch.empty(shape, dtype=model.param_dtype, device=model.device)
+        flat = out.view(-1)
+        for i in range(0, flat.numel(), _DRAW_ELEMS):
+            n = min(_DRAW_ELEMS, flat.numel() - i)
+            piece = torch.randn(n, generator=generator, device=generator.device).mul_(scale)
+            flat[i:i + n].copy_(piece)
+        return out
 
     def full(shape, value):
         return torch.full(shape, value, dtype=model.param_dtype, device=model.device)
@@ -81,24 +106,32 @@ def _layer_params(blocks: dict, i: int) -> dict:
     return {k: _layer_params(v, i) if isinstance(v, dict) else v[i] for k, v in blocks.items()}
 
 
-def _dense(cfg: ArchConfig, normal):
-    """``dense(d_in, d_out)``: a stacked (n_layers, d_in, d_out) matrix at the
+def _dense(n: int, normal):
+    """``dense(d_in, d_out)``: a stacked (n, d_in, d_out) matrix at the
     reference's scale (2 / (d_in + d_out))^0.5."""
-    return lambda d_in, d_out: normal((cfg.n_layers, d_in, d_out), (2.0 / (d_in + d_out)) ** 0.5)
+    return lambda d_in, d_out: normal((n, d_in, d_out), (2.0 / (d_in + d_out)) ** 0.5)
 
 
-def _init_attention(cfg: ArchConfig, normal) -> dict:
-    dense = _dense(cfg, normal)
-    return {
+def _init_attention(cfg: ArchConfig, normal, full, n_layers: int | None = None) -> dict:
+    """Stacked Q/K/V/O projections; with ``cfg.qkv_bias`` also zero ``bq`` /
+    ``bk`` / ``bv``, as the reference initialises them."""
+    n = cfg.n_layers if n_layers is None else n_layers
+    dense = _dense(n, normal)
+    p = {
         "wq": dense(cfg.d_model, cfg.q_dim),
         "wk": dense(cfg.d_model, cfg.kv_dim),
         "wv": dense(cfg.d_model, cfg.kv_dim),
         "wo": dense(cfg.q_dim, cfg.d_model),
     }
+    if cfg.qkv_bias:
+        p["bq"] = full((n, cfg.q_dim), 0.0)
+        p["bk"] = full((n, cfg.kv_dim), 0.0)
+        p["bv"] = full((n, cfg.kv_dim), 0.0)
+    return p
 
 
-def _init_mlp(cfg: ArchConfig, normal) -> dict:
-    dense = _dense(cfg, normal)
+def _init_mlp(cfg: ArchConfig, normal, n_layers: int | None = None) -> dict:
+    dense = _dense(cfg.n_layers if n_layers is None else n_layers, normal)
     return {
         "w_gate": dense(cfg.d_model, cfg.d_ff),
         "w_up": dense(cfg.d_model, cfg.d_ff),
@@ -107,7 +140,9 @@ def _init_mlp(cfg: ArchConfig, normal) -> dict:
 
 
 class TransformerLM:
-    """Dense decoder-only LM (GQA, RoPE, SwiGLU)."""
+    """Decoder-only LM (GQA, RoPE, SwiGLU): an MoE FFN when ``cfg.moe``, QKV
+    biases when ``cfg.qkv_bias``, and for a VLM a cross-attention block over
+    the image embeddings closing every group of ``cross_every`` layers."""
 
     def __init__(self, cfg: ArchConfig, dtype=torch.bfloat16, param_dtype=torch.bfloat16, device="cuda"):
         self.cfg = cfg
@@ -115,6 +150,21 @@ class TransformerLM:
         self.param_dtype = param_dtype
         self.device = torch.device(device)
         self.kv_quant = False  # int8 KV cache (set through build_model)
+        self.is_moe = cfg.moe is not None
+        self.is_vlm = cfg.family == "vlm"
+        if self.is_vlm:
+            if cfg.n_layers % cfg.cross_every:
+                raise ValueError(f"{cfg.name}: n_layers {cfg.n_layers} is not a multiple of cross_every "
+                                 f"{cfg.cross_every}")
+            self.n_groups = cfg.n_layers // cfg.cross_every
+            self.self_per_group = cfg.cross_every - 1  # the last layer of a group is the cross block
+        if self.is_moe and self.is_vlm:
+            raise ValueError("an MoE FFN does not combine with a VLM, as in the reference")
+
+    @property
+    def n_self(self) -> int:
+        """Self-attention layers: all of them, or ``n_groups * (cross_every - 1)`` for a VLM."""
+        return self.n_groups * self.self_per_group if self.is_vlm else self.cfg.n_layers
 
     # -- params -----------------------------------------------------------
     def init(self, generator: torch.Generator | None = None) -> dict:
@@ -122,43 +172,98 @@ class TransformerLM:
         moved to the model's device.  Scales follow the reference's
         initializers; the numbers themselves differ (another generator)."""
         c = self.cfg
-        n = c.n_layers
+        n = self.n_self
         normal, full = _initializers(self, generator)
-        attn = _init_attention(c, normal)
-        ffn = _init_mlp(c, normal)
-        return {
-            "emb": _init_embedding(c, normal),
-            "final_norm": full((c.d_model,), 1.0),
-            "blocks": {"attn": attn, "ffn": ffn, "ln1": full((n, c.d_model), 1.0),
-                       "ln2": full((n, c.d_model), 1.0)},
-        }
+        blocks = {"attn": _init_attention(c, normal, full, n), "ln1": full((n, c.d_model), 1.0),
+                  "ln2": full((n, c.d_model), 1.0)}
+        if self.is_moe:
+            blocks["moe"] = MOE.init_moe(c, normal, n)
+        else:
+            blocks["ffn"] = _init_mlp(c, normal, n)
+        params = {"emb": _init_embedding(c, normal), "final_norm": full((c.d_model,), 1.0), "blocks": blocks}
+        if self.is_vlm:
+            g = self.n_groups
+            params["cross"] = {
+                "attn": _init_attention(c, normal, full, g),
+                "ffn": _init_mlp(c, normal, g),
+                "ln1": full((g, c.d_model), 1.0),
+                "ln2": full((g, c.d_model), 1.0),
+                "ln_img": full((g, c.d_model), 1.0),
+            }
+        return params
 
-    # -- one transformer block ----------------------------------------------
-    def _block(self, blk: dict, x, positions, *, cache, cache_positions=None, chunk_start=None):
+    # -- blocks -------------------------------------------------------------
+    def _self_block(self, blk: dict, x, positions, *, cache, cache_positions=None, chunk_start=None):
+        """Self-attention and the FFN (dense or MoE); returns (x, aux loss)."""
         c = self.cfg
         x = x + L.attention_layer(
             blk["attn"], L.rms_norm(x, blk["ln1"], c.norm_eps), c, positions,
             cache=cache, cache_positions=cache_positions, chunk_start=chunk_start,
         )
+        xn = L.rms_norm(x, blk["ln2"], c.norm_eps)
+        if self.is_moe:
+            out, aux = MOE.moe_ffn(blk["moe"], xn, c)
+        else:
+            out, aux = L.mlp_layer(blk["ffn"], xn), 0.0
+        return x + out, aux
+
+    def _cross_block(self, blk: dict, x, image_embs):
+        """Cross-attention over the normalised image embeddings (no rope, no
+        mask), then the group's FFN."""
+        c = self.cfg
+        x = x + L.attention_layer(
+            blk["attn"], L.rms_norm(x, blk["ln1"], c.norm_eps), c, None,
+            kv_input=L.rms_norm(image_embs, blk["ln_img"], c.norm_eps),
+        )
         return x + L.mlp_layer(blk["ffn"], L.rms_norm(x, blk["ln2"], c.norm_eps))
+
+    def _self_layers(self, params: dict, x, positions, cache: dict, after_group=None, **kw):
+        """Every self-attention layer over ``x``, each writing its cache rows in
+        place: one scan over the stack, or, for a VLM, a scan over the groups
+        with a scan over each group's self layers inside, then
+        ``after_group(g, cross_params, x) -> x``.  Selection follows the
+        reference's scans: layer 0 of the (first group's) stack selects and
+        later layers replay."""
+        blocks = params["blocks"]
+        if not self.is_vlm:
+            for i in ops.scan_layers(self.cfg.n_layers):
+                x, _ = self._self_block(_layer_params(blocks, i), x, positions, cache=self._layer_cache(cache, i),
+                                        **kw)
+            return x
+        spg = self.self_per_group
+        for g in ops.scan_layers(self.n_groups):
+            for j in ops.scan_layers(spg):
+                i = g * spg + j
+                x, _ = self._self_block(_layer_params(blocks, i), x, positions, cache=self._layer_cache(cache, i),
+                                        **kw)
+            x = after_group(g, _layer_params(params["cross"], g), x)
+        return x
 
     # -- caches / serving ---------------------------------------------------
     def init_cache(self, b: int, cache_len: int) -> dict:
-        """k/v per token, (n_layers, B, T, KV, hd); an int8 cache holds them
-        as int8 with (n_layers, B, T, KV) f32 ``k_scale`` / ``v_scale``."""
+        """k/v per token, (n_self, B, T, KV, hd); an int8 cache holds them
+        as int8 with (n_self, B, T, KV) f32 ``k_scale`` / ``v_scale``.  A VLM
+        adds ``cross_k`` / ``cross_v`` (n_groups, B, n_image_tokens, KV, hd)
+        in the activation dtype."""
         c = self.cfg
-        shape = (c.n_layers, b, cache_len, c.n_kv_heads, c.head_dim)
+        shape = (self.n_self, b, cache_len, c.n_kv_heads, c.head_dim)
         if self.kv_quant:
-            return {
+            cache = {
                 "k": torch.zeros(shape, dtype=torch.int8, device=self.device),
                 "v": torch.zeros(shape, dtype=torch.int8, device=self.device),
                 "k_scale": torch.zeros(shape[:-1], dtype=torch.float32, device=self.device),
                 "v_scale": torch.zeros(shape[:-1], dtype=torch.float32, device=self.device),
             }
-        return {
-            "k": torch.zeros(shape, dtype=self.dtype, device=self.device),
-            "v": torch.zeros(shape, dtype=self.dtype, device=self.device),
-        }
+        else:
+            cache = {
+                "k": torch.zeros(shape, dtype=self.dtype, device=self.device),
+                "v": torch.zeros(shape, dtype=self.dtype, device=self.device),
+            }
+        if self.is_vlm:
+            cross = (self.n_groups, b, c.n_image_tokens, c.n_kv_heads, c.head_dim)
+            cache["cross_k"] = torch.zeros(cross, dtype=self.dtype, device=self.device)
+            cache["cross_v"] = torch.zeros(cross, dtype=self.dtype, device=self.device)
+        return cache
 
     @property
     def _cache_keys(self) -> tuple[str, ...]:
@@ -169,22 +274,37 @@ class TransformerLM:
 
     def prefill(self, params: dict, batch: dict, cache_len: int):
         """Run the prompt ``batch["tokens"]`` (B, S); returns the f32 logits
-        of the last position (B, 1, V_padded) and the filled cache."""
+        of the last position (B, 1, V_padded) and the filled cache.  A VLM
+        reads ``batch["image_embs"]`` (B, n_image_tokens, d) and writes each
+        group's cross K/V once, for the decode steps to attend over."""
         c = self.cfg
         tokens = batch["tokens"]
         b, s = tokens.shape
         cache = self.init_cache(b, cache_len)
         positions = torch.arange(s, device=self.device).expand(b, s)
         x = L.embed_tokens(params["emb"], tokens).to(self.dtype)
-        for i in ops.scan_layers(c.n_layers):
-            x = self._block(_layer_params(params["blocks"], i), x, positions, cache=self._layer_cache(cache, i))
+        after_group = None
+        if self.is_vlm:
+            image_embs = batch["image_embs"].to(device=self.device, dtype=self.dtype)
+            kvh, hd = c.n_kv_heads, c.head_dim
+
+            def after_group(g, cross, x):
+                x = self._cross_block(cross, x, image_embs)
+                # Cross K/V are static per request: computed once here.
+                imn = L.rms_norm(image_embs, cross["ln_img"], c.norm_eps)
+                cache["cross_k"][g] = ops.matmul(imn, cross["attn"]["wk"]).reshape(b, -1, kvh, hd)
+                cache["cross_v"][g] = ops.matmul(imn, cross["attn"]["wv"]).reshape(b, -1, kvh, hd)
+                return x
+
+        x = self._self_layers(params, x, positions, cache, after_group)
         x = L.rms_norm(x, params["final_norm"], c.norm_eps)
         return L.logits_from_hidden(params["emb"], x[:, -1:]), cache
 
     def supports_chunked_prefill(self) -> bool:
-        """Chunk-append prefill works on the plain k/v layout; an int8 cache
-        falls back to monolithic prefill, as in the reference."""
-        return not self.kv_quant
+        """Chunk-append prefill works on the plain k/v layout (dense or MoE); a
+        VLM and an int8 cache fall back to monolithic prefill, as in the
+        reference."""
+        return not self.is_vlm and not self.kv_quant
 
     def prefill_chunk(self, params: dict, cache: dict, tokens: torch.Tensor, start, last_row=None):
         """Append a prompt chunk at absolute positions ``[start, start + S)``.
@@ -195,19 +315,19 @@ class TransformerLM:
         reads their values on the host, so one captured program serves every
         chunk offset, as the reference's traced ``start`` does.  Rows past the
         real prompt are causally dead; cache writes past ``cache_len`` are
-        dropped.  The cache is updated in place and returned with the f32
-        logits (B, 1, V_padded).
+        dropped.  An MoE chunk routes its own S x B tokens (its capacity
+        follows the chunk's length, as the reference's).  The cache is updated
+        in place and returned with the f32 logits (B, 1, V_padded).
         """
         if not self.supports_chunked_prefill():
-            raise NotImplementedError(f"chunked prefill unsupported for this layout (kv_quant={self.kv_quant})")
+            raise NotImplementedError(f"chunked prefill unsupported for this layout "
+                                      f"(vlm={self.is_vlm}, kv_quant={self.kv_quant})")
         c = self.cfg
         b, s = tokens.shape
         start = torch.as_tensor(start, dtype=torch.int64, device=self.device)
         positions = start + torch.arange(s, device=self.device).expand(b, s)
         x = L.embed_tokens(params["emb"], tokens).to(self.dtype)
-        for i in ops.scan_layers(c.n_layers):
-            x = self._block(_layer_params(params["blocks"], i), x, positions, cache=self._layer_cache(cache, i),
-                            chunk_start=start)
+        x = self._self_layers(params, x, positions, cache, chunk_start=start)
         x = L.rms_norm(x, params["final_norm"], c.norm_eps)
         if last_row is None:
             x_last = x[:, -1:]
@@ -216,16 +336,23 @@ class TransformerLM:
         return L.logits_from_hidden(params["emb"], x_last), cache
 
     def decode_step(self, params: dict, cache: dict, tokens: torch.Tensor, positions: torch.Tensor):
-        """tokens: (B, 1); positions: (B,) — index of the new token.  The
+        """tokens: (B, 1); positions: (B,) — index of the new token.  A VLM's
+        cross blocks attend over all of each group's cached image tokens.  The
         cache is updated in place and returned."""
         c = self.cfg
+        b = tokens.shape[0]
         x = L.embed_tokens(params["emb"], tokens).to(self.dtype)
-        pos2d = positions[:, None]
-        for i in ops.scan_layers(c.n_layers):
-            x = self._block(
-                _layer_params(params["blocks"], i), x, pos2d,
-                cache=self._layer_cache(cache, i), cache_positions=positions,
-            )
+        after_group = None
+        if self.is_vlm:
+            def after_group(g, cross, x):
+                ck, cv = cache["cross_k"][g], cache["cross_v"][g]
+                q = ops.matmul(L.rms_norm(x, cross["ln1"], c.norm_eps), cross["attn"]["wq"])
+                valid = torch.full((b,), ck.shape[1], dtype=torch.int64, device=self.device)
+                h = L.decode_attention(q.reshape(b, 1, c.n_heads, c.head_dim), ck, cv, valid)
+                x = x + ops.matmul(h.reshape(b, 1, c.q_dim), cross["attn"]["wo"])
+                return x + L.mlp_layer(cross["ffn"], L.rms_norm(x, cross["ln2"], c.norm_eps))
+
+        x = self._self_layers(params, x, positions[:, None], cache, after_group, cache_positions=positions)
         x = L.rms_norm(x, params["final_norm"], c.norm_eps)
         return L.logits_from_hidden(params["emb"], x), cache
 
@@ -330,7 +457,7 @@ class HymbaLM:
             "emb": _init_embedding(c, normal),
             "final_norm": full((c.d_model,), 1.0),
             "blocks": {
-                "attn": _init_attention(c, normal),
+                "attn": _init_attention(c, normal, full),
                 "mamba": M.init_mamba(c, normal, full),
                 "ffn": _init_mlp(c, normal),
                 "ln1": full((c.n_layers, c.d_model), 1.0),

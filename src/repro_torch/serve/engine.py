@@ -237,6 +237,16 @@ def _extend_ladder(buckets: tuple[int, ...], cache_len: int) -> tuple[int, ...]:
     return tuple(out)
 
 
+def _batch_extra(v) -> torch.Tensor:
+    """One extra prefill input shaped for the batch-1 prefill, as the reference
+    shapes it: a scalar gains a batch axis, a leading batch-1 axis passes
+    through, anything else is per-sequence data and gains one."""
+    v = torch.as_tensor(v)
+    if v.ndim == 0 or v.shape[0] != 1:
+        return v[None]
+    return v
+
+
 def _recent_ms(req: Request, k: int = 3) -> float | None:
     if not req.token_ms:
         return None
@@ -350,6 +360,7 @@ class ServingEngine:
         max_batch: int = 4,
         cache_len: int = 256,
         prefill_buckets: tuple[int, ...] = (32, 64, 128),
+        extra_inputs: dict | None = None,
         bundle=None,
         device: str | None = None,
         runtime=None,
@@ -377,6 +388,13 @@ class ServingEngine:
         model raises.  False on a CUDA model runs the bodies eagerly: the
         eager engine, kept only to compare against the graphs (the
         counterpart of the reference under ``jax.disable_jit()``).
+
+        ``extra_inputs``: more prefill inputs beside the tokens (a VLM's
+        ``image_embs``), engine-wide constants as in the reference: each is
+        given a batch-1 axis where it has none (:func:`_batch_extra`) and moved
+        to the model's device once, so every prefill program reads the same
+        tensor at its capture and at every replay.  Extras keep the legacy
+        admission (no streaming, no prefix sharing), as in the reference.
 
         ``bundle`` (a ``DeploymentBundle`` or a path): installed into the
         runtime before the first program is built, resolved for ``device``
@@ -416,12 +434,15 @@ class ServingEngine:
         self.cache_len = cache_len
         self.prefill_buckets = prefill_buckets
         self._ladder = _extend_ladder(tuple(prefill_buckets), cache_len)
+        self.extra_inputs = {k: _batch_extra(v).to(model.device) for k, v in (extra_inputs or {}).items()}
         self.pool = KVPool(model, lanes=max_batch, cache_len=cache_len,
                            block_size=block_size, n_blocks=n_blocks)
         # Streaming admission (chunked prefill + prefix sharing) needs a
-        # chunk-capable model and either a chunk budget or a paged pool with
-        # sharing; everything else keeps the legacy admission.
-        chunk_capable = hasattr(model, "prefill_chunk") and model.supports_chunked_prefill()
+        # chunk-capable model, no extra prefill inputs, and either a chunk
+        # budget or a paged pool with sharing; everything else keeps the
+        # legacy admission.
+        chunk_capable = (hasattr(model, "prefill_chunk") and model.supports_chunked_prefill()
+                         and not self.extra_inputs)
         paged = self.pool.block_size < self.cache_len
         self.prefill_chunk_tokens = prefill_chunk_tokens
         self._sharing = bool(prefix_sharing) and paged and chunk_capable
@@ -537,7 +558,7 @@ class ServingEngine:
             tokens = torch.zeros((1, plen), dtype=torch.int64, device=self.model.device)
 
             def body():
-                logits, cache1 = self.model.prefill(self.params, {"tokens": tokens}, self.cache_len)
+                logits, cache1 = self.model.prefill(self.params, {"tokens": tokens, **self.extra_inputs}, self.cache_len)
                 return {"cache": cache1, "logits": logits, "next": torch.argmax(logits[0, -1])}
 
             # No side effect: pool.admit copies the cache out after the call.

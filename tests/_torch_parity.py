@@ -3,6 +3,8 @@
 The JAX reference model is built and initialised in f32 from
 ``jax.random.PRNGKey(0)``; its params go to the port through
 ``repro_torch.weights.params_from_jax``, so both compute on the same weights.
+``model_pair`` does the same from the numpy tree, in which a QKV-bias
+config's zero biases are first replaced by seeded normals.
 """
 import dataclasses
 import functools
@@ -35,3 +37,20 @@ def reduced_pair(arch: str, n_layers: int | None = None):
     tm = torch_build_model(tcfg, dtype=torch.float32, param_dtype=torch.float32, device="cpu")
     tp = params_from_jax(jax.tree.map(np.asarray, jp), tcfg, device="cpu", dtype=torch.float32)
     return jm, jp, tm, tp
+
+
+def model_pair(arch: str):
+    """(jax model, jax params, port model, port params) for reduced ``arch`` in
+    f32; a ``qkv_bias`` config's zero-initialised biases are replaced in the
+    numpy tree by seeded normals before either package uses them."""
+    jcfg, tcfg = jax_registry.get(arch).reduced(), torch_registry.get(arch).reduced()
+    jm = jax_build_model(jcfg, dtype=jnp.float32, param_dtype=jnp.float32)
+    np_params = jax.tree.map(np.asarray, jm.init(jax.random.PRNGKey(0)))
+    if tcfg.qkv_bias:
+        rng = np.random.default_rng(11)
+        attn = np_params["blocks"]["attn"]
+        for key in ("bq", "bk", "bv"):
+            attn[key] = rng.standard_normal(attn[key].shape).astype(np.float32) * 0.5
+    jp = jax.tree.map(jnp.asarray, np_params)
+    tm = torch_build_model(tcfg, dtype=torch.float32, param_dtype=torch.float32, device="cpu")
+    return jm, jp, tm, params_from_jax(np_params, tcfg, device="cpu", dtype=torch.float32)
