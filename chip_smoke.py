@@ -213,8 +213,11 @@ Phases (each one fails the run if its check fails):
    call (direct ``matmul_cuda``, ``ops.matmul`` with no plan and with an armed plan
    that never fires);
    21b. phase 19's batch drained under ``engine.prefill:compile_error,
-   engine.decode:compile_error:1:5,dispatch.matmul:compile_error`` under CUDA
-   graphs: every request completes, 2 engine retries, the programs dropped and
+   engine.decode:compile_error:1:5`` and a ``dispatch.matmul:compile_error``
+   keyed on the first config other than ``DEFAULT_CONFIG`` in phase 19's
+   selection log (a fault on the default itself is unrecoverable on the card,
+   21a) under CUDA graphs: every request completes, 2 engine retries, the
+   dispatch fault redirected, the programs dropped and
    captured again (and their seconds), health back to healthy, greedy streams
    equal to phase 19's;
    21c. an engine served from phase 17's bundle adopts the card's bundle entry
@@ -306,9 +309,55 @@ Phases (each one fails the run if its check fails):
    pool; paged, prefix-shared, 32-token chunks), llama-3.2-vision-90b (seeded
    image embeddings; dense and paged) and qwen2.5-32b (seeded nonzero QKV
    biases): equal greedy streams;
-25. no Python collection ran during any CUDA graph capture (one there could
+25. training on the card (every plain version refused on a CUDA tensor
+   throughout 25a-25f):
+   25a. the GEMM's gradient: ``ops.matmul`` under grad (the ``repro_torch::gemm``
+   op: ``grad_lhs = grad_out . rhs^T`` featurized as the forward, ``grad_rhs =
+   lhs^T . grad_out`` over the flattened rows, both through ``ops.matmul``) at
+   granite-8b's and seamless-m4t-large-v2's training shapes (B*S = 1024 rows;
+   (k, n) of their Q, K/V, O, FFN and vocab GEMMs, seamless's head a K = 256,256
+   reduction in grad_lhs) and phase 3's split-k / cp.async edges, bf16 and f32: the
+   output and both gradients against autograd of ``matmul_plain`` on the card
+   (TF32 off) within phase 3's limits, 3 launches a forward + backward; each
+   of the three GEMMs of every granite projection timed with CUDA events
+   beside its bound, the plain version and torch.matmul, and the two
+   transpose copies the backward makes;
+   25b. granite-8b at full width (d 4096, ff 14336, vocab 49152), 2 of 36
+   layers, f32 as the launcher trains: ``Trainer`` for 6 steps at batch 8, seq
+   128, remat "full" (its final checkpoint included): the loss falls, every
+   parameter has a non-zero gradient, GEMM launches per step = forward +
+   recompute + 2 backward per GEMM (59), all on the SIMT path; step ms (warm
+   median), peak memory, one profiled step (its GEMM kernels' time and share;
+   the kernels it recorded) beside an estimate of the step's GEMM time from
+   25a's CUDA-event times; then 3 bf16
+   steps (TMA / wgmma, no SIMT launch);
+   25c. resume on the card (reduced granite-8b, f32): 6 steps against 3 +
+   resume + 3, params within 1e-4 (the embedding's backward adds with
+   atomics);
+   25d. seamless-m4t-large-v2 at its full size (24 + 24 layers, d 1024, vocab
+   256206, about 2.0 B params), f32: 3 loss_fn + AdamW steps at batch 8, seq
+   128 (GEMM launches by the same formula; the loss falls), then prefill and 4
+   decode steps from the params the steps return (no grad left on them);
+   seconds and peak memory;
+   25e. one train step's loss and every gradient, card against CPU: reduced
+   granite-8b, qwen3-moe-235b-a22b, qwen2.5-32b (seeded nonzero biases),
+   llama-3.2-vision-90b (bf16 image embeddings) and seamless-m4t-large-v2
+   (the encoder, cross-attention over its memory), within 1e-5 (loss) and 1e-4
+   of each gradient's max (1e-2 for the VLM's three bf16-fed cross leaves);
+   granite-8b again under remat "dots" on the card (the selective-checkpoint
+   policy keeps the GEMM outputs: no GEMM launched in the recompute);
+   25f. reduced rwkv6-7b and hymba-1.5b: ``loss_fn`` with grad raises
+   ``NoBackwardKernelError`` naming the next slice; without grad the forward
+   runs on, launching its WKV / scan kernels;
+   25g. ``python -m repro_torch.launch.train --arch granite-8b --reduced
+   --steps 4 --batch 2 --seq 16 --ckpt-every 2 --deployment
+   build/deploy_h100.json``: exit 0, checkpoints at steps 2 and 4;
+26. no Python collection ran during any CUDA graph capture (one there could
    free a dead engine's graphs and invalidate the capture); the ``kernels``
    JSON line, then the card line, then the result line.
+
+``python3 chip_smoke.py --only-training`` runs phases 1, 2 and 25 alone (25g
+needs ``build/deploy_h100.json`` from a tune).
 
 Each phase's header shows the seconds since the start.
 
@@ -339,7 +388,7 @@ GRANITE_KN = [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096), (4096, 4
 RWKV_KN = [(4096, 4096), (4096, 64), (64, 4096), (4096, 14336), (14336, 4096), (4096, 65536)]
 HYMBA_KN = [(1600, 1600), (1600, 320), (1600, 3200), (1600, 48), (48, 1600), (1600, 16), (1600, 5504),
             (5504, 1600), (1600, 32128)]
-VOCAB_KN = {(4096, 49152), (4096, 65536), (1600, 32128)}
+VOCAB_KN = {(4096, 49152), (4096, 65536), (1600, 32128), (1024, 256256)}
 # Every (k, n) that phase 24's five models give the GEMM: Q, K/V, O, FFN or router, and the vocab
 # head (qwen3-moe, dbrx, qwen2.5-32b, glm4-9b, llama-3.2-vision-90b), and the VLM's cross K / V over
 # its 1024 image tokens, once a request.
@@ -1955,7 +2004,8 @@ def _release(torch, serve: dict) -> None:
     torch.cuda.empty_cache()
 
 
-CHAOS = "engine.prefill:compile_error,engine.decode:compile_error:1:5,dispatch.matmul:compile_error"
+CHAOS = "engine.prefill:compile_error,engine.decode:compile_error:1:5"
+CHAOS_DISPATCH = "dispatch.matmul:compile_error on the first non-default config phase 19 selected"
 
 
 def _incident_summary(rt) -> dict:
@@ -2130,9 +2180,20 @@ def phase_engine_chaos(torch, mm, seq: dict, tuned: dict) -> dict:
     from repro_torch.core.runtime import KernelRuntime
     from repro_torch.serve.engine import ServingEngine
 
+    default = mm.DEFAULT_CONFIG.name()
+    # The dispatch fault is keyed on a config the guard can redirect: the tree picks the
+    # default at some shapes, and on the card a fault there has nothing compiled left.
+    dep = Deployment.load(DEPLOY_PATH)
+    served = [cfg.name() for op, p, cfg in tuned["engine"].runtime.selection_log()
+              if op == "matmul" and cfg == dep.select_matmul(*p)]
+    key = next((name for name in served if name != default), None)
     rt = KernelRuntime(name="chip_smoke-chaos")
-    rt.install(Deployment.load(DEPLOY_PATH))
+    rt.install(dep)
     plan = faults.FaultPlan.parse(CHAOS, seed=0)
+    if key is None:
+        print(f"  the tree served {default} at every GEMM of phase 19: no dispatch fault it could redirect")
+    else:
+        plan.inject("dispatch.matmul", "compile_error", times=1, match=key)
     rt.set_fault_plan(plan)
     engine = ServingEngine(tuned["model"], tuned["params"], max_batch=4, cache_len=256, runtime=rt)
     mm.reset_launches()
@@ -2157,11 +2218,16 @@ def phase_engine_chaos(torch, mm, seq: dict, tuned: dict) -> dict:
     }
     require(status.completed == len(tickets) and not status.exhausted, f"requests dropped under chaos: {status}")
     require(res["incidents"].get("retry") == 2, f"want 2 engine retries, got {res['incidents']}")
+    if key is not None:
+        require(("dispatch.matmul", "compile_error", key) in res["faults_fired"]
+                and res["incidents"].get("quarantined") == 1,
+                f"the dispatch fault on {key} did not fire once and redirect: {res['faults_fired']} / "
+                f"{res['incidents']}")
     require(rebuilt, "no program was dropped and captured again")
     require(status.health == "healthy" and engine.health_events and engine.health_events[-1][1] == "healthy",
             f"health did not end healthy: {engine.health_events} / {status.health}")
     require(res["streams_equal_phase_19"], "the greedy streams under chaos differ from phase 19's clean drain")
-    print(f"  {CHAOS}: {status.completed}/{len(tickets)} completed, {res['retries']} request retries, incidents "
+    print(f"  {CHAOS} + dispatch.matmul:compile_error on {key}: {status.completed}/{len(tickets)} completed, {res['retries']} request retries, incidents "
           f"{res['incidents']}, faults {res['faults_fired']}")
     print(f"  programs captured again: {res['programs_captured_again']} in {res['recapture_s']:.3f}s (all captures "
           f"{res['capture_s']:.3f}s); health {engine.health_events}; streams equal phase 19's: True")
@@ -3415,6 +3481,640 @@ def phase_arch_cpu_vs_card(torch, mm) -> dict:
     return {"tokens": out, "gemm_launches": mm.total_launches()}
 
 
+
+# ---------------------------------------------------------------------------
+# phase 25: training on the card
+# ---------------------------------------------------------------------------
+TRAIN_ROWS = 1024  # granite-8b's and seamless's training GEMMs at batch 8, seq 128: B * S rows
+# seamless-m4t-large-v2's (k, n): Q, K, V, O (self and cross), gate and up, down, the vocab head
+SEAMLESS_KN = [(1024, 1024), (1024, 8192), (8192, 1024), (1024, 256256)]
+# 25a's f32 limit: phase 3's 1e-5 up to a reduction of 16,384 terms (phase 3's longest is 14,336),
+# then growing as sqrt(K): two f32 sums of K terms in other orders drift apart as a random walk of
+# K roundings, while the largest output grows as sqrt(K) too only for random signs.  Seamless's head
+# gradient sums K = 256,256 (limit 3.95e-5); both sides are also held against an f64 product.
+F32_K_ANCHOR = 16384
+
+
+def _f32_limit(k_red: int) -> float:
+    return TOL[("f32", "f32")] * max(1.0, k_red / F32_K_ANCHOR) ** 0.5
+TRAIN_BATCH, TRAIN_SEQ = 8, 128
+TRAIN_PARITY_TOL = 1e-4  # 25e: card against CPU, relative to each gradient's max (f32, sums in other orders)
+BF16_FED = ("cross/attn/wk", "cross/attn/wv", "cross/ln_img")  # 25e: VLM leaves behind bf16 roundings (2^-8)
+RESUME_TOL = dict(rtol=1e-4, atol=1e-5)  # 25c: the embedding's backward adds with atomics
+
+
+class _PlainOnCard(RuntimeError):
+    pass
+
+
+def _no_plain_on_card(ops):
+    """Replace the plain versions ``ops`` calls by guards that raise on a CUDA
+    tensor (and run the plain version on a CPU one); returns the restore."""
+    names = ("matmul_plain", "wkv_plain", "ssm_plain", "ssm_fused_plain", "attention_plain")
+    saved = {name: getattr(ops, name) for name in names}
+
+    def guard(name, fn):
+        def run(*args, **kw):
+            if any(getattr(a, "is_cuda", False) for a in args):
+                raise _PlainOnCard(f"ops.{name} ran on a CUDA tensor")
+            return fn(*args, **kw)
+        return run
+
+    for name, fn in saved.items():
+        setattr(ops, name, guard(name, fn))
+    return lambda: [setattr(ops, name, fn) for name, fn in saved.items()]
+
+
+def _train_runtime(name: str):
+    from repro_torch.core.runtime import KernelRuntime
+    from repro_torch.kernels.ops import FixedPolicy
+
+    rt = KernelRuntime(name=name)
+    rt.install(FixedPolicy())
+    return rt
+
+
+def phase_grad_gemms(torch, mm, ops) -> dict:
+    """25a: ``ops.matmul``'s forward and both gradients through the kernel against
+    autograd of ``matmul_plain`` on the card, bf16 and f32 (TF32 off), at granite-8b's
+    and seamless-m4t-large-v2's training shapes and phase 3's split-k / cp.async
+    edges; then each of the three
+    GEMMs of every granite projection timed with CUDA events beside its bound, the
+    plain version and torch.matmul, and the transpose copies the backward makes."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dt = {"bf16": torch.bfloat16, "f32": torch.float32}
+    g = torch.Generator(device="cuda").manual_seed(25)
+    cases = [((TRAIN_BATCH, TRAIN_ROWS // TRAIN_BATCH), k, n, False) for k, n in GRANITE_KN + SEAMLESS_KN]
+    cases += [((m,), k, n, False) for m, k, n in SPLIT_SHAPES] + [((4,), 4096, 1024, True)]
+    worst = {name: {"rel": 0.0, "abs": 0.0} for name in dt}  # held to phase 3's TOL by type pair
+    exact = {"kernel": 0.0, "plain": 0.0, "where": None}  # f32: the largest reduction's errors against f64
+    rt = _train_runtime("chip_smoke[25a]")
+    launches_per_case = []
+    mm.reset_launches()
+    ops.GRAD_GEMMS.clear()
+    with rt.activate():
+        for lead, k, n, misaligned in cases:
+            a32 = torch.randn(*lead, k, device="cuda", generator=g)
+            b32 = torch.randn(k, n, device="cuda", generator=g) * k ** -0.5
+            gout = torch.randn(*lead, n, device="cuda", generator=g)
+            for name, dtype in dt.items():
+                out_dtype = torch.float32 if (k, n) in VOCAB_KN else dtype  # the head's f32 logits
+                a, b = a32.to(dtype), b32.to(dtype)
+                if misaligned:
+                    a = _misaligned(torch, a)
+                a.requires_grad_(True)
+                b.requires_grad_(True)
+                before = mm.total_launches()
+                out = ops.matmul(a, b, out_dtype=out_dtype)
+                ga, gb = torch.autograd.grad(out, (a, b), gout.to(out_dtype))
+                torch.cuda.synchronize()
+                launches_per_case.append(mm.total_launches() - before)
+                ap, bp = a.detach().requires_grad_(True), b.detach().requires_grad_(True)
+                want = mm.matmul_plain(ap.reshape(-1, k), bp, out_dtype).reshape(*lead, n)
+                wa, wb = torch.autograd.grad(want, (ap, bp), gout.to(out_dtype))
+                where = f"{name} {lead + (k,)} @ {(k, n)}{' (misaligned base)' if misaligned else ''}"
+                for what, got, ref, k_red in (("out", out, want, k), ("grad_lhs", ga, wa, n),
+                                              ("grad_rhs", gb, wb, a.numel() // k)):
+                    require(got.dtype == ref.dtype and got.shape == ref.shape, f"{where} {what}: {got.dtype} "
+                            f"{tuple(got.shape)} against {ref.dtype} {tuple(ref.shape)}")
+                    err = (got.float() - ref.float()).abs().max().item()
+                    scale = ref.float().abs().max().item()
+                    tol = TOL[(name, "bf16")] if got.dtype == torch.bfloat16 else (
+                        TOL[("bf16", "f32")] if name == "bf16" else _f32_limit(k_red))
+                    require(err / scale <= tol, f"{where} {what}: rel err {err / scale:.3g} > {tol:.3g}")
+                    w = worst[name]
+                    w["rel"], w["abs"] = max(w["rel"], err / scale), max(w["abs"], err)
+                    if name == "f32" and k_red > F32_K_ANCHOR:
+                        a64, b64 = a.detach().reshape(-1, k).double(), b.detach().double()
+                        g64 = gout.reshape(-1, n).double()
+                        e64 = {"out": lambda: a64 @ b64, "grad_lhs": lambda: g64 @ b64.t(),
+                               "grad_rhs": lambda: a64.t() @ g64}[what]().reshape(got.shape)
+                        scale64 = e64.abs().max().item()
+                        errs = [(t.double() - e64).abs().max().item() / scale64 for t in (got, ref)]
+                        require(errs[0] <= tol, f"{where} {what}: rel err {errs[0]:.3g} against f64 > {tol:.3g}")
+                        if k_red >= (exact["k"] if exact["where"] else 0):
+                            exact.update(kernel=errs[0], plain=errs[1], where=f"{where} {what}", k=k_red, tol=tol)
+                        del a64, b64, g64, e64
+    paths = dict(mm.PATH_LAUNCHES)
+    counts = dict(ops.GRAD_GEMMS)
+    require(all(c == 3 for c in launches_per_case), f"launches per forward + backward {launches_per_case}, want 3")
+    require(counts == {"forward": 2 * len(cases), "grad_lhs": 2 * len(cases), "grad_rhs": 2 * len(cases)},
+            f"gradient GEMMs by phase {counts}")
+    require(all(paths.values()), f"a GEMM path saw no training launch: {paths}")
+    print(f"  {len(cases)} shapes (granite-8b's {len(GRANITE_KN)} and seamless's {len(SEAMLESS_KN)} at {TRAIN_ROWS} "
+          f"rows, {len(cases) - len(GRANITE_KN) - len(SEAMLESS_KN)} edges) x (bf16, f32): forward, grad_lhs and "
+          f"grad_rhs through matmul.cu, 3 launches each "
+          f"(by phase {counts}; by path {paths}); worst rel err bf16 {worst['bf16']['rel']:.3g} (limits "
+          f"{TOL[('bf16', 'bf16')]} bf16 out, {TOL[('bf16', 'f32')]} f32 out), f32 {worst['f32']['rel']:.3g} (limit "
+          f"{_f32_limit(0)} up to K = {F32_K_ANCHOR}, x sqrt(K / {F32_K_ANCHOR}) above); against an f64 product at "
+          f"{exact['where']} (K = {exact.get('k')}): kernel {exact['kernel']:.3g}, torch.matmul f32 "
+          f"{exact['plain']:.3g} (limit {exact.get('tol', 0):.3g}))")
+
+    rows = []
+    for name, dtype in dt.items():
+        peak = BF16_FLOPS if name == "bf16" else F32_FLOPS
+        size = 2 if name == "bf16" else 4
+        n_runs = 20 if name == "bf16" else 5
+        for k, n in GRANITE_KN:
+            out_dtype = torch.float32 if (k, n) in VOCAB_KN else dtype
+            out_size = 4 if out_dtype == torch.float32 else size
+            x = torch.randn(TRAIN_ROWS, k, device="cuda", generator=g).to(dtype)
+            w = torch.randn(k, n, device="cuda", generator=g).to(dtype)
+            gy = torch.randn(TRAIN_ROWS, n, device="cuda", generator=g).to(dtype)
+            wt, xt = w.t().contiguous(), x.t().contiguous()
+            gemms = {  # (lhs, rhs, out dtype): the forward and the two GEMMs of its backward
+                "forward": (x, w, out_dtype), "grad_lhs": (gy, wt, dtype), "grad_rhs": (xt, gy, dtype)}
+            row = {"dtype": name, "m": TRAIN_ROWS, "k": k, "n": n}
+            for what, (lhs, rhs, od) in gemms.items():
+                mm_, kk = lhs.shape
+                nn = rhs.shape[1]
+                flops = 2 * mm_ * kk * nn
+                nbytes = (mm_ * kk + kk * nn) * size + mm_ * nn * (4 if od == torch.float32 else size)
+                row[what] = {
+                    "mkn": (mm_, kk, nn),
+                    "ms": _time_ms(lambda i: mm.matmul_cuda(lhs, rhs, out_dtype=od), n_runs=n_runs),
+                    "plain_ms": _time_ms(lambda i: mm.matmul_plain(lhs, rhs, od), n_runs=n_runs),
+                    "library_ms": _time_ms(lambda i: torch.matmul(lhs, rhs).to(od), n_runs=n_runs),
+                    "bound_ms": max(flops / peak, nbytes / HBM_BYTES_PER_S) * 1e3,
+                    "bound_by": "operations" if flops / peak >= nbytes / HBM_BYTES_PER_S else "bytes",
+                }
+            row["copies_ms"] = {
+                "rhs_t": _time_ms(lambda i: w.t().contiguous(), n_runs=n_runs),
+                "lhs_t": _time_ms(lambda i: x.t().contiguous(), n_runs=n_runs),
+                "bound_ms": {"rhs_t": 2 * k * n * size / HBM_BYTES_PER_S * 1e3,
+                             "lhs_t": 2 * TRAIN_ROWS * k * size / HBM_BYTES_PER_S * 1e3},
+            }
+            rows.append(row)
+            print(f"  {name} (1024, {k}) @ ({k}, {n}): " + "; ".join(
+                f"{what} {row[what]['ms']:.3f} ms (bound {row[what]['bound_ms']:.3f} {row[what]['bound_by']}, plain "
+                f"{row[what]['plain_ms']:.3f}, torch.matmul {row[what]['library_ms']:.3f})" for what in gemms)
+                + f"; transposes rhs {row['copies_ms']['rhs_t']:.3f} / lhs {row['copies_ms']['lhs_t']:.3f} ms")
+            del x, w, gy, wt, xt
+    per_layer = {}
+    for name in dt:
+        by_kn = {(r["k"], r["n"]): r for r in rows if r["dtype"] == name}
+        per_layer[name] = {key: [sum(c * by_kn[kn][what][key] for kn, c in GRANITE_LAYER_GEMMS.items())
+                                 for what in ("forward", "grad_lhs", "grad_rhs")]
+                           for key in ("ms", "bound_ms", "plain_ms", "library_ms")}
+        per_layer[name]["transposes_ms"] = sum(c * (by_kn[kn]["copies_ms"]["rhs_t"] + by_kn[kn]["copies_ms"]["lhs_t"])
+                                               for kn, c in GRANITE_LAYER_GEMMS.items())
+        print(f"  {name}, one granite-8b layer's 7 GEMMs at {TRAIN_ROWS} rows (the rows above summed), forward / "
+              f"grad_lhs / grad_rhs ms: " + "; ".join(
+                  f"{key} " + " / ".join(f"{v:.3f}" for v in per_layer[name][key])
+                  for key in ("ms", "bound_ms", "plain_ms", "library_ms"))
+              + f"; the backward's transposes {per_layer[name]['transposes_ms']:.3f}")
+    return {"worst": worst, "f32_against_f64": exact, "granite_layer": per_layer, "launches": sum(launches_per_case),
+            "by_phase": counts, "paths": paths, "cases": len(cases), "rows": rows}
+
+
+def _train_cfg(arch: str, **kw):
+    from repro_torch.configs import registry
+
+    return dataclasses.replace(registry.get(arch), **kw)
+
+
+def _grads_nonzero(torch, grads: dict) -> dict:
+    from repro_torch.optim import adamw
+
+    out = {}
+    for path, g in adamw.trainable(grads):
+        require(bool(torch.isfinite(g).all()), f"gradient of {path} is not finite")
+        out[path] = g.abs().max().item()
+    zero = [p for p, v in out.items() if v == 0.0]
+    require(not zero, f"parameters with a zero gradient (dropped through a kernel?): {zero}")
+    return out
+
+
+def _gemms_per_step(model) -> int:
+    """GEMM launches a remat-"full" train step makes: each GEMM of the forward, each
+    layer GEMM again in its recompute, and two more per GEMM in the backward (the
+    gradient of the first GEMM's input included: it flows on to the norms)."""
+    c = model.cfg
+    if type(model).__name__ == "EncDecLM":
+        layers = 7 * c.n_enc_layers + 11 * c.n_layers
+    else:
+        layers = 7 * c.n_layers
+    return (layers + 1) + layers + 2 * (layers + 1)
+
+
+# GEMMs of a granite-8b layer by (k, n): Q and O, K and V, gate and up, down; the head once a step.
+GRANITE_LAYER_GEMMS = {(4096, 4096): 2, (4096, 1024): 2, (4096, 14336): 2, (14336, 4096): 1}
+
+
+def _step_gemm_ms(rows: list, dtype: str, n_layers: int) -> tuple[float, float]:
+    """A remat-"full" granite-8b step's GEMM device time from 25a's CUDA-event times
+    (each layer GEMM forward twice, the recompute, and both gradients; the head's
+    three), and the time of the transpose copies its backward makes."""
+    by_kn = {(r["k"], r["n"]): r for r in rows if r["dtype"] == dtype}
+    gemm = lambda kn: (2 * by_kn[kn]["forward"]["ms"] + by_kn[kn]["grad_lhs"]["ms"] + by_kn[kn]["grad_rhs"]["ms"]
+                       - (by_kn[kn]["forward"]["ms"] if kn == (4096, 49152) else 0.0))
+    copies = lambda kn: by_kn[kn]["copies_ms"]["rhs_t"] + by_kn[kn]["copies_ms"]["lhs_t"]
+    counts = {kn: n_layers * c for kn, c in GRANITE_LAYER_GEMMS.items()} | {(4096, 49152): 1}
+    return sum(c * gemm(kn) for kn, c in counts.items()), sum(c * copies(kn) for kn, c in counts.items())
+
+
+def phase_train_granite(torch, mm, ops, grad_rows: list) -> dict:
+    """25b: granite-8b at full width (d 4096, ff 14336, vocab 49152), 2 layers, f32 as
+    the launcher trains: the Trainer for 6 steps at batch 8, seq 128, remat "full";
+    every parameter's gradient non-zero; GEMM launches per step from the code; step
+    ms, peak memory, the GEMM share of a profiled step; then 3 bf16 steps."""
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.train.train_step import make_train_step
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    cfg = _train_cfg("granite-8b", n_layers=2)
+    _free(torch)
+    torch.cuda.reset_peak_memory_stats()
+    ckpt_dir = ROOT / "build" / "train_ckpt_25b"
+    import shutil
+
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    rt = _train_runtime("chip_smoke[25b]")
+    out = {}
+    with rt.activate():
+        model = build_model(cfg, dtype=torch.float32, param_dtype=torch.float32, device="cuda")
+        trainer = Trainer(model, cfg, DataConfig(global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ),
+                          adamw.AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=6),
+                          TrainerConfig(total_steps=6, ckpt_every=1000, ckpt_dir=str(ckpt_dir), log_every=1))
+        mm.reset_launches()
+        ops.GRAD_GEMMS.clear()
+        t0 = time.perf_counter()
+        step, params, opt, metrics = trainer.train()
+        train_s = time.perf_counter() - t0
+        n_params = sum(p.numel() for _, p in adamw.trainable(params))
+        launches = mm.total_launches()
+        per_step = _gemms_per_step(model)
+        by_phase = dict(ops.GRAD_GEMMS)
+        require(step == 6 and launches == 6 * per_step, f"GEMM launches {launches} over 6 steps, want 6 x {per_step}"
+                                                         f" (by phase {by_phase})")
+        require(mm.PATH_LAUNCHES["simt_f32"] == launches, f"f32 training off the SIMT path: {dict(mm.PATH_LAUNCHES)}")
+        losses = [h["loss"] for h in trainer.history]
+        require(all(map(lambda v: v == v and abs(v) < 1e9, losses)), f"losses {losses}")
+        require(losses[-1] < losses[0], f"the loss does not fall: {losses}")
+        peak = torch.cuda.max_memory_allocated()
+        times = list(trainer.straggler.times)
+        warm_ms = statistics.median(times[1:]) * 1e3
+        batch = trainer.pipeline.device_batch(6, device="cuda")
+        grads = trainer.step_fn.compute_grads(params, batch)[2]
+        norms = _grads_nonzero(torch, grads)
+        del grads
+        _free(torch)
+        mm.reset_launches()
+        prof = _profile_window(torch, lambda: trainer.step_fn(params, opt, batch), 1)
+        step_launches = mm.total_launches()
+        # The wrapper's count is the proof; the profiler may drop records (PERF.md §7), so
+        # its kernel count is reported and its GEMM share is a lower bound when it drops.
+        require(step_launches == per_step, f"a profiled step: {step_launches} GEMM launches, want {per_step}")
+        recorded = prof["count"].get(GEMM_KERNELS, 0)
+        gemm_ms = prof["ms"].get(GEMM_KERNELS, 0.0)
+        print(f"  granite-8b at full width, 2 of 36 layers, f32: {n_params / 1e9:.3f} B params; Trainer 6 steps at "
+              f"batch {TRAIN_BATCH} x seq {TRAIN_SEQ} in {train_s:.1f}s (final checkpoint included); losses "
+              f"{[round(v, 4) for v in losses]}")
+        print(f"  step ms {[round(t * 1e3, 1) for t in times]} (warm median {warm_ms:.1f}); peak memory "
+              f"{peak / 1e9:.2f} GB; GEMM launches per step {per_step} = forward + recompute + 2 backward per GEMM "
+              f"(by phase over 6 steps {by_phase}); every one of {len(norms)} parameters has a non-zero gradient "
+              f"(smallest max |g| {min(norms.values()):.3g})")
+        events_ms, copies_ms = _step_gemm_ms(grad_rows, "f32", cfg.n_layers)
+        print(f"  estimate, not a measurement of the step: its {per_step} GEMMs summed from 25a's CUDA-event times "
+              f"{events_ms:.1f} ms, {events_ms / warm_ms:.1%} of the warm median step; its transpose copies "
+              f"{copies_ms:.2f} ms")
+        print(f"  profiled step: wall {prof['wall_ms']:.1f} ms, device busy {prof['busy_ms']:.1f} ms, GEMM kernels "
+              f"{gemm_ms:.1f} ms ({gemm_ms / prof['wall_ms']:.1%} of the step; {recorded} of {per_step} GEMM kernels "
+              f"recorded by the profiler), idle share "
+              f"{prof['idle_share']:.1%}; top: " + ", ".join(
+                  f"{k} {v:.1f}" for k, v in sorted(prof["ms"].items(), key=lambda kv: -kv[1])[:4]))
+        out["f32"] = {"n_params": n_params, "losses": losses, "step_s": times, "warm_step_ms": warm_ms,
+                      "train_s": train_s, "peak_bytes": peak, "gemm_launches_per_step": per_step,
+                      "by_phase": by_phase, "gemm_launches": launches + step_launches, "grad_max_abs": norms,
+                      "profile": prof, "gemm_share": gemm_ms / prof["wall_ms"], "gemm_kernels_recorded": recorded,
+                      "gemm_ms": gemm_ms, "gemm_ms_estimate_from_25a": events_ms,
+                      "gemm_share_estimate_from_25a": events_ms / warm_ms,
+                      "transpose_copies_ms_estimate_from_25a": copies_ms}
+        del trainer, params, opt, batch, model
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+        _free(torch)
+
+        # bf16: the TMA / wgmma path, 3 steps.
+        torch.cuda.reset_peak_memory_stats()
+        model = build_model(cfg, dtype=torch.bfloat16, param_dtype=torch.bfloat16, device="cuda")
+        params = model.init(torch.Generator(device="cuda").manual_seed(0))
+        opt = adamw.init(params)
+        step_fn = make_train_step(model, adamw.AdamWConfig(lr=3e-4, warmup_steps=1, total_steps=3))
+        from repro_torch.data.pipeline import TokenPipeline
+
+        pipe = TokenPipeline(cfg, DataConfig(global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ))
+        mm.reset_launches()
+        losses, times = [], []
+        for i in range(3):
+            batch = pipe.device_batch(i, dtype=torch.bfloat16, device="cuda")
+            t0 = time.perf_counter()
+            params, opt, met = step_fn(params, opt, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(float(met["loss"]))
+        paths = dict(mm.PATH_LAUNCHES)
+        require(mm.total_launches() == 3 * per_step and paths["simt_f32"] == 0,
+                f"bf16 steps: {mm.total_launches()} launches (want {3 * per_step}), by path {paths}")
+        require(all(v == v for v in losses), f"bf16 losses {losses}")
+        gemm_ms, copies_ms = _step_gemm_ms(grad_rows, "bf16", cfg.n_layers)
+        out["bf16"] = {"losses": losses, "step_s": times, "paths": paths, "peak_bytes": torch.cuda.max_memory_allocated(),
+                       "gemm_launches": mm.total_launches(), "gemm_ms_estimate_from_25a": gemm_ms,
+                       "transpose_copies_ms_estimate_from_25a": copies_ms}
+        print(f"  bf16: 3 steps, losses {[round(v, 4) for v in losses]}, step ms {[round(t * 1e3, 1) for t in times]}, "
+              f"GEMM launches by path {paths}, peak memory {out['bf16']['peak_bytes'] / 1e9:.2f} GB; estimate from "
+              f"25a's CUDA-event times: the step's GEMMs {gemm_ms:.2f} ms, its transpose copies {copies_ms:.2f} ms")
+        del model, params, opt, step_fn
+    _free(torch)
+    return out
+
+
+def phase_train_resume(torch, mm) -> dict:
+    """25c: reduced granite-8b (f32) on the card: 6 steps of one Trainer against 3, a
+    checkpoint, and 3 more from a Trainer that resumes it."""
+    import shutil
+
+    import numpy as np
+
+    from repro_torch.configs import registry
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    cfg = registry.get("granite-8b").reduced()
+    root = ROOT / "build" / "train_ckpt_25c"
+    shutil.rmtree(root, ignore_errors=True)
+
+    def trainer(sub):
+        model = build_model(cfg, dtype=torch.float32, param_dtype=torch.float32, device="cuda")
+        # eps 1e-4: at 1e-8 an element whose gradient is a cancelling sum (atomics: another
+        # order each run) takes a full +-lr step of the noise's sign.
+        return Trainer(model, cfg, DataConfig(global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ),
+                       adamw.AdamWConfig(lr=1e-3, eps=1e-4, warmup_steps=2, total_steps=6),
+                       TrainerConfig(total_steps=6, ckpt_every=3, ckpt_dir=str(root / sub), log_every=1))
+
+    rt = _train_runtime("chip_smoke[25c]")
+    mm.reset_launches()
+    with rt.activate():
+        t_full = trainer("full")
+        _, p_full, o_full, _ = t_full.train()
+        trainer("cut").train(stop_after=3)
+        t_res = trainer("cut")
+        resumed_from = t_res.ckpt.latest_step()
+        step, p_res, o_res, _ = t_res.train()
+    require(resumed_from == 3 and step == 6 and int(o_res.step) == 6, f"resume: from {resumed_from}, ended {step}")
+    worst = 0.0
+    for (path, a), (_, b) in zip(adamw.trainable(p_full), adamw.trainable(p_res)):
+        a, b = a.detach().cpu().numpy(), b.detach().cpu().numpy()
+        np.testing.assert_allclose(b, a, **RESUME_TOL, err_msg=path)
+        worst = max(worst, float(np.abs(a - b).max()))
+    loss_full = [h["loss"] for h in t_full.history][3:]
+    loss_res = [h["loss"] for h in t_res.history]
+    require(np.allclose(loss_res, loss_full, rtol=1e-5), f"losses after the resume {loss_res} against {loss_full}")
+    shutil.rmtree(root, ignore_errors=True)
+    print(f"  6 steps against 3 + resume (from step {resumed_from}) + 3: params within {RESUME_TOL} (worst abs "
+          f"{worst:.3g}), losses of steps 4-6 {[round(v, 5) for v in loss_res]} against "
+          f"{[round(v, 5) for v in loss_full]}; GEMM launches {mm.total_launches()}")
+    return {"worst_abs": worst, "losses_full": loss_full, "losses_resumed": loss_res,
+            "gemm_launches": mm.total_launches()}
+
+
+def phase_train_seamless(torch, mm, ops) -> dict:
+    """25d: seamless-m4t-large-v2 at its full size (24 + 24 layers, d 1024, vocab
+    256206), f32: 3 loss_fn + AdamW steps at batch 8, seq 128, then prefill and 4
+    decode steps; seconds and peak memory."""
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.train.train_step import make_train_step
+
+    cfg = _train_cfg("seamless-m4t-large-v2")
+    _free(torch)
+    torch.cuda.reset_peak_memory_stats()
+    rt = _train_runtime("chip_smoke[25d]")
+    with rt.activate():
+        model = build_model(cfg, dtype=torch.float32, param_dtype=torch.float32, device="cuda")
+        t0 = time.perf_counter()
+        params = model.init(torch.Generator(device="cuda").manual_seed(0))
+        opt = adamw.init(params)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_params = sum(p.numel() for _, p in adamw.trainable(params))
+        step_fn = make_train_step(model, adamw.AdamWConfig(lr=3e-4, warmup_steps=1, total_steps=3))
+        pipe = TokenPipeline(cfg, DataConfig(global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ))
+        per_step = _gemms_per_step(model)
+        mm.reset_launches()
+        ops.GRAD_GEMMS.clear()
+        losses, times = [], []
+        for i in range(3):
+            batch = pipe.device_batch(i, device="cuda")
+            t0 = time.perf_counter()
+            params, opt, met = step_fn(params, opt, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(float(met["loss"]))
+        train_launches = mm.total_launches()
+        require(train_launches == 3 * per_step, f"GEMM launches {train_launches}, want 3 x {per_step} "
+                                                f"(by phase {dict(ops.GRAD_GEMMS)})")
+        require(all(v == v and abs(v) < 1e9 for v in losses), f"losses {losses}")
+        require(losses[-1] < losses[0], f"the loss does not fall: {losses}")
+        train_peak = torch.cuda.max_memory_allocated()
+        require(not any(p.requires_grad for _, p in adamw.trainable(params)), "the steps left grad on the params")
+        with torch.no_grad():
+            t0 = time.perf_counter()
+            frames = torch.randn(2, 64, cfg.d_model, device="cuda", generator=torch.Generator(device="cuda")
+                                 .manual_seed(1))
+            toks = batch["tokens"][:2, :16]
+            logits, cache = model.prefill(params, {"tokens": toks, "frames": frames}, 32)
+            nxt = logits[:, -1].argmax(-1, keepdim=True)
+            decoded = [nxt[:, 0].tolist()]
+            for i in range(4):
+                logits, cache = model.decode_step(params, cache, nxt, torch.full((2,), 16 + i, device="cuda"))
+                nxt = logits[:, -1].argmax(-1, keepdim=True)
+                decoded.append(nxt[:, 0].tolist())
+            torch.cuda.synchronize()
+            serve_s = time.perf_counter() - t0
+        require(bool(torch.isfinite(logits).all()) and logits.shape == (2, 1, cfg.padded_vocab()),
+                f"decode logits {tuple(logits.shape)}")
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  seamless-m4t-large-v2 at full size (24 + 24 layers, d {cfg.d_model}, vocab {cfg.vocab}), f32: "
+          f"{n_params / 1e9:.3f} B params, init {init_s:.1f}s; 3 steps at batch {TRAIN_BATCH} x seq {TRAIN_SEQ}: "
+          f"losses {[round(v, 4) for v in losses]}, step s {[round(t, 2) for t in times]}, {per_step} GEMM "
+          f"launches a step; peak memory {train_peak / 1e9:.2f} GB training, {peak / 1e9:.2f} GB with the prefill; "
+          f"prefill (2 x 16 tokens over 64 frames) + 4 decode steps {serve_s:.2f}s, tokens {decoded}")
+    out = {"n_params": n_params, "init_s": init_s, "losses": losses, "step_s": times, "peak_train_bytes": train_peak,
+           "peak_bytes": peak, "gemm_launches_per_step": per_step, "gemm_launches": mm.total_launches(),
+           "serve_s": serve_s, "decoded": decoded}
+    del model, params, opt, step_fn, cache, logits
+    _free(torch)
+    return out
+
+
+TRAIN_PARITY = ("granite-8b", "qwen3-moe-235b-a22b", "qwen2.5-32b", "llama-3.2-vision-90b", "seamless-m4t-large-v2")
+
+
+def phase_train_cpu_vs_card(torch, mm) -> dict:
+    """25e: one train step's loss and every gradient, card (kernels) against CPU
+    (plain), on reduced models in f32 from the same weights and pipeline batch (the
+    VLM's image embeddings bf16, as the pipeline gives them); granite-8b also under
+    remat "dots" on the card, whose recompute launches no GEMM."""
+    from repro_torch.configs import registry
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers as L
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.train.train_step import make_train_step
+
+    out = {}
+    mm.reset_launches()
+    for arch in TRAIN_PARITY:
+        cfg = registry.get(arch).reduced()
+        got, dots = {}, {}
+        runs = [("cuda", "full"), ("cpu", "full")] + ([("cuda", "dots")] if arch == "granite-8b" else [])
+        for dev, policy in runs:
+            model = build_model(cfg, dtype=torch.float32, param_dtype=torch.float32, device=dev)
+            params = model.init(torch.Generator(device="cpu").manual_seed(0))
+            if cfg.qkv_bias:
+                g = torch.Generator().manual_seed(11)
+                for key in ("bq", "bk", "bv"):
+                    bias = params["blocks"]["attn"][key]
+                    bias.copy_(torch.randn(bias.shape, generator=g) * 0.5)
+            batch = TokenPipeline(cfg, DataConfig(global_batch=2, seq_len=32)).device_batch(0, device=dev)
+            ops.GRAD_GEMMS.clear()
+            L.set_remat_policy(policy)
+            try:
+                with _train_runtime(f"chip_smoke[25e {arch} {dev} {policy}]").activate():
+                    loss, _, grads = make_train_step(model, adamw.AdamWConfig()).compute_grads(params, batch)
+            finally:
+                L.set_remat_policy("full")
+            got[dev, policy] = (float(loss), {p: t.detach().cpu() for p, t in adamw.trainable(grads)})
+            if policy == "dots":
+                dots = dict(ops.GRAD_GEMMS)
+                require("recompute" not in dots and dots.get("saved") == 7 * cfg.n_layers,
+                        f"{arch} remat dots on the card: GEMMs by phase {dots}")
+        l_cpu, g_cpu = got["cpu", "full"]
+        worst = {}
+        for (dev, policy), (l_card, g_card) in got.items():
+            if dev == "cpu":
+                continue
+            require(abs(l_card - l_cpu) <= 1e-5 * abs(l_cpu),
+                    f"{arch} ({policy}): loss {l_card} on the card, {l_cpu} on the CPU")
+            for path, ref in g_cpu.items():
+                scale = ref.abs().max().item()
+                err = (g_card[path] - ref).abs().max().item() / scale
+                tol = 1e-2 if path in BF16_FED else TRAIN_PARITY_TOL
+                require(err <= tol, f"{arch} ({policy}) {path}: gradient rel err {err:.3g} > {tol}")
+                worst[path] = max(worst.get(path, 0.0), err)
+        top = max(worst, key=worst.get)
+        l_card = got["cuda", "full"][0]
+        out[arch] = {"loss_card": l_card, "loss_cpu": l_cpu, "worst": worst[top], "worst_leaf": top}
+        if dots:
+            out[arch] |= {"loss_card_dots": got["cuda", "dots"][0], "dots_gemms_by_phase": dots}
+        print(f"  reduced {arch}: loss {l_card:.6f} (card) / {l_cpu:.6f} (cpu); every gradient within "
+              f"{TRAIN_PARITY_TOL} of the CPU's (relative to its max{'; the 3 bf16-fed cross leaves 1e-2' if cfg.family == 'vlm' else ''}), "
+              f"worst {worst[top]:.3g} at {top}" + (f"; remat dots on the card too: loss {got['cuda', 'dots'][0]:.6f}, "
+                                                    f"GEMMs by phase {dots}" if dots else ""))
+    out["gemm_launches"] = mm.total_launches()
+    return out
+
+
+def phase_train_refusals(torch, ops) -> dict:
+    """25f: reduced rwkv6-7b and hymba-1.5b: ``loss_fn`` with grad on the card raises
+    ``NoBackwardKernelError`` naming the next slice; the same forward without grad
+    runs on (its WKV / scan kernels launch)."""
+    from repro_torch.configs import registry
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.kernels import ssm as ss
+    from repro_torch.kernels import wkv as wk
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import adamw
+
+    out = {}
+    for arch, layers in (("rwkv6-7b", None), ("hymba-1.5b", 4)):
+        cfg = registry.get(arch).reduced()
+        if layers:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        model = build_model(cfg, dtype=torch.float32, param_dtype=torch.float32, device="cuda")
+        params = model.init(torch.Generator(device="cuda").manual_seed(0))
+        batch = TokenPipeline(cfg, DataConfig(global_batch=2, seq_len=32)).device_batch(0, device="cuda")
+        for _, p in adamw.trainable(params):
+            p.requires_grad_(True)
+        with _train_runtime(f"chip_smoke[25f {arch}]").activate():
+            try:
+                model.loss_fn(params, batch)
+                raised = None
+            except ops.NoBackwardKernelError as e:
+                raised = str(e)
+            require(raised is not None and "next slice" in raised, f"{arch}: loss_fn with grad did not refuse")
+            wk.reset_launches()
+            ss.reset_launches()
+            with torch.no_grad():
+                loss, _ = model.loss_fn(params, batch)
+            launched = sum(wk.LAUNCHES.values()) + sum(ss.LAUNCHES.values())
+        require(bool(torch.isfinite(loss)) and launched == cfg.n_layers,
+                f"{arch}: the forward without grad gave {float(loss)} with {launched} WKV / scan launches")
+        out[arch] = {"message": raised, "loss_without_grad": float(loss), "kernel_launches": launched}
+        print(f"  reduced {arch}: with grad -> NoBackwardKernelError ({raised[:90]}...); without grad the forward "
+              f"runs on: loss {float(loss):.4f}, {launched} WKV / scan launches")
+        del model, params
+    return out
+
+
+def phase_train_cli(torch) -> dict:
+    """25g: ``python -m repro_torch.launch.train`` on the card with phase 17's deployment."""
+    import shutil
+
+    ckpt = ROOT / "build" / "train_ckpt_25g"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", "granite-8b", "--reduced", "--steps", "4",
+           "--batch", "2", "--seq", "16", "--ckpt-every", "2", "--ckpt-dir", str(ckpt),
+           "--deployment", str(DEPLOY_PATH)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300, cwd=ROOT,
+                          env={**__import__("os").environ, "PYTHONPATH": str(ROOT / "src")})
+    seconds = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    require(proc.returncode == 0, f"launch.train exited {proc.returncode}: {proc.stderr[-2000:]}")
+    require(any("installed kernel deployment" in ln for ln in lines) and "finished at step 4" in lines[-1],
+            f"launch.train output: {lines}")
+    steps = sorted(int(p.name.split("_")[1]) for p in ckpt.iterdir() if p.name.startswith("step_"))
+    require(steps == [2, 4], f"checkpoints {steps}")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    print(f"  {' '.join(cmd[2:])}: exit 0 in {seconds:.1f}s; checkpoints at steps {steps}; last lines {lines[-2:]}")
+    return {"seconds": seconds, "stdout": lines, "checkpoints": steps}
+
+
+def phase_training(torch, mm, ops, phase) -> dict:
+    """Phase 25 (25a-25g), every plain version refused on a CUDA tensor throughout."""
+    t0 = time.perf_counter()
+    restore = _no_plain_on_card(ops)
+    out = {}
+    try:
+        phase("[25a] the GEMM's gradient through matmul.cu: checks against autograd of the plain GEMM, timings")
+        out["grad_gemms"] = phase_grad_gemms(torch, mm, ops)
+        phase("[25b] granite-8b training at full width (2 of 36 layers), f32 then bf16")
+        out["granite"] = phase_train_granite(torch, mm, ops, out["grad_gemms"]["rows"])
+        phase("[25c] resume on the card: 6 steps against 3 + resume + 3")
+        out["resume"] = phase_train_resume(torch, mm)
+        phase("[25d] seamless-m4t-large-v2 at full size: 3 train steps, prefill, 4 decode steps")
+        out["seamless"] = phase_train_seamless(torch, mm, ops)
+        phase("[25e] one train step, card against CPU: reduced granite-8b (remat full and dots), qwen3-moe, "
+              "qwen2.5-32b, llama-vision, seamless")
+        out["cpu_vs_card"] = phase_train_cpu_vs_card(torch, mm)
+        phase("[25f] refusals: rwkv6-7b and hymba-1.5b loss_fn with grad on the card")
+        out["refusals"] = phase_train_refusals(torch, ops)
+    finally:
+        restore()
+    phase("[25g] the launcher: python -m repro_torch.launch.train on the card with phase 17's deployment")
+    out["cli"] = phase_train_cli(torch)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  phase 25 in {out['seconds']:.1f}s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3467,6 +4167,11 @@ def main() -> int:
         regs = [line.split(":", 1)[1].strip() for line in log if "registers" in line]
         spills = sorted({line.strip() for line in log if "spill" in line and "0 bytes spill" not in line})
         print(f"  ptxas {name}: {len(regs)} kernels; {sorted(set(regs))}; spills {spills or 'none'}")
+    if "--only-training" in sys.argv[1:]:  # phase 25 alone (needs build/deploy_h100.json for 25g)
+        training = phase_training(torch, mm, ops, phase)
+        (ROOT / "build" / "chip_smoke_training.json").write_text(json.dumps(training, indent=1, default=str))
+        print(f"[25] training phase done in {time.perf_counter() - t_start:.1f}s")
+        return 0
 
     phase("[3] GEMM against plain")
     errors = phase_kernel_vs_plain(torch, mm)
@@ -3553,7 +4258,7 @@ def main() -> int:
     reinstall = phase_reinstall(torch, mm, tuned)
     phase("[21a] guarded dispatch on the card: redirect, quarantine, re-probe, absolve; NaN; unrecoverable; cost")
     guard = phase_guard(torch, mods)
-    phase("[21b] engine chaos: phase 19's batch under " + CHAOS)
+    phase(f"[21b] engine chaos: phase 19's batch under {CHAOS} and {CHAOS_DISPATCH}")
     chaos = phase_engine_chaos(torch, mm, seq, tuned)
     phase("[21c] retune on the card: drift -> measured retune -> canary -> hot swap; rejection; rollback; adoption")
     retuned = phase_retune_on_card(torch, mm, at, seq, tuned)
@@ -3635,6 +4340,8 @@ def main() -> int:
     _free(torch)
     phase("[24f] cpu against card: reduced qwen3-moe-235b-a22b, llama-3.2-vision-90b, qwen2.5-32b (f32)")
     arch_parity = phase_arch_cpu_vs_card(torch, mm)
+    _free(torch)
+    training = phase_training(torch, mm, ops, phase)
     # Phase 23's paths, each counted from 0 just before it and read just after.
     control_launches = {fam: {"control plane: tune job tables (23a)": control["job"]["launches"][fam]}
                         for fam in mods}
@@ -3676,6 +4383,19 @@ def main() -> int:
         gemm_launches[f"{arch}, {run['cut']} (24)"] = run["gemm_launches"]
         gemm_launches[f"{arch}, eager engine (24)"] = run["eager_gemm_launches"]
     gemm_launches["reduced qwen3-moe, llama-vision, qwen2.5 on the card, f32 (24f)"] = arch_parity["gemm_launches"]
+    # Phase 25's paths: forward, recompute and both gradient GEMMs of every training step, each
+    # path counted from 0 just before it and read just after.
+    gemm_launches.update({
+        "training: gradient GEMM checks (25a)": training["grad_gemms"]["launches"],
+        "training: granite-8b full width, f32 Trainer + profiled step (25b)": training["granite"]["f32"][
+            "gemm_launches"],
+        "training: granite-8b full width, bf16 steps (25b)": training["granite"]["bf16"]["gemm_launches"],
+        "training: resume, reduced granite-8b (25c)": training["resume"]["gemm_launches"],
+        "training: seamless-m4t-large-v2 full size, steps + prefill + decode (25d)": training["seamless"][
+            "gemm_launches"],
+        "training: one step, reduced models on the card (25e)": training["cpu_vs_card"]["gemm_launches"]})
+    require(all(v for k, v in gemm_launches.items() if k.startswith("training")),
+            f"a training path launched no GEMM: {gemm_launches}")
     gemm_routes = {path: sum(run["path_launches"][path] for run in (serve, rwkv, hymba, tuned, *arch_runs.values()))
                    + quick["paths"][path] for path in ("tma", "cp_async")}
     kernels = {"kernels": [{
@@ -3704,6 +4424,23 @@ def main() -> int:
         "tuned_ms": tuned_step_ms,
         "best_per_shape_ms": total("best_ms"),
         "tall_tflops": tall["tflops"][mm.DEFAULT_CONFIG.name()],
+        "training": {
+            "gradient_gemms": "grad_lhs = grad_out . rhs^T and grad_rhs = lhs^T . grad_out through ops.matmul "
+                              "(selected, guarded, this kernel); transposed operands copied (.t().contiguous())",
+            "max_abs_err_grad": max(w["abs"] for w in training["grad_gemms"]["worst"].values()),
+            "max_rel_err_grad": max(w["rel"] for w in training["grad_gemms"]["worst"].values()),
+            "granite_step_gemms": {f"{r['dtype']} {r['k']}x{r['n']}": {
+                what: {key: r[what][key] for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
+                for what in ("forward", "grad_lhs", "grad_rhs")} for r in training["grad_gemms"]["rows"]},
+            "granite_f32_launches_per_step": training["granite"]["f32"]["gemm_launches_per_step"],
+            "granite_f32_warm_step_ms": training["granite"]["f32"]["warm_step_ms"],
+            "granite_f32_profiled_step": {key: training["granite"]["f32"][key] for key in (
+                "gemm_ms", "gemm_share", "gemm_kernels_recorded")} | {
+                "wall_ms": training["granite"]["f32"]["profile"]["wall_ms"],
+                "measured_as": "torch.profiler, one warm step: the GEMM kernels it recorded, of the step's wall"},
+            "granite_f32_gemm_share_estimate_from_25a":
+                training["granite"]["f32"]["gemm_share_estimate_from_25a"],
+        },
     }, {
         "name": "wkv",
         "route": "cuda",
@@ -3808,10 +4545,10 @@ def main() -> int:
         "guard": guard, "engine_chaos": chaos, "retune_on_card": retuned, "online": online,
         "attention_timing": attn_rows, "paged": paged, "paged_cpu_vs_card": paged_cpu, "slo": slo, "int8": int8,
         "router": routed, "paged_hymba": paged_hymba, "paged_launches": paged_launches, "control_plane": control,
-        "arch_serve": arch_runs, "arch_cpu_vs_card": arch_parity,
+        "arch_serve": arch_runs, "arch_cpu_vs_card": arch_parity, "training": training,
         "kernels": kernels["kernels"], "seconds": time.perf_counter() - t_start,
     }, indent=1, default=str))
-    print(f"[25] done in {time.perf_counter() - t_start:.1f}s")
+    print(f"[26] done in {time.perf_counter() - t_start:.1f}s")
     print(json.dumps(kernels))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

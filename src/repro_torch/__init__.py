@@ -15,6 +15,18 @@ The tune -> deploy -> serve lifecycle, on the card::
     engine = rt.serve(model, params)                         # CUDA graphs on the card
     router = bundle.router(model, params, block_size=16)     # one engine per device entry
 
+Training, on the card (every GEMM's gradient is two more GEMMs through the
+same hand-written kernel, selected by the same tuned tree)::
+
+    from repro_torch.configs import registry
+    from repro_torch.models.model import build_model
+
+    cfg = registry.get("granite-8b").reduced()
+    model = build_model(cfg, dtype=torch.float32, param_dtype=torch.float32)
+    trainer = repro_torch.Trainer(model, cfg, repro_torch.DataConfig(global_batch=8),
+                                  repro_torch.AdamWConfig(), repro_torch.TrainerConfig(total_steps=100))
+    step, params, opt_state, metrics = trainer.train()   # auto-resumes from its checkpoints
+
 Fleet-wide, a :class:`ControlPlane` runs tune jobs, versions their bundles
 (``repro_torch.load_bundle("registry://host:port/default")``), federates
 telemetry and pushes retuned versions to a :class:`PolicySubscriber`.
@@ -62,9 +74,16 @@ _LAZY = {
     "PolicySubscriber": ("repro_torch.control.client", "PolicySubscriber"),
     "Request": ("repro_torch.serve.engine", "Request"),
     "Router": ("repro_torch.serve.router", "Router"),
-    # Reachable from the facade, as from repro_torch.serve; not in __all__,
-    # which keeps the reference's names.
+    # Reachable from the facade, as from repro_torch.serve and the training
+    # modules; not in __all__, which keeps the reference's names.
     "Objective": ("repro_torch.core.runtime", "Objective"),
+    "AdamWConfig": ("repro_torch.optim.adamw", "AdamWConfig"),
+    "CheckpointManager": ("repro_torch.ckpt.checkpoint", "CheckpointManager"),
+    "DataConfig": ("repro_torch.data.pipeline", "DataConfig"),
+    "TokenPipeline": ("repro_torch.data.pipeline", "TokenPipeline"),
+    "Trainer": ("repro_torch.train.trainer", "Trainer"),
+    "TrainerConfig": ("repro_torch.train.trainer", "TrainerConfig"),
+    "make_train_step": ("repro_torch.train.train_step", "make_train_step"),
     "ServingEngine": ("repro_torch.serve.engine", "ServingEngine"),
     "Ticket": ("repro_torch.serve.engine", "Ticket"),
     "TelemetrySnapshot": ("repro_torch.core.retune", "TelemetrySnapshot"),

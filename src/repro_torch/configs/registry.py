@@ -1,8 +1,8 @@
 """Architecture registry: ``--arch`` lookup, input shapes, GEMM harvest.
 
 The port registers the reference's ten configs in its order, so the default
-harvests equal the reference's; ``build_model`` refuses seamless-m4t-large-v2
-(``EncDecLM``), which joins with the training slice.
+harvests equal the reference's; ``build_model`` builds every one of them,
+seamless-m4t-large-v2 as the encoder-decoder ``EncDecLM``.
 ``ShapeSpec``, ``SHAPES``, ``shapes_for``, ``gemm_problems`` and
 ``_chunk_widths`` are copied from ``repro/configs/registry.py`` (the tuning
 harvest); ``input_specs`` stays behind, it builds JAX shape structs.

@@ -14,9 +14,8 @@ Ported from ``repro/core/faults.py`` (DESIGN.md §11 of the reference):
     :data:`GUARDED_EXCEPTIONS`, what the guard may contain.
   * The incident record schema (:func:`incident`) shared by the guard and
     the engine's health state machine.
-  * :class:`PreemptionGuard` and :class:`StragglerDetector`.  The reference's
-    ``ElasticPlan`` / ``elastic_plan`` wait for the training slice (they need
-    ``data/pipeline.reshard``).
+  * :class:`PreemptionGuard` and :class:`StragglerDetector`, and
+    :func:`elastic_plan`, the resume plan after the fleet resizes.
 
 Sites are dotted names; the registered injection points are::
 
@@ -47,6 +46,7 @@ from ..kernels._build import KernelBuildError, KernelLaunchError
 
 __all__ = [
     "FAULT_KINDS",
+    "ElasticPlan",
     "FaultError",
     "FaultEvent",
     "FaultPlan",
@@ -57,6 +57,7 @@ __all__ = [
     "NonFiniteOutputError",
     "PreemptionGuard",
     "StragglerDetector",
+    "elastic_plan",
     "incident",
 ]
 
@@ -382,3 +383,30 @@ class StragglerDetector:
             return 0.0
         s = sorted(self.times)
         return s[len(s) // 2]
+
+
+@dataclasses.dataclass(frozen=True)
+class ElasticPlan:
+    ok: bool
+    reason: str
+    data: object | None = None  # DataConfig on ok=True
+
+
+def elastic_plan(data, new_host_index: int, new_host_count: int) -> ElasticPlan:
+    """Resume plan after the fleet grows or shrinks.
+
+    The checkpoint needs no conversion (it holds whole arrays); the only
+    constraint is global-batch divisibility across the new host count.
+    """
+    from ..data.pipeline import reshard
+
+    if new_host_count <= 0:
+        return ElasticPlan(False, "host count must be positive")
+    if data.global_batch % new_host_count != 0:
+        return ElasticPlan(
+            False,
+            f"global_batch={data.global_batch} not divisible by {new_host_count} hosts",
+        )
+    if not (0 <= new_host_index < new_host_count):
+        return ElasticPlan(False, f"host index {new_host_index} out of range")
+    return ElasticPlan(True, "ok", reshard(data, new_host_index, new_host_count))

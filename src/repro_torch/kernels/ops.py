@@ -26,6 +26,15 @@ failing default config, or a call with no config, has nothing compiled left:
 the guard records ``unrecoverable`` and raises.  On CPU tensors the plain
 version answers, as the reference's does.
 
+Training: on a tensor that requires grad, :func:`matmul` runs as the
+``repro_torch::gemm`` custom op (:data:`GEMM_OP`), whose backward is two more
+GEMMs through :func:`matmul` (the same selection, guard and kernel); remat
+``"dots"`` is a selective-checkpoint policy that saves that op's outputs
+(``layers.ckpt``).  The WKV, scan and attention kernels have no backward
+kernel yet: on a CUDA tensor with grad their ops raise
+:class:`NoBackwardKernelError` rather than return an output that no gradient
+flows through.  On CPU tensors their plain versions keep autograd.
+
 Inside a program build (``KernelRuntime.pinning``, what a serving engine
 runs its bodies under) a call selects, fires the plan's dispatch sites and
 runs the breaker only on the build's first run, the counterpart of the
@@ -36,19 +45,23 @@ never sees a traced value.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import threading
+from collections import Counter
 from typing import Protocol
 
 import torch
 
 from ..core.faults import GUARDED_EXCEPTIONS, FaultPlan, NonFiniteOutputError, incident
-from ..core.runtime import current_runtime, quarantine_redirect
+from ..core.runtime import KernelRuntime, current_runtime, quarantine_redirect
 from .attention import DEFAULT_ATTN_CONFIG, AttentionConfig, attention_cuda, attention_plain
 from .matmul import DEFAULT_CONFIG, MatmulConfig, matmul_cuda, matmul_plain
 from .ssm import DEFAULT_SSM_CONFIG, SsmConfig, ssm_cuda, ssm_cuda_fused, ssm_fused_plain, ssm_plain
 from .wkv import DEFAULT_WKV_CONFIG, WkvConfig, wkv_cuda, wkv_plain
 
-__all__ = ["FixedPolicy", "KernelPolicy", "attention", "matmul", "ssm_scan", "ssm_scan_fused", "wkv"]
+__all__ = ["GEMM_OP", "FixedPolicy", "KernelPolicy", "NoBackwardKernelError", "attention", "gemm_phase", "matmul",
+           "ssm_scan", "ssm_scan_fused", "wkv"]
 
 
 class KernelPolicy(Protocol):
@@ -223,10 +236,23 @@ def matmul(
     ``lhs``: (..., k), ``rhs``: (k, n).  The problem is featurized as in the
     tuning dataset: the trailing lead dim is the GEMM M and everything before
     it the repeated batch, so a (B, S, D) activation is B GEMMs of (S, D).
-    The kernel itself runs once on ``lhs.reshape(m * batch, k)``.
+    The kernel itself runs once on ``lhs.reshape(m * batch, k)``.  The output
+    is ``out_dtype``, by default ``lhs``'s.  Operands of two dtypes (a VLM's
+    bf16 image embeddings against f32 weights) run in f32, as the
+    reference's ``jnp.dot`` promotes them.  With grad enabled and an operand
+    that requires it, the call runs as the ``repro_torch::gemm`` op
+    (:data:`GEMM_OP`), whose gradient GEMMs come back here.
     """
     if rhs.ndim != 2:
         raise ValueError(f"rhs must be 2-D, got {tuple(rhs.shape)}")
+    if torch.is_grad_enabled() and (lhs.requires_grad or rhs.requires_grad):
+        return _gemm(lhs, rhs, out_dtype)
+    return _matmul_call(lhs, rhs, out_dtype)
+
+
+def _matmul_call(lhs: torch.Tensor, rhs: torch.Tensor, out_dtype: torch.dtype | None) -> torch.Tensor:
+    """One selected, guarded GEMM: the kernel on a CUDA tensor, the plain
+    version on a CPU one."""
     *lead, k = lhs.shape
     n = rhs.shape[1]
     m = lead[-1] if lead else 1
@@ -239,9 +265,118 @@ def matmul(
     run_ref = lambda: matmul_plain(lhs2, rhs, out_dtype).reshape(*lead, n)
     if not _on_card(lhs2):
         return _guarded_call(rt, "matmul", config, lambda cfg: run_ref(), run_ref, on_card=False, pin=pin)
+    out_dtype = out_dtype or lhs.dtype
+    if lhs.dtype != rhs.dtype:
+        lhs2, rhs = lhs2.float(), rhs.float()
     lhs2 = lhs2.contiguous()
-    run = lambda cfg: matmul_cuda(lhs2, rhs, cfg or DEFAULT_CONFIG, out_dtype=out_dtype).reshape(*lead, n)
+    kernel_out = out_dtype if (lhs2.dtype, out_dtype) != (torch.float32, torch.bfloat16) else torch.float32
+    run = lambda cfg: matmul_cuda(lhs2, rhs, cfg or DEFAULT_CONFIG, out_dtype=kernel_out).to(out_dtype).reshape(
+        *lead, n)
     return _guarded_call(rt, "matmul", config, run, run_ref, on_card=True, pin=pin)
+
+
+# ---------------------------------------------------------------------------
+# the GEMM's gradient
+# ---------------------------------------------------------------------------
+# GEMMs run under grad, by phase: "forward" (a forward under grad), "recompute" (a
+# checkpointed layer's forward run again in the backward under remat "full"),
+# "grad_lhs" and "grad_rhs" (the two backward GEMMs); remat "dots" counts the GEMM
+# outputs its policy saves as "saved" (``layers.ckpt``; once per region that saves
+# them).  The reference's selection log holds only the forward's selections (its
+# backward GEMMs are XLA's transposes and JAX traces a remat body once); the other
+# phases are the port's own.
+GRAD_GEMMS: Counter = Counter()
+
+
+class _PhaseLocal(threading.local):
+    def __init__(self):
+        self.label = "forward"
+
+
+_phase = _PhaseLocal()
+
+
+@contextlib.contextmanager
+def gemm_phase(label: str):
+    """Count the GEMMs run inside under ``label`` in :data:`GRAD_GEMMS`."""
+    prev, _phase.label = _phase.label, label
+    try:
+        yield
+    finally:
+        _phase.label = prev
+
+
+def gemm_phase_label() -> str:
+    """The label this thread's GEMMs count under now."""
+    return _phase.label
+
+
+@torch.library.custom_op("repro_torch::gemm", mutates_args=(),
+                         schema="(Tensor lhs, Tensor rhs, ScalarType? out_dtype) -> Tensor")
+def _gemm(lhs: torch.Tensor, rhs: torch.Tensor, out_dtype: torch.dtype | None) -> torch.Tensor:
+    """``ops.matmul`` under grad: the selected, guarded GEMM as a dispatcher op,
+    so autograd and torch's selective-checkpoint policies see it."""
+    GRAD_GEMMS[_phase.label] += 1
+    return _matmul_call(lhs, rhs, out_dtype)
+
+
+GEMM_OP = torch.ops.repro_torch.gemm.default
+
+
+def _gemm_setup(ctx, inputs, output):
+    lhs, rhs, _ = inputs
+    ctx.save_for_backward(lhs, rhs)
+    ctx.runtime = current_runtime()
+
+
+def _gemm_backward(ctx, grad_out):
+    """Two more GEMMs through :func:`matmul`, so the tuned tree selects both
+    configs and the fault guard covers them:
+
+      * ``grad_lhs = grad_out . rhs^T``: for lhs (B, S, k) the problem
+        (m = S, k = n, n = k, batch = B), featurized as the forward;
+      * ``grad_rhs = lhs2^T . grad_out2``: one GEMM (k, B*S, n, batch 1) over
+        the flattened rows.
+
+    Each gradient comes back in its operand's dtype.  The kernel takes
+    row-major operands only, so ``rhs^T`` and ``lhs2^T`` are materialised
+    (``.t().contiguous()``).  The runtime active at the forward is activated
+    here, which on the card runs on autograd's device thread.
+    """
+    lhs, rhs = ctx.saved_tensors
+    rt: KernelRuntime = ctx.runtime
+    # grad_out in the GEMM's input dtype: an f32 grad_out of a bf16 GEMM with an f32
+    # output (the vocab head) is cast to bf16 before both backward GEMMs, which
+    # accumulate in f32; a GEMM of two dtypes ran in f32, and so does its backward.
+    g = grad_out.to(lhs.dtype if lhs.dtype == rhs.dtype else torch.float32)
+    k, n = rhs.shape
+    grad_lhs = grad_rhs = None
+    with rt.activate():
+        if ctx.needs_input_grad[0]:
+            GRAD_GEMMS["grad_lhs"] += 1
+            grad_lhs = matmul(g, rhs.t().contiguous(), out_dtype=lhs.dtype)
+        if ctx.needs_input_grad[1]:
+            GRAD_GEMMS["grad_rhs"] += 1
+            grad_rhs = matmul(lhs.reshape(-1, k).t().contiguous(), g.reshape(-1, n).contiguous(),
+                              out_dtype=rhs.dtype)
+    return grad_lhs, grad_rhs, None
+
+
+_gemm.register_autograd(_gemm_backward, setup_context=_gemm_setup)
+
+
+class NoBackwardKernelError(NotImplementedError):
+    """A kernel without a backward kernel was called on the card with grad."""
+
+
+def _refuse_grad(family: str, *tensors) -> None:
+    """Raise :class:`NoBackwardKernelError` when grad is on and any input
+    requires it: the kernel's output carries no gradient, and a loss built on
+    it would train every weight upstream of it on a silently dropped term."""
+    if torch.is_grad_enabled() and any(isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
+        raise NoBackwardKernelError(
+            f"ops.{family} on a CUDA tensor has no backward kernel yet: its gradient waits for the next slice "
+            f"(the {family} backward kernel); run it under torch.no_grad(), or train on the CPU")
 
 
 def attention(q, k, v, *, causal: bool = True, scale: float | None = None):
@@ -261,6 +396,7 @@ def attention(q, k, v, *, causal: bool = True, scale: float | None = None):
     run_ref = lambda: attention_plain(q, k, v, causal=causal, scale=scale)
     if not _on_card(q):
         return _guarded_call(rt, "attention", config, lambda cfg: run_ref(), run_ref, on_card=False, pin=pin)
+    _refuse_grad("attention", q, k, v)
     qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
     run = lambda cfg: attention_cuda(qc, kc, vc, cfg or DEFAULT_ATTN_CONFIG, causal=causal, scale=scale)
     return _guarded_call(rt, "attention", config, run, run_ref, on_card=True, pin=pin)
@@ -280,6 +416,7 @@ def wkv(r, k, v, logw, u, state=None):
     run_ref = lambda: wkv_plain(r, k, v, logw, u, state)
     if not _on_card(r):
         return _guarded_call(rt, "wkv", config, lambda cfg: run_ref(), run_ref, on_card=False, pin=pin)
+    _refuse_grad("wkv", r, k, v, logw, u, state)
     run = lambda cfg: wkv_cuda(r, k, v, logw, u, state, cfg or DEFAULT_WKV_CONFIG)
     return _guarded_call(rt, "wkv", config, run, run_ref, on_card=True, pin=pin)
 
@@ -298,6 +435,7 @@ def ssm_scan(dtx, dta, b, c, state=None):
     run_ref = lambda: ssm_plain(dtx, dta, b, c, state)
     if not _on_card(dtx):
         return _guarded_call(rt, "ssm_scan", config, lambda cfg: run_ref(), run_ref, on_card=False, pin=pin)
+    _refuse_grad("ssm_scan", dtx, dta, b, c, state)
     run = lambda cfg: ssm_cuda(dtx, dta, b, c, state, cfg or DEFAULT_SSM_CONFIG)
     return _guarded_call(rt, "ssm_scan", config, run, run_ref, on_card=True, pin=pin)
 
@@ -317,6 +455,7 @@ def ssm_scan_fused(x, dt, a, b, c, state=None):
     run_ref = lambda: ssm_fused_plain(x, dt, a, b, c, state)
     if not _on_card(x):
         return _guarded_call(rt, "ssm_scan", config, lambda cfg: run_ref(), run_ref, on_card=False, pin=pin)
+    _refuse_grad("ssm_scan_fused", x, dt, a, b, c, state)
     xc, dtc, ac, bc, cc = (t.contiguous() for t in (x, dt, a, b, c))
     run = lambda cfg: ssm_cuda_fused(xc, dtc, ac, bc, cc, state, cfg or DEFAULT_SSM_CONFIG)
     return _guarded_call(rt, "ssm_scan", config, run, run_ref, on_card=True, pin=pin)

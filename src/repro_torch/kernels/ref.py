@@ -6,9 +6,11 @@ import torch.nn.functional as F
 
 
 def matmul_ref(lhs: torch.Tensor, rhs: torch.Tensor, *, out_dtype: torch.dtype | None = None) -> torch.Tensor:
-    """Oracle for kernels/matmul.py: f32-accumulated 2-D matmul, cast once."""
+    """Oracle for kernels/matmul.py: f32-accumulated 2-D matmul, cast once
+    (f64-accumulated for f64 operands, which only the gradient's tests pass)."""
     out_dtype = out_dtype or lhs.dtype
-    return (lhs.float() @ rhs.float()).to(out_dtype)
+    acc = torch.float64 if lhs.dtype == torch.float64 else torch.float32
+    return (lhs.to(acc) @ rhs.to(acc)).to(out_dtype)
 
 
 def wkv_ref(r, k, v, logw, u, state=None, chunk: int = 16):

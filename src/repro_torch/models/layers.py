@@ -9,11 +9,76 @@ there either.
 """
 from __future__ import annotations
 
-import torch
+import functools
 
+import torch
+import torch.utils.checkpoint
+from torch.utils.checkpoint import CheckpointPolicy, create_selective_checkpoint_contexts
+
+from ..core.runtime import current_runtime
 from ..kernels import ops
 
 _NEG_INF = -1e30
+
+
+# ---------------------------------------------------------------------------
+# remat (activation checkpoint) policy, as the reference's.
+# 'full' recomputes the whole layer in the backward (least memory, 4F flops);
+# 'dots' keeps the GEMM outputs and recomputes only the cheap ops between them
+# (3F flops, more activation memory).
+# ---------------------------------------------------------------------------
+_REMAT: dict = {"policy": "full"}
+
+
+def set_remat_policy(policy: str) -> None:
+    if policy not in ("full", "dots"):
+        raise ValueError(f"remat policy must be 'full' or 'dots', got {policy!r}")
+    _REMAT["policy"] = policy
+
+
+def _save_gemms(ctx, op, *args, **kwargs):
+    """Remat ``"dots"``: keep every kernel GEMM's output, recompute the rest."""
+    if op is ops.GEMM_OP:
+        if not ctx.is_recompute:
+            ops.GRAD_GEMMS["saved"] += 1
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def ckpt(fn):
+    """``fn`` checkpointed with the configured policy (each layer body of a
+    training forward).
+
+    Both policies are ``torch.utils.checkpoint.checkpoint(use_reentrant=False)``:
+    the backward runs ``fn`` again to rebuild what it saved.  Under ``"dots"`` a
+    selective-checkpoint policy saves the output of every GEMM (the
+    ``repro_torch::gemm`` op that ``ops.matmul`` runs under grad) and the
+    recompute takes them back instead of launching, which is what JAX's
+    ``dots_with_no_batch_dims_saveable`` keeps.  The runtime active at the
+    forward is activated for the recompute, which on the card runs on
+    autograd's device thread.  The forward draws no random numbers, so no RNG
+    state is stashed.
+    """
+
+    def wrapped(*args):
+        if not torch.is_grad_enabled():  # nothing to save for a backward
+            return fn(*args)
+        rt = current_runtime()
+        runs = []
+
+        def run(*a):
+            # The first run counts under the enclosing phase (a nested checkpoint's
+            # forward inside an outer recompute is a recompute), later runs as recomputes.
+            label = "recompute" if runs else ops.gemm_phase_label()
+            runs.append(label)
+            with rt.activate(), ops.gemm_phase(label):
+                return fn(*a)
+
+        dots = {"context_fn": functools.partial(create_selective_checkpoint_contexts, _save_gemms)}
+        return torch.utils.checkpoint.checkpoint(run, *args, use_reentrant=False, preserve_rng_state=False,
+                                                 **(dots if _REMAT["policy"] == "dots" else {}))
+
+    return wrapped
 
 
 # ---------------------------------------------------------------------------
@@ -198,13 +263,15 @@ def attention_layer(
     window: int = 0,
     chunk_start: torch.Tensor | None = None,
     kv_input: torch.Tensor | None = None,
+    causal: bool = True,
 ) -> torch.Tensor:
     """GQA attention for one layer (params already sliced to this layer).
 
     Optional ``bq`` / ``bk`` / ``bv`` biases (qwen2.5) are added after their
     GEMMs, before the reshape and rope, as the reference adds them.
     ``kv_input`` (B, T, d) makes it cross-attention: k/v come from it, with no
-    rope, no mask and no cache (``positions`` unused).  Otherwise
+    rope, no mask and no cache (``positions`` unused).  ``causal=False``
+    without a cache is unmasked self-attention (an encoder's), with rope.  Otherwise
     ``cache = (k_cache, v_cache)``, each (B, T, KV, hd), or, for an int8 cache,
     ``(k, v, k_scale, v_scale)`` with (B, T, KV) f32 scales.  Modes:
       * prefill: s > 1 — x attends over itself, causally (within ``window``
@@ -241,7 +308,7 @@ def attention_layer(
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
     if cache is None:  # no cache: self-attention over x, or cross-attention over kv_input
-        out = flash_attention(q, k, v, causal=kv_input is None, window=window)
+        out = flash_attention(q, k, v, causal=causal and kv_input is None, window=window)
         return ops.matmul(out.reshape(b, s, h * hd), p["wo"])
     quant = len(cache) == 4
     k_cache, v_cache = cache[:2]
@@ -302,7 +369,25 @@ def logits_from_hidden(p: dict, x: torch.Tensor) -> torch.Tensor:
     Untied models carry ``unembed`` (d, V).  Tied models carry ``embed_t``,
     a contiguous copy of ``embed.T`` made once at load: the kernel takes
     row-major operands, and a per-call transpose copy would move the whole
-    vocab matrix every step.
+    vocab matrix every step.  In training (grad on and ``embed`` requiring
+    it) the head computes from ``embed`` itself, through a transpose copy
+    made in the graph, so the gradient reaches ``embed``; the train step
+    refreshes ``embed_t`` after each update.
     """
-    w = p["unembed"] if "unembed" in p else p["embed_t"]
+    if "unembed" in p:
+        w = p["unembed"]
+    elif torch.is_grad_enabled() and p["embed"].requires_grad:
+        w = p["embed"].t().contiguous()
+    else:
+        w = p["embed_t"]
     return ops.matmul(x, w, out_dtype=torch.float32)
+
+
+def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor, vocab: int) -> torch.Tensor:
+    """Mean token NLL; padded-vocab slots are masked out of the softmax."""
+    pv = logits.shape[-1]
+    if pv != vocab:
+        logits = logits.masked_fill(torch.arange(pv, device=logits.device) >= vocab, _NEG_INF)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    return (logz - gold).mean()

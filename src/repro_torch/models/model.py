@@ -1,10 +1,12 @@
 """Model families, ported from ``repro/models/model.py``.
 
 Same functional surface as the reference's ``TransformerLM`` (dense, MoE
-FFN, QKV bias, interleaved image cross-attention), ``RWKV6LM`` and
-``HymbaLM``:
+FFN, QKV bias, interleaved image cross-attention), ``RWKV6LM``, ``HymbaLM``
+and ``EncDecLM`` (the encoder-decoder, seamless):
 
   init(generator) -> params
+  loss_fn(params, batch) -> (scalar loss, metrics)   [train shapes; every
+      layer body checkpointed with the policy of ``layers.set_remat_policy``]
   init_cache(batch, cache_len) -> cache dict (k/v per token for the
       transformer, int8 with f32 scales under ``kv_quant``, and a VLM's
       per-group ``cross_k`` / ``cross_v`` over the image tokens; the recurrent
@@ -17,6 +19,11 @@ FFN, QKV bias, interleaved image cross-attention), ``RWKV6LM`` and
       (the transformer only, not a VLM or an int8 cache: chunked prefill, as
       in the reference)
 
+An encoder-decoder's batch holds ``frames`` (B, S, d), the stubbed audio
+frontend's embeddings; its ``prefill`` adds the encoder output as a
+``memory`` leaf that ``init_cache`` lacks, as the reference's does, so the
+serving engine serves it in neither package.
+
 Params keep the reference's tree and layout: (in, out) matrices with a
 stacked leading layer axis.  The reference's ``lax.scan`` over layers is a
 Python loop over views of the stacked tensors, through ``ops.scan_layers``
@@ -24,8 +31,8 @@ for the transformer and RWKV6 (whose reference scans): their kernel
 selections run for layer 0 and later layers reuse them, as a scan traces its
 body once.  A VLM scans its groups and, inside each, its self-attention
 layers, as the reference nests its scans.  Hymba loops over its layers in
-both packages.  The encoder-decoder (``audio``) family waits for the
-training slice: the reference serves it neither.
+both packages, except in ``loss_fn``, where its reference scans too.  The
+encoder-decoder scans its encoder and decoder stacks.
 """
 from __future__ import annotations
 
@@ -49,15 +56,21 @@ def build_model(cfg: ArchConfig, dtype=torch.bfloat16, param_dtype=torch.bfloat1
     if cfg.family == "hybrid":
         return HymbaLM(cfg, dtype, param_dtype, device)
     if cfg.family == "audio":
-        raise NotImplementedError(
-            f"{cfg.name!r} is an encoder-decoder (EncDecLM): it joins the port with the training slice, "
-            f"since the reference's engine cannot serve it either (its prefill adds a 'memory' cache leaf "
-            f"that init_cache lacks)")
+        return EncDecLM(cfg, dtype, param_dtype, device)
     if cfg.family not in ("dense", "moe", "vlm"):
         raise ValueError(f"unknown family {cfg.family!r}")
     model = TransformerLM(cfg, dtype, param_dtype, device)
     model.kv_quant = kv_quant
     return model
+
+
+_AUX_COEF = 0.01  # the MoE load-balance loss's weight in the total, as the reference's
+
+
+def _loss(params: dict, x: torch.Tensor, cfg: ArchConfig, batch: dict) -> torch.Tensor:
+    """Final norm, f32 logits over the padded vocab, mean token NLL."""
+    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return L.cross_entropy_loss(L.logits_from_hidden(params["emb"], x), batch["targets"].to(x.device), cfg.vocab)
 
 
 # Every weight is drawn in pieces of _DRAW_ELEMS f32 values, each scaled and cast into
@@ -216,6 +229,47 @@ class TransformerLM:
             kv_input=L.rms_norm(image_embs, blk["ln_img"], c.norm_eps),
         )
         return x + L.mlp_layer(blk["ffn"], L.rms_norm(x, blk["ln2"], c.norm_eps))
+
+    def _forward(self, params: dict, tokens: torch.Tensor, *, image_embs=None, remat: bool = False):
+        """The training forward over the stack, no cache: (hidden after the
+        final layer (B, S, d), f32 MoE aux loss summed over layers).  With
+        ``remat`` each self layer is checkpointed, and for a VLM each group
+        as well (nested), as the reference's ``jax.checkpoint``-ed scans."""
+        b, s = tokens.shape
+        positions = torch.arange(s, device=self.device).expand(b, s)
+        x = L.embed_tokens(params["emb"], tokens.to(self.device)).to(self.dtype)
+        aux = torch.zeros((), dtype=torch.float32, device=self.device)
+
+        def self_body(x, aux, blk):
+            x, aux_i = self._self_block(blk, x, positions, cache=None)
+            return x, aux + aux_i
+
+        body = L.ckpt(self_body) if remat else self_body
+        blocks = params["blocks"]
+        if not self.is_vlm:
+            for i in ops.scan_layers(self.cfg.n_layers):
+                x, aux = body(x, aux, _layer_params(blocks, i))
+            return x, aux
+        spg = self.self_per_group
+
+        def group_body(x, aux, g):
+            for j in ops.scan_layers(spg):
+                x, aux = body(x, aux, _layer_params(blocks, g * spg + j))
+            return self._cross_block(_layer_params(params["cross"], g), x, image_embs.to(self.device)), aux
+
+        gbody = L.ckpt(group_body) if remat else group_body
+        for g in ops.scan_layers(self.n_groups):
+            x, aux = gbody(x, aux, g)
+        return x, aux
+
+    def loss_fn(self, params: dict, batch: dict):
+        """Mean token NLL of ``batch["targets"]`` (plus 0.01 x the MoE
+        load-balance loss for an MoE); a VLM reads ``batch["image_embs"]``.
+        Returns (loss, {"ce_loss", "aux_loss"})."""
+        x, aux = self._forward(params, batch["tokens"], image_embs=batch.get("image_embs"), remat=True)
+        loss = _loss(params, x, self.cfg, batch)
+        total = loss + _AUX_COEF * aux if self.is_moe else loss
+        return total, {"ce_loss": loss, "aux_loss": aux}
 
     def _self_layers(self, params: dict, x, positions, cache: dict, after_group=None, **kw):
         """Every self-attention layer over ``x``, each writing its cache rows in
@@ -391,6 +445,18 @@ class RWKV6LM:
         h2, last2 = R.channel_mix_layer(blk["rwkv"], xn2, c, x_prev=x2)
         return x + h2, (new_wkv, last1, last2)
 
+    def loss_fn(self, params: dict, batch: dict):
+        """Mean token NLL from a zero state, each layer checkpointed.  On the
+        card with grad the WKV op raises ``ops.NoBackwardKernelError`` (its
+        backward kernel is the next slice); on the CPU the plain version
+        trains."""
+        x = L.embed_tokens(params["emb"], batch["tokens"].to(self.device)).to(self.dtype)
+        body = L.ckpt(lambda x, blk: self._layer(blk, x, (None, None, None))[0])
+        for i in ops.scan_layers(self.cfg.n_layers):
+            x = body(x, _layer_params(params["blocks"], i))
+        loss = _loss(params, x, self.cfg, batch)
+        return loss, {"ce_loss": loss}
+
     def init_cache(self, b: int, cache_len: int) -> dict:
         """Recurrent state only: nothing grows with ``cache_len``."""
         c = self.cfg
@@ -465,22 +531,41 @@ class HymbaLM:
             },
         }
 
-    def _layer(self, blk: dict, x, positions, kind: str, entry: dict, *, cache_positions=None, cache_valid=None):
+    def _layer(self, blk: dict, x, positions, kind: str, entry: dict | None, *, cache_positions=None,
+               cache_valid=None):
         """One layer over ``entry`` = this layer's {"k", "v", "ssm"} cache: k/v
-        are written in place; returns (x, the new ssm state)."""
+        are written in place; returns (x, the new ssm state).  ``entry=None``
+        is the training forward: no cache."""
         c = self.cfg
         xn = L.rms_norm(x, blk["ln1"], c.norm_eps)
         h_attn = L.attention_layer(
-            blk["attn"], xn, c, positions, cache=(entry["k"], entry["v"]),
+            blk["attn"], xn, c, positions, cache=None if entry is None else (entry["k"], entry["v"]),
             cache_positions=cache_positions, cache_valid=cache_valid,
             window=0 if kind == "global" else c.window,
         )
-        if x.shape[1] == 1:
+        if entry is not None and x.shape[1] == 1:
             h_mamba, ssm = M.mamba_decode_step(blk["mamba"], xn, entry["ssm"], c)
         else:
             h_mamba, ssm = M.mamba_layer(blk["mamba"], xn, c)
         x = x + 0.5 * (h_attn + h_mamba)
         return x + L.mlp_layer(blk["ffn"], L.rms_norm(x, blk["ln2"], c.norm_eps)), ssm
+
+    def loss_fn(self, params: dict, batch: dict):
+        """Mean token NLL, each layer checkpointed.  The layers scan here as
+        the reference's ``loss_fn`` scans them (layer 0 selects; the window
+        is each layer's own).  On the card with grad the scan op raises
+        ``ops.NoBackwardKernelError`` (its backward kernel is the next
+        slice); on the CPU the plain version trains."""
+        tokens = batch["tokens"].to(self.device)
+        b, s = tokens.shape
+        positions = torch.arange(s, device=self.device).expand(b, s)
+        x = L.embed_tokens(params["emb"], tokens).to(self.dtype)
+        body = L.ckpt(lambda x, blk, kind: self._layer(blk, x, positions, kind, None)[0])
+        kinds = self._layer_kinds()
+        for i in ops.scan_layers(self.cfg.n_layers):
+            x = body(x, _layer_params(params["blocks"], i), kinds[i])
+        loss = _loss(params, x, self.cfg, batch)
+        return loss, {"ce_loss": loss}
 
     def init_cache(self, b: int, cache_len: int) -> dict:
         """Per layer: k/v of ``cache_len`` tokens on global layers and a ring of
@@ -531,5 +616,124 @@ class HymbaLM:
             x, ssm = self._layer(_layer_params(params["blocks"], i), x, pos2d, kind, entry,
                                  cache_positions=cpos, cache_valid=cvalid)
             entry["ssm"].copy_(ssm)
+        x = L.rms_norm(x, params["final_norm"], c.norm_eps)
+        return L.logits_from_hidden(params["emb"], x), cache
+
+
+class EncDecLM:
+    """Encoder-decoder (seamless-m4t-large-v2's backbone): an unmasked
+    encoder with rope over the stubbed audio frames, then a decoder whose
+    every layer is causal self-attention, cross-attention over the encoder's
+    output (``memory``; no rope, no mask) and a SwiGLU FFN."""
+
+    def __init__(self, cfg: ArchConfig, dtype=torch.bfloat16, param_dtype=torch.bfloat16, device="cuda"):
+        self.cfg = cfg
+        self.dtype = dtype
+        self.param_dtype = param_dtype
+        self.device = torch.device(device)
+
+    def init(self, generator: torch.Generator | None = None) -> dict:
+        """Random weights drawn from ``generator`` at the reference's scales."""
+        c = self.cfg
+        ne = c.n_enc_layers
+        normal, full = _initializers(self, generator)
+        return {
+            "emb": _init_embedding(c, normal),
+            "final_norm": full((c.d_model,), 1.0),
+            "enc_norm": full((c.d_model,), 1.0),
+            "encoder": {
+                "attn": _init_attention(c, normal, full, ne),
+                "ffn": _init_mlp(c, normal, ne),
+                "ln1": full((ne, c.d_model), 1.0),
+                "ln2": full((ne, c.d_model), 1.0),
+            },
+            "decoder": {
+                "attn": _init_attention(c, normal, full),
+                "cross": _init_attention(c, normal, full),
+                "ffn": _init_mlp(c, normal),
+                "ln1": full((c.n_layers, c.d_model), 1.0),
+                "ln_x": full((c.n_layers, c.d_model), 1.0),
+                "ln2": full((c.n_layers, c.d_model), 1.0),
+            },
+        }
+
+    def encode(self, params: dict, frames: torch.Tensor) -> torch.Tensor:
+        """frames: (B, S, d) stubbed audio-frontend embeddings -> memory (B, S, d)."""
+        c = self.cfg
+        b, s, _ = frames.shape
+        positions = torch.arange(s, device=self.device).expand(b, s)
+        x = frames.to(device=self.device, dtype=self.dtype)
+
+        def body(x, blk):
+            x = x + L.attention_layer(blk["attn"], L.rms_norm(x, blk["ln1"], c.norm_eps), c, positions,
+                                      causal=False)
+            return x + L.mlp_layer(blk["ffn"], L.rms_norm(x, blk["ln2"], c.norm_eps))
+
+        body = L.ckpt(body)
+        for i in ops.scan_layers(c.n_enc_layers):
+            x = body(x, _layer_params(params["encoder"], i))
+        return L.rms_norm(x, params["enc_norm"], c.norm_eps)
+
+    def _dec_layer(self, blk: dict, x, positions, memory, *, cache=None, cache_positions=None):
+        """Self-attention (its k/v written into ``cache`` in place, if given),
+        cross-attention over ``memory``, FFN."""
+        c = self.cfg
+        x = x + L.attention_layer(blk["attn"], L.rms_norm(x, blk["ln1"], c.norm_eps), c, positions,
+                                  cache=cache, cache_positions=cache_positions)
+        x = x + L.attention_layer(blk["cross"], L.rms_norm(x, blk["ln_x"], c.norm_eps), c, None, kv_input=memory)
+        return x + L.mlp_layer(blk["ffn"], L.rms_norm(x, blk["ln2"], c.norm_eps))
+
+    def _positions(self, b: int, s: int) -> torch.Tensor:
+        return torch.arange(s, device=self.device).expand(b, s)
+
+    def loss_fn(self, params: dict, batch: dict):
+        """Mean token NLL of the decoder over ``batch["tokens"]`` given
+        ``batch["frames"]``, every encoder and decoder layer checkpointed."""
+        memory = self.encode(params, batch["frames"])
+        tokens = batch["tokens"].to(self.device)
+        positions = self._positions(*tokens.shape)
+        x = L.embed_tokens(params["emb"], tokens).to(self.dtype)
+        body = L.ckpt(lambda x, blk: self._dec_layer(blk, x, positions, memory))
+        for i in ops.scan_layers(self.cfg.n_layers):
+            x = body(x, _layer_params(params["decoder"], i))
+        loss = _loss(params, x, self.cfg, batch)
+        return loss, {"ce_loss": loss}
+
+    def init_cache(self, b: int, cache_len: int) -> dict:
+        """The decoder's self-attention k/v, (n_layers, B, T, KV, hd).  As the
+        reference's, it lacks the ``memory`` leaf that :meth:`prefill` adds."""
+        c = self.cfg
+        shape = (c.n_layers, b, cache_len, c.n_kv_heads, c.head_dim)
+        return {"k": torch.zeros(shape, dtype=self.dtype, device=self.device),
+                "v": torch.zeros(shape, dtype=self.dtype, device=self.device)}
+
+    def _decode_layers(self, params: dict, x, positions, memory, cache: dict, cache_positions=None):
+        for i in ops.scan_layers(self.cfg.n_layers):
+            x = self._dec_layer(_layer_params(params["decoder"], i), x, positions, memory,
+                                cache=(cache["k"][i], cache["v"][i]), cache_positions=cache_positions)
+        return x
+
+    def prefill(self, params: dict, batch: dict, cache_len: int):
+        """Encode ``batch["frames"]`` and prefill the decoder with the token
+        prefix ``batch["tokens"]`` (B, S); returns the f32 logits of the last
+        position (B, 1, V_padded) and the cache with ``memory`` added."""
+        c = self.cfg
+        memory = self.encode(params, batch["frames"])
+        tokens = batch["tokens"].to(self.device)
+        b, s = tokens.shape
+        cache = self.init_cache(b, cache_len)
+        x = L.embed_tokens(params["emb"], tokens).to(self.dtype)
+        x = self._decode_layers(params, x, self._positions(b, s), memory, cache)
+        cache["memory"] = memory
+        x = L.rms_norm(x, params["final_norm"], c.norm_eps)
+        return L.logits_from_hidden(params["emb"], x[:, -1:]), cache
+
+    def decode_step(self, params: dict, cache: dict, tokens: torch.Tensor, positions: torch.Tensor):
+        """tokens: (B, 1); positions: (B,) — index of the new token.  Attends
+        over ``cache["memory"]``; the k/v cache is updated in place and
+        returned."""
+        c = self.cfg
+        x = L.embed_tokens(params["emb"], tokens).to(self.dtype)
+        x = self._decode_layers(params, x, positions[:, None], cache["memory"], cache, cache_positions=positions)
         x = L.rms_norm(x, params["final_norm"], c.norm_eps)
         return L.logits_from_hidden(params["emb"], x), cache

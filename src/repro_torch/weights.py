@@ -2,7 +2,8 @@
 
 ``params_from_jax`` takes the reference ``TransformerLM``'s (dense, MoE with
 ``blocks.moe.{router,w_gate,w_up,w_down}``, QKV biases ``bq``/``bk``/``bv``, a
-VLM's ``cross`` tree), ``RWKV6LM``'s or ``HymbaLM``'s params as numpy arrays
+VLM's ``cross`` tree), ``RWKV6LM``'s, ``HymbaLM``'s or ``EncDecLM``'s
+(``encoder`` / ``decoder`` trees, ``enc_norm``) params as numpy arrays
 (``jax.tree.map(np.asarray, params)``) and returns the port's tree, same names
 and layout, as tensors on ``device``.  With it both
 packages compute on the same weights, which is how the tests hold one to the
@@ -23,9 +24,6 @@ def _tensor(a, device, dtype) -> torch.Tensor:
 
 def params_from_jax(np_params: dict, cfg: ArchConfig, device="cuda", dtype=torch.float32) -> dict:
     """The port's param tree from the reference's (numpy leaves)."""
-    if cfg.family == "audio":
-        raise NotImplementedError(f"{cfg.name!r} is an encoder-decoder (EncDecLM), which the port does not "
-                                  f"build yet (the training slice); its params do not convert")
     convert = lambda tree: {k: convert(v) if isinstance(v, dict) else _tensor(v, device, dtype)
                             for k, v in tree.items()}
     out = convert(np_params)

@@ -6,9 +6,9 @@ image embeddings) in f32 on the CPU, on the same weights: prefill logits on a
 left-padded bucket prompt, every cache leaf (a VLM's ``cross_k`` /
 ``cross_v`` included) and three chained decode steps within 1e-4.  The
 registry holds the reference's ten configs in its order, so the default
-harvests are the reference's; the encoder-decoder (seamless) is refused by
-``build_model`` and ``params_from_jax`` with messages naming the training
-slice.
+harvests are the reference's; the encoder-decoder (seamless), which the
+training slice ported, builds and converts (``tests/test_torch_loss.py`` and
+``tests/test_torch_train.py`` hold it to the reference).
 """
 import jax
 import jax.numpy as jnp
@@ -136,14 +136,22 @@ def test_default_harvests_equal_reference():
 
 
 def test_seamless_is_refused_with_a_message():
+    """Once refused until the training slice; now ``build_model`` builds the
+    ``EncDecLM`` and ``params_from_jax`` converts its tree, leaf for leaf."""
     cfg = registry.get("seamless-m4t-large-v2").reduced()
-    with pytest.raises(NotImplementedError, match="encoder-decoder.*training slice"):
-        build_model(cfg, device="cpu")
+    model = build_model(cfg, device="cpu")
+    assert type(model).__name__ == "EncDecLM" and hasattr(model, "loss_fn")
     jm = jax_build_model(jax_registry.get("seamless-m4t-large-v2").reduced(), dtype=jnp.float32,
                          param_dtype=jnp.float32)
     np_params = jax.tree.map(np.asarray, jm.init(jax.random.PRNGKey(0)))
-    with pytest.raises(NotImplementedError, match="encoder-decoder.*training slice"):
-        params_from_jax(np_params, cfg, device="cpu")
+    params = params_from_jax(np_params, cfg, device="cpu")
+    flat = dict(jax.tree_util.tree_flatten_with_path(np_params)[0])
+    got = dict(jax.tree_util.tree_flatten_with_path(jax.tree.map(lambda t: t.numpy(), params))[0])
+    assert set(got) == set(flat)
+    for path, arr in flat.items():
+        np.testing.assert_array_equal(got[path], arr)
+    assert {k: tuple(v.shape) for k, v in model.init(torch.Generator().manual_seed(0))["decoder"]["cross"].items()} \
+        == {k: tuple(v.shape) for k, v in params["decoder"]["cross"].items()}
 
 
 @pytest.mark.parametrize("arch", ARCHS)
