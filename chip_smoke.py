@@ -215,8 +215,11 @@ Phases (each one fails the run if its check fails):
    21b. phase 19's batch drained under ``engine.prefill:compile_error,
    engine.decode:compile_error:1:5`` and a ``dispatch.matmul:compile_error``
    keyed on the first config other than ``DEFAULT_CONFIG`` in phase 19's
-   selection log (a fault on the default itself is unrecoverable on the card,
-   21a) under CUDA graphs: every request completes, 2 engine retries, the
+   selection log whose outputs equal the default's bitwise at every problem
+   the tree served it (a fault on the default itself is unrecoverable on the
+   card, 21a; a redirect to a config that rounds otherwise may flip a greedy
+   token; with no such config, no dispatch fault) under CUDA graphs: every
+   request completes, 2 engine retries, the
    dispatch fault redirected, the programs dropped and
    captured again (and their seconds), health back to healthy, greedy streams
    equal to phase 19's;
@@ -309,8 +312,8 @@ Phases (each one fails the run if its check fails):
    pool; paged, prefix-shared, 32-token chunks), llama-3.2-vision-90b (seeded
    image embeddings; dense and paged) and qwen2.5-32b (seeded nonzero QKV
    biases): equal greedy streams;
-25. training on the card (every plain version refused on a CUDA tensor
-   throughout 25a-25f):
+25. training on the card (every plain version, the backward ones included,
+   refused on a CUDA tensor throughout 25a-25f):
    25a. the GEMM's gradient: ``ops.matmul`` under grad (the ``repro_torch::gemm``
    op: ``grad_lhs = grad_out . rhs^T`` featurized as the forward, ``grad_rhs =
    lhs^T . grad_out`` over the flattened rows, both through ``ops.matmul``) at
@@ -341,17 +344,40 @@ Phases (each one fails the run if its check fails):
    seconds and peak memory;
    25e. one train step's loss and every gradient, card against CPU: reduced
    granite-8b, qwen3-moe-235b-a22b, qwen2.5-32b (seeded nonzero biases),
-   llama-3.2-vision-90b (bf16 image embeddings) and seamless-m4t-large-v2
-   (the encoder, cross-attention over its memory), within 1e-5 (loss) and 1e-4
-   of each gradient's max (1e-2 for the VLM's three bf16-fed cross leaves);
-   granite-8b again under remat "dots" on the card (the selective-checkpoint
-   policy keeps the GEMM outputs: no GEMM launched in the recompute);
-   25f. reduced rwkv6-7b and hymba-1.5b: ``loss_fn`` with grad raises
-   ``NoBackwardKernelError`` naming the next slice; without grad the forward
-   runs on, launching its WKV / scan kernels;
+   llama-3.2-vision-90b (bf16 image embeddings), seamless-m4t-large-v2
+   (the encoder, cross-attention over its memory), and rwkv6-7b and
+   hymba-1.5b at 4 layers (through the WKV / scan backward kernels: one
+   launch a layer), within 1e-5 (loss) and 1e-4 of each gradient's max (1e-2
+   for the VLM's three bf16-fed cross leaves); granite-8b again under remat
+   "dots" on the card (the selective-checkpoint policy keeps the GEMM
+   outputs: no GEMM launched in the recompute);
+   25f. the recurrences' backward kernels and RWKV6 / Hymba training (its
+   seconds printed):
+   25f-i. the WKV backward (csrc/wkv_bwd.cu) at every compiled (chunk, hd),
+   bf16 and f32 r/k/v, a ragged S and an S below the chunk, with and without
+   an initial state and a final-state cotangent: every gradient against
+   autograd of ``wkv_plain`` on the card (TF32 off) within 1e-4 of its max
+   (bf16 leaves 1e-2), and f32 against f64 autograd within 1e-4 (the f32
+   plain's own gap printed beside it); two calls bitwise equal; timed with
+   CUDA events at rwkv6-7b's training shape (B 8, S 128, H 64, hd 64) beside
+   its bytes bound and autograd of the plain version;
+   25f-ii. the scan backward (csrc/ssm.cu ``ssm_bwd_kernel``), both entries,
+   every compiled config and N 8 and 16, the same cases, and a (1, 2048,
+   1600, 16) call whose forward is cut into segments; checked, repeated and
+   timed (hymba-1.5b's shape, B 8, S 128, d 1600, N 16) as 25f-i;
+   25f-iii. rwkv6-7b at full width (d 4096, ff 14336, vocab 65536), 2 of 32
+   layers, f32: ``Trainer`` 6 steps at batch 8, seq 128, remat "full"; the
+   loss falls, every parameter has a non-zero gradient, per step and layer the
+   WKV op runs forward, recompute and backward (2 forward-kernel launches, 1
+   backward-kernel launch), GEMM launches per step from the code; warm step
+   ms, peak memory, a profiled step's share of the backward kernels; then 3
+   bf16 steps;
+   25f-iv. hymba-1.5b whole (32 layers, ~1.5 B params), f32, as 25f-iii
+   through the fused scan's backward;
    25g. ``python -m repro_torch.launch.train --arch granite-8b --reduced
    --steps 4 --batch 2 --seq 16 --ckpt-every 2 --deployment
-   build/deploy_h100.json``: exit 0, checkpoints at steps 2 and 4;
+   build/deploy_h100.json``, then the same with ``--arch rwkv6-7b``: exit 0,
+   checkpoints at steps 2 and 4;
 26. no Python collection ran during any CUDA graph capture (one there could
    free a dead engine's graphs and invalidate the capture); the ``kernels``
    JSON line, then the card line, then the result line.
@@ -998,6 +1024,9 @@ def _kernel_name(key: str) -> str:
     reaches through einsum, also hold "gemm_" in theirs)."""
     if any(f"gemm_{path}_kernel" in key for path in ("tma", "bf16", "f32")):
         return GEMM_KERNELS
+    for kernel in ("wkv_bwd_state_kernel", "wkv_bwd_chunk_kernel", "ssm_bwd_kernel"):
+        if kernel in key:
+            return f"{kernel.split('_')[0].replace('ssm', 'ssm_scan')} backward ({kernel})"
     for kernel in ("wkv_state_kernel", "wkv_output_kernel", "ssm_state_kernel", "ssm_output_kernel"):
         if kernel in key:
             return f"{kernel.split('_')[0].replace('ssm', 'ssm_scan')} ({kernel})"
@@ -2005,7 +2034,8 @@ def _release(torch, serve: dict) -> None:
 
 
 CHAOS = "engine.prefill:compile_error,engine.decode:compile_error:1:5"
-CHAOS_DISPATCH = "dispatch.matmul:compile_error on the first non-default config phase 19 selected"
+CHAOS_DISPATCH = ("dispatch.matmul:compile_error on the first non-default config phase 19 selected that computes "
+                  "bitwise what the default does")
 
 
 def _incident_summary(rt) -> dict:
@@ -2182,16 +2212,38 @@ def phase_engine_chaos(torch, mm, seq: dict, tuned: dict) -> dict:
 
     default = mm.DEFAULT_CONFIG.name()
     # The dispatch fault is keyed on a config the guard can redirect: the tree picks the
-    # default at some shapes, and on the card a fault there has nothing compiled left.
+    # default at some shapes, and on the card a fault there has nothing compiled left. A
+    # redirect runs the default config, so the drain's streams equal phase 19's only where the
+    # two configs compute bitwise the same sums: the fault is keyed on the first served
+    # non-default config whose outputs equal the default's at every problem the tree served it
+    # (random bf16 operands; phase 17's tree is measured anew each run, and a config that
+    # rounds otherwise can flip a near-tied greedy token), else on none.
     dep = Deployment.load(DEPLOY_PATH)
-    served = [cfg.name() for op, p, cfg in tuned["engine"].runtime.selection_log()
-              if op == "matmul" and cfg == dep.select_matmul(*p)]
-    key = next((name for name in served if name != default), None)
+    served: dict[str, tuple] = {}
+    for op, prob, cfg in tuned["engine"].runtime.selection_log():
+        if op == "matmul" and cfg == dep.select_matmul(*prob) and cfg.name() != default:
+            served.setdefault(cfg.name(), (cfg, set()))[1].add(prob)
+    g = torch.Generator(device="cuda").manual_seed(21)
+
+    def neutral(cfg, problems) -> bool:
+        for m, k, n, batch in sorted(problems):
+            a = torch.randn(m * batch, k, device="cuda", generator=g).to(torch.bfloat16)
+            w = (torch.randn(k, n, device="cuda", generator=g) * k ** -0.5).to(torch.bfloat16)
+            od = torch.float32 if (k, n) in VOCAB_KN else torch.bfloat16
+            if not torch.equal(mm.matmul_cuda(a, w, cfg, out_dtype=od), mm.matmul_cuda(a, w, out_dtype=od)):
+                return False
+        return True
+
+    verdicts = {name: neutral(cfg, probs) for name, (cfg, probs) in served.items()}
+    key = next((name for name, ok in verdicts.items() if ok), None)
     rt = KernelRuntime(name="chip_smoke-chaos")
     rt.install(dep)
     plan = faults.FaultPlan.parse(CHAOS, seed=0)
+    print(f"  served non-default configs bitwise equal to {default} at every problem the tree served them: "
+          f"{verdicts}")
     if key is None:
-        print(f"  the tree served {default} at every GEMM of phase 19: no dispatch fault it could redirect")
+        print(f"  no served config computes bitwise what {default} does: no dispatch fault whose redirect leaves "
+              f"the streams unchanged")
     else:
         plan.inject("dispatch.matmul", "compile_error", times=1, match=key)
     rt.set_fault_plan(plan)
@@ -3510,7 +3562,8 @@ class _PlainOnCard(RuntimeError):
 def _no_plain_on_card(ops):
     """Replace the plain versions ``ops`` calls by guards that raise on a CUDA
     tensor (and run the plain version on a CPU one); returns the restore."""
-    names = ("matmul_plain", "wkv_plain", "ssm_plain", "ssm_fused_plain", "attention_plain")
+    names = ("matmul_plain", "wkv_plain", "ssm_plain", "ssm_fused_plain", "attention_plain", "wkv_backward_plain",
+             "ssm_backward_plain", "ssm_fused_backward_plain")
     saved = {name: getattr(ops, name) for name in names}
 
     def guard(name, fn):
@@ -3952,7 +4005,9 @@ def phase_train_seamless(torch, mm, ops) -> dict:
     return out
 
 
-TRAIN_PARITY = ("granite-8b", "qwen3-moe-235b-a22b", "qwen2.5-32b", "llama-3.2-vision-90b", "seamless-m4t-large-v2")
+TRAIN_PARITY = ("granite-8b", "qwen3-moe-235b-a22b", "qwen2.5-32b", "llama-3.2-vision-90b", "seamless-m4t-large-v2",
+                "rwkv6-7b", "hymba-1.5b")
+PARITY_LAYERS = {"rwkv6-7b": 4, "hymba-1.5b": 4}  # 25e: the recurrent models at 4 layers (Hymba's window layer)
 
 
 def phase_train_cpu_vs_card(torch, mm) -> dict:
@@ -3968,10 +4023,17 @@ def phase_train_cpu_vs_card(torch, mm) -> dict:
     from repro_torch.optim import adamw
     from repro_torch.train.train_step import make_train_step
 
+    from repro_torch.kernels import ssm as ss
+    from repro_torch.kernels import wkv as wk
+
     out = {}
     mm.reset_launches()
+    wk.reset_launches()
+    ss.reset_launches()
     for arch in TRAIN_PARITY:
         cfg = registry.get(arch).reduced()
+        if arch in PARITY_LAYERS:
+            cfg = dataclasses.replace(cfg, n_layers=PARITY_LAYERS[arch])
         got, dots = {}, {}
         runs = [("cuda", "full"), ("cpu", "full")] + ([("cuda", "dots")] if arch == "granite-8b" else [])
         for dev, policy in runs:
@@ -4018,77 +4080,388 @@ def phase_train_cpu_vs_card(torch, mm) -> dict:
               f"worst {worst[top]:.3g} at {top}" + (f"; remat dots on the card too: loss {got['cuda', 'dots'][0]:.6f}, "
                                                     f"GEMMs by phase {dots}" if dots else ""))
     out["gemm_launches"] = mm.total_launches()
+    out["backward_kernel_launches"] = {"wkv": sum(wk.BWD_LAUNCHES.values()), "ssm_scan": sum(ss.BWD_LAUNCHES.values())}
+    out["forward_kernel_launches"] = {"wkv": wk.total_launches(), "ssm_scan": ss.total_launches()}
+    want = {"wkv": PARITY_LAYERS["rwkv6-7b"], "ssm_scan": PARITY_LAYERS["hymba-1.5b"]}
+    require(out["backward_kernel_launches"] == want,
+            f"backward kernel launches of the card's steps {out['backward_kernel_launches']}, want {want}")
     return out
 
 
-def phase_train_refusals(torch, ops) -> dict:
-    """25f: reduced rwkv6-7b and hymba-1.5b: ``loss_fn`` with grad on the card raises
-    ``NoBackwardKernelError`` naming the next slice; the same forward without grad
-    runs on (its WKV / scan kernels launch)."""
-    from repro_torch.configs import registry
+# 25f: the recurrences' backward kernels and RWKV6 / Hymba training.
+# The backward kernels' limits, relative to each gradient's max |autograd of the plain version|:
+# f32 leaves 1e-4, the forward's own limit (both sides sum in f32 in other orders; the kernel is
+# also held to f64 autograd of the plain version, whose f32 run's own gap to f64 is printed beside
+# it); bf16 leaves (dr, dk, dv, du of bf16 operands) 1e-2, phase 3's bf16 limit: each side rounds
+# an f32 gradient to bf16 once (2^-8 relative), so two roundings apart.
+BWD_TOL = {"f32": 1e-4, "bf16": 1e-2}
+RWKV_TRAIN_SHAPE = (8, 128, 64, 64)  # B, S, H, hd: rwkv6-7b at batch 8, seq 128
+HYMBA_TRAIN_SHAPE = (8, 128, 1600, 16)  # B, S, d, N: hymba-1.5b at batch 8, seq 128
+
+
+def _grad_errs(torch, got, ref, exact=None) -> list:
+    """Per leaf: (rel err against ``ref``, abs err, dtype, rel err against ``exact`` (f64), the
+    f32 reference's own rel err against ``exact``); None where a leaf has no gradient."""
+    out = []
+    for i, (g, w) in enumerate(zip(got, ref)):
+        if w is None:
+            require(g is None, f"leaf {i}: a gradient where autograd has none")
+            out.append(None)
+            continue
+        require(g.dtype == w.dtype and g.shape == w.shape, f"leaf {i}: {g.dtype} {tuple(g.shape)} against "
+                f"{w.dtype} {tuple(w.shape)}")
+        require(bool(torch.isfinite(g).all()), f"leaf {i}: not finite")
+        scale = w.float().abs().max().item() or 1.0
+        err = (g.float() - w.float()).abs().max().item()
+        row = [err / scale, err, "bf16" if g.dtype == torch.bfloat16 else "f32", None, None]
+        if exact is not None and exact[i] is not None:  # a gradient that is 0 (dlogw at S 1) compares absolute
+            s64 = exact[i].abs().max().item() or 1.0
+            row[3] = (g.double() - exact[i]).abs().max().item() / s64
+            row[4] = (w.double() - exact[i]).abs().max().item() / s64
+        out.append(row)
+    return out
+
+
+def _check_grads(errs, names, where, worst) -> None:
+    for name, e in zip(names, errs):
+        if e is None:
+            continue
+        tol = BWD_TOL[e[2]]
+        require(e[0] <= tol, f"{where} d{name}: rel err {e[0]:.3g} > {tol}")
+        if e[3] is not None:
+            require(e[3] <= tol, f"{where} d{name}: rel err against f64 {e[3]:.3g} > {tol}")
+        w = worst.setdefault(name, {"rel": 0.0, "abs": 0.0, "rel_f64": 0.0, "plain_rel_f64": 0.0})
+        w["rel"], w["abs"] = max(w["rel"], e[0]), max(w["abs"], e[1])
+        if e[3] is not None:
+            w["rel_f64"], w["plain_rel_f64"] = max(w["rel_f64"], e[3]), max(w["plain_rel_f64"], e[4])
+
+
+def _autograd(torch, fn, leaves, cots):
+    """Autograd of ``fn`` (a plain version) at ``leaves``: the gradients (None for a None leaf)."""
+    used = [t.detach().requires_grad_(True) if t is not None else None for t in leaves]
+    outs = fn(*used)
+    pairs = [(o, c) for o, c in zip(outs, cots) if c is not None]
+    live = [t for t in used if t is not None]
+    grads = iter(torch.autograd.grad([o for o, _ in pairs], live, [c for _, c in pairs]))
+    return [next(grads) if t is not None else None for t in used]
+
+
+def phase_wkv_backward(torch, wk) -> dict:
+    """25f-i: the WKV backward kernel (csrc/wkv_bwd.cu) at every compiled (chunk, hd), bf16 and
+    f32 r/k/v, a ragged S and an S below the chunk, with and without an initial state and a
+    final-state cotangent: against autograd of ``wkv_plain`` on the card (TF32 off) and, for f32,
+    f64 autograd of it; two calls bitwise equal; then timed at rwkv6-7b's training shape."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(27)
+    names = ("r", "k", "v", "logw", "u", "state")
+    worst, checks = {}, 0
+    t0 = time.perf_counter()
+    for cfg in wk.config_space():
+        for hd in (16, 64):
+            for dtype in (torch.float32, torch.bfloat16):
+                for s, with_state, with_ds in ((2 * cfg.chunk + 3, True, True), (2 * cfg.chunk + 3, False, False),
+                                               (max(1, cfg.chunk // 2 - 3), True, False),
+                                               (max(1, cfg.chunk // 2 - 3), False, True)):
+                    args = list(_wkv_inputs(torch, g, 2, s, 3, hd, dtype, "dist", with_state))
+                    do = torch.randn((2, s, 3, hd), device="cuda", generator=g)
+                    ds = torch.randn((2, 3, hd, hd), device="cuda", generator=g) if with_ds else None
+                    got = wk.wkv_backward_cuda(*args, do, ds, cfg)
+                    again = wk.wkv_backward_cuda(*args, do, ds, cfg)
+                    where = f"{cfg.name()} hd {hd} {dtype} S {s} state={with_state} ds_out={with_ds}"
+                    require(all(x is None or torch.equal(x, y) for x, y in zip(got, again)),
+                            f"{where}: two calls differ")
+                    ref = _autograd(torch, wk.wkv_plain, args, (do, ds))
+                    exact = None
+                    if dtype == torch.float32:
+                        exact = _autograd(torch, wk.wkv_plain, [None if t is None else t.double() for t in args],
+                                          (do.double(), None if ds is None else ds.double()))
+                    _check_grads(_grad_errs(torch, got, ref, exact), names, where, worst)
+                    checks += 1
+    torch.cuda.synchronize()
+    print(f"  {checks} checks in {time.perf_counter() - t0:.1f}s ({len(wk.config_space())} chunks x hd 16, 64 x f32, "
+          f"bf16 x 4 cases: ragged S with a "
+          f"state and a final-state cotangent, ragged S without, S below the chunk with a state, S below with a "
+          f"cotangent), each called twice, bitwise equal; worst rel err by leaf against autograd of wkv_plain "
+          f"(limits f32 {BWD_TOL['f32']}, bf16 leaves {BWD_TOL['bf16']}) and against f64 (the f32 plain's own "
+          f"beside it): " + "; ".join(f"d{k} {v['rel']:.3g} / f64 {v['rel_f64']:.3g} (plain {v['plain_rel_f64']:.3g})"
+                                      for k, v in worst.items()))
+    b, s, h, hd = RWKV_TRAIN_SHAPE
+    out = {"checks": checks, "worst": worst, "timing": []}
+    for dtype in (torch.float32, torch.bfloat16):
+        args = list(_wkv_inputs(torch, g, b, s, h, hd, dtype, "dist", False))
+        do = torch.randn((b, s, h, hd), device="cuda", generator=g)
+        _, s_fin, hs = wk.wkv_cuda(*args, config=wk.DEFAULT_WKV_CONFIG, keep_states=True)
+        size = 2 if dtype == torch.bfloat16 else 4
+        n = b * s * h * hd
+        # Each input read once (r, k, v, u in their type; logw, do, hs f32), each output written
+        # once (dr, dk, dv in r's type, dlogw f32); du is (H, hd).
+        nbytes = 3 * n * size * 2 + 2 * n * 4 + hs.numel() * 4 + n * 4 + h * hd * size * 2
+        # The recurrent VJP's count, the fewest for this function: per token and head, the state's
+        # gradient dS = w (.) dS + r^T do (3 hd^2), dr = S do (2 hd^2), dk = dS v (2 hd^2),
+        # dv = dS^T k (2 hd^2), dlogw = sum_j S dS (2 hd^2), the u-bonus's (8 hd).
+        ops_n = b * s * h * (11 * hd * hd + 8 * hd)
+        bound = max(nbytes / HBM_BYTES_PER_S, ops_n / F32_FLOPS) * 1e3
+        ms = _time_ms(lambda i: wk.wkv_backward_cuda(*args, do, None, wk.DEFAULT_WKV_CONFIG, (hs, s_fin)))
+        leaves = [t.detach().requires_grad_(True) for t in args[:5]]
+        o, _ = wk.wkv_plain(*leaves)
+        plain = _time_ms(lambda i: torch.autograd.grad(o, leaves, do, retain_graph=True), n_runs=5)
+        launches = _kernel_launches(lambda: wk.wkv_backward_cuda(*args, do, None, wk.DEFAULT_WKV_CONFIG, (hs, s_fin)),
+                                    ("wkv_bwd_state_kernel", "wkv_bwd_chunk_kernel"))
+        row = {"dtype": str(dtype).split(".")[-1], "shape": [b, s, h, hd], "config": wk.DEFAULT_WKV_CONFIG.name(),
+               "ms": ms, "plain_autograd_ms": plain, "bound_ms": bound, "bytes": nbytes, "ops": ops_n,
+               "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= ops_n / F32_FLOPS else "operations",
+               "kernel_launches_per_call": launches}
+        out["timing"].append(row)
+        print(f"  timed at rwkv6-7b's training shape {RWKV_TRAIN_SHAPE} {row['dtype']}, {row['config']}: backward "
+              f"{ms:.4f} ms, bound {bound:.4f} ms ({row['bound_by']}: {nbytes / 1e6:.1f} MB, "
+              f"{ops_n / 1e9:.2f} Gop f32); "
+              f"autograd of wkv_plain {plain:.3f} ms; kernels per call {launches}; library: none")
+        del args, do, hs, s_fin, leaves, o
+    return out
+
+
+def phase_ssm_backward(torch, ss) -> dict:
+    """25f-ii: the scan's backward kernel (csrc/ssm.cu ssm_bwd_kernel), both entries, at every
+    compiled (block_d, chunk) and N 8 and 16, a ragged S and an S below the chunk, with and
+    without a state and a final-state cotangent, and a (1, 2048, 1600, 16) call whose forward
+    is cut into segments: against autograd of the plain versions on the card and f64 autograd;
+    two calls bitwise equal; then both entries timed at hymba-1.5b's training shape."""
+    g = torch.Generator(device="cuda").manual_seed(28)
+    entries = {"fused": (_ssm_fused_inputs, ss.ssm_fused_plain, ss.ssm_fused_backward_cuda,
+                         ("x", "dt", "a", "b", "c", "state")),
+               "dta": (_ssm_inputs, ss.ssm_plain, ss.ssm_backward_cuda, ("dtx", "dta", "b", "c", "state"))}
+    worst, checks = {}, 0
+    cases = [(cfg, n, s, with_state, with_ds) for cfg in ss.config_space() for n in (8, 16)
+             for s, with_state, with_ds in ((3 * cfg.chunk + 5, True, True), (3 * cfg.chunk + 5, False, False),
+                                            (cfg.chunk // 2 + 1, True, False), (cfg.chunk // 2 + 1, False, True))]
+    # The long call at the config whose forward the rule cuts into the most segments there.
+    long_cfg = max(ss.config_space(), key=lambda c: ss.launch_segments(1, SSM_LONG, 1600, 16, c, True, 0))
+    segments_seen = ss.launch_segments(1, SSM_LONG, 1600, 16, long_cfg, True, 0)
+    require(segments_seen > 1, f"no compiled config cuts the long call's forward into segments ({segments_seen})")
+    cases.append((long_cfg, 16, SSM_LONG, True, True))
+    t0 = time.perf_counter()
+    for cfg, n, s, with_state, with_ds in cases:
+        b, d = (1, 1600) if s == SSM_LONG else (2, 100)
+        for entry, (inputs, plain, kernel, names) in entries.items():
+            if s == SSM_LONG and entry == "dta":
+                continue  # the long call through the fused entry, the one a Hymba layer runs
+            args = list(inputs(torch, g, b, s, d, n, with_state))
+            dy = torch.randn((b, s, d), device="cuda", generator=g)
+            ds = torch.randn((b, d, n), device="cuda", generator=g) if with_ds else None
+            got = kernel(*args, dy, ds, cfg)
+            again = kernel(*args, dy, ds, cfg)
+            where = f"{entry} {cfg.name()} N {n} S {s} state={with_state} ds_out={with_ds}"
+            require(all(x is None or torch.equal(x, y) for x, y in zip(got, again)), f"{where}: two calls differ")
+            ref = _autograd(torch, plain, args, (dy, ds))
+            exact = None
+            if with_state and with_ds:  # the full case of each config, and the long call, against f64 too
+                exact = _autograd(torch, plain, [None if t is None else t.double() for t in args],
+                                  (dy.double(), None if ds is None else ds.double()))
+            _check_grads(_grad_errs(torch, got, ref, exact), [f"{entry}:{x}" for x in names], where, worst)
+            checks += 1
+    torch.cuda.synchronize()
+    print(f"  {checks} checks in {time.perf_counter() - t0:.1f}s (both entries x {len(ss.config_space())} configs x "
+          f"N 8, 16 x 4 cases, and the fused entry at (1, {SSM_LONG}, 1600, 16) under {long_cfg.name()}, whose "
+          f"forward runs {segments_seen} segments), each called twice, bitwise equal; worst rel err by leaf against "
+          f"autograd of the plain version (limit {BWD_TOL['f32']}) and, in the cases with a state and a final-state "
+          f"cotangent, against f64 (the f32 plain's own beside it): " + "; ".join(
+              f"d{k} {v['rel']:.3g} / f64 {v['rel_f64']:.3g} ({v['plain_rel_f64']:.3g})" for k, v in worst.items()))
+    b, s, d, n = HYMBA_TRAIN_SHAPE
+    out = {"checks": checks, "worst": worst, "long_call_forward_segments": segments_seen, "timing": []}
+    for entry, (inputs, plain, kernel, _) in entries.items():
+        args = list(inputs(torch, g, b, s, d, n, False))
+        dy = torch.randn((b, s, d), device="cuda", generator=g)
+        rows = b * s
+        if entry == "fused":  # x, dt, dy in; dx, d(dt) out; a, da; b, c, db, dc
+            nbytes = (3 * rows * d + 2 * rows * d + 2 * d * n + 4 * rows * n) * 4
+        else:  # dtx, dy, dta in; d(dtx), d(dta) out; b, c, db, dc
+            nbytes = (2 * rows * d + rows * d * n + rows * d + rows * d * n + 4 * rows * n) * 4
+        # Per (t, channel, state): the forward recomputed (exp, 2 ops), dh (2), d(dta) (2 + exp),
+        # d(dtx) (2), db (2), dc (2), and the fused entry's da and d(dt) (4): ~20.
+        ops_n = rows * d * n * 20
+        bound = max(nbytes / HBM_BYTES_PER_S, ops_n / F32_FLOPS) * 1e3
+        ms = _time_ms(lambda i: kernel(*args, dy, None, ss.DEFAULT_SSM_CONFIG))
+        leaves = [t.detach().requires_grad_(True) for t in args[:-1]]
+        y, _ = plain(*leaves)
+        plain_ms = _time_ms(lambda i: torch.autograd.grad(y, leaves, dy, retain_graph=True), n_warm=1, n_runs=3)
+        launches = _kernel_launches(lambda: kernel(*args, dy, None, ss.DEFAULT_SSM_CONFIG), ("ssm_bwd_kernel",))
+        row = {"entry": entry, "shape": [b, s, d, n], "config": ss.DEFAULT_SSM_CONFIG.name(), "ms": ms,
+               "plain_autograd_ms": plain_ms, "bound_ms": bound, "bytes": nbytes, "ops": ops_n,
+               "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= ops_n / F32_FLOPS else "operations",
+               "kernel_launches_per_call": launches}
+        out["timing"].append(row)
+        print(f"  {entry} entry timed at hymba-1.5b's training shape {HYMBA_TRAIN_SHAPE}, {row['config']}: backward "
+              f"{ms:.4f} ms, bound {bound:.4f} ms ({row['bound_by']}: {nbytes / 1e6:.1f} MB); autograd of the plain "
+              f"version {plain_ms:.2f} ms; kernels per call {launches}; library: none")
+        del args, dy, leaves, y
+    return out
+
+
+# GEMMs a layer of the recurrent models' training forward (as their serving forward: rwkv6-7b
+# r, k, v, g, wd1, wd2, o, ck, cv, cr; hymba-1.5b q, k, v, o, in, dt1, dt2, b, c, out, gate, up, down).
+LAYER_GEMMS = {"rwkv6-7b": 10, "hymba-1.5b": 13}
+RECURRENCE = {"rwkv6-7b": ("wkv", ("wkv_bwd_state_kernel", "wkv_bwd_chunk_kernel")),
+              "hymba-1.5b": ("ssm_scan_fused", ("ssm_bwd_kernel",))}
+
+
+def _bwd_launches(wk, ss) -> int:
+    return sum(wk.BWD_LAUNCHES.values()) + sum(ss.BWD_LAUNCHES.values())
+
+
+def phase_train_recurrent(torch, mm, wk, ss, ops, arch: str, n_layers: int, bf16_steps: int) -> dict:
+    """25f-iii / iv: ``arch`` at full width (``n_layers`` deep), f32 as the launcher trains: the
+    Trainer for 6 steps at batch 8, seq 128, remat "full"; the loss falls, every parameter's
+    gradient is non-zero; per step each layer's recurrence runs forward, recompute and backward
+    (its forward kernel twice, its backward kernel once) and never refuses; GEMM launches per
+    step from the code; warm step ms, peak memory, one profiled step's share of the backward
+    kernels; then ``bf16_steps`` bf16 steps."""
+    import shutil
+
     from repro_torch.data.pipeline import DataConfig, TokenPipeline
-    from repro_torch.kernels import ssm as ss
-    from repro_torch.kernels import wkv as wk
     from repro_torch.models.model import build_model
     from repro_torch.optim import adamw
+    from repro_torch.train.train_step import make_train_step
+    from repro_torch.train.trainer import Trainer, TrainerConfig
 
-    out = {}
-    for arch, layers in (("rwkv6-7b", None), ("hymba-1.5b", 4)):
-        cfg = registry.get(arch).reduced()
-        if layers:
-            cfg = dataclasses.replace(cfg, n_layers=layers)
+    op, bwd_kernels = RECURRENCE[arch]
+    cfg = _train_cfg(arch, n_layers=n_layers)
+    _free(torch)
+    torch.cuda.reset_peak_memory_stats()
+    ckpt_dir = ROOT / "build" / f"train_ckpt_25f_{arch}"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    rt = _train_runtime(f"chip_smoke[25f {arch}]")
+    gemms = (LAYER_GEMMS[arch] * n_layers + 1) * 4 - 1  # forward, recompute (not the head), 2 backward each
+    out = {"n_layers": n_layers}
+    with rt.activate():
         model = build_model(cfg, dtype=torch.float32, param_dtype=torch.float32, device="cuda")
-        params = model.init(torch.Generator(device="cuda").manual_seed(0))
-        batch = TokenPipeline(cfg, DataConfig(global_batch=2, seq_len=32)).device_batch(0, device="cuda")
-        for _, p in adamw.trainable(params):
-            p.requires_grad_(True)
-        with _train_runtime(f"chip_smoke[25f {arch}]").activate():
-            try:
-                model.loss_fn(params, batch)
-                raised = None
-            except ops.NoBackwardKernelError as e:
-                raised = str(e)
-            require(raised is not None and "next slice" in raised, f"{arch}: loss_fn with grad did not refuse")
+        trainer = Trainer(model, cfg, DataConfig(global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ),
+                          adamw.AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=6),
+                          TrainerConfig(total_steps=6, ckpt_every=1000, ckpt_dir=str(ckpt_dir), log_every=1))
+        mm.reset_launches()
+        wk.reset_launches()
+        ss.reset_launches()
+        ops.GRAD_SCANS.clear()
+        ops.GRAD_GEMMS.clear()
+        t0 = time.perf_counter()
+        step, params, opt, _ = trainer.train()
+        train_s = time.perf_counter() - t0
+        fwd = wk.total_launches() + ss.total_launches()
+        bwd = _bwd_launches(wk, ss)
+        by_phase = ops.grad_scans(op)
+        n_params = sum(p.numel() for _, p in adamw.trainable(params))
+        require(step == 6 and by_phase == {"forward": 6 * n_layers, "recompute": 6 * n_layers,
+                                           "backward": 6 * n_layers}, f"{op} calls by phase over 6 steps {by_phase}")
+        require(fwd == 12 * n_layers and bwd == 6 * n_layers,
+                f"{arch}: forward kernel launches {fwd} (want {12 * n_layers}), backward {bwd} (want {6 * n_layers})")
+        require(mm.total_launches() == 6 * gemms, f"GEMM launches {mm.total_launches()}, want 6 x {gemms} "
+                                                  f"(by phase {dict(ops.GRAD_GEMMS)})")
+        losses = [h["loss"] for h in trainer.history]
+        require(all(v == v and abs(v) < 1e9 for v in losses) and losses[-1] < losses[0], f"losses {losses}")
+        peak = torch.cuda.max_memory_allocated()
+        times = list(trainer.straggler.times)
+        warm_ms = statistics.median(times[1:]) * 1e3
+        batch = trainer.pipeline.device_batch(6, device="cuda")
+        grads = trainer.step_fn.compute_grads(params, batch)[2]
+        norms = _grads_nonzero(torch, grads)
+        del grads
+        _free(torch)
+        wk.reset_launches()
+        ss.reset_launches()
+        prof = _profile_window(torch, lambda: trainer.step_fn(params, opt, batch), 1)
+        prof_bwd = _bwd_launches(wk, ss)
+        require(prof_bwd == n_layers, f"a profiled step: {prof_bwd} backward kernel launches, want {n_layers}")
+        names = {_kernel_name(k) for k in bwd_kernels}
+        bwd_ms = sum(prof["ms"].get(k, 0.0) for k in names)
+        fwd_ms = sum(v for k, v in prof["ms"].items() if k.startswith(("wkv (", "ssm_scan (")))
+        recorded = sum(prof["count"].get(k, 0) for k in names)
+        print(f"  {arch} at full width (d {cfg.d_model}), {n_layers} of {_train_cfg(arch).n_layers} layers, f32: "
+              f"{n_params / 1e9:.3f} B params; Trainer 6 steps at batch {TRAIN_BATCH} x seq {TRAIN_SEQ} in "
+              f"{train_s:.1f}s; losses {[round(v, 4) for v in losses]}")
+        print(f"  step ms {[round(t * 1e3, 1) for t in times]} (warm median {warm_ms:.1f}); peak memory "
+              f"{peak / 1e9:.2f} GB; {op} calls by phase over 6 steps {by_phase} (forward kernel {fwd}, backward "
+              f"kernel {bwd} launches); GEMM launches per step {gemms}; every one of {len(norms)} parameters has a "
+              f"non-zero gradient (smallest max |g| {min(norms.values()):.3g}); no NoBackwardKernelError")
+        print(f"  profiled step: wall {prof['wall_ms']:.1f} ms, device busy {prof['busy_ms']:.1f} ms; backward "
+              f"kernels {bwd_ms:.2f} ms ({bwd_ms / prof['wall_ms']:.2%} of the step; {recorded} kernels recorded), "
+              f"forward kernels {fwd_ms:.2f} ms, GEMM kernels {prof['ms'].get(GEMM_KERNELS, 0.0):.1f} ms; top: "
+              + ", ".join(f"{k} {v:.1f}" for k, v in sorted(prof["ms"].items(), key=lambda kv: -kv[1])[:4]))
+        out["f32"] = {"n_params": n_params, "losses": losses, "step_s": times, "warm_step_ms": warm_ms,
+                      "train_s": train_s, "peak_bytes": peak, "by_phase": by_phase, "forward_kernel_launches": fwd,
+                      "backward_kernel_launches": bwd + prof_bwd, "gemm_launches_per_step": gemms,
+                      "grad_max_abs": norms, "profile": prof, "backward_kernels_ms": bwd_ms,
+                      "backward_share": bwd_ms / prof["wall_ms"], "forward_kernels_ms": fwd_ms}
+        del trainer, params, opt, batch, model
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+        _free(torch)
+        if bf16_steps:
+            torch.cuda.reset_peak_memory_stats()
+            model = build_model(cfg, dtype=torch.bfloat16, param_dtype=torch.bfloat16, device="cuda")
+            params = model.init(torch.Generator(device="cuda").manual_seed(0))
+            opt = adamw.init(params)
+            step_fn = make_train_step(model, adamw.AdamWConfig(lr=3e-4, warmup_steps=1, total_steps=bf16_steps))
+            pipe = TokenPipeline(cfg, DataConfig(global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ))
             wk.reset_launches()
             ss.reset_launches()
-            with torch.no_grad():
-                loss, _ = model.loss_fn(params, batch)
-            launched = sum(wk.LAUNCHES.values()) + sum(ss.LAUNCHES.values())
-        require(bool(torch.isfinite(loss)) and launched == cfg.n_layers,
-                f"{arch}: the forward without grad gave {float(loss)} with {launched} WKV / scan launches")
-        out[arch] = {"message": raised, "loss_without_grad": float(loss), "kernel_launches": launched}
-        print(f"  reduced {arch}: with grad -> NoBackwardKernelError ({raised[:90]}...); without grad the forward "
-              f"runs on: loss {float(loss):.4f}, {launched} WKV / scan launches")
-        del model, params
+            losses, times = [], []
+            for i in range(bf16_steps):
+                batch = pipe.device_batch(i, dtype=torch.bfloat16, device="cuda")
+                t0 = time.perf_counter()
+                params, opt, met = step_fn(params, opt, batch)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                losses.append(float(met["loss"]))
+            bwd = _bwd_launches(wk, ss)
+            fwd = wk.total_launches() + ss.total_launches()
+            require(bwd == bf16_steps * n_layers and fwd == 2 * bwd and all(v == v for v in losses),
+                    f"bf16 steps: {fwd} forward and {bwd} backward kernel launches, losses {losses}")
+            out["bf16"] = {"losses": losses, "step_s": times, "backward_kernel_launches": bwd,
+                           "forward_kernel_launches": fwd, "peak_bytes": torch.cuda.max_memory_allocated()}
+            print(f"  bf16: {bf16_steps} steps, losses {[round(v, 4) for v in losses]}, step ms "
+                  f"{[round(t * 1e3, 1) for t in times]}, backward kernel launches {bwd}, peak memory "
+                  f"{out['bf16']['peak_bytes'] / 1e9:.2f} GB")
+            del model, params, opt, step_fn
+    _free(torch)
     return out
 
 
 def phase_train_cli(torch) -> dict:
-    """25g: ``python -m repro_torch.launch.train`` on the card with phase 17's deployment."""
+    """25g: ``python -m repro_torch.launch.train`` on the card with phase 17's deployment:
+    reduced granite-8b, then reduced rwkv6-7b (its WKV forward and backward kernels at the
+    deployment's configs)."""
+    import os
     import shutil
 
-    ckpt = ROOT / "build" / "train_ckpt_25g"
-    shutil.rmtree(ckpt, ignore_errors=True)
-    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", "granite-8b", "--reduced", "--steps", "4",
-           "--batch", "2", "--seq", "16", "--ckpt-every", "2", "--ckpt-dir", str(ckpt),
-           "--deployment", str(DEPLOY_PATH)]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300, cwd=ROOT,
-                          env={**__import__("os").environ, "PYTHONPATH": str(ROOT / "src")})
-    seconds = time.perf_counter() - t0
-    lines = proc.stdout.strip().splitlines()
-    require(proc.returncode == 0, f"launch.train exited {proc.returncode}: {proc.stderr[-2000:]}")
-    require(any("installed kernel deployment" in ln for ln in lines) and "finished at step 4" in lines[-1],
-            f"launch.train output: {lines}")
-    steps = sorted(int(p.name.split("_")[1]) for p in ckpt.iterdir() if p.name.startswith("step_"))
-    require(steps == [2, 4], f"checkpoints {steps}")
-    shutil.rmtree(ckpt, ignore_errors=True)
-    print(f"  {' '.join(cmd[2:])}: exit 0 in {seconds:.1f}s; checkpoints at steps {steps}; last lines {lines[-2:]}")
-    return {"seconds": seconds, "stdout": lines, "checkpoints": steps}
+    out = {}
+    for arch in ("granite-8b", "rwkv6-7b"):
+        ckpt = ROOT / "build" / f"train_ckpt_25g_{arch}"
+        shutil.rmtree(ckpt, ignore_errors=True)
+        cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", arch, "--reduced", "--steps", "4",
+               "--batch", "2", "--seq", "16", "--ckpt-every", "2", "--ckpt-dir", str(ckpt),
+               "--deployment", str(DEPLOY_PATH)]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300, cwd=ROOT,
+                              env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+        seconds = time.perf_counter() - t0
+        lines = proc.stdout.strip().splitlines()
+        require(proc.returncode == 0, f"launch.train --arch {arch} exited {proc.returncode}: {proc.stderr[-2000:]}")
+        require(any("installed kernel deployment" in ln for ln in lines) and "finished at step 4" in lines[-1],
+                f"launch.train --arch {arch} output: {lines}")
+        steps = sorted(int(p.name.split("_")[1]) for p in ckpt.iterdir() if p.name.startswith("step_"))
+        require(steps == [2, 4], f"{arch}: checkpoints {steps}")
+        shutil.rmtree(ckpt, ignore_errors=True)
+        print(f"  {' '.join(cmd[2:])}: exit 0 in {seconds:.1f}s; checkpoints at steps {steps}; last lines {lines[-2:]}")
+        out[arch] = {"seconds": seconds, "stdout": lines, "checkpoints": steps}
+    return out
+
+
+HYMBA_TRAIN_LAYERS = 32  # 25f-iv: hymba-1.5b whole
 
 
 def phase_training(torch, mm, ops, phase) -> dict:
     """Phase 25 (25a-25g), every plain version refused on a CUDA tensor throughout."""
+    from repro_torch.kernels import ssm as ss
+    from repro_torch.kernels import wkv as wk
+
     t0 = time.perf_counter()
     restore = _no_plain_on_card(ops)
     out = {}
@@ -4104,8 +4477,17 @@ def phase_training(torch, mm, ops, phase) -> dict:
         phase("[25e] one train step, card against CPU: reduced granite-8b (remat full and dots), qwen3-moe, "
               "qwen2.5-32b, llama-vision, seamless")
         out["cpu_vs_card"] = phase_train_cpu_vs_card(torch, mm)
-        phase("[25f] refusals: rwkv6-7b and hymba-1.5b loss_fn with grad on the card")
-        out["refusals"] = phase_train_refusals(torch, ops)
+        t25f = time.perf_counter()
+        phase("[25f-i] the WKV backward kernel (wkv_bwd.cu) against autograd of wkv_plain, every (chunk, hd); timing")
+        out["wkv_backward"] = phase_wkv_backward(torch, wk)
+        phase("[25f-ii] the scan backward kernel (ssm.cu ssm_bwd_kernel), both entries, every config; timing")
+        out["ssm_backward"] = phase_ssm_backward(torch, ss)
+        phase("[25f-iii] rwkv6-7b training at full width (2 of 32 layers), f32 then bf16")
+        out["rwkv"] = phase_train_recurrent(torch, mm, wk, ss, ops, "rwkv6-7b", 2, 3)
+        phase(f"[25f-iv] hymba-1.5b training, whole ({HYMBA_TRAIN_LAYERS} layers), f32")
+        out["hymba"] = phase_train_recurrent(torch, mm, wk, ss, ops, "hymba-1.5b", HYMBA_TRAIN_LAYERS, 0)
+        out["seconds_25f"] = time.perf_counter() - t25f
+        print(f"  phase 25f in {out['seconds_25f']:.1f}s")
     finally:
         restore()
     phase("[25g] the launcher: python -m repro_torch.launch.train on the card with phase 17's deployment")
@@ -4150,19 +4532,20 @@ def main() -> int:
 
     phase("[2] build")
     t0 = time.perf_counter()
-    _build.load_all(["matmul", "wkv", "ssm", "attention"])
+    _build.load_all(["matmul", "wkv", "wkv_bwd", "ssm", "attention"])
     tiles, wkv_cfgs, ssm_cfgs = mm.compiled_tiles(), wk.compiled_configs(), ss.compiled_configs()
     attn_cfgs = at.compiled_configs()
-    print(f"  matmul.cu, wkv.cu, ssm.cu and attention.cu -> sm_90a in {time.perf_counter() - t0:.1f}s (nvcc in "
-          f"parallel: {', '.join(f'{k} {v:.1f}s' for k, v in _build.build_seconds.items())})")
+    wkv_bwd_cfgs = wk.compiled_bwd_configs()
+    print(f"  matmul.cu, wkv.cu, wkv_bwd.cu, ssm.cu and attention.cu -> sm_90a in {time.perf_counter() - t0:.1f}s "
+          f"(nvcc in parallel: {', '.join(f'{k} {v:.1f}s' for k, v in _build.build_seconds.items())})")
     print(f"  matmul tiles (bm, bn, bk, smem bf16, smem f32): {tiles}")
-    print(f"  wkv instantiations (chunk, hd, smem): {wkv_cfgs}")
+    print(f"  wkv instantiations (chunk, hd, smem): {wkv_cfgs}; backward (chunk, hd, smem): {wkv_bwd_cfgs}")
     print(f"  ssm instantiations (block_d, chunk, N, threads): {ssm_cfgs}")
     print(f"  attention instantiations (block_q, block_kv, hd, bf16 threads, stages, smem, f32 threads, smem): "
           f"{attn_cfgs}")
     resident = {c.name(): [at.resident_ctas(c, hd, 0) for hd in (64, 128)] for c in at.config_space()}
     print(f"  attention bf16 CTAs an SM holds (hd 64, 128): {resident}")
-    for name in ("matmul", "wkv", "ssm", "attention"):
+    for name in ("matmul", "wkv", "wkv_bwd", "ssm", "attention"):
         log = _build.build_log(name).splitlines()
         regs = [line.split(":", 1)[1].strip() for line in log if "registers" in line]
         spills = sorted({line.strip() for line in log if "spill" in line and "0 bytes spill" not in line})
@@ -4396,6 +4779,22 @@ def main() -> int:
         "training: one step, reduced models on the card (25e)": training["cpu_vs_card"]["gemm_launches"]})
     require(all(v for k, v in gemm_launches.items() if k.startswith("training")),
             f"a training path launched no GEMM: {gemm_launches}")
+    # Phase 25's recurrent paths: the WKV / scan forward kernel (forward and remat recompute) and
+    # backward kernel launches of the training runs, each counted from 0 just before and read just after.
+    rec_paths = {
+        "wkv": {"training: rwkv6-7b full width, f32 Trainer + profiled step (25f-iii)": training["rwkv"]["f32"],
+                "training: rwkv6-7b full width, bf16 steps (25f-iii)": training["rwkv"]["bf16"]},
+        "ssm_scan": {"training: hymba-1.5b whole, f32 Trainer + profiled step (25f-iv)": training["hymba"]["f32"]}}
+    for fam, label in (("wkv", "rwkv6-7b"), ("ssm_scan", "hymba-1.5b")):
+        rec_paths[fam][f"training: one step, reduced {label} on the card (25e)"] = {
+            "forward_kernel_launches": training["cpu_vs_card"]["forward_kernel_launches"][fam],
+            "backward_kernel_launches": training["cpu_vs_card"]["backward_kernel_launches"][fam]}
+    train_fwd = {fam: {k: v["forward_kernel_launches"] for k, v in paths.items()} for fam, paths in rec_paths.items()}
+    train_bwd = {fam: {k: v["backward_kernel_launches"] for k, v in paths.items()} for fam, paths in rec_paths.items()}
+    require(all(v for paths in (*train_fwd.values(), *train_bwd.values()) for v in paths.values()),
+            f"a training path launched no WKV / scan kernel: {train_fwd} {train_bwd}")
+    wkv_bwd_row = next(r for r in training["wkv_backward"]["timing"] if r["dtype"] == "float32")
+    ssm_bwd_row = next(r for r in training["ssm_backward"]["timing"] if r["entry"] == "fused")
     gemm_routes = {path: sum(run["path_launches"][path] for run in (serve, rwkv, hymba, tuned, *arch_runs.values()))
                    + quick["paths"][path] for path in ("tma", "cp_async")}
     kernels = {"kernels": [{
@@ -4446,8 +4845,10 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/wkv.cu",
         "replaces": "src/repro/kernels/wkv.py:114",
-        "launches": sum(rwkv["wkv_launches"].values()) + sum(tune_launches["wkv"].values()),
-        "launches_by_path": {"rwkv6-7b (phase 8)": sum(rwkv["wkv_launches"].values())} | tune_launches["wkv"],
+        "launches": sum(rwkv["wkv_launches"].values()) + sum(tune_launches["wkv"].values())
+        + sum(train_fwd["wkv"].values()),
+        "launches_by_path": {"rwkv6-7b (phase 8)": sum(rwkv["wkv_launches"].values())} | tune_launches["wkv"]
+        | train_fwd["wkv"],
         "served_configs_from_bundle": fleet["served"]["rwkv6-7b"]["wkv_configs_by_bucket"],
         "launches_counted_as": LAUNCHES_COUNTED_AS,
         "kernels_in_profiled_replays": {f"1 prefill replay, {k}": rwkv_profile["prefill"]["count"].get(
@@ -4474,9 +4875,9 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/ssm.cu",
         "replaces": "src/repro/kernels/ssm.py:90",
         "launches": sum(hymba["ssm_launches"].values()) + sum(tune_launches["ssm_scan"].values())
-        + paged_hymba["paged"]["ssm_launches"],
+        + paged_hymba["paged"]["ssm_launches"] + sum(train_fwd["ssm_scan"].values()),
         "launches_by_path": {"hymba-1.5b (phase 12)": sum(hymba["ssm_launches"].values())} | tune_launches["ssm_scan"]
-        | {"hymba-1.5b paged (22f)": paged_hymba["paged"]["ssm_launches"]},
+        | {"hymba-1.5b paged (22f)": paged_hymba["paged"]["ssm_launches"]} | train_fwd["ssm_scan"],
         "served_configs_from_bundle": fleet["served"]["hymba-1.5b"]["ssm_scan_configs_by_bucket"],
         "launches_counted_as": LAUNCHES_COUNTED_AS,
         "kernels_in_profiled_replays": {f"1 prefill replay, {k}": hymba_profile["prefill"]["count"].get(
@@ -4523,6 +4924,52 @@ def main() -> int:
         "timed_as": f"phase 18's ops.attention calls: one per harvested attention problem of {', '.join(TUNED_ARCHS)} "
                     f"({len(quick['rows'])}) at (1, 32) heads, bf16, causal, under the tree's config, summed "
                     f"(the run made each call twice, the second a shape-cache hit)",
+    }, {
+        "name": "wkv_backward",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/wkv_bwd.cu",
+        "replaces": "src/repro/models/rwkv.py:92",
+        "replaces_note": "no TPU kernel: wkv_pallas (src/repro/kernels/wkv.py:114) has no backward; the JAX package "
+                         "trains through XLA's gradient of wkv_chunked (src/repro/kernels/ops.py:426)",
+        "launches": sum(train_bwd["wkv"].values()),
+        "launches_by_path": train_bwd["wkv"],
+        "max_abs_err": max(w["abs"] for w in training["wkv_backward"]["worst"].values()),
+        "max_rel_err": max(w["rel"] for w in training["wkv_backward"]["worst"].values()),
+        "ms": wkv_bwd_row["ms"],
+        "plain_ms": wkv_bwd_row["plain_autograd_ms"],
+        "bound_ms": wkv_bwd_row["bound_ms"],
+        "bound_by": wkv_bwd_row["bound_by"],
+        "library_ms": None,
+        "library_note": "no single PyTorch call computes the WKV recurrence's gradient",
+        "design": "a reverse pass over the chunk boundaries carrying the state's gradient into a workspace "
+                  "(wkv_bwd_state_kernel), then every chunk's dr, dk, dv, dlogw and du partial at once from the "
+                  "forward's chunk start states (wkv_bwd_chunk_kernel, 16 x 16 blocks of the scores recomputed)",
+        "kernel_launches_per_call": wkv_bwd_row["kernel_launches_per_call"],
+        "timed_as": f"one call at rwkv6-7b's training shape {RWKV_TRAIN_SHAPE} (B, S, H, hd), f32, "
+                    f"{wkv_bwd_row['config']}; plain_ms: autograd's backward of wkv_plain there",
+    }, {
+        "name": "ssm_scan_backward",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssm.cu",
+        "replaces": "src/repro/kernels/ref.py:24",
+        "replaces_note": "no TPU kernel: ssm_scan_pallas (src/repro/kernels/ssm.py:90) has no backward; the JAX "
+                         "package trains through XLA's gradient of ssm_scan_ref (src/repro/kernels/ops.py:461)",
+        "launches": sum(train_bwd["ssm_scan"].values()),
+        "launches_by_path": train_bwd["ssm_scan"],
+        "max_abs_err": max(w["abs"] for w in training["ssm_backward"]["worst"].values()),
+        "max_rel_err": max(w["rel"] for w in training["ssm_backward"]["worst"].values()),
+        "ms": ssm_bwd_row["ms"],
+        "plain_ms": ssm_bwd_row["plain_autograd_ms"],
+        "bound_ms": ssm_bwd_row["bound_ms"],
+        "bound_by": ssm_bwd_row["bound_by"],
+        "library_ms": None,
+        "library_note": "no single PyTorch call computes the selective scan's gradient",
+        "design": "ssm_bwd_kernel: a thread a (channel, state index); a forward walk keeping every chunk's start "
+                  "state, then the chunks in reverse, each recomputed in registers; sums over N by shuffles, over "
+                  "channels by shuffles and per-CTA partials (fused entry: dt * x, dt * a in registers)",
+        "kernel_launches_per_call": ssm_bwd_row["kernel_launches_per_call"],
+        "timed_as": f"one fused-entry call at hymba-1.5b's training shape {HYMBA_TRAIN_SHAPE} (B, S, d, N), "
+                    f"{ssm_bwd_row['config']}; plain_ms: autograd's backward of ssm_fused_plain there",
     }]}
     gc.callbacks.remove(watch_gc)
     require(not collected_in_capture, f"Python collections ran during a capture: generations {collected_in_capture}")

@@ -426,6 +426,198 @@ cudaError_t run(Args p, int B, int n_seg, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// the backward
+// ---------------------------------------------------------------------------
+// ssm_bwd_kernel: the VJP of the scan above, both entries (FUSED as the forward). Replaces no
+// TPU kernel: the TPU kernel (src/repro/kernels/ssm.py:90 ssm_scan_pallas) has no backward,
+// and the JAX package trains Hymba through XLA's gradient of src/repro/kernels/ref.py:24
+// ssm_scan_ref (src/repro/kernels/ops.py:461, the use_pallas=False path); ops.ssm_scan_fused's
+// autograd op (repro_torch::ssm_scan_fused) runs this once per layer of every training step.
+// For one channel ch and state index n, with dh the gradient of h_t, from dh = ds_out at t = S:
+//   dh += dy_t[ch] c_t[n];   d(dta)_t = dh e^{dta_t} h_{t-1};   d(dtx)_t = sum_n dh b_t[n];
+//   db_t[n] = sum_ch dh dtx_t;   dc_t[n] = sum_ch dy_t h_t;   dh = e^{dta_t} dh,
+// and d(state) the last dh. The fused entry forms dtx = dt x and dta = dt a as the forward, and
+// gives dx = d(dtx) dt, d(dt) = d(dtx) x + sum_n d(dta) a and da = sum over B and S of
+// d(dta) dt, so no (B, S, d, N) tensor is read or written. kernels/ref.py::ssm_scan_vjp_ref is the
+// same algorithm in PyTorch.
+//
+// Design: one thread a (channel, state index), BD channels a CTA (BD x N threads), grid
+// B x ceil(d / BD). A CTA first walks its channels forward through the whole sequence, writing
+// the state at every chunk's start to a workspace ck (B, n_chunks, d, N); then it takes the
+// chunks in reverse: it recomputes a chunk's CHUNK states from its start (in registers: the
+// reverse step needs h_{t-1}, and dividing by e^{dta} to step back is unstable) and walks them
+// back. The sums over n are shuffle trees within a channel's N lanes; the sums over channels
+// (db, dc) a shuffle tree within a warp, then the warps' partials of every step of the chunk,
+// summed in warp order after it, one partial a CTA (B, n_dblocks, S, N) that the wrapper sums
+// over the channel blocks; da's partial is one per batch row (B, d, N). No atomics: two calls
+// are bitwise equal. The backward is not cut into segments: a training call's grid (B 8 at
+// hymba's d 1600: 800 CTAs at BD 16) fills the card, and the long single-row calls the forward
+// cuts are prefills, which run no backward.
+//
+// Bound on this card: at hymba-1.5b's training shape (B 8, S 128, d 1600, N 16) the fused entry
+// reads x, dt, dy (3 x 6.6 MB), a, b, c and writes dx, d(dt) (2 x 6.6 MB), db, dc and da: ~33 MB,
+// 10 us at 3.35 TB/s; the work is ~25 f32 operations and two exponentials a (t, ch, n) (~0.2 us
+// at 67 TFLOP/s). A step-by-step scan is bound in practice by its 2 S dependent steps.
+struct BwdArgs {
+  const float* x;   // fused: x (B, S, D); else dtx (B, S, D)
+  const float* d;   // fused: dt (B, S, D); else dta (B, S, D, N)
+  const float* a;   // fused: a (D, N); else unused
+  const float* b;   // (B, S, N)
+  const float* c;   // (B, S, N)
+  const float* s0;  // (B, D, N) or null (zeros)
+  const float* dy;  // (B, S, D)
+  const float* ds;  // (B, D, N) or null (zeros)
+  float* ck;        // (B, n_chunks, D, N): the state at every chunk's start
+  float* gx;        // fused: dx; else d(dtx) (B, S, D)
+  float* gd;        // fused: d(dt) (B, S, D); else d(dta) (B, S, D, N)
+  float* ga;        // fused: da's partial per batch row (B, D, N); else unused
+  float* gb;        // db's partial per channel block (B, n_dblocks, S, N)
+  float* gc;        // dc's partial per channel block (B, n_dblocks, S, N)
+  float* gs;        // d(state) (B, D, N) or null (not written)
+  int S, D, n_dblocks;
+};
+
+template <int N, int BD, int CHUNK>
+struct BwdShape {
+  static constexpr int THREADS = BD * N;
+  static constexpr int WARPS = THREADS / 32;
+  static constexpr int BYTES = CHUNK * WARPS * 2 * N * 4;  // every step's warp partials of db and dc
+};
+
+template <int N, int BD, int CHUNK, bool FUSED>
+__global__ void __launch_bounds__(BwdShape<N, BD, CHUNK>::THREADS) ssm_bwd_kernel(const BwdArgs p) {
+  using SH = BwdShape<N, BD, CHUNK>;
+  constexpr int T = SH::THREADS, WARPS = SH::WARPS;
+  static_assert(T % 32 == 0 && 32 % N == 0, "a warp holds whole channels");
+  extern __shared__ __align__(16) float red[];  // [CHUNK][WARPS][2][N]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int lc = tid / N, n = tid % N;
+  const int bi = blockIdx.x / p.n_dblocks, dblk = blockIdx.x % p.n_dblocks;
+  const int ch = dblk * BD + lc;
+  const bool live = ch < p.D;
+  const int S = p.S, D = p.D;
+  const int n_chunks = (S + CHUNK - 1) / CHUNK;
+  const size_t row0 = (size_t)bi * S;
+  const float av = (FUSED && live) ? p.a[(size_t)ch * N + n] : 0.f;
+  const size_t st = ((size_t)bi * D + ch) * N + n;
+  auto ck = [&](int k) { return p.ck + ((size_t)(bi * n_chunks + k) * D + ch) * N + n; };
+
+  // The inputs of step t: dtx, dta, b_n (zeros for a channel past d).
+  auto step = [&](int t, float& dtx, float& dta, float& dt, float& xv) {
+    const size_t i = (row0 + t) * D + ch;
+    if (FUSED) {
+      dt = live ? p.d[i] : 0.f;
+      xv = live ? p.x[i] : 0.f;
+      dtx = __fmul_rn(dt, xv);
+      dta = __fmul_rn(dt, av);
+    } else {
+      dtx = live ? p.x[i] : 0.f;
+      dta = live ? p.d[i * N + n] : 0.f;
+    }
+  };
+
+  // 1. Forward: the state at every chunk's start.
+  float h = (live && p.s0) ? p.s0[st] : 0.f;
+  for (int t = 0; t < S; ++t) {
+    if (t % CHUNK == 0 && live) *ck(t / CHUNK) = h;
+    float dtx, dta, dt = 0.f, xv = 0.f;
+    step(t, dtx, dta, dt, xv);
+    h = fmaf(expf(dta), h, __fmul_rn(dtx, p.b[(row0 + t) * N + n]));
+  }
+
+  // 2. The chunks in reverse.
+  float dh = (live && p.ds) ? p.ds[st] : 0.f;
+  float da = 0.f;
+  for (int k = n_chunks - 1; k >= 0; --k) {
+    const int t0 = k * CHUNK;
+    const float h0 = live ? *ck(k) : 0.f;
+    float hr[CHUNK];
+    float hc = h0;
+#pragma unroll
+    for (int j = 0; j < CHUNK; ++j) {
+      if (t0 + j < S) {
+        float dtx, dta, dt = 0.f, xv = 0.f;
+        step(t0 + j, dtx, dta, dt, xv);
+        hc = fmaf(expf(dta), hc, __fmul_rn(dtx, p.b[(row0 + t0 + j) * N + n]));
+      }
+      hr[j] = hc;
+    }
+#pragma unroll
+    for (int j = CHUNK - 1; j >= 0; --j) {
+      const int t = t0 + j;
+      if (t >= S) continue;  // uniform over the CTA
+      float dtx, dta, dt = 0.f, xv = 0.f;
+      step(t, dtx, dta, dt, xv);
+      const size_t i = (row0 + t) * D + ch;
+      const float dyv = live ? p.dy[i] : 0.f;
+      const float bn = p.b[(row0 + t) * N + n], cn = p.c[(row0 + t) * N + n];
+      dh = fmaf(dyv, cn, dh);
+      const float e = expf(dta);
+      const float g_dta = dh * e * (j > 0 ? hr[j - 1] : h0);
+      float s1 = dh * bn, s2 = g_dta * av;
+      float pb = dh * dtx, pc = dyv * hr[j];
+#pragma unroll
+      for (int off = N / 2; off > 0; off >>= 1) {  // over the channel's N lanes
+        s1 += __shfl_xor_sync(0xffffffffu, s1, off);
+        if (FUSED) s2 += __shfl_xor_sync(0xffffffffu, s2, off);
+      }
+#pragma unroll
+      for (int off = N; off < 32; off <<= 1) {  // over the warp's channels
+        pb += __shfl_xor_sync(0xffffffffu, pb, off);
+        pc += __shfl_xor_sync(0xffffffffu, pc, off);
+      }
+      if (lane < N) {
+        red[((j * WARPS + warp) * 2 + 0) * N + n] = pb;
+        red[((j * WARPS + warp) * 2 + 1) * N + n] = pc;
+      }
+      if (live) {
+        if (FUSED) {
+          da = fmaf(g_dta, dt, da);
+          if (n == 0) {
+            p.gx[i] = s1 * dt;
+            p.gd[i] = fmaf(s1, xv, s2);
+          }
+        } else {
+          p.gd[i * N + n] = g_dta;
+          if (n == 0) p.gx[i] = s1;
+        }
+      }
+      dh *= e;
+    }
+    __syncthreads();
+    // The chunk's db and dc: the warps' partials of each step summed in warp order.
+    for (int q = tid; q < CHUNK * 2 * N; q += T) {
+      const int j = q / (2 * N), which = (q / N) % 2, nn = q % N;
+      const int t = t0 + j;
+      if (t < S) {
+        float s = 0.f;
+        for (int w = 0; w < WARPS; ++w) s += red[((j * WARPS + w) * 2 + which) * N + nn];
+        (which ? p.gc : p.gb)[(((size_t)bi * p.n_dblocks + dblk) * S + t) * N + nn] = s;
+      }
+    }
+    __syncthreads();
+  }
+  if (live) {
+    if (p.gs) p.gs[st] = dh;
+    if (FUSED) p.ga[st] = da;
+  }
+}
+
+template <int N, int BD, int CHUNK, bool FUSED>
+cudaError_t run_bwd(BwdArgs p, int B, cudaStream_t stream) {
+  using SH = BwdShape<N, BD, CHUNK>;
+  auto kernel = &ssm_bwd_kernel<N, BD, CHUNK, FUSED>;
+  p.n_dblocks = (p.D + BD - 1) / BD;
+  const long long grid = (long long)p.n_dblocks * B;
+  if (grid > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SH::BYTES);
+  if (err != cudaSuccess) return err;
+  kernel<<<(unsigned)grid, SH::THREADS, SH::BYTES, stream>>>(p);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // The compiled configs: block_d x chunk x N, each with both entries. The Python side
@@ -508,6 +700,56 @@ int repro_ssm_fused(int block_d, int chunk, int n_state, const void* x, const vo
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define Z(BD, C, NS) \
   if (block_d == BD && chunk == C && n_state == NS) return (int)run<NS, BD, C, true>(p, B, n_seg, s);
+#define Y(BD, C) REPRO_SSM_STATES(Z, BD, C)
+#define X(BD) REPRO_SSM_CHUNKS(Y, BD)
+  REPRO_SSM_BLOCK_DS(X)
+#undef X
+#undef Y
+#undef Z
+  return (int)cudaErrorInvalidValue;
+}
+
+// Writes (block_d, chunk, N, threads, smem bytes) of the backward per compiled instantiation;
+// returns the count.
+int repro_ssm_bwd_configs(int* out, int cap) {
+  int n = 0;
+#define Z(BD, C, NS)                                \
+  if (n < cap) {                                    \
+    out[5 * n + 0] = BD;                            \
+    out[5 * n + 1] = C;                             \
+    out[5 * n + 2] = NS;                            \
+    out[5 * n + 3] = BwdShape<NS, BD, C>::THREADS;  \
+    out[5 * n + 4] = BwdShape<NS, BD, C>::BYTES;    \
+  }                                                 \
+  ++n;
+#define Y(BD, C) REPRO_SSM_STATES(Z, BD, C)
+#define X(BD) REPRO_SSM_CHUNKS(Y, BD)
+  REPRO_SSM_BLOCK_DS(X)
+#undef X
+#undef Y
+#undef Z
+  return n;
+}
+
+// The backward of either entry (fused = 1: x, dt, a in, dx, d(dt), da out; else dtx, dta in,
+// d(dtx), d(dta) out). x, dt / dtx, dy, gx and (fused) gd: (B, S, D); dta and (dta entry) gd:
+// (B, S, D, N); a: (D, N); b, c: (B, S, N); s0, ds (either may be null = zeros), gs (may be
+// null: not written) and (fused) ga, da's partial per batch row: (B, D, N); ck: (B,
+// ceil(S / chunk), D, N), the workspace; gb, gc: (B, ceil(D / block_d), S, N), the partials
+// per channel block. All f32, contiguous.
+int repro_ssm_bwd(int block_d, int chunk, int n_state, int fused, const void* x, const void* d, const void* a,
+                  const void* b, const void* c, const void* s0, const void* dy, const void* ds, void* ck,
+                  void* gx, void* gd, void* ga, void* gb, void* gc, void* gs, int B, int S, int D, void* stream) {
+  BwdArgs p{static_cast<const float*>(x),  static_cast<const float*>(d),  static_cast<const float*>(a),
+            static_cast<const float*>(b),  static_cast<const float*>(c),  static_cast<const float*>(s0),
+            static_cast<const float*>(dy), static_cast<const float*>(ds), static_cast<float*>(ck),
+            static_cast<float*>(gx),       static_cast<float*>(gd),       static_cast<float*>(ga),
+            static_cast<float*>(gb),       static_cast<float*>(gc),       static_cast<float*>(gs),
+            S, D, 0};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define Z(BD, C, NS)                                                                          \
+  if (block_d == BD && chunk == C && n_state == NS)                                           \
+    return fused ? (int)run_bwd<NS, BD, C, true>(p, B, s) : (int)run_bwd<NS, BD, C, false>(p, B, s);
 #define Y(BD, C) REPRO_SSM_STATES(Z, BD, C)
 #define X(BD) REPRO_SSM_CHUNKS(Y, BD)
   REPRO_SSM_BLOCK_DS(X)

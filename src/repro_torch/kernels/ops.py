@@ -30,10 +30,17 @@ Training: on a tensor that requires grad, :func:`matmul` runs as the
 ``repro_torch::gemm`` custom op (:data:`GEMM_OP`), whose backward is two more
 GEMMs through :func:`matmul` (the same selection, guard and kernel); remat
 ``"dots"`` is a selective-checkpoint policy that saves that op's outputs
-(``layers.ckpt``).  The WKV, scan and attention kernels have no backward
-kernel yet: on a CUDA tensor with grad their ops raise
-:class:`NoBackwardKernelError` rather than return an output that no gradient
-flows through.  On CPU tensors their plain versions keep autograd.
+(``layers.ckpt``).  Likewise :func:`wkv`, :func:`ssm_scan` and
+:func:`ssm_scan_fused` run as the ``repro_torch::wkv``,
+``repro_torch::ssm_scan`` and ``repro_torch::ssm_scan_fused`` ops, whose
+backward is the recurrence's own backward kernel (``wkv_backward_cuda``,
+``ssm_backward_cuda``, ``ssm_fused_backward_cuda``) at the config the
+forward ran, selected and guarded as the forward, or on CPU tensors its plain
+version (``wkv_backward_plain``, ...), the same algorithm.  :func:`attention`
+has no backward kernel (no model trains through it): on a CUDA tensor with
+grad it raises :class:`NoBackwardKernelError` rather than return an output
+that no gradient flows through; on CPU tensors its plain version keeps
+autograd.
 
 Inside a program build (``KernelRuntime.pinning``, what a serving engine
 runs its bodies under) a call selects, fires the plan's dispatch sites and
@@ -57,11 +64,13 @@ from ..core.faults import GUARDED_EXCEPTIONS, FaultPlan, NonFiniteOutputError, i
 from ..core.runtime import KernelRuntime, current_runtime, quarantine_redirect
 from .attention import DEFAULT_ATTN_CONFIG, AttentionConfig, attention_cuda, attention_plain
 from .matmul import DEFAULT_CONFIG, MatmulConfig, matmul_cuda, matmul_plain
-from .ssm import DEFAULT_SSM_CONFIG, SsmConfig, ssm_cuda, ssm_cuda_fused, ssm_fused_plain, ssm_plain
-from .wkv import DEFAULT_WKV_CONFIG, WkvConfig, wkv_cuda, wkv_plain
+from .ssm import (DEFAULT_SSM_CONFIG, SsmConfig, ssm_backward_cuda, ssm_backward_plain, ssm_cuda, ssm_cuda_fused,
+                  ssm_fused_backward_cuda, ssm_fused_backward_plain, ssm_fused_plain, ssm_plain)
+from .wkv import (DEFAULT_WKV_CONFIG, WkvConfig, launch_chunk, wkv_backward_cuda, wkv_backward_plain, wkv_cuda,
+                  wkv_plain)
 
-__all__ = ["GEMM_OP", "FixedPolicy", "KernelPolicy", "NoBackwardKernelError", "attention", "gemm_phase", "matmul",
-           "ssm_scan", "ssm_scan_fused", "wkv"]
+__all__ = ["GEMM_OP", "FixedPolicy", "GRAD_SCANS", "KernelPolicy", "NoBackwardKernelError", "SSM_FUSED_OP", "SSM_OP",
+           "WKV_OP", "attention", "gemm_phase", "matmul", "ssm_scan", "ssm_scan_fused", "wkv"]
 
 
 class KernelPolicy(Protocol):
@@ -373,10 +382,14 @@ def _refuse_grad(family: str, *tensors) -> None:
     """Raise :class:`NoBackwardKernelError` when grad is on and any input
     requires it: the kernel's output carries no gradient, and a loss built on
     it would train every weight upstream of it on a silently dropped term."""
-    if torch.is_grad_enabled() and any(isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
+    if _wants_grad(*tensors):
         raise NoBackwardKernelError(
-            f"ops.{family} on a CUDA tensor has no backward kernel yet: its gradient waits for the next slice "
-            f"(the {family} backward kernel); run it under torch.no_grad(), or train on the CPU")
+            f"ops.{family} on a CUDA tensor has no backward kernel: no model trains through it (their attention "
+            f"is plain torch code); run it under torch.no_grad(), or on the CPU")
+
+
+def _wants_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(isinstance(t, torch.Tensor) and t.requires_grad for t in tensors)
 
 
 def attention(q, k, v, *, causal: bool = True, scale: float | None = None):
@@ -402,6 +415,57 @@ def attention(q, k, v, *, causal: bool = True, scale: float | None = None):
     return _guarded_call(rt, "attention", config, run, run_ref, on_card=True, pin=pin)
 
 
+# ---------------------------------------------------------------------------
+# the recurrences under grad
+# ---------------------------------------------------------------------------
+# Calls of the recurrences' ops under grad, by (op, phase): "forward" and "recompute" as
+# GRAD_GEMMS counts them (the thread's gemm_phase label), "backward" for each backward
+# kernel call (one per op call the backward reaches).
+GRAD_SCANS: Counter = Counter()
+
+
+def grad_scans(op: str) -> dict[str, int]:
+    """:data:`GRAD_SCANS` of one op (``"wkv"``, ``"ssm_scan"``, ``"ssm_scan_fused"``), by phase."""
+    return {phase: n for (name, phase), n in GRAD_SCANS.items() if name == op}
+
+
+class _Run:
+    """The guard's ``run(cfg)`` for ``launch``: keeps the config it launched
+    (``None`` runs ``default``; the guard may redirect), which the backward reads."""
+
+    def __init__(self, launch, default):
+        self.launch, self.default, self.config = launch, default, None
+
+    def __call__(self, cfg):
+        self.config = cfg or self.default
+        return self.launch(self.config)
+
+
+def _setup(ctx, inputs, config, extra=()):
+    """Save what a recurrence's backward reads: its inputs (and ``extra``), the
+    config its forward ran, and the runtime active at the forward, which the
+    backward (on autograd's device thread, on the card) activates."""
+    ctx.set_materialize_grads(False)
+    ctx.save_for_backward(*inputs, *extra)
+    ctx.config = config
+    ctx.runtime = current_runtime()
+
+
+def _grad_call(ctx, op: str, family: str, run, run_ref, on_card: bool):
+    """One guarded backward kernel call at the forward's config, under its runtime:
+    a failing config is quarantined and the default config's backward runs."""
+    GRAD_SCANS[op, "backward"] += 1
+    rt: KernelRuntime = ctx.runtime
+    with rt.activate():
+        if not on_card:
+            return _guarded_call(rt, family, ctx.config, lambda cfg: run_ref(), run_ref, on_card=False)
+        return _guarded_call(rt, family, ctx.config, run, run_ref, on_card=True)
+
+
+def _only_needed(ctx, grads) -> tuple:
+    return tuple(g if need else None for g, need in zip(grads, ctx.needs_input_grad))
+
+
 def wkv(r, k, v, logw, u, state=None):
     """Chunked RWKV6 WKV with runtime kernel selection.
 
@@ -409,16 +473,76 @@ def wkv(r, k, v, logw, u, state=None):
     Returns (o (B, S, H, hd) f32, final state f32).  The problem is
     featurized as in the reference: (S, hd).  On CPU tensors the plain
     version runs (it ignores the chunk, as the reference's jnp path does).
+    With grad enabled and an operand that requires it, the call runs as the
+    ``repro_torch::wkv`` op (:data:`WKV_OP`), whose backward is the WKV's
+    backward kernel.
     """
+    if _wants_grad(r, k, v, logw, u, state):
+        o, s_out, _, _ = _wkv_op(*(t.contiguous() for t in (r, k, v, logw, u)),
+                                 None if state is None else state.contiguous())
+        return o, s_out
+    return _wkv_call(r, k, v, logw, u, state)[0]
+
+
+def _wkv_call(r, k, v, logw, u, state, keep_states: bool = False):
+    """One selected, guarded WKV: ((o, final state[, hs]), the config it ran)."""
     _, s, _, hd = r.shape
     rt = current_runtime()
     config, pin = _select(rt, "wkv", (s, hd), lambda: rt.select_wkv_config(s, hd))
     run_ref = lambda: wkv_plain(r, k, v, logw, u, state)
     if not _on_card(r):
-        return _guarded_call(rt, "wkv", config, lambda cfg: run_ref(), run_ref, on_card=False, pin=pin)
-    _refuse_grad("wkv", r, k, v, logw, u, state)
-    run = lambda cfg: wkv_cuda(r, k, v, logw, u, state, cfg or DEFAULT_WKV_CONFIG)
-    return _guarded_call(rt, "wkv", config, run, run_ref, on_card=True, pin=pin)
+        out = _guarded_call(rt, "wkv", config, lambda cfg: run_ref(), run_ref, on_card=False, pin=pin)
+        return out, config or DEFAULT_WKV_CONFIG
+    if keep_states:
+        run = _Run(lambda cfg: wkv_cuda(r, k, v, logw, u, state, cfg, keep_states=True), DEFAULT_WKV_CONFIG)
+    else:
+        run = _Run(lambda cfg: wkv_cuda(r, k, v, logw, u, state, cfg), DEFAULT_WKV_CONFIG)
+    return _guarded_call(rt, "wkv", config, run, run_ref, on_card=True, pin=pin), run.config
+
+
+@torch.library.custom_op("repro_torch::wkv", mutates_args=(),
+                         schema="(Tensor r, Tensor k, Tensor v, Tensor logw, Tensor u, Tensor? state) "
+                                "-> (Tensor, Tensor, Tensor, Tensor)")
+def _wkv_op(r, k, v, logw, u, state):
+    """``ops.wkv`` under grad as a dispatcher op.  Returns (o, final state, hs:
+    the state at every chunk's start, which the backward kernel reads (empty
+    on the CPU, whose plain backward makes its own), the chunk of the config
+    the forward ran as a 1-element int64 CPU tensor)."""
+    GRAD_SCANS["wkv", _phase.label] += 1
+    out, config = _wkv_call(r, k, v, logw, u, state, keep_states=True)
+    hs = out[2] if len(out) > 2 else r.new_empty((0,), dtype=torch.float32)
+    return out[0], out[1], hs, torch.tensor([config.chunk])
+
+
+WKV_OP = torch.ops.repro_torch.wkv.default
+
+
+def _wkv_setup(ctx, inputs, output):
+    _, s_out, hs, chunk = output
+    ctx.mark_non_differentiable(hs, chunk)
+    _setup(ctx, inputs, WkvConfig(int(chunk[0])), (s_out, hs))
+
+
+def _wkv_backward(ctx, do, ds_out, _hs, _chunk):
+    """The WKV's backward kernel at the forward's config (its launch chunk, and the
+    forward's ``hs``; a redirect to another chunk makes its own), or on the CPU
+    :func:`~repro_torch.kernels.wkv.wkv_backward_plain` at that chunk."""
+    r, k, v, logw, u, state, s_out, hs = ctx.saved_tensors
+    s = r.shape[1]
+    do = torch.zeros(r.shape, dtype=torch.float32, device=r.device) if do is None else do.contiguous()
+    ds_out = None if ds_out is None else ds_out.contiguous()
+    chunk = launch_chunk(ctx.config, s)
+    run_ref = lambda: wkv_backward_plain(r, k, v, logw, u, state, do, ds_out, chunk)
+
+    def run(cfg):
+        cfg = cfg or DEFAULT_WKV_CONFIG
+        states = (hs, s_out) if launch_chunk(cfg, s) == chunk else None
+        return wkv_backward_cuda(r, k, v, logw, u, state, do, ds_out, cfg, states)
+
+    return _only_needed(ctx, _grad_call(ctx, "wkv", "wkv", run, run_ref, _on_card(r)))
+
+
+_wkv_op.register_autograd(_wkv_backward, setup_context=_wkv_setup)
 
 
 def ssm_scan(dtx, dta, b, c, state=None):
@@ -427,17 +551,66 @@ def ssm_scan(dtx, dta, b, c, state=None):
     dtx: (B, S, d); dta: (B, S, d, N); b/c: (B, S, N); state: (B, d, N) or
     None.  Returns (y (B, S, d) f32, final state (B, d, N) f32).  The problem
     is featurized as in the reference: (S, d).  On CPU tensors the plain
-    version runs.
+    version runs.  With grad enabled and an operand that requires it, the
+    call runs as the ``repro_torch::ssm_scan`` op (:data:`SSM_OP`), whose
+    backward is the scan's backward kernel.
     """
+    if _wants_grad(dtx, dta, b, c, state):
+        y, s_out, _ = _ssm_op(*(t.contiguous() for t in (dtx, dta, b, c)),
+                              None if state is None else state.contiguous())
+        return y, s_out
+    return _ssm_call(dtx, dta, b, c, state)[0]
+
+
+def _ssm_call(dtx, dta, b, c, state):
+    """One selected, guarded scan from dtx and dta: ((y, final state), the config it ran)."""
     _, s, d = dtx.shape
     rt = current_runtime()
     config, pin = _select(rt, "ssm_scan", (s, d), lambda: rt.select_ssm_config(s, d))
     run_ref = lambda: ssm_plain(dtx, dta, b, c, state)
     if not _on_card(dtx):
-        return _guarded_call(rt, "ssm_scan", config, lambda cfg: run_ref(), run_ref, on_card=False, pin=pin)
-    _refuse_grad("ssm_scan", dtx, dta, b, c, state)
-    run = lambda cfg: ssm_cuda(dtx, dta, b, c, state, cfg or DEFAULT_SSM_CONFIG)
-    return _guarded_call(rt, "ssm_scan", config, run, run_ref, on_card=True, pin=pin)
+        out = _guarded_call(rt, "ssm_scan", config, lambda cfg: run_ref(), run_ref, on_card=False, pin=pin)
+        return out, config or DEFAULT_SSM_CONFIG
+    run = _Run(lambda cfg: ssm_cuda(dtx, dta, b, c, state, cfg), DEFAULT_SSM_CONFIG)
+    return _guarded_call(rt, "ssm_scan", config, run, run_ref, on_card=True, pin=pin), run.config
+
+
+def _config_tensor(config: SsmConfig) -> torch.Tensor:
+    return torch.tensor([config.block_d, config.chunk])
+
+
+@torch.library.custom_op("repro_torch::ssm_scan", mutates_args=(),
+                         schema="(Tensor dtx, Tensor dta, Tensor b, Tensor c, Tensor? state) "
+                                "-> (Tensor, Tensor, Tensor)")
+def _ssm_op(dtx, dta, b, c, state):
+    """``ops.ssm_scan`` under grad as a dispatcher op.  Returns (y, final state,
+    (block_d, chunk) of the config the forward ran as an int64 CPU tensor)."""
+    GRAD_SCANS["ssm_scan", _phase.label] += 1
+    out, config = _ssm_call(dtx, dta, b, c, state)
+    return out[0], out[1], _config_tensor(config)
+
+
+SSM_OP = torch.ops.repro_torch.ssm_scan.default
+
+
+def _ssm_setup(ctx, inputs, output):
+    config = output[2]
+    ctx.mark_non_differentiable(config)
+    _setup(ctx, inputs, SsmConfig(*map(int, config)))
+
+
+def _ssm_backward(ctx, dy, ds_out, _config):
+    """The scan's backward kernel (dta entry) at the forward's config, or on the CPU
+    :func:`~repro_torch.kernels.ssm.ssm_backward_plain` at its chunk."""
+    dtx, dta, b, c, state = ctx.saved_tensors
+    dy = torch.zeros(dtx.shape, dtype=torch.float32, device=dtx.device) if dy is None else dy.contiguous()
+    ds_out = None if ds_out is None else ds_out.contiguous()
+    run_ref = lambda: ssm_backward_plain(dtx, dta, b, c, state, dy, ds_out, ctx.config.chunk)
+    run = lambda cfg: ssm_backward_cuda(dtx, dta, b, c, state, dy, ds_out, cfg or DEFAULT_SSM_CONFIG)
+    return _only_needed(ctx, _grad_call(ctx, "ssm_scan", "ssm_scan", run, run_ref, _on_card(dtx)))
+
+
+_ssm_op.register_autograd(_ssm_backward, setup_context=_ssm_setup)
 
 
 def ssm_scan_fused(x, dt, a, b, c, state=None):
@@ -447,15 +620,54 @@ def ssm_scan_fused(x, dt, a, b, c, state=None):
     Returns (y (B, S, d) f32, final state (B, d, N) f32).  Selected and
     guarded as :func:`ssm_scan` is (the ssm_scan family, features (S, d)).
     On CPU tensors the plain version runs; on a CUDA tensor
-    ``ssm_cuda_fused``, so the (B, S, d, N) dta is never formed.
+    ``ssm_cuda_fused``, so the (B, S, d, N) dta is never formed.  With grad
+    enabled and an operand that requires it, the call runs as the
+    ``repro_torch::ssm_scan_fused`` op (:data:`SSM_FUSED_OP`), whose backward
+    is the fused entry's backward kernel (no (B, S, d, N) tensor either).
     """
+    x, dt, a, b, c = (t.contiguous() for t in (x, dt, a, b, c))
+    if _wants_grad(x, dt, a, b, c, state):
+        y, s_out, _ = _ssm_fused_op(x, dt, a, b, c, None if state is None else state.contiguous())
+        return y, s_out
+    return _ssm_fused_call(x, dt, a, b, c, state)[0]
+
+
+def _ssm_fused_call(x, dt, a, b, c, state):
+    """One selected, guarded fused scan: ((y, final state), the config it ran)."""
     _, s, d = x.shape
     rt = current_runtime()
     config, pin = _select(rt, "ssm_scan", (s, d), lambda: rt.select_ssm_config(s, d))
     run_ref = lambda: ssm_fused_plain(x, dt, a, b, c, state)
     if not _on_card(x):
-        return _guarded_call(rt, "ssm_scan", config, lambda cfg: run_ref(), run_ref, on_card=False, pin=pin)
-    _refuse_grad("ssm_scan_fused", x, dt, a, b, c, state)
-    xc, dtc, ac, bc, cc = (t.contiguous() for t in (x, dt, a, b, c))
-    run = lambda cfg: ssm_cuda_fused(xc, dtc, ac, bc, cc, state, cfg or DEFAULT_SSM_CONFIG)
-    return _guarded_call(rt, "ssm_scan", config, run, run_ref, on_card=True, pin=pin)
+        out = _guarded_call(rt, "ssm_scan", config, lambda cfg: run_ref(), run_ref, on_card=False, pin=pin)
+        return out, config or DEFAULT_SSM_CONFIG
+    run = _Run(lambda cfg: ssm_cuda_fused(x, dt, a, b, c, state, cfg), DEFAULT_SSM_CONFIG)
+    return _guarded_call(rt, "ssm_scan", config, run, run_ref, on_card=True, pin=pin), run.config
+
+
+@torch.library.custom_op("repro_torch::ssm_scan_fused", mutates_args=(),
+                         schema="(Tensor x, Tensor dt, Tensor a, Tensor b, Tensor c, Tensor? state) "
+                                "-> (Tensor, Tensor, Tensor)")
+def _ssm_fused_op(x, dt, a, b, c, state):
+    """``ops.ssm_scan_fused`` under grad as a dispatcher op.  Returns (y, final
+    state, (block_d, chunk) of the config the forward ran as an int64 CPU tensor)."""
+    GRAD_SCANS["ssm_scan_fused", _phase.label] += 1
+    out, config = _ssm_fused_call(x, dt, a, b, c, state)
+    return out[0], out[1], _config_tensor(config)
+
+
+SSM_FUSED_OP = torch.ops.repro_torch.ssm_scan_fused.default
+
+
+def _ssm_fused_backward(ctx, dy, ds_out, _config):
+    """The fused entry's backward kernel at the forward's config, or on the CPU
+    :func:`~repro_torch.kernels.ssm.ssm_fused_backward_plain` at its chunk."""
+    x, dt, a, b, c, state = ctx.saved_tensors
+    dy = torch.zeros(x.shape, dtype=torch.float32, device=x.device) if dy is None else dy.contiguous()
+    ds_out = None if ds_out is None else ds_out.contiguous()
+    run_ref = lambda: ssm_fused_backward_plain(x, dt, a, b, c, state, dy, ds_out, ctx.config.chunk)
+    run = lambda cfg: ssm_fused_backward_cuda(x, dt, a, b, c, state, dy, ds_out, cfg or DEFAULT_SSM_CONFIG)
+    return _only_needed(ctx, _grad_call(ctx, "ssm_scan_fused", "ssm_scan", run, run_ref, _on_card(x)))
+
+
+_ssm_fused_op.register_autograd(_ssm_fused_backward, setup_context=_ssm_setup)

@@ -22,6 +22,13 @@ pair), :func:`config_space`, the segment rule :func:`ssm_segments` (and
 :func:`launch_segments`, what a call on the card does), the plain versions
 :func:`ssm_plain` and :func:`ssm_fused_plain`, and the launch counters.
 
+The backward (``ssm_bwd_kernel`` in the same source, both entries) is
+:func:`ssm_backward_cuda` / :func:`ssm_fused_backward_cuda`: one thread a
+(channel, state index), a forward walk keeping the state at every chunk's
+start, then the chunks in reverse, each chunk's states recomputed from its
+start; :func:`ssm_backward_plain` / :func:`ssm_fused_backward_plain` are the
+same algorithm in PyTorch.
+
 Layout at the public functions is the reference's ``ops.ssm_scan``: dtx
 (B, S, d), dta (B, S, d, N), b/c (B, S, N), state (B, d, N) or None, all
 f32; they return (y (B, S, d) f32, final state (B, d, N) f32).
@@ -35,7 +42,7 @@ import functools
 import torch
 
 from ._build import KernelLaunchError, launch_error, refuse_under_capture
-from .ref import ssm_scan_ref
+from .ref import ssm_scan_ref, ssm_scan_vjp_ref
 
 _BLOCK_DS = (8, 16, 32)  # csrc/ssm.cu REPRO_SSM_BLOCK_DS
 _CHUNKS = (8, 16, 32)  # csrc/ssm.cu REPRO_SSM_CHUNKS
@@ -80,6 +87,15 @@ class SsmConfig:
         """Threads of one CTA: LANES a channel, for each time group."""
         return LANES * self.block_d * self.time_groups()
 
+    def bwd_threads(self, n: int) -> int:
+        """Threads of one backward CTA (csrc/ssm.cu BwdShape): one a (channel, state index)."""
+        return self.block_d * n
+
+    def bwd_smem_bytes(self, n: int) -> int:
+        """Dynamic shared memory of the backward (csrc/ssm.cu BwdShape): every step of a
+        chunk's warp partials of db and dc."""
+        return self.chunk * (self.bwd_threads(n) // 32) * 2 * n * 4
+
     def smem_bytes(self, n: int, fused: bool) -> int:
         """Dynamic shared memory of the output pass (csrc/ssm.cu Ring): STAGES stages of
         ``chunk`` steps of x/dtx (block_d floats), dt (block_d) or dta (block_d * N), b and
@@ -105,10 +121,13 @@ DEFAULT_SSM_CONFIG = SsmConfig(16, 32)
 LAUNCHES: dict[str, int] = {c.name(): 0 for c in config_space()}
 ENTRY_LAUNCHES: dict[str, int] = {e: 0 for e in ENTRIES}
 SEGMENTS_LAUNCHED: dict[str, int] = {c.name(): 0 for c in config_space()}
+# The backward's: one per call of ssm_backward_cuda / ssm_fused_backward_cuda, by config and entry.
+BWD_LAUNCHES: dict[str, int] = {c.name(): 0 for c in config_space()}
+BWD_ENTRY_LAUNCHES: dict[str, int] = {e: 0 for e in ENTRIES}
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, ENTRY_LAUNCHES, SEGMENTS_LAUNCHED):
+    for counts in (LAUNCHES, ENTRY_LAUNCHES, SEGMENTS_LAUNCHED, BWD_LAUNCHES, BWD_ENTRY_LAUNCHES):
         for key in counts:
             counts[key] = 0
 
@@ -184,6 +203,32 @@ def ssm_fused_plain(x, dt, a, b, c, state=None):
     return ssm_plain(dt * x, dt[..., None] * a, b, c, state)
 
 
+def ssm_backward_plain(dtx, dta, b, c, state, dy, ds_out, chunk: int):
+    """The VJP of :func:`ssm_plain` in plain PyTorch, by the algorithm of the
+    dta entry's backward kernel (``chunk``: the config's, the stride of the
+    kept start states).  ``dy`` (B, S, d) and ``ds_out`` (B, d, N) or None are
+    the cotangents of y and the final state.  Returns (d(dtx), d(dta), db,
+    dc, d(state)) in their inputs' dtypes (d(state) None without a state)."""
+    g = ssm_scan_vjp_ref(dtx, dta, b, c, state, dy, ds_out, chunk)
+    return (*(t.to(x.dtype) for t, x in zip(g, (dtx, dta, b, c))), None if state is None else g[4].to(state.dtype))
+
+
+def ssm_fused_backward_plain(x, dt, a, b, c, state, dy, ds_out, chunk: int):
+    """The VJP of :func:`ssm_fused_plain` in plain PyTorch, by the algorithm of the
+    fused entry's backward kernel: the dta entry's with dtx = dt * x and
+    dta = dt * a, then dx = d(dtx) dt, d(dt) = d(dtx) x + sum_N d(dta) a and
+    da = sum over B and S of d(dta) dt.  Returns (dx, d(dt), da, db, dc,
+    d(state)) in their inputs' dtypes (d(state) None without a state)."""
+    g_dtx, g_dta, g_b, g_c, g_s = ssm_scan_vjp_ref(dt * x, dt[..., None] * a, b, c, state, dy, ds_out, chunk)
+    acc = g_dtx.dtype
+    xf, dtf, af = (t.to(acc) for t in (x, dt, a))
+    dx = g_dtx * dtf
+    ddt = g_dtx * xf + (g_dta * af).sum(-1)
+    da = (g_dta * dtf[..., None]).sum(dim=(0, 1))
+    grads = (dx, ddt, da, g_b, g_c)
+    return (*(t.to(y.dtype) for t, y in zip(grads, (x, dt, a, b, c))), None if state is None else g_s.to(state.dtype))
+
+
 # ---------------------------------------------------------------------------
 # the kernels' wrappers
 # ---------------------------------------------------------------------------
@@ -203,11 +248,21 @@ def _lib() -> ctypes.CDLL:
     lib.repro_ssm_occupancy.restype = i
     lib.repro_ssm_error_string.argtypes = [i]
     lib.repro_ssm_error_string.restype = ctypes.c_char_p
+    lib.repro_ssm_bwd.argtypes = [i, i, i, i] + [ptr] * 15 + [i, i, i, ptr]
+    lib.repro_ssm_bwd.restype = i
+    lib.repro_ssm_bwd_configs.argtypes = [ctypes.POINTER(ctypes.c_int), i]
+    lib.repro_ssm_bwd_configs.restype = i
     compiled = compiled_configs(lib)
     want = [(c.block_d, c.chunk, n, c.threads(), c.smem_bytes(n, False), c.smem_bytes(n, True))
             for c in config_space() for n in _STATES]
     if compiled != want:
         raise RuntimeError(f"compiled ssm configs {compiled} != config space {want}")
+    buf = (ctypes.c_int * (5 * 64))()
+    got = lib.repro_ssm_bwd_configs(buf, 64)
+    compiled = [tuple(buf[5 * k : 5 * k + 5]) for k in range(got)]
+    want = [(c.block_d, c.chunk, n, c.bwd_threads(n), c.bwd_smem_bytes(n)) for c in config_space() for n in _STATES]
+    if compiled != want:
+        raise RuntimeError(f"compiled ssm backward configs {compiled} != config space {want}")
     return lib
 
 
@@ -357,3 +412,80 @@ def ssm_cuda_fused(x, dt, a, b, c, state=None, config: SsmConfig = DEFAULT_SSM_C
     _check("ssm_cuda_fused", [(x, (bsz, s, d)), (dt, (bsz, s, d)), (a, (d, n)), (b, (bsz, s, n)),
                               (c, (bsz, s, n)), (state, (bsz, d, n))], n, config)
     return _launch("fused", _lib().repro_ssm_fused, [x, dt, a], b, c, state, n, config)
+
+
+def _launch_bwd(entry: str, seq, a, b, c, state, dy, ds_out, n, config):
+    """Allocate, launch the backward of ``entry`` on the current stream, sum the partials, count.
+    ``seq``: (x, dt) for the fused entry, (dtx, dta) for the dta entry."""
+    x = seq[0]
+    dev = x.device
+    bsz, s, d = x.shape
+    fused = entry == "fused"
+    for what, t, shape in (("dy", dy, (bsz, s, d)), ("ds_out", ds_out, (bsz, d, n))):
+        if t is not None and (tuple(t.shape) != shape or t.dtype != torch.float32 or t.device != dev
+                              or not t.is_contiguous()):
+            raise ValueError(f"ssm backward: {what} must be a contiguous f32 {shape} on {dev}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+    n_blocks = -(-d // config.block_d)
+    ck = torch.empty((bsz, -(-s // config.chunk), d, n), dtype=torch.float32, device=dev)
+    gx = torch.empty_like(x)
+    gd = torch.empty_like(seq[1])
+    ga = torch.empty((bsz, d, n), dtype=torch.float32, device=dev) if fused else None
+    gb, gc = (torch.empty((bsz, n_blocks, s, n), dtype=torch.float32, device=dev) for _ in range(2))
+    gs = None if state is None else torch.empty_like(state)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    lib = _lib()
+    err = lib.repro_ssm_bwd(config.block_d, config.chunk, n, int(fused),
+                            *(ptr(t) for t in (*seq, a, b, c, state, dy, ds_out, ck, gx, gd, ga, gb, gc, gs)),
+                            bsz, s, d, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        msg = lib.repro_ssm_error_string(err).decode()
+        raise launch_error(err, f"ssm backward kernel {config.name()} ({entry} entry) failed to launch: "
+                                f"cudaError {err} ({msg})")
+    BWD_LAUNCHES[config.name()] += 1
+    BWD_ENTRY_LAUNCHES[entry] += 1
+    db, dc = gb.sum(dim=1), gc.sum(dim=1)
+    if fused:
+        return gx, gd, ga.sum(dim=0), db, dc, gs
+    return gx, gd, db, dc, gs
+
+
+def ssm_backward_cuda(dtx, dta, b, c, state, dy, ds_out, config: SsmConfig = DEFAULT_SSM_CONFIG):
+    """The VJP of :func:`ssm_cuda` through ``ssm_bwd_kernel`` under ``config``.
+
+    Operands as :func:`ssm_cuda` takes them; ``dy`` (B, S, d) and ``ds_out``
+    (B, d, N) or None (zeros) are the cotangents of y and the final state, f32.
+    Returns (d(dtx), d(dta), db, dc, d(state)), d(state) None without a state.
+    Each call allocates its outputs, the workspace of chunk start states (B,
+    ceil(S / chunk), d, N) and db's and dc's partials per channel block
+    (summed with ``torch.sum``, a fixed order), launches one kernel on the
+    current stream, with no host sync.  Raises as :func:`ssm_cuda` does.
+    """
+    if dtx.ndim != 3 or dta.ndim != 4:
+        raise ValueError(f"ssm_backward_cuda expects dtx (B, S, d) and dta (B, S, d, N), "
+                         f"got {tuple(dtx.shape)} and {tuple(dta.shape)}")
+    bsz, s, d = dtx.shape
+    n = dta.shape[3]
+    _check("ssm_backward_cuda", [(dtx, (bsz, s, d)), (dta, (bsz, s, d, n)), (b, (bsz, s, n)), (c, (bsz, s, n)),
+                                 (state, (bsz, d, n))], n, config)
+    return _launch_bwd("dta", [dtx, dta], None, b, c, state, dy, ds_out, n, config)
+
+
+def ssm_fused_backward_cuda(x, dt, a, b, c, state, dy, ds_out, config: SsmConfig = DEFAULT_SSM_CONFIG):
+    """The VJP of :func:`ssm_cuda_fused` through the fused entry's ``ssm_bwd_kernel``
+    under ``config``: dt * x and dt * a formed in the kernel, as the forward forms
+    them, and no (B, S, d, N) tensor read or written.
+
+    Operands as :func:`ssm_cuda_fused` takes them; ``dy`` and ``ds_out`` as
+    :func:`ssm_backward_cuda`.  Returns (dx, d(dt), da, db, dc, d(state)),
+    d(state) None without a state; da is summed over its per-batch-row partials
+    as db and dc over theirs.
+    """
+    if x.ndim != 3 or a.ndim != 2:
+        raise ValueError(f"ssm_fused_backward_cuda expects x (B, S, d) and a (d, N), "
+                         f"got {tuple(x.shape)} and {tuple(a.shape)}")
+    bsz, s, d = x.shape
+    n = a.shape[1]
+    _check("ssm_fused_backward_cuda", [(x, (bsz, s, d)), (dt, (bsz, s, d)), (a, (d, n)), (b, (bsz, s, n)),
+                                       (c, (bsz, s, n)), (state, (bsz, d, n))], n, config)
+    return _launch_bwd("fused", [x, dt], a, b, c, state, dy, ds_out, n, config)

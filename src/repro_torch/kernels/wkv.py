@@ -12,7 +12,11 @@ through one plain C entry point.  This module holds:
   * :func:`wkv_cuda` — the wrapper: checks, allocates, launches, counts;
   * :func:`wkv_plain` — the plain PyTorch version, for CPU tensors and for
     holding the kernel to account on the card;
-  * ``LAUNCHES`` — per-config launch counters.
+  * :func:`wkv_backward_cuda` — the VJP through ``csrc/wkv_bwd.cu``'s pair
+    (a reverse pass over the chunk boundaries carrying the state's gradient
+    into a workspace, then every chunk's gradients at once from the forward's
+    ``hs``), and :func:`wkv_backward_plain`, the same algorithm in PyTorch;
+  * ``LAUNCHES`` / ``BWD_LAUNCHES`` — per-config launch counters.
 
 Layout at the public functions is the reference's: r/k/v/logw (B, S, H, hd),
 u (H, hd), state (B, H, hd, hd) or None; they return (o (B, S, H, hd) f32,
@@ -27,7 +31,7 @@ import functools
 import torch
 
 from ._build import launch_error
-from .ref import wkv_ref
+from .ref import wkv_backward_ref, wkv_ref
 
 _CHUNKS = (8, 16, 32, 64, 128)  # csrc/wkv.cu REPRO_WKV_CHUNKS
 _HEAD_DIMS = (16, 64)  # csrc/wkv.cu REPRO_WKV_HEAD_DIMS: 64 is rwkv6-7b, 16 its reduced config
@@ -70,8 +74,17 @@ class WkvConfig:
             state = max(state, stages * (stage + kr * 4))
         return max(output, state)
 
+    def bwd_smem_bytes(self, hd: int) -> int:
+        """Dynamic shared memory of the larger of the backward's two kernels
+        (csrc/wkv_bwd.cu BwdChunkSmem, BwdStateSmem)."""
+        L, p, tb = self.chunk, hd + 1, min(self.chunk, 16)
+        chunk = 4 * (6 * L * p + hd * p + 2 * tb * (tb + 1) + 2 * L + 2 * hd)
+        kr = hd // 2 if hd > 16 else hd
+        return max(chunk, 4 * (2 * L * kr + L * hd + kr))
+
     def is_valid(self) -> bool:
-        return self.chunk in _CHUNKS and all(self.smem_bytes(hd) <= SMEM_LIMIT for hd in _HEAD_DIMS)
+        return self.chunk in _CHUNKS and all(max(self.smem_bytes(hd), self.bwd_smem_bytes(hd)) <= SMEM_LIMIT
+                                             for hd in _HEAD_DIMS)
 
 
 @functools.cache
@@ -84,14 +97,17 @@ def config_space() -> tuple[WkvConfig, ...]:
 
 DEFAULT_WKV_CONFIG = WkvConfig(16)
 
-# Launch counters: config name -> calls.  wkv_cuda adds one per call (its
-# two kernel launches) and nowhere else; callers reset with reset_launches().
+# Launch counters: config name -> calls.  wkv_cuda adds one to LAUNCHES per call
+# (its two kernel launches), wkv_backward_cuda one to BWD_LAUNCHES per call (the
+# backward's two), and nowhere else; callers reset with reset_launches().
 LAUNCHES: dict[str, int] = {c.name(): 0 for c in config_space()}
+BWD_LAUNCHES: dict[str, int] = {c.name(): 0 for c in config_space()}
 
 
 def reset_launches() -> None:
-    for key in LAUNCHES:
-        LAUNCHES[key] = 0
+    for counts in (LAUNCHES, BWD_LAUNCHES):
+        for key in counts:
+            counts[key] = 0
 
 
 def total_launches() -> int:
@@ -109,6 +125,13 @@ def wkv_plain(r, k, v, logw, u, state=None):
     ``torch.backends.cuda.matmul.allow_tf32 = False`` (full f32 products).
     """
     return wkv_ref(r, k, v, logw, u, state)
+
+
+def wkv_backward_plain(r, k, v, logw, u, state, do, ds_out, chunk: int, hs=None, s_final=None):
+    """The WKV's VJP in plain PyTorch, by the algorithm of ``csrc/wkv_bwd.cu``
+    (``ref.wkv_backward_ref``): (dr, dk, dv, dlogw, du, dstate) in their
+    inputs' dtypes, dstate None without a state."""
+    return wkv_backward_ref(r, k, v, logw, u, state, do, ds_out, chunk, hs, s_final)
 
 
 # ---------------------------------------------------------------------------
@@ -141,6 +164,33 @@ def compiled_configs(lib: ctypes.CDLL | None = None) -> list[tuple[int, ...]]:
     return [tuple(buf[3 * i : 3 * i + 3]) for i in range(n)]
 
 
+@functools.cache
+def _bwd_lib() -> ctypes.CDLL:
+    from ._build import load
+
+    lib = load("wkv_bwd")
+    ptr, i = ctypes.c_void_p, ctypes.c_int
+    lib.repro_wkv_bwd.argtypes = [i, i, i, i] + [ptr] * 16 + [i, i, i, ptr]
+    lib.repro_wkv_bwd.restype = i
+    lib.repro_wkv_bwd_configs.argtypes = [ctypes.POINTER(ctypes.c_int), i]
+    lib.repro_wkv_bwd_configs.restype = i
+    lib.repro_wkv_bwd_error_string.argtypes = [i]
+    lib.repro_wkv_bwd_error_string.restype = ctypes.c_char_p
+    compiled = compiled_bwd_configs(lib)
+    want = [(c, hd, WkvConfig(c).bwd_smem_bytes(hd)) for c in _CHUNKS for hd in _HEAD_DIMS]
+    if compiled != want:
+        raise RuntimeError(f"compiled wkv backward configs {compiled} != config space {want}")
+    return lib
+
+
+def compiled_bwd_configs(lib: ctypes.CDLL | None = None) -> list[tuple[int, ...]]:
+    """(chunk, hd, smem bytes) of every instantiation the backward's library holds."""
+    lib = lib or _bwd_lib()
+    buf = (ctypes.c_int * (3 * 64))()
+    n = lib.repro_wkv_bwd_configs(buf, 64)
+    return [tuple(buf[3 * i : 3 * i + 3]) for i in range(n)]
+
+
 def launch_chunk(config: WkvConfig, s: int) -> int:
     """The compiled chunk length a call of ``s`` tokens runs under ``config``.
 
@@ -160,27 +210,14 @@ def workspace_bytes(b: int, s: int, h: int, hd: int, config: WkvConfig = DEFAULT
     return b * h * -(-s // launch_chunk(config, s)) * hd * hd * 4
 
 
-def wkv_cuda(r, k, v, logw, u, state=None, config: WkvConfig = DEFAULT_WKV_CONFIG):
-    """Chunked WKV through the CUDA kernel under ``config``.
-
-    r/k/v: (B, S, H, hd) bf16 or f32, one dtype; logw: (B, S, H, hd) f32;
-    u: (H, hd) in r's dtype or f32; state: (B, H, hd, hd) f32 or None
-    (zeros).  All contiguous, on one CUDA device, hd in {16, 64}.  Returns
-    (o (B, S, H, hd) f32, final state (B, H, hd, hd) f32).  Raises on anything
-    the kernel does not take, and when either launch reports an error.
-
-    Each call allocates the workspace ``hs`` (:func:`workspace_bytes`) with
-    ``torch.empty`` and launches the state pass, then the output kernel, on
-    the current stream, with no host sync.  Both read r/k/v/logw (and the
-    state) in 16-byte pieces, so one of them whose base is not 16-byte
-    aligned is copied to a fresh tensor first.
-    """
+def _check(name, r, k, v, logw, u, state, config: WkvConfig) -> None:
+    """Raise on anything the kernels do not take."""
     dev = r.device
     tensors = (r, k, v, logw, u) + ((state,) if state is not None else ())
     if dev.type != "cuda" or any(t.device != dev for t in tensors):
-        raise ValueError(f"wkv_cuda needs every operand on one CUDA device, got {[str(t.device) for t in tensors]}")
+        raise ValueError(f"{name} needs every operand on one CUDA device, got {[str(t.device) for t in tensors]}")
     if r.ndim != 4:
-        raise ValueError(f"wkv_cuda expects r/k/v/logw of shape (B, S, H, hd), got {tuple(r.shape)}")
+        raise ValueError(f"{name} expects r/k/v/logw of shape (B, S, H, hd), got {tuple(r.shape)}")
     b, s, h, hd = r.shape
     if any(t.shape != r.shape for t in (k, v, logw)):
         raise ValueError(f"r/k/v/logw shapes differ: {[tuple(t.shape) for t in (r, k, v, logw)]}")
@@ -188,19 +225,40 @@ def wkv_cuda(r, k, v, logw, u, state=None, config: WkvConfig = DEFAULT_WKV_CONFI
         raise ValueError(f"u {tuple(u.shape)} / state {None if state is None else tuple(state.shape)} "
                          f"do not match (B, S, H, hd) = {(b, s, h, hd)}")
     if hd not in _HEAD_DIMS:
-        raise ValueError(f"wkv_cuda is compiled for head dims {_HEAD_DIMS}, not {hd}")
+        raise ValueError(f"{name} is compiled for head dims {_HEAD_DIMS}, not {hd}")
     if min(b, s, h) == 0:
-        raise ValueError(f"wkv_cuda needs non-empty dims, got (B, S, H) = {(b, s, h)}")
+        raise ValueError(f"{name} needs non-empty dims, got (B, S, H) = {(b, s, h)}")
     if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("wkv_cuda expects contiguous operands")
+        raise ValueError(f"{name} expects contiguous operands")
     if r.dtype not in (torch.bfloat16, torch.float32) or k.dtype != r.dtype or v.dtype != r.dtype:
-        raise TypeError(f"wkv_cuda takes r/k/v in one of bf16/f32, got {r.dtype}, {k.dtype}, {v.dtype}")
+        raise TypeError(f"{name} takes r/k/v in one of bf16/f32, got {r.dtype}, {k.dtype}, {v.dtype}")
     if logw.dtype != torch.float32 or (state is not None and state.dtype != torch.float32):
-        raise TypeError("wkv_cuda takes logw and the state in f32")
+        raise TypeError(f"{name} takes logw and the state in f32")
     if u.dtype not in (r.dtype, torch.float32):
-        raise TypeError(f"wkv_cuda takes u in {r.dtype} or f32, got {u.dtype}")
+        raise TypeError(f"{name} takes u in {r.dtype} or f32, got {u.dtype}")
     if not config.is_valid():
         raise ValueError(f"{config} is not a compiled wkv config")
+
+
+def wkv_cuda(r, k, v, logw, u, state=None, config: WkvConfig = DEFAULT_WKV_CONFIG, keep_states: bool = False):
+    """Chunked WKV through the CUDA kernel under ``config``.
+
+    r/k/v: (B, S, H, hd) bf16 or f32, one dtype; logw: (B, S, H, hd) f32;
+    u: (H, hd) in r's dtype or f32; state: (B, H, hd, hd) f32 or None
+    (zeros).  All contiguous, on one CUDA device, hd in {16, 64}.  Returns
+    (o (B, S, H, hd) f32, final state (B, H, hd, hd) f32), and with
+    ``keep_states`` the workspace ``hs`` too, the backward's input.  Raises on
+    anything the kernel does not take, and when either launch reports an error.
+
+    Each call allocates the workspace ``hs`` (:func:`workspace_bytes`) with
+    ``torch.empty`` and launches the state pass, then the output kernel, on
+    the current stream, with no host sync.  Both read r/k/v/logw (and the
+    state) in 16-byte pieces, so one of them whose base is not 16-byte
+    aligned is copied to a fresh tensor first.
+    """
+    _check("wkv_cuda", r, k, v, logw, u, state, config)
+    b, s, h, hd = r.shape
+    dev = r.device
     lib = _lib()
     r, k, v, logw = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (r, k, v, logw))
     if state is not None and state.data_ptr() % 16:
@@ -220,4 +278,57 @@ def wkv_cuda(r, k, v, logw, u, state=None, config: WkvConfig = DEFAULT_WKV_CONFI
         msg = lib.repro_wkv_error_string(err).decode()
         raise launch_error(err, f"wkv kernel {config.name()} failed to launch: cudaError {err} ({msg})")
     LAUNCHES[config.name()] += 1
-    return o, s_out
+    return (o, s_out, hs) if keep_states else (o, s_out)
+
+
+def wkv_backward_cuda(r, k, v, logw, u, state, do, ds_out, config: WkvConfig = DEFAULT_WKV_CONFIG, states=None):
+    """The WKV's VJP through ``csrc/wkv_bwd.cu`` under ``config`` (the forward's).
+
+    Operands as :func:`wkv_cuda` takes them; ``do`` (B, S, H, hd) f32 and
+    ``ds_out`` (B, H, hd, hd) f32 or None are the cotangents of the output and
+    the final state; ``states`` the forward's (hs, final state) at ``config``,
+    or None: then :func:`wkv_cuda` runs once more to make them.  Returns (dr,
+    dk, dv, dlogw, du, dstate) in their inputs' dtypes, dstate None without a
+    state.  Raises on anything the kernels do not take, and when a launch
+    reports an error.
+
+    Each call allocates its outputs, the workspace ``dhs`` (the size of
+    ``hs``) and du's per-chunk partials, launches the reverse pass, then the
+    chunk kernel, on the current stream, and sums the partials over B and the
+    chunks (``torch.sum``, a fixed order), with no host sync.
+    """
+    _check("wkv_backward_cuda", r, k, v, logw, u, state, config)
+    b, s, h, hd = r.shape
+    dev = r.device
+    chunk = launch_chunk(config, s)
+    n = -(-s // chunk)
+    if states is None:
+        _, s_fin, hs = wkv_cuda(r, k, v, logw, u, state, config, keep_states=True)
+    else:
+        hs, s_fin = states
+    want = {"do": (do, (b, s, h, hd)), "ds_out": (ds_out, (b, h, hd, hd)), "hs": (hs, (b, h, n, hd, hd)),
+            "final state": (s_fin, (b, h, hd, hd))}
+    for what, (t, shape) in want.items():
+        if t is None:
+            continue
+        if tuple(t.shape) != shape or t.dtype != torch.float32 or t.device != dev or not t.is_contiguous():
+            raise ValueError(f"wkv_backward_cuda: {what} must be a contiguous f32 {shape} on {dev}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    lib = _bwd_lib()
+    dhs = torch.empty_like(hs)
+    dr, dk, dv = (torch.empty_like(t) for t in (r, k, v))
+    dlogw = torch.empty_like(logw)
+    du_part = torch.empty((b, h, n, hd), dtype=torch.float32, device=dev)
+    dstate = None if state is None else torch.empty_like(state)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    err = lib.repro_wkv_bwd(
+        chunk, hd, int(r.dtype == torch.bfloat16), int(u.dtype == torch.float32),
+        *(ptr(t) for t in (r, k, v, logw, u, do, ds_out, hs, s_fin, dhs, dr, dk, dv, dlogw, du_part, dstate)),
+        b, s, h, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err != 0:
+        msg = lib.repro_wkv_bwd_error_string(err).decode()
+        raise launch_error(err, f"wkv backward kernel {config.name()} failed to launch: cudaError {err} ({msg})")
+    BWD_LAUNCHES[config.name()] += 1
+    du = du_part.sum(dim=(0, 2)).to(u.dtype)
+    return dr, dk, dv, dlogw, du, dstate

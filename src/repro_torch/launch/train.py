@@ -7,10 +7,12 @@ runtime (``--deployment``), checkpointing with auto-resume, and the
 fault-tolerance runtime active.  The model trains in f32, as the
 reference's launcher does; weights come from a generator on the device,
 seeded with 0.  On the card every GEMM, the forward's and both gradient
-GEMMs, runs the deployment's selected config of the hand-written kernel:
+GEMMs, runs the deployment's selected config of the hand-written kernel, and
+so do RWKV6's WKV and Hymba's selective scan, forward and backward kernel:
 
   python -m repro_torch.launch.train --arch granite-8b --reduced --steps 4 --batch 2 --seq 16 \\
       --ckpt-every 2 --deployment build/deploy_h100.json
+  python -m repro_torch.launch.train --arch rwkv6-7b --reduced --steps 4 --batch 2 --seq 16
 
 ``--fleet`` (multi-host) waits for the distribution slice.
 """

@@ -446,10 +446,10 @@ class RWKV6LM:
         return x + h2, (new_wkv, last1, last2)
 
     def loss_fn(self, params: dict, batch: dict):
-        """Mean token NLL from a zero state, each layer checkpointed.  On the
-        card with grad the WKV op raises ``ops.NoBackwardKernelError`` (its
-        backward kernel is the next slice); on the CPU the plain version
-        trains."""
+        """Mean token NLL from a zero state, each layer checkpointed.  Under
+        grad each layer's WKV runs as the ``repro_torch::wkv`` op: on the card
+        its backward is the WKV's backward kernel, on the CPU the plain
+        version of the same algorithm."""
         x = L.embed_tokens(params["emb"], batch["tokens"].to(self.device)).to(self.dtype)
         body = L.ckpt(lambda x, blk: self._layer(blk, x, (None, None, None))[0])
         for i in ops.scan_layers(self.cfg.n_layers):
@@ -553,9 +553,10 @@ class HymbaLM:
     def loss_fn(self, params: dict, batch: dict):
         """Mean token NLL, each layer checkpointed.  The layers scan here as
         the reference's ``loss_fn`` scans them (layer 0 selects; the window
-        is each layer's own).  On the card with grad the scan op raises
-        ``ops.NoBackwardKernelError`` (its backward kernel is the next
-        slice); on the CPU the plain version trains."""
+        is each layer's own).  Under grad each layer's scan runs as the
+        ``repro_torch::ssm_scan_fused`` op: on the card its backward is the
+        fused scan's backward kernel, on the CPU the plain version of the same
+        algorithm."""
         tokens = batch["tokens"].to(self.device)
         b, s = tokens.shape
         positions = torch.arange(s, device=self.device).expand(b, s)

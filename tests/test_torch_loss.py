@@ -14,7 +14,7 @@ Also: remat ``"full"`` and ``"dots"`` equal to no remat, with the GEMMs each
 launches counted by phase; a tied reduced config (the gradient reaches
 ``embed`` through the head); the GEMM op's ``gradcheck`` in f64; the
 forward's selections equal to the reference's log; and the refusal of the
-WKV / scan / attention ops under grad.
+attention op under grad (the WKV / scan ops take their backward kernels).
 """
 import dataclasses
 
@@ -283,13 +283,55 @@ def test_forward_selections_equal_reference_log(arch):
     assert (tm.cfg.d_model, b * s, tm.cfg.padded_vocab(), 1) in later  # the head's weight gradient
 
 
-def test_kernels_without_backward_refuse_grad():
-    """On a CUDA tensor with grad the WKV, scan and attention ops raise (here
-    the check alone: a CPU tensor keeps autograd through the plain version)."""
+def test_kernels_without_backward_refuse_grad(monkeypatch):
+    """On a CUDA tensor with grad the attention op raises (here the check alone:
+    a CPU tensor keeps autograd through the plain version).  The WKV and scan
+    ops no longer refuse: with their tensors taken for the card's (stub
+    kernels standing in for the CUDA wrappers, which hold each op's forward
+    and backward to the plain versions), each runs under grad through its
+    custom op and its backward kernel's wrapper."""
     x = torch.randn(2, 3, requires_grad=True)
-    for family in ("wkv", "ssm_scan", "ssm_scan_fused", "attention"):
-        with pytest.raises(ops.NoBackwardKernelError, match=f"ops.{family}.*next slice"):
-            ops._refuse_grad(family, x.detach(), x)
-        ops._refuse_grad(family, x.detach())
-        with torch.no_grad():
-            ops._refuse_grad(family, x)
+    with pytest.raises(ops.NoBackwardKernelError, match="ops.attention.*no backward kernel"):
+        ops._refuse_grad("attention", x.detach(), x)
+    ops._refuse_grad("attention", x.detach())
+    with torch.no_grad():
+        ops._refuse_grad("attention", x)
+
+    from repro_torch.kernels import ssm as sm
+    from repro_torch.kernels import wkv as wk
+    from repro_torch.kernels.ref import wkv_states_ref
+
+    calls = []
+
+    def stub(name, fn):
+        def run(*args, **kw):
+            calls.append(name)
+            return fn(*args, **kw)
+        return run
+
+    monkeypatch.setattr(ops, "_on_card", lambda t: True)
+    monkeypatch.setattr(ops, "_refuse_grad", lambda family, *t: pytest.fail(f"ops.{family} refused grad"))
+    monkeypatch.setattr(ops, "wkv_cuda", stub("wkv", lambda r, k, v, lw, u, st, cfg, keep_states: (
+        *wk.wkv_plain(r, k, v, lw, u, st), wkv_states_ref(k, v, lw, st, wk.launch_chunk(cfg, r.shape[1]))[0])))
+    monkeypatch.setattr(ops, "wkv_backward_cuda", stub("wkv_bwd", lambda r, k, v, lw, u, st, do, dso, cfg, states: (
+        wk.wkv_backward_plain(r, k, v, lw, u, st, do, dso, wk.launch_chunk(cfg, r.shape[1]), *states))))
+    monkeypatch.setattr(ops, "ssm_cuda", stub("ssm", lambda *a: sm.ssm_plain(*a[:5])))
+    monkeypatch.setattr(ops, "ssm_backward_cuda", stub("ssm_bwd", lambda *a: sm.ssm_backward_plain(
+        *a[:7], a[7].chunk)))
+    monkeypatch.setattr(ops, "ssm_cuda_fused", stub("ssm_fused", lambda *a: sm.ssm_fused_plain(*a[:6])))
+    monkeypatch.setattr(ops, "ssm_fused_backward_cuda", stub("ssm_fused_bwd", lambda *a: sm.ssm_fused_backward_plain(
+        *a[:8], a[8].chunk)))
+    gen = torch.Generator().manual_seed(0)
+    rnd = lambda *shape: torch.randn(shape, generator=gen, requires_grad=True)
+    r, k, v, u = rnd(1, 5, 2, 16), rnd(1, 5, 2, 16), rnd(1, 5, 2, 16), rnd(2, 16)
+    logw = (-torch.rand((1, 5, 2, 16), generator=gen) - 0.1).requires_grad_(True)
+    x, dt, a, b, c = rnd(1, 6, 8), rnd(1, 6, 8), rnd(8, 8), rnd(1, 6, 8), rnd(1, 6, 8)
+    dta = rnd(1, 6, 8, 8)
+    ops.GRAD_SCANS.clear()
+    for op, out, leaves in (("wkv", lambda: ops.wkv(r, k, v, logw, u)[0], (r, k, v, logw, u)),
+                            ("ssm_scan", lambda: ops.ssm_scan(x, dta, b, c)[0], (x, dta, b, c)),
+                            ("ssm_scan_fused", lambda: ops.ssm_scan_fused(x, dt, a, b, c)[0], (x, dt, a, b, c))):
+        grads = torch.autograd.grad(out().square().sum(), leaves)
+        assert all(torch.isfinite(g).all() and g.abs().max() > 0 for g in grads), op
+        assert ops.grad_scans(op) == {"forward": 1, "backward": 1}, op
+    assert calls == ["wkv", "wkv_bwd", "ssm", "ssm_bwd", "ssm_fused", "ssm_fused_bwd"]
