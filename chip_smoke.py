@@ -218,11 +218,13 @@ Phases (each one fails the run if its check fails):
    selection log whose outputs equal the default's bitwise at every problem
    the tree served it (a fault on the default itself is unrecoverable on the
    card, 21a; a redirect to a config that rounds otherwise may flip a greedy
-   token; with no such config, no dispatch fault) under CUDA graphs: every
-   request completes, 2 engine retries, the
-   dispatch fault redirected, the programs dropped and
+   token); with no such config, the first config the tree served is replaced
+   in the deployment by a compiled one that is, and the fault keyed on that.
+   Under CUDA graphs: every request completes, 2 engine retries, the
+   dispatch fault fired once and redirected, the programs dropped and
    captured again (and their seconds), health back to healthy, greedy streams
-   equal to phase 19's;
+   equal to a clean drain of the same deployment (and, where it is phase
+   19's, the clean drain's equal to phase 19's);
    21c. an engine served from phase 17's bundle adopts the card's bundle entry
    (offered, loaded again) at a step boundary, then, with ``retune_interval``,
    drains the batch (whose buckets the harvest lacks), retunes matmul on
@@ -358,13 +360,15 @@ Phases (each one fails the run if its check fails):
    an initial state and a final-state cotangent: every gradient against
    autograd of ``wkv_plain`` on the card (TF32 off) within 1e-4 of its max
    (bf16 leaves 1e-2), and f32 against f64 autograd within 1e-4 (the f32
-   plain's own gap printed beside it); two calls bitwise equal; timed with
-   CUDA events at rwkv6-7b's training shape (B 8, S 128, H 64, hd 64) beside
-   its bytes bound and autograd of the plain version;
+   plain's own gap printed beside it); two calls bitwise equal; at
+   rwkv6-7b's training shape (B 8, S 128, H 64, hd 64), f32 and bf16,
+   checked and repeated as that, then timed with CUDA events beside its
+   bound (the function's bytes and operations) and autograd of the plain
+   version;
    25f-ii. the scan backward (csrc/ssm.cu ``ssm_bwd_kernel``), both entries,
-   every compiled config and N 8 and 16, the same cases, and a (1, 2048,
-   1600, 16) call whose forward is cut into segments; checked, repeated and
-   timed (hymba-1.5b's shape, B 8, S 128, d 1600, N 16) as 25f-i;
+   every compiled config and N 8 and 16, the same cases, and a long (1, 2048,
+   1600, 16) call, each against f64 too; checked, repeated and timed at
+   hymba-1.5b's shape (B 8, S 128, d 1600, N 16) as 25f-i;
    25f-iii. rwkv6-7b at full width (d 4096, ff 14336, vocab 65536), 2 of 32
    layers, f32: ``Trainer`` 6 steps at batch 8, seq 128, remat "full"; the
    loss falls, every parameter has a non-zero gradient, per step and layer the
@@ -2034,8 +2038,8 @@ def _release(torch, serve: dict) -> None:
 
 
 CHAOS = "engine.prefill:compile_error,engine.decode:compile_error:1:5"
-CHAOS_DISPATCH = ("dispatch.matmul:compile_error on the first non-default config phase 19 selected that computes "
-                  "bitwise what the default does")
+CHAOS_DISPATCH = ("dispatch.matmul:compile_error on a config the deployment serves that computes bitwise what the "
+                  "default does")
 
 
 def _incident_summary(rt) -> dict:
@@ -2213,16 +2217,18 @@ def phase_engine_chaos(torch, mm, seq: dict, tuned: dict) -> dict:
     default = mm.DEFAULT_CONFIG.name()
     # The dispatch fault is keyed on a config the guard can redirect: the tree picks the
     # default at some shapes, and on the card a fault there has nothing compiled left. A
-    # redirect runs the default config, so the drain's streams equal phase 19's only where the
-    # two configs compute bitwise the same sums: the fault is keyed on the first served
-    # non-default config whose outputs equal the default's at every problem the tree served it
-    # (random bf16 operands; phase 17's tree is measured anew each run, and a config that
-    # rounds otherwise can flip a near-tied greedy token), else on none.
+    # redirect runs the default config, so the drain's streams equal a clean drain's only where
+    # the two configs compute bitwise the same sums (a config that rounds otherwise can flip a
+    # near-tied greedy token). The fault is keyed on the first served non-default config whose
+    # outputs equal the default's at every problem the tree served it (random bf16 operands;
+    # phase 17's tree is measured anew each run). With none, the first served config is
+    # replaced in the deployment by a compiled one that is, and the fault keyed on that.
     dep = Deployment.load(DEPLOY_PATH)
     served: dict[str, tuple] = {}
     for op, prob, cfg in tuned["engine"].runtime.selection_log():
-        if op == "matmul" and cfg == dep.select_matmul(*prob) and cfg.name() != default:
+        if op == "matmul" and cfg == dep.select_matmul(*prob):
             served.setdefault(cfg.name(), (cfg, set()))[1].add(prob)
+    require(served, "phase 19 served no GEMM from the tree")
     g = torch.Generator(device="cuda").manual_seed(21)
 
     def neutral(cfg, problems) -> bool:
@@ -2234,18 +2240,32 @@ def phase_engine_chaos(torch, mm, seq: dict, tuned: dict) -> dict:
                 return False
         return True
 
-    verdicts = {name: neutral(cfg, probs) for name, (cfg, probs) in served.items()}
+    verdicts = {name: neutral(cfg, probs) for name, (cfg, probs) in served.items() if name != default}
     key = next((name for name, ok in verdicts.items() if ok), None)
+    print(f"  served non-default configs bitwise equal to {default} at every problem the tree served them: "
+          f"{verdicts}")
+    replaced = None
+    if key is None:
+        first, probs = next(iter(served.values()))
+        sub = next((c for c in mm.config_space() if c.name() != default and c.name() not in served
+                    and neutral(c, probs)), None)
+        require(sub is not None, f"no compiled config computes bitwise what {default} does at the problems the tree "
+                f"served {first.name()}: no dispatch fault whose redirect leaves the streams unchanged")
+        dep.configs = [sub if c == first else c for c in dep.configs]
+        key, replaced = sub.name(), first.name()
+        print(f"  none: the deployment serves {key} where the tree served {replaced}")
+    # The streams the drain must give: a clean drain of the same deployment, which, where the
+    # deployment is phase 19's, must also equal phase 19's.
+    clean_rt = KernelRuntime(name="chip_smoke-chaos-clean")
+    clean_rt.install(dep)
+    clean = _drain(torch, ServingEngine(tuned["model"], tuned["params"], max_batch=4, cache_len=256,
+                                        runtime=clean_rt), tuned["prompts"], mm, seq)["outputs"]
+    require(replaced is not None or clean == tuned["outputs"],
+            "a clean drain of phase 19's deployment gives other streams than phase 19's")
     rt = KernelRuntime(name="chip_smoke-chaos")
     rt.install(dep)
     plan = faults.FaultPlan.parse(CHAOS, seed=0)
-    print(f"  served non-default configs bitwise equal to {default} at every problem the tree served them: "
-          f"{verdicts}")
-    if key is None:
-        print(f"  no served config computes bitwise what {default} does: no dispatch fault whose redirect leaves "
-              f"the streams unchanged")
-    else:
-        plan.inject("dispatch.matmul", "compile_error", times=1, match=key)
+    plan.inject("dispatch.matmul", "compile_error", times=1, match=key)
     rt.set_fault_plan(plan)
     engine = ServingEngine(tuned["model"], tuned["params"], max_batch=4, cache_len=256, runtime=rt)
     mm.reset_launches()
@@ -2265,24 +2285,25 @@ def phase_engine_chaos(torch, mm, seq: dict, tuned: dict) -> dict:
         "programs_built": len(engine.program_log), "programs_captured_again": [(r.kind, r.size) for r in rebuilt],
         "recapture_s": sum(r.seconds for r in rebuilt), "capture_s": sum(r.seconds for r in engine.program_log),
         "health_events": engine.health_events, "health": status.health, "wall_s": wall,
+        "fault_key": key, "replaced": replaced, "streams_equal_clean": outputs == clean,
         "streams_equal_phase_19": outputs == tuned["outputs"],
         "launches": {"matmul": mm.total_launches()} | {_FAMILY[k]: mod.total_launches() for k, mod in seq.items()},
     }
     require(status.completed == len(tickets) and not status.exhausted, f"requests dropped under chaos: {status}")
     require(res["incidents"].get("retry") == 2, f"want 2 engine retries, got {res['incidents']}")
-    if key is not None:
-        require(("dispatch.matmul", "compile_error", key) in res["faults_fired"]
-                and res["incidents"].get("quarantined") == 1,
-                f"the dispatch fault on {key} did not fire once and redirect: {res['faults_fired']} / "
-                f"{res['incidents']}")
+    require(("dispatch.matmul", "compile_error", key) in res["faults_fired"]
+            and res["incidents"].get("quarantined") == 1,
+            f"the dispatch fault on {key} did not fire once and redirect: {res['faults_fired']} / "
+            f"{res['incidents']}")
     require(rebuilt, "no program was dropped and captured again")
     require(status.health == "healthy" and engine.health_events and engine.health_events[-1][1] == "healthy",
             f"health did not end healthy: {engine.health_events} / {status.health}")
-    require(res["streams_equal_phase_19"], "the greedy streams under chaos differ from phase 19's clean drain")
+    require(res["streams_equal_clean"], "the greedy streams under chaos differ from a clean drain's")
     print(f"  {CHAOS} + dispatch.matmul:compile_error on {key}: {status.completed}/{len(tickets)} completed, {res['retries']} request retries, incidents "
           f"{res['incidents']}, faults {res['faults_fired']}")
     print(f"  programs captured again: {res['programs_captured_again']} in {res['recapture_s']:.3f}s (all captures "
-          f"{res['capture_s']:.3f}s); health {engine.health_events}; streams equal phase 19's: True")
+          f"{res['capture_s']:.3f}s); health {engine.health_events}; streams equal the clean drain's: True "
+          f"(phase 19's: {res['streams_equal_phase_19']})")
     return res
 
 
@@ -4136,6 +4157,10 @@ def _check_grads(errs, names, where, worst) -> None:
             w["rel_f64"], w["plain_rel_f64"] = max(w["rel_f64"], e[3]), max(w["plain_rel_f64"], e[4])
 
 
+def _worst_text(worst: dict) -> str:
+    return "; ".join(f"d{k} {v['rel']:.3g}" + (f" / {v['rel_f64']:.3g}" if v["rel_f64"] else "") for k, v in worst.items())
+
+
 def _autograd(torch, fn, leaves, cots):
     """Autograd of ``fn`` (a plain version) at ``leaves``: the gradients (None for a None leaf)."""
     used = [t.detach().requires_grad_(True) if t is not None else None for t in leaves]
@@ -4191,31 +4216,46 @@ def phase_wkv_backward(torch, wk) -> dict:
         args = list(_wkv_inputs(torch, g, b, s, h, hd, dtype, "dist", False))
         do = torch.randn((b, s, h, hd), device="cuda", generator=g)
         _, s_fin, hs = wk.wkv_cuda(*args, config=wk.DEFAULT_WKV_CONFIG, keep_states=True)
+        call = lambda: wk.wkv_backward_cuda(*args, do, None, wk.DEFAULT_WKV_CONFIG, (hs, s_fin))
+        # Checked as above at the shape the main path gives the kernel, then timed there.
+        where = f"rwkv6-7b's training shape {RWKV_TRAIN_SHAPE} {dtype}"
+        got = call()
+        require(all(x is None or torch.equal(x, y) for x, y in zip(got, call())), f"{where}: two calls differ")
+        exact = None
+        if dtype == torch.float32:
+            exact = _autograd(torch, wk.wkv_plain, [None if t is None else t.double() for t in args],
+                              (do.double(), None))
+        at_shape: dict = {}
+        errs = _grad_errs(torch, got, _autograd(torch, wk.wkv_plain, args, (do, None)), exact)
+        _check_grads(errs, names, where, at_shape)
+        _check_grads(errs, names, where, worst)
+        del got, exact, errs
         size = 2 if dtype == torch.bfloat16 else 4
         n = b * s * h * hd
-        # Each input read once (r, k, v, u in their type; logw, do, hs f32), each output written
-        # once (dr, dk, dv in r's type, dlogw f32); du is (H, hd).
-        nbytes = 3 * n * size * 2 + 2 * n * 4 + hs.numel() * 4 + n * 4 + h * hd * size * 2
+        # Each input read once (r, k, v, u in their type; logw, do f32), each output written
+        # once (dr, dk, dv in r's type, dlogw f32); du is (H, hd). The forward's chunk start
+        # states hs are this design's workspace, not the function's: they are not counted.
+        nbytes = 3 * n * size * 2 + 2 * n * 4 + n * 4 + h * hd * size * 2
         # The recurrent VJP's count, the fewest for this function: per token and head, the state's
         # gradient dS = w (.) dS + r^T do (3 hd^2), dr = S do (2 hd^2), dk = dS v (2 hd^2),
         # dv = dS^T k (2 hd^2), dlogw = sum_j S dS (2 hd^2), the u-bonus's (8 hd).
         ops_n = b * s * h * (11 * hd * hd + 8 * hd)
         bound = max(nbytes / HBM_BYTES_PER_S, ops_n / F32_FLOPS) * 1e3
-        ms = _time_ms(lambda i: wk.wkv_backward_cuda(*args, do, None, wk.DEFAULT_WKV_CONFIG, (hs, s_fin)))
+        ms = _time_ms(lambda i: call())
         leaves = [t.detach().requires_grad_(True) for t in args[:5]]
         o, _ = wk.wkv_plain(*leaves)
         plain = _time_ms(lambda i: torch.autograd.grad(o, leaves, do, retain_graph=True), n_runs=5)
-        launches = _kernel_launches(lambda: wk.wkv_backward_cuda(*args, do, None, wk.DEFAULT_WKV_CONFIG, (hs, s_fin)),
-                                    ("wkv_bwd_state_kernel", "wkv_bwd_chunk_kernel"))
+        launches = _kernel_launches(call, ("wkv_bwd_state_kernel", "wkv_bwd_chunk_kernel"))
         row = {"dtype": str(dtype).split(".")[-1], "shape": [b, s, h, hd], "config": wk.DEFAULT_WKV_CONFIG.name(),
                "ms": ms, "plain_autograd_ms": plain, "bound_ms": bound, "bytes": nbytes, "ops": ops_n,
                "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= ops_n / F32_FLOPS else "operations",
-               "kernel_launches_per_call": launches}
+               "kernel_launches_per_call": launches, "worst": at_shape}
         out["timing"].append(row)
-        print(f"  timed at rwkv6-7b's training shape {RWKV_TRAIN_SHAPE} {row['dtype']}, {row['config']}: backward "
-              f"{ms:.4f} ms, bound {bound:.4f} ms ({row['bound_by']}: {nbytes / 1e6:.1f} MB, "
-              f"{ops_n / 1e9:.2f} Gop f32); "
-              f"autograd of wkv_plain {plain:.3f} ms; kernels per call {launches}; library: none")
+        print(f"  at rwkv6-7b's training shape {RWKV_TRAIN_SHAPE} {row['dtype']}, {row['config']}: two calls bitwise "
+              f"equal; worst rel err by leaf against autograd of wkv_plain (/ f64): {_worst_text(at_shape)}; "
+              f"backward {ms:.4f} ms, bound {bound:.4f} ms ({row['bound_by']}: {nbytes / 1e6:.1f} MB, "
+              f"{ops_n / 1e9:.2f} Gop f32); autograd of wkv_plain {plain:.3f} ms; kernels per call {launches}; "
+              f"library: none")
         del args, do, hs, s_fin, leaves, o
     return out
 
@@ -4223,9 +4263,10 @@ def phase_wkv_backward(torch, wk) -> dict:
 def phase_ssm_backward(torch, ss) -> dict:
     """25f-ii: the scan's backward kernel (csrc/ssm.cu ssm_bwd_kernel), both entries, at every
     compiled (block_d, chunk) and N 8 and 16, a ragged S and an S below the chunk, with and
-    without a state and a final-state cotangent, and a (1, 2048, 1600, 16) call whose forward
-    is cut into segments: against autograd of the plain versions on the card and f64 autograd;
-    two calls bitwise equal; then both entries timed at hymba-1.5b's training shape."""
+    without a state and a final-state cotangent, and a long (1, 2048, 1600, 16) call (the
+    backward walks its own forward, so the forward's segments do not arise): against autograd
+    of the plain versions on the card and f64 autograd; two calls bitwise equal; then both
+    entries checked as that and timed at hymba-1.5b's training shape."""
     g = torch.Generator(device="cuda").manual_seed(28)
     entries = {"fused": (_ssm_fused_inputs, ss.ssm_fused_plain, ss.ssm_fused_backward_cuda,
                          ("x", "dt", "a", "b", "c", "state")),
@@ -4234,43 +4275,51 @@ def phase_ssm_backward(torch, ss) -> dict:
     cases = [(cfg, n, s, with_state, with_ds) for cfg in ss.config_space() for n in (8, 16)
              for s, with_state, with_ds in ((3 * cfg.chunk + 5, True, True), (3 * cfg.chunk + 5, False, False),
                                             (cfg.chunk // 2 + 1, True, False), (cfg.chunk // 2 + 1, False, True))]
-    # The long call at the config whose forward the rule cuts into the most segments there.
-    long_cfg = max(ss.config_space(), key=lambda c: ss.launch_segments(1, SSM_LONG, 1600, 16, c, True, 0))
-    segments_seen = ss.launch_segments(1, SSM_LONG, 1600, 16, long_cfg, True, 0)
-    require(segments_seen > 1, f"no compiled config cuts the long call's forward into segments ({segments_seen})")
-    cases.append((long_cfg, 16, SSM_LONG, True, True))
+    cases.append((ss.DEFAULT_SSM_CONFIG, 16, SSM_LONG, True, True))
     t0 = time.perf_counter()
+
+    def check(entry, cfg, args, dy, ds, where, into) -> None:
+        """The kernel's gradients at ``args``, called twice (bitwise equal), held against autograd
+        of the plain version and its f64 autograd; the worst errors go into each dict of ``into``."""
+        _, plain, kernel, names = entries[entry]
+        got = kernel(*args, dy, ds, cfg)
+        require(all(x is None or torch.equal(x, y) for x, y in zip(got, kernel(*args, dy, ds, cfg))),
+                f"{where}: two calls differ")
+        ref = _autograd(torch, plain, args, (dy, ds))
+        exact = _autograd(torch, plain, [None if t is None else t.double() for t in args],
+                          (dy.double(), None if ds is None else ds.double()))
+        errs = _grad_errs(torch, got, ref, exact)
+        for w in into:
+            _check_grads(errs, [f"{entry}:{x}" for x in names], where, w)
+
     for cfg, n, s, with_state, with_ds in cases:
         b, d = (1, 1600) if s == SSM_LONG else (2, 100)
-        for entry, (inputs, plain, kernel, names) in entries.items():
+        for entry, (inputs, *_) in entries.items():
             if s == SSM_LONG and entry == "dta":
                 continue  # the long call through the fused entry, the one a Hymba layer runs
             args = list(inputs(torch, g, b, s, d, n, with_state))
             dy = torch.randn((b, s, d), device="cuda", generator=g)
             ds = torch.randn((b, d, n), device="cuda", generator=g) if with_ds else None
-            got = kernel(*args, dy, ds, cfg)
-            again = kernel(*args, dy, ds, cfg)
-            where = f"{entry} {cfg.name()} N {n} S {s} state={with_state} ds_out={with_ds}"
-            require(all(x is None or torch.equal(x, y) for x, y in zip(got, again)), f"{where}: two calls differ")
-            ref = _autograd(torch, plain, args, (dy, ds))
-            exact = None
-            if with_state and with_ds:  # the full case of each config, and the long call, against f64 too
-                exact = _autograd(torch, plain, [None if t is None else t.double() for t in args],
-                                  (dy.double(), None if ds is None else ds.double()))
-            _check_grads(_grad_errs(torch, got, ref, exact), [f"{entry}:{x}" for x in names], where, worst)
+            check(entry, cfg, args, dy, ds, f"{entry} {cfg.name()} N {n} S {s} state={with_state} ds_out={with_ds}",
+                  (worst,))
             checks += 1
     torch.cuda.synchronize()
     print(f"  {checks} checks in {time.perf_counter() - t0:.1f}s (both entries x {len(ss.config_space())} configs x "
-          f"N 8, 16 x 4 cases, and the fused entry at (1, {SSM_LONG}, 1600, 16) under {long_cfg.name()}, whose "
-          f"forward runs {segments_seen} segments), each called twice, bitwise equal; worst rel err by leaf against "
-          f"autograd of the plain version (limit {BWD_TOL['f32']}) and, in the cases with a state and a final-state "
-          f"cotangent, against f64 (the f32 plain's own beside it): " + "; ".join(
-              f"d{k} {v['rel']:.3g} / f64 {v['rel_f64']:.3g} ({v['plain_rel_f64']:.3g})" for k, v in worst.items()))
+          f"N 8, 16 x 4 cases, and the fused entry at (1, {SSM_LONG}, 1600, 16) under "
+          f"{ss.DEFAULT_SSM_CONFIG.name()}), each called twice, bitwise equal; worst rel err by leaf against "
+          f"autograd of the plain version (limit {BWD_TOL['f32']}) and against f64 (the f32 plain's own beside it): "
+          + "; ".join(f"d{k} {v['rel']:.3g} / f64 {v['rel_f64']:.3g} ({v['plain_rel_f64']:.3g})"
+                      for k, v in worst.items()))
     b, s, d, n = HYMBA_TRAIN_SHAPE
-    out = {"checks": checks, "worst": worst, "long_call_forward_segments": segments_seen, "timing": []}
+    out = {"checks": checks, "worst": worst, "timing": []}
     for entry, (inputs, plain, kernel, _) in entries.items():
         args = list(inputs(torch, g, b, s, d, n, False))
         dy = torch.randn((b, s, d), device="cuda", generator=g)
+        call = lambda: kernel(*args, dy, None, ss.DEFAULT_SSM_CONFIG)
+        # Checked as above at the shape the main path gives the kernel, then timed there.
+        at_shape: dict = {}
+        check(entry, ss.DEFAULT_SSM_CONFIG, args, dy, None, f"{entry} at hymba-1.5b's training shape "
+              f"{HYMBA_TRAIN_SHAPE}", (at_shape, worst))
         rows = b * s
         if entry == "fused":  # x, dt, dy in; dx, d(dt) out; a, da; b, c, db, dc
             nbytes = (3 * rows * d + 2 * rows * d + 2 * d * n + 4 * rows * n) * 4
@@ -4280,19 +4329,21 @@ def phase_ssm_backward(torch, ss) -> dict:
         # d(dtx) (2), db (2), dc (2), and the fused entry's da and d(dt) (4): ~20.
         ops_n = rows * d * n * 20
         bound = max(nbytes / HBM_BYTES_PER_S, ops_n / F32_FLOPS) * 1e3
-        ms = _time_ms(lambda i: kernel(*args, dy, None, ss.DEFAULT_SSM_CONFIG))
+        ms = _time_ms(lambda i: call())
         leaves = [t.detach().requires_grad_(True) for t in args[:-1]]
         y, _ = plain(*leaves)
         plain_ms = _time_ms(lambda i: torch.autograd.grad(y, leaves, dy, retain_graph=True), n_warm=1, n_runs=3)
-        launches = _kernel_launches(lambda: kernel(*args, dy, None, ss.DEFAULT_SSM_CONFIG), ("ssm_bwd_kernel",))
+        launches = _kernel_launches(call, ("ssm_bwd_kernel",))
         row = {"entry": entry, "shape": [b, s, d, n], "config": ss.DEFAULT_SSM_CONFIG.name(), "ms": ms,
                "plain_autograd_ms": plain_ms, "bound_ms": bound, "bytes": nbytes, "ops": ops_n,
                "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= ops_n / F32_FLOPS else "operations",
-               "kernel_launches_per_call": launches}
+               "kernel_launches_per_call": launches, "worst": at_shape}
         out["timing"].append(row)
-        print(f"  {entry} entry timed at hymba-1.5b's training shape {HYMBA_TRAIN_SHAPE}, {row['config']}: backward "
-              f"{ms:.4f} ms, bound {bound:.4f} ms ({row['bound_by']}: {nbytes / 1e6:.1f} MB); autograd of the plain "
-              f"version {plain_ms:.2f} ms; kernels per call {launches}; library: none")
+        print(f"  {entry} entry at hymba-1.5b's training shape {HYMBA_TRAIN_SHAPE}, {row['config']}: two calls "
+              f"bitwise equal; worst rel err by leaf against autograd of the plain version (/ f64): "
+              f"{_worst_text(at_shape)}; backward {ms:.4f} ms, bound {bound:.4f} ms ({row['bound_by']}: "
+              f"{nbytes / 1e6:.1f} MB); autograd of the plain version {plain_ms:.2f} ms; kernels per call {launches}; "
+              f"library: none")
         del args, dy, leaves, y
     return out
 

@@ -54,6 +54,7 @@ from repro_torch.optim import adamw
 from repro_torch.serve.engine import ServingEngine
 from repro_torch.train.train_step import make_train_step
 from repro_torch.train.trainer import Trainer, TrainerConfig
+from repro_torch.weights import params_from_jax
 
 
 def _flat(tree) -> dict:
@@ -321,19 +322,52 @@ def test_recurrent_steps_equal_reference(arch):
     jp2, tp2, _, jmets, tmets = _steps(jm, jp, tm, copy.deepcopy(tp), 2, 1e-4, batch=2)
     n = tm.cfg.n_layers
     assert ops.grad_scans(op) == {"forward": 2 * n, "recompute": 2 * n, "backward": 2 * n}
+    # rwkv6-7b's u starts at zero, so after step 1 it is the AdamW update itself, which divides
+    # each element's gradient by |g| + eps: u's gradients agree within 1e-6 of their max, and u
+    # after step 1 within 4.1e-5 of its max. The step-2 gradient norm at the port's own params
+    # then differs from the reference's by 1.4e-4; at the reference's params it agrees within 1e-5
+    # (test_rwkv_step_two_gradients_at_the_references_params). Those two readings keep 2e-4.
+    diverged_metric, diverged_leaf = (("grad_norm", 1), "blocks/rwkv/u") if arch == "rwkv6-7b" else (None, None)
     for step, (jmet, tmet) in enumerate(zip(jmets, tmets)):
         for key in jmet:
-            # After one update rwkv6-7b's reference gradients of w_k / w_r differ from the port's
-            # by up to 1.6e-4 of their max in f32, through the op as through autograd of the
-            # plain forward (the two agree within 1e-6): step 2's norm is held within 1e-3.
-            tol = 1e-3 if (key, step, arch) == ("grad_norm", 1, "rwkv6-7b") else 1e-5
+            tol = 2e-4 if (key, step) == diverged_metric else 1e-5
             np.testing.assert_allclose(tmet[key], jmet[key], rtol=tol, atol=1e-6, err_msg=f"step {step + 1} {key}")
-    # The params after both steps, each leaf relative to its largest value: 1e-4, and 1e-3 for
-    # rwkv6-7b, whose step-2 gradient gap above moves u by 1.4e-4 of its largest value.
+    # The params after both steps, each leaf relative to its largest value.
     ref = _flat(jax.tree.map(np.asarray, jp2))
     for path, t in _flat(tp2).items():
         err = np.abs(t.detach().numpy() - ref[path]).max() / np.abs(ref[path]).max()
-        assert err <= (1e-3 if arch == "rwkv6-7b" else 1e-4), (path, err)
+        assert err <= (2e-4 if path == diverged_leaf else 1e-4), (path, err)
+
+
+def test_rwkv_step_two_gradients_at_the_references_params():
+    """Step 2 of reduced rwkv6-7b at the reference's params after step 1: the
+    port's gradient norm within 1e-5 of the reference's evaluated with f64
+    params (its WKV stays f32), and every gradient within 1e-4 of its max.
+    The reference's own f32 gradients of w_k and w_r are 1.5e-4 / 1.2e-4 of
+    their max from that evaluation here, so it is the one compared with."""
+    jm, jp, tm, _ = reduced_pair("rwkv6-7b")
+    kw = dict(lr=1e-3, warmup_steps=2, total_steps=2, eps=1e-4)
+    jpipe = JaxPipeline(jm.cfg, JaxDataConfig(global_batch=2, seq_len=16))
+    jp1, _, _ = jax_make_train_step(jm, jax_adamw.AdamWConfig(**kw))(jp, jax_adamw.init(jp), jpipe.device_batch(0))
+    np1 = jax.tree.map(np.asarray, jp1)
+    batch = jax.tree.map(np.asarray, jpipe.device_batch(1))
+    with jax.enable_x64(True):
+        jm64 = jax_build_model(jm.cfg, dtype=jnp.float64, param_dtype=jnp.float64)
+        p64 = jax.tree.map(lambda a: jnp.asarray(a, jnp.float64), np1)
+        (jloss, _), jgrads = jax.value_and_grad(jm64.loss_fn, has_aux=True)(p64, jax.tree.map(jnp.asarray, batch))
+        jloss, ref = float(jloss), _flat(jax.tree.map(np.asarray, jgrads))
+    tp1 = params_from_jax(np1, tm.cfg, device="cpu", dtype=torch.float32)
+    tbatch = TokenPipeline(tm.cfg, DataConfig(global_batch=2, seq_len=16)).device_batch(1, device="cpu")
+    ops.GRAD_SCANS.clear()
+    loss, _, grads = make_train_step(tm, adamw.AdamWConfig(**kw)).compute_grads(tp1, tbatch)
+    assert ops.grad_scans("wkv")["backward"] == tm.cfg.n_layers
+    got = {p: t.detach().double().numpy() for p, t in _flat(grads).items()}
+    assert set(got) == set(ref)
+    np.testing.assert_allclose(float(loss), jloss, rtol=1e-6)
+    norm = lambda g: np.sqrt(sum(np.sum(x.astype(np.float64) ** 2) for x in g.values()))
+    np.testing.assert_allclose(norm(got), norm(ref), rtol=1e-5)
+    for path, r in ref.items():
+        assert np.abs(got[path] - r).max() <= 1e-4 * np.abs(r).max(), path
 
 
 @pytest.mark.parametrize("arch", list(RECURRENT))
