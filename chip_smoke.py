@@ -214,12 +214,17 @@ Phases (each one fails the run if its check fails):
    that never fires);
    21b. phase 19's batch drained under ``engine.prefill:compile_error,
    engine.decode:compile_error:1:5`` and a ``dispatch.matmul:compile_error``
-   keyed on the first config other than ``DEFAULT_CONFIG`` in phase 19's
-   selection log whose outputs equal the default's bitwise at every problem
-   the tree served it (a fault on the default itself is unrecoverable on the
-   card, 21a; a redirect to a config that rounds otherwise may flip a greedy
-   token); with no such config, the first config the tree served is replaced
-   in the deployment by a compiled one that is, and the fault keyed on that.
+   keyed on the config other than ``DEFAULT_CONFIG`` that phase 19's tree
+   selected most often among those whose outputs equal the default's bitwise at
+   every problem the tree served them (a fault on the default itself is
+   unrecoverable on the card, 21a; a redirect to a config that rounds otherwise
+   may flip a greedy token). The breaker re-probes a config only after
+   ``QUARANTINE_BACKOFF`` more selections, and a graphed engine selects only
+   while it builds a program (once per problem in a scanned model), so the
+   config must be selected more than that often in a clean drain. With no such
+   config, the config the tree selected most often is replaced in the
+   deployment by a compiled one that is bitwise neutral there, and the fault
+   keyed on that.
    Under CUDA graphs: every request completes, 2 engine retries, the
    dispatch fault fired once and redirected, the programs dropped and
    captured again (and their seconds), health back to healthy, greedy streams
@@ -1083,43 +1088,68 @@ def _profile_window(torch, fn, runs: int) -> dict:
             "ms": ms, "count": count, "timeline": timeline}
 
 
+PROFILE_ATTEMPTS = 3
+
+
 def phase_profile(torch, serve: dict, engine=None) -> dict:
     """Two windows under torch.profiler on warm programs: two decode steps at width
     4, and one prefill replay at bucket 32 alone. The profiler sees the kernels
     inside a graph replay: every window's GEMM kernels must be per_forward a forward,
-    its WKV / SSM kernels n_layers a prefill (0 a decode step). ``engine`` defaults
-    to the served (graphed) one."""
+    its WKV / SSM kernels n_layers a prefill (0 a decode step). The profiler can
+    drop a few device records (PERF.md section 7), so a window whose counts differ
+    is measured again, up to PROFILE_ATTEMPTS windows, and the phase fails when
+    none counts every kernel; a kernel the path does not launch misses from each.
+    ``engine`` defaults to the served (graphed) one."""
     import numpy as np
 
     engine = engine or serve["engine"]
     prompts, per_forward = serve["prompts"], serve["per_forward"]
     kinds = "graphed" if engine.cuda_graphs else "eager"
 
-    engine.drain()
-    for p in prompts:
-        engine.submit(p, max_new_tokens=4)
-    engine.step()  # 4 prefills + a decode step, outside the window
-    decode = _profile_window(torch, lambda: (engine.step(), engine.step()), 2)
-    engine.drain()
-    prog = engine._prefill_fn(32)
-    require(prog.runs > 0, "the bucket-32 prefill program was not warm")
+    def decode_window():
+        engine.drain()
+        for p in prompts:
+            engine.submit(p, max_new_tokens=4)
+        engine.step()  # 4 prefills + a decode step, outside the window
+        return _profile_window(torch, lambda: (engine.step(), engine.step()), 2)
+
     tokens = np.zeros((1, 32), dtype=np.int64)
     tokens[0, -len(prompts[0]):] = prompts[0]  # left-padded, as the engine stages it
-    prog.stage(tokens=tokens)
-    prefill = _profile_window(torch, lambda: prog.run(engine.runtime), 1)
+
+    def prefill_window():
+        engine.drain()
+        prog = engine._prefill_fn(32)
+        require(prog.runs > 0, "the bucket-32 prefill program was not warm")
+        prog.stage(tokens=tokens)
+        return _profile_window(torch, lambda: prog.run(engine.runtime), 1)
+
     per_prefill = {"wkv": serve.get("wkv_per_prefill", 0), "ssm": serve.get("ssm_per_prefill", 0)}
-    for what, window, forwards, prefills in (("2 decode steps", decode, 2, 0), ("1 prefill", prefill, 1, 1)):
-        c = window["count"]
+    windows = {}
+    for what, measure, forwards, prefills in (("2 decode steps", decode_window, 2, 0),
+                                              ("1 prefill", prefill_window, 1, 1)):
+        want = {GEMM_KERNELS: per_forward * forwards}
+        for kernel, fam in (("wkv_state_kernel", "wkv"), ("wkv_output_kernel", "wkv"), ("ssm_output_kernel", "ssm")):
+            want[_kernel_name(kernel)] = per_prefill[fam] * prefills
+        misses = []
+        for _ in range(PROFILE_ATTEMPTS):
+            window = measure()
+            c = window["count"]
+            seen = {name: c.get(name, 0) for name in want}
+            if not c or seen == want:
+                break
+            misses.append(seen)
+        else:
+            require(False, f"{kinds} {what}: in each of {PROFILE_ATTEMPTS} windows the profiler saw other kernel "
+                           f"counts than {want}: {misses}")
+        window["recounted"] = misses
+        windows[what] = window
         if not c:
             print(f"  {what}: the profiler recorded no device time: not measured")
             continue
-        got = c.get(GEMM_KERNELS, 0)
-        require(got == per_forward * forwards, f"{kinds} {what}: the profiler saw {got} GEMM kernels, want "
-                                               f"{per_forward} x {forwards}")
-        for kernel, fam in (("wkv_state_kernel", "wkv"), ("wkv_output_kernel", "wkv"), ("ssm_output_kernel", "ssm")):
-            n = c.get(_kernel_name(kernel), 0)
-            require(n == per_prefill[fam] * prefills, f"{kinds} {what}: the profiler saw {n} {kernel}, want "
-                                                      f"{per_prefill[fam]} x {prefills}")
+        got = c[GEMM_KERNELS]
+        if misses:
+            print(f"  {kinds} {what}: the profiler dropped records in {len(misses)} window(s) ({misses}); measured "
+                  f"again")
         top = sorted(window["ms"].items(), key=lambda kv: -kv[1])[:6]
         print(f"  {kinds} {what}: wall {window['wall_ms']:.2f} ms, device busy {window['busy_ms']:.2f} ms, idle share "
               f"{window['idle_share']:.3f}; kernels seen: {got} GEMM (= {per_forward} x {forwards})"
@@ -1132,6 +1162,7 @@ def phase_profile(torch, serve: dict, engine=None) -> dict:
               f"them {t['between_runs_ms']:.3f} ms, outside the device's span {t['outside_device_span_ms']:.3f} ms")
         for name, ms in top:
             print(f"    {ms:9.3f} ms  {name}")
+    decode, prefill = windows["2 decode steps"], windows["1 prefill"]
     d, pf = decode["ms"], prefill["ms"]
     return {"decode": decode, "prefill": prefill, "wall_ms": decode["wall_ms"], "busy_ms": decode["busy_ms"],
             "idle_share": decode["idle_share"], "busy_per_step_ms": decode["busy_ms"] / 2,
@@ -2211,7 +2242,7 @@ def phase_engine_chaos(torch, mm, seq: dict, tuned: dict) -> dict:
     """21b: phase 19's batch drained under CHAOS on the tuned granite-8b (CUDA graphs)."""
     from repro_torch.core import faults
     from repro_torch.core.dispatch import Deployment
-    from repro_torch.core.runtime import KernelRuntime
+    from repro_torch.core.runtime import QUARANTINE_BACKOFF, KernelRuntime
     from repro_torch.serve.engine import ServingEngine
 
     default = mm.DEFAULT_CONFIG.name()
@@ -2219,15 +2250,20 @@ def phase_engine_chaos(torch, mm, seq: dict, tuned: dict) -> dict:
     # default at some shapes, and on the card a fault there has nothing compiled left. A
     # redirect runs the default config, so the drain's streams equal a clean drain's only where
     # the two configs compute bitwise the same sums (a config that rounds otherwise can flip a
-    # near-tied greedy token). The fault is keyed on the first served non-default config whose
-    # outputs equal the default's at every problem the tree served it (random bf16 operands;
-    # phase 17's tree is measured anew each run). With none, the first served config is
-    # replaced in the deployment by a compiled one that is, and the fault keyed on that.
+    # near-tied greedy token; random bf16 operands decide, as phase 17's tree is measured anew
+    # each run). Health is back to healthy only once the breaker has re-probed the config,
+    # after QUARANTINE_BACKOFF more selections of it, and a graphed engine selects only while
+    # it builds a program, once per problem in a scanned model: the fault is keyed on the
+    # neutral non-default config the tree selected most often, if that is more than
+    # QUARANTINE_BACKOFF times; else the config it selected most often is replaced in the
+    # deployment by a compiled one that is neutral at its problems, and the fault keyed on that.
     dep = Deployment.load(DEPLOY_PATH)
-    served: dict[str, tuple] = {}
+    served: dict[str, list] = {}  # name -> [config, problems, selections in phase 19's drains]
     for op, prob, cfg in tuned["engine"].runtime.selection_log():
         if op == "matmul" and cfg == dep.select_matmul(*prob):
-            served.setdefault(cfg.name(), (cfg, set()))[1].add(prob)
+            entry = served.setdefault(cfg.name(), [cfg, set(), 0])
+            entry[1].add(prob)
+            entry[2] += 1
     require(served, "phase 19 served no GEMM from the tree")
     g = torch.Generator(device="cuda").manual_seed(21)
 
@@ -2240,28 +2276,36 @@ def phase_engine_chaos(torch, mm, seq: dict, tuned: dict) -> dict:
                 return False
         return True
 
-    verdicts = {name: neutral(cfg, probs) for name, (cfg, probs) in served.items() if name != default}
-    key = next((name for name, ok in verdicts.items() if ok), None)
+    verdicts = {name: neutral(cfg, probs) for name, (cfg, probs, _) in served.items() if name != default}
+    selections = {name: count for name, (_, _, count) in served.items()}
     print(f"  served non-default configs bitwise equal to {default} at every problem the tree served them: "
-          f"{verdicts}")
+          f"{verdicts}; selections in phase 19 {selections}")
+    ready = [name for name, ok in verdicts.items() if ok and selections[name] > QUARANTINE_BACKOFF]
+    key = max(ready, key=selections.get, default=None)
     replaced = None
     if key is None:
-        first, probs = next(iter(served.values()))
+        first, probs, _ = served[max(served, key=selections.get)]
         sub = next((c for c in mm.config_space() if c.name() != default and c.name() not in served
                     and neutral(c, probs)), None)
         require(sub is not None, f"no compiled config computes bitwise what {default} does at the problems the tree "
                 f"served {first.name()}: no dispatch fault whose redirect leaves the streams unchanged")
         dep.configs = [sub if c == first else c for c in dep.configs]
         key, replaced = sub.name(), first.name()
-        print(f"  none: the deployment serves {key} where the tree served {replaced}")
+        print(f"  none selected more than {QUARANTINE_BACKOFF} times: the deployment serves {key} where the tree "
+              f"served {replaced}")
     # The streams the drain must give: a clean drain of the same deployment, which, where the
     # deployment is phase 19's, must also equal phase 19's.
     clean_rt = KernelRuntime(name="chip_smoke-chaos-clean")
     clean_rt.install(dep)
+    clean_rt.set_selection_logging(True, cap=1 << 16)
     clean = _drain(torch, ServingEngine(tuned["model"], tuned["params"], max_batch=4, cache_len=256,
                                         runtime=clean_rt), tuned["prompts"], mm, seq)["outputs"]
     require(replaced is not None or clean == tuned["outputs"],
             "a clean drain of phase 19's deployment gives other streams than phase 19's")
+    key_selections = sum(1 for op, _, cfg in clean_rt.selection_log() if op == "matmul" and cfg.name() == key)
+    require(key_selections > QUARANTINE_BACKOFF,
+            f"a clean drain selects {key} {key_selections} times: too few for the breaker to re-probe it after "
+            f"{QUARANTINE_BACKOFF}")
     rt = KernelRuntime(name="chip_smoke-chaos")
     rt.install(dep)
     plan = faults.FaultPlan.parse(CHAOS, seed=0)
@@ -2285,21 +2329,23 @@ def phase_engine_chaos(torch, mm, seq: dict, tuned: dict) -> dict:
         "programs_built": len(engine.program_log), "programs_captured_again": [(r.kind, r.size) for r in rebuilt],
         "recapture_s": sum(r.seconds for r in rebuilt), "capture_s": sum(r.seconds for r in engine.program_log),
         "health_events": engine.health_events, "health": status.health, "wall_s": wall,
-        "fault_key": key, "replaced": replaced, "streams_equal_clean": outputs == clean,
+        "fault_key": key, "fault_key_selections_clean": key_selections, "replaced": replaced,
+        "streams_equal_clean": outputs == clean,
         "streams_equal_phase_19": outputs == tuned["outputs"],
         "launches": {"matmul": mm.total_launches()} | {_FAMILY[k]: mod.total_launches() for k, mod in seq.items()},
     }
     require(status.completed == len(tickets) and not status.exhausted, f"requests dropped under chaos: {status}")
     require(res["incidents"].get("retry") == 2, f"want 2 engine retries, got {res['incidents']}")
     require(("dispatch.matmul", "compile_error", key) in res["faults_fired"]
-            and res["incidents"].get("quarantined") == 1,
-            f"the dispatch fault on {key} did not fire once and redirect: {res['faults_fired']} / "
-            f"{res['incidents']}")
+            and res["incidents"].get("quarantined") == 1 and res["incidents"].get("absolved") == 1,
+            f"the dispatch fault on {key} did not fire once, redirect and get absolved on a re-probe: "
+            f"{res['faults_fired']} / {res['incidents']}")
     require(rebuilt, "no program was dropped and captured again")
     require(status.health == "healthy" and engine.health_events and engine.health_events[-1][1] == "healthy",
             f"health did not end healthy: {engine.health_events} / {status.health}")
     require(res["streams_equal_clean"], "the greedy streams under chaos differ from a clean drain's")
-    print(f"  {CHAOS} + dispatch.matmul:compile_error on {key}: {status.completed}/{len(tickets)} completed, {res['retries']} request retries, incidents "
+    print(f"  {CHAOS} + dispatch.matmul:compile_error on {key} ({key_selections} selections in a clean drain): "
+          f"{status.completed}/{len(tickets)} completed, {res['retries']} request retries, incidents "
           f"{res['incidents']}, faults {res['faults_fired']}")
     print(f"  programs captured again: {res['programs_captured_again']} in {res['recapture_s']:.3f}s (all captures "
           f"{res['capture_s']:.3f}s); health {engine.health_events}; streams equal the clean drain's: True "
