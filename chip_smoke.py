@@ -387,12 +387,33 @@ Phases (each one fails the run if its check fails):
    --steps 4 --batch 2 --seq 16 --ckpt-every 2 --deployment
    build/deploy_h100.json``, then the same with ``--arch rwkv6-7b``: exit 0,
    checkpoints at steps 2 and 4;
-26. no Python collection ran during any CUDA graph capture (one there could
+26. distribution on the card (granite-8b and rwkv6-7b at full width, 2
+   layers, f32, batch 8 x seq 128, 3 steps; params, AdamW moments and batch
+   as DTensors placed by ``dist.sharding``; every GEMM and WKV through its
+   op's sharding rule onto the hand-written kernels):
+   26a. a world-1 NCCL group, mesh (1, 1): the Trainer's sharded steps
+   against the unsharded steps from the same init, every metric and leaf
+   after each step within 1e-6 of its max (bitwise equality printed), the
+   GEMM / WKV kernel launches of the sharded steps counted;
+   26b. two processes on the one card (``--dist-child``): NCCL refuses two
+   ranks on one device, so a gloo group (its collectives move the card's
+   tensors through host memory; computing stays on the card), mesh (2, 1),
+   granite-8b FSDP over ``data`` as ``param_pspecs`` gives it, each process
+   holding half the params and moments and feeding its host shard of the
+   batch: the losses and every gathered leaf within 1e-5 of one process's
+   unsharded steps on the global batch;
+   26c. ``REPRO_NUM_PROCESSES=2 python -m repro_torch.launch.train --fleet
+   --dist-backend gloo --arch granite-8b --reduced --steps 4 --ckpt-every 2
+   --deployment build/deploy_h100.json``: both processes exit 0,
+   checkpoints at steps 2 and 4, a two-process resume to 6, the step-4 loss
+   within 1e-5 of one process on the global batch;
+27. no Python collection ran during any CUDA graph capture (one there could
    free a dead engine's graphs and invalidate the capture); the ``kernels``
    JSON line, then the card line, then the result line.
 
 ``python3 chip_smoke.py --only-training`` runs phases 1, 2 and 25 alone (25g
-needs ``build/deploy_h100.json`` from a tune).
+needs ``build/deploy_h100.json`` from a tune); ``--only-distribution`` runs
+phases 1, 2 and 26 alone (26c needs it too).
 
 Each phase's header shows the seconds since the start.
 
@@ -400,6 +421,7 @@ Everything measured also goes to ``build/chip_smoke.json``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -2254,9 +2276,11 @@ def phase_engine_chaos(torch, mm, seq: dict, tuned: dict) -> dict:
     # each run). Health is back to healthy only once the breaker has re-probed the config,
     # after QUARANTINE_BACKOFF more selections of it, and a graphed engine selects only while
     # it builds a program, once per problem in a scanned model: the fault is keyed on the
-    # neutral non-default config the tree selected most often, if that is more than
-    # QUARANTINE_BACKOFF times; else the config it selected most often is replaced in the
-    # deployment by a compiled one that is neutral at its problems, and the fault keyed on that.
+    # neutral non-default config a clean drain of the deployment selects most often, if that is
+    # more than QUARANTINE_BACKOFF times (phase 19's log also holds its rebuilds after an
+    # install, so its counts can exceed a drain's); else the config the clean drain selects
+    # most often is replaced in the deployment by a compiled one that is neutral at its
+    # problems, and the fault keyed on that.
     dep = Deployment.load(DEPLOY_PATH)
     served: dict[str, list] = {}  # name -> [config, problems, selections in phase 19's drains]
     for op, prob, cfg in tuned["engine"].runtime.selection_log():
@@ -2280,11 +2304,28 @@ def phase_engine_chaos(torch, mm, seq: dict, tuned: dict) -> dict:
     selections = {name: count for name, (_, _, count) in served.items()}
     print(f"  served non-default configs bitwise equal to {default} at every problem the tree served them: "
           f"{verdicts}; selections in phase 19 {selections}")
-    ready = [name for name, ok in verdicts.items() if ok and selections[name] > QUARANTINE_BACKOFF]
-    key = max(ready, key=selections.get, default=None)
+    # The streams the drain must give: a clean drain of the same deployment, which, where the
+    # deployment is phase 19's, must also equal phase 19's.
+    def clean_drain(dep) -> tuple[list, dict]:
+        clean_rt = KernelRuntime(name="chip_smoke-chaos-clean")
+        clean_rt.install(dep)
+        clean_rt.set_selection_logging(True, cap=1 << 16)
+        outputs = _drain(torch, ServingEngine(tuned["model"], tuned["params"], max_batch=4, cache_len=256,
+                                              runtime=clean_rt), tuned["prompts"], mm, seq)["outputs"]
+        counts: dict[str, int] = {}
+        for op, _, cfg in clean_rt.selection_log():
+            if op == "matmul":
+                counts[cfg.name()] = counts.get(cfg.name(), 0) + 1
+        return outputs, counts
+
+    clean, counts = clean_drain(dep)
+    require(clean == tuned["outputs"], "a clean drain of phase 19's deployment gives other streams than phase 19's")
+    print(f"  selections in a clean drain {counts}")
+    ready = [name for name, ok in verdicts.items() if ok and counts.get(name, 0) > QUARANTINE_BACKOFF]
+    key = max(ready, key=counts.get, default=None)
     replaced = None
     if key is None:
-        first, probs, _ = served[max(served, key=selections.get)]
+        first, probs, _ = served[max(served, key=lambda name: counts.get(name, 0))]
         sub = next((c for c in mm.config_space() if c.name() != default and c.name() not in served
                     and neutral(c, probs)), None)
         require(sub is not None, f"no compiled config computes bitwise what {default} does at the problems the tree "
@@ -2293,16 +2334,8 @@ def phase_engine_chaos(torch, mm, seq: dict, tuned: dict) -> dict:
         key, replaced = sub.name(), first.name()
         print(f"  none selected more than {QUARANTINE_BACKOFF} times: the deployment serves {key} where the tree "
               f"served {replaced}")
-    # The streams the drain must give: a clean drain of the same deployment, which, where the
-    # deployment is phase 19's, must also equal phase 19's.
-    clean_rt = KernelRuntime(name="chip_smoke-chaos-clean")
-    clean_rt.install(dep)
-    clean_rt.set_selection_logging(True, cap=1 << 16)
-    clean = _drain(torch, ServingEngine(tuned["model"], tuned["params"], max_batch=4, cache_len=256,
-                                        runtime=clean_rt), tuned["prompts"], mm, seq)["outputs"]
-    require(replaced is not None or clean == tuned["outputs"],
-            "a clean drain of phase 19's deployment gives other streams than phase 19's")
-    key_selections = sum(1 for op, _, cfg in clean_rt.selection_log() if op == "matmul" and cfg.name() == key)
+        clean, counts = clean_drain(dep)
+    key_selections = counts.get(key, 0)
     require(key_selections > QUARANTINE_BACKOFF,
             f"a clean drain selects {key} {key_selections} times: too few for the breaker to re-probe it after "
             f"{QUARANTINE_BACKOFF}")
@@ -4594,6 +4627,364 @@ def phase_training(torch, mm, ops, phase) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 26: distribution on the card
+# ---------------------------------------------------------------------------
+DIST_STEPS = 3
+# 26a: the sharded step on a (1, 1) mesh against the unsharded one, relative to each leaf's max
+# (and each metric): every rank holds the whole problem, so the same kernels sum in the same order.
+DIST_TOL_WORLD1 = 1e-6
+# 26b, 26c: two processes against one on the global batch: the data shards' gradients are summed
+# by the all-reduce / reduce-scatter in another order than one backward sums them.
+DIST_TOL = 1e-5
+DIST_LAYERS = {"granite-8b": 2, "rwkv6-7b": 2}
+# AdamW's eps at 1e-4, as the CPU tests compare params (tests/test_torch_train.py): at 1e-8 an element
+# whose gradient is summation noise takes a full +-lr step of the noise's sign (the embedding's
+# scatter-add sums in another order on two processes), so the comparison would hold the noise.
+DIST_OPT = dict(lr=3e-4, warmup_steps=2, total_steps=DIST_STEPS, eps=1e-4)
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _rel(torch, got, want) -> float:
+    return float((got.float() - want.float()).abs().max()) / max(float(want.float().abs().max()), 1e-30)
+
+
+def _step_gemms(arch: str, model) -> int:
+    """GEMM launches of one remat-"full" train step of ``model`` (25b's and 25f's counts)."""
+    if arch in LAYER_GEMMS:
+        return (LAYER_GEMMS[arch] * model.cfg.n_layers + 1) * 4 - 1
+    return _gemms_per_step(model)
+
+
+def _global_batches(torch, cfg, hosts: int, steps: int) -> list[dict]:
+    """Each step's global batch on ``hosts`` data shards (every shard's batch in order), on the card."""
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.train.trainer import global_batch
+
+    data = DataConfig(global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ)
+    return [{k: v.to("cuda") for k, v in global_batch(cfg, data, step, hosts).items()} for step in range(steps)]
+
+
+def _unsharded_steps(torch, cfg, batches: list[dict]) -> tuple[list[dict], list[dict], list[float]]:
+    """The unsharded train step from the seed-0 init over ``batches``: per step the metrics,
+    every trained leaf (a clone on the card) and the synchronized step seconds."""
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.train.train_step import make_train_step
+
+    model = build_model(cfg, dtype=torch.float32, param_dtype=torch.float32, device="cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    opt = adamw.init(params)
+    step_fn = make_train_step(model, adamw.AdamWConfig(**DIST_OPT))
+    metrics, leaves, times = [], [], []
+    for batch in batches:
+        t0 = time.perf_counter()
+        params, opt, met = step_fn(params, opt, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        metrics.append({k: float(v) for k, v in met.items()})
+        leaves.append({p: t.detach().clone() for p, t in adamw.trainable(params)})
+    del params, opt
+    return metrics, leaves, times
+
+
+def phase_dist_world1(torch, mm, wk, arch: str, mesh) -> dict:
+    """26a: ``arch`` at full width (DIST_LAYERS deep), f32, batch 8 x seq 128: DIST_STEPS unsharded
+    steps, then DIST_STEPS steps of the Trainer's sharded state on a world-1 NCCL group's (1, 1)
+    mesh (params, moments and batch DTensors, every GEMM / WKV through its op's sharding rule onto
+    the hand-written kernel); every metric and leaf after each step against the unsharded step."""
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    cfg = _train_cfg(arch, n_layers=DIST_LAYERS[arch])
+    _free(torch)
+    rt = _train_runtime(f"chip_smoke[26a {arch}]")
+    with rt.activate():
+        ref_metrics, ref_leaves, ref_times = _unsharded_steps(torch, cfg, _global_batches(torch, cfg, 1, DIST_STEPS))
+        _free(torch)
+        torch.cuda.reset_peak_memory_stats()
+        model = build_model(cfg, dtype=torch.float32, param_dtype=torch.float32, device="cuda")
+        trainer = Trainer(model, cfg, DataConfig(global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ),
+                          adamw.AdamWConfig(**DIST_OPT), TrainerConfig(total_steps=DIST_STEPS), mesh=mesh)
+        params, opt = trainer.init_state(0)
+        mm.reset_launches()
+        wk.reset_launches()
+        worst, bitwise, times, metrics = {}, True, [], []
+        for step in range(DIST_STEPS):
+            t0 = time.perf_counter()
+            params, opt, met = trainer.step_fn(params, opt, trainer._batch(step))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            metrics.append({k: float(v) for k, v in met.items()})
+            for key, want in ref_metrics[step].items():
+                err = abs(metrics[-1][key] - want) / max(abs(want), 1e-30)
+                worst[f"metric {key}"] = max(worst.get(f"metric {key}", 0.0), err)
+                bitwise &= metrics[-1][key] == want
+            for path, t in adamw.trainable(params):
+                full = t.full_tensor()
+                worst[path] = max(worst.get(path, 0.0), _rel(torch, full, ref_leaves[step][path]))
+                bitwise &= bool(torch.equal(full, ref_leaves[step][path]))
+        gemms, fwd, bwd = mm.total_launches(), wk.total_launches(), sum(wk.BWD_LAUNCHES.values())
+        per_step = _step_gemms(arch, model)
+        placements = sorted({str(t.placements) for _, t in adamw.trainable(params)})
+        peak = torch.cuda.max_memory_allocated()
+        del trainer, params, opt, model, ref_leaves
+    _free(torch)
+    top = max(worst.items(), key=lambda kv: kv[1])
+    require(top[1] <= DIST_TOL_WORLD1, f"26a {arch}: sharded against unsharded {top[0]} {top[1]:.3g} "
+                                       f"(limit {DIST_TOL_WORLD1})")
+    require(gemms == DIST_STEPS * per_step, f"26a {arch}: {gemms} GEMM launches, want {DIST_STEPS} x {per_step}")
+    if arch == "rwkv6-7b":
+        n = cfg.n_layers
+        require(fwd == 2 * n * DIST_STEPS and bwd == n * DIST_STEPS,
+                f"26a {arch}: WKV forward kernel launches {fwd}, backward {bwd}")
+    print(f"  {arch}, {cfg.n_layers} of {_train_cfg(arch).n_layers} layers, f32, batch {TRAIN_BATCH} x seq {TRAIN_SEQ}, "
+          f"world-1 NCCL group, mesh (1, 1): {DIST_STEPS} sharded steps, losses "
+          f"{[round(m['loss'], 6) for m in metrics]}; worst against unsharded {top[0]} {top[1]:.3g} (limit "
+          f"{DIST_TOL_WORLD1}); bitwise equal to the unsharded steps: {bitwise}")
+    print(f"  step ms sharded {[round(t * 1e3, 1) for t in times]}, unsharded {[round(t * 1e3, 1) for t in ref_times]};"
+          f" GEMM launches {gemms} ({per_step} a step), WKV forward kernel {fwd}, backward kernel {bwd}; peak "
+          f"{peak / 1e9:.2f} GB; param placements {placements}")
+    return {"arch": arch, "n_layers": cfg.n_layers, "metrics": metrics, "ref_metrics": ref_metrics,
+            "worst": worst, "bitwise": bitwise, "step_s": times, "ref_step_s": ref_times, "gemm_launches": gemms,
+            "gemm_launches_per_step": per_step, "wkv_launches": fwd, "wkv_backward_launches": bwd,
+            "peak_bytes": peak}
+
+
+def dist_child(rank: int, port: int, work: Path) -> None:
+    """26b's process ``rank`` of two on the one card: a gloo group (NCCL refuses two ranks on
+    one device), the host mesh (2, 1), granite-8b's state sharded over ``data`` as
+    ``param_pspecs`` gives it, its host shard of each batch; DIST_STEPS Trainer steps; the
+    gathered leaves (rank 0) against the parent's unsharded steps on the global batch."""
+    import torch
+
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import matmul as mm
+    from repro_torch.launch import fleet
+    from repro_torch.launch.commanalysis import CollectiveCounter
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    _build.load_all(["matmul"])  # the parent's build, loaded
+    topo = fleet.initialize(fleet.FleetTopology(f"127.0.0.1:{port}", 2, rank), backend="gloo")
+    torch.cuda.set_device(fleet.local_device_index(topo))
+    import torch.distributed as dist
+
+    mesh = make_host_mesh("cuda")
+    cfg = _train_cfg("granite-8b", n_layers=DIST_LAYERS["granite-8b"])
+    rt = _train_runtime(f"chip_smoke[26b rank {rank}]")
+    with rt.activate():
+        model = build_model(cfg, dtype=torch.float32, param_dtype=torch.float32, device="cuda")
+        trainer = Trainer(model, cfg, DataConfig(global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ),
+                          adamw.AdamWConfig(**DIST_OPT), TrainerConfig(total_steps=DIST_STEPS), mesh=mesh)
+        params, opt = trainer.init_state(0)
+        torch.cuda.reset_peak_memory_stats()
+        local = lambda tree: sum(t.to_local().numel() * t.to_local().element_size() for _, t in adamw.trainable(tree))
+        held = {"params": local(params), "moments": local(opt.m) + local(opt.v),
+                "full_params": sum(t.numel() * t.element_size() for _, t in adamw.trainable(params))}
+        mm.reset_launches()
+        metrics, times = [], []
+        counter = CollectiveCounter()  # the last step's collectives, by kind: count and result bytes
+        for step in range(DIST_STEPS):
+            t0 = time.perf_counter()
+            with counter if step == DIST_STEPS - 1 else contextlib.nullcontext():
+                params, opt, met = trainer.step_fn(params, opt, trainer._batch(step))
+                torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            metrics.append({k: float(v) for k, v in met.items()})
+        launches = mm.total_launches()
+        peak = torch.cuda.max_memory_allocated()
+        worst = {}
+        ref = torch.load(work / "ref.pt") if rank == 0 else None
+        for path, t in adamw.trainable(params):
+            full = t.full_tensor()
+            if rank == 0:
+                worst[path] = _rel(torch, full.cpu(), ref["leaves"][path])
+        if rank == 0:
+            for step, (got, want) in enumerate(zip(metrics, ref["metrics"])):
+                for key in want:
+                    worst[f"step {step + 1} {key}"] = abs(got[key] - want[key]) / max(abs(want[key]), 1e-30)
+    (work / f"child{rank}.json").write_text(json.dumps({
+        "rank": rank, "backend": dist.get_backend(), "mesh": list(mesh.shape), "data_shard": [
+            trainer.pipeline.data.host_index, trainer.pipeline.data.host_count], "metrics": metrics,
+        "step_s": times, "gemm_launches": launches, "gemm_launches_per_step": _step_gemms("granite-8b", model),
+        "held_bytes": held, "peak_bytes": peak, "worst": worst, "collectives_last_step": counter.summary()}))
+    dist.destroy_process_group()
+
+
+def phase_dist_two(torch) -> dict:
+    """26b: the reference (unsharded steps on the two data shards' global batch), then two
+    processes on the one card (``dist_child``)."""
+    import shutil
+
+    from repro_torch.optim import adamw
+
+    cfg = _train_cfg("granite-8b", n_layers=DIST_LAYERS["granite-8b"])
+    work = ROOT / "build" / "dist_26b"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    rt = _train_runtime("chip_smoke[26b reference]")
+    with rt.activate():
+        metrics, leaves, _ = _unsharded_steps(torch, cfg, _global_batches(torch, cfg, 2, DIST_STEPS))
+    torch.save({"metrics": metrics, "leaves": {p: t.cpu() for p, t in leaves[-1].items()}}, work / "ref.pt")
+    del leaves
+    _free(torch)
+    port = _free_port()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--dist-child", str(r), str(port), str(work)],
+                              cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                              env={**__import__("os").environ, "PYTHONPATH": str(ROOT / "src")}) for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=400)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    seconds = time.perf_counter() - t0
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        require(p.returncode == 0, f"26b rank {r} exited {p.returncode}:\n{out[-3000:]}")
+    kids = [json.loads((work / f"child{r}.json").read_text()) for r in range(2)]
+    top = max(kids[0]["worst"].items(), key=lambda kv: kv[1])
+    print(f"  worst against one process: " + ", ".join(
+        f"{k} {v:.3g}" for k, v in sorted(kids[0]["worst"].items(), key=lambda kv: -kv[1])[:6]))
+    require(top[1] <= DIST_TOL, f"26b: two processes against the global batch: {top[0]} {top[1]:.3g} (limit {DIST_TOL})")
+    for kid in kids:
+        require(kid["backend"] == "gloo" and kid["mesh"] == [2, 1] and kid["data_shard"] == [kid["rank"], 2],
+                f"26b rank {kid['rank']}: {kid['backend']}, mesh {kid['mesh']}, data shard {kid['data_shard']}")
+        require(kid["gemm_launches"] == DIST_STEPS * kid["gemm_launches_per_step"],
+                f"26b rank {kid['rank']}: {kid['gemm_launches']} GEMM launches, want {DIST_STEPS} x "
+                f"{kid['gemm_launches_per_step']}")
+        held = kid["held_bytes"]
+        require(held["params"] < 0.51 * held["full_params"], f"26b rank {kid['rank']} holds {held}")
+        colls = kid["collectives_last_step"]
+        require(colls.get("all-gather_count", 0) > 0 and colls.get("reduce-scatter_count", 0) > 0,
+                f"26b rank {kid['rank']}: a step's collectives {colls}")
+    shutil.rmtree(work, ignore_errors=True)
+    print(f"  two processes on the one card, gloo (NCCL refuses two ranks on one device; its collectives move the "
+          f"card's tensors through host memory), mesh (2, 1), granite-8b {cfg.n_layers} layers f32, FSDP over data: "
+          f"{DIST_STEPS} steps in {seconds:.1f}s with start-up; losses {[round(m['loss'], 6) for m in kids[0]['metrics']]}"
+          f" against one process on the global batch {[round(m['loss'], 6) for m in metrics]}; worst {top[0]} "
+          f"{top[1]:.3g} (limit {DIST_TOL})")
+    for kid in kids:
+        print(f"  rank {kid['rank']}: holds {kid['held_bytes']['params'] / 1e9:.3f} GB of params (of "
+              f"{kid['held_bytes']['full_params'] / 1e9:.3f}) and {kid['held_bytes']['moments'] / 1e9:.3f} GB of "
+              f"moments; step ms {[round(t * 1e3, 1) for t in kid['step_s']]}; peak {kid['peak_bytes'] / 1e9:.2f} GB; "
+              f"GEMM launches {kid['gemm_launches']}; the last step's collectives {kid['collectives_last_step']}")
+    return {"children": kids, "ref_metrics": metrics, "seconds": seconds, "worst": top,
+            "gemm_launches": sum(k["gemm_launches"] for k in kids)}
+
+
+def phase_dist_cli(torch) -> dict:
+    """26c: ``launch.train --fleet`` on two processes of the one card (gloo): both exit 0,
+    checkpoints written once at steps 2 and 4, a resume on two processes to step 6; the loss at
+    step 4 against one process's unsharded steps on the global batch, under the same deployment."""
+    import os
+    import shutil
+
+    from repro_torch.configs import registry
+    from repro_torch.core.dispatch import Deployment
+    from repro_torch.core.runtime import KernelRuntime
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.train.train_step import make_train_step
+    from repro_torch.train.trainer import global_batch
+
+    ckpt = ROOT / "build" / "train_ckpt_26c"
+    shutil.rmtree(ckpt, ignore_errors=True)
+
+    def run(steps: int) -> tuple[list[list[str]], float]:
+        port = _free_port()
+        cmd = [sys.executable, "-m", "repro_torch.launch.train", "--fleet", "--dist-backend", "gloo", "--arch",
+               "granite-8b", "--reduced", "--steps", str(steps), "--ckpt-every", "2", "--ckpt-dir", str(ckpt),
+               "--deployment", str(DEPLOY_PATH)]
+        env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "REPRO_NUM_PROCESSES": "2",
+               "REPRO_COORDINATOR": f"127.0.0.1:{port}"}
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(cmd, cwd=ROOT, env={**env, "REPRO_PROCESS_ID": str(r)}, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True) for r in range(2)]
+        try:
+            outs = [p.communicate(timeout=300)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+        for r, (p, out) in enumerate(zip(procs, outs)):
+            require(p.returncode == 0, f"26c --steps {steps} process {r} exited {p.returncode}:\n{out[-3000:]}")
+        return [out.strip().splitlines() for out in outs], time.perf_counter() - t0
+
+    lines, seconds = run(4)
+    steps = sorted(int(p.name.split("_")[1]) for p in ckpt.iterdir() if p.name.startswith("step_"))
+    require(steps == [2, 4], f"26c: checkpoints {steps}")
+    for r, out in enumerate(lines):
+        require("finished at step 4" in out[-1] and any("backend gloo" in ln for ln in out),
+                f"26c process {r}: {out[-6:]}")
+    got = json.loads(next(ln for ln in lines[0] if ln.startswith("final metrics "))[len("final metrics "):])
+    lines6, seconds6 = run(6)
+    steps6 = sorted(int(p.name.split("_")[1]) for p in ckpt.iterdir() if p.name.startswith("step_"))
+    require(steps6 == [2, 4, 6] and all("finished at step 6" in out[-1] for out in lines6),
+            f"26c resume: checkpoints {steps6}, last lines {[out[-1] for out in lines6]}")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    # One process on the global batch: the launcher's reduced granite-8b, seed-0 init on the card,
+    # its AdamW (lr 3e-4, total steps 4), batch 8 x seq 128 over two data shards, the deployment.
+    cfg = registry.get("granite-8b").reduced()
+    rt = KernelRuntime(name="chip_smoke[26c reference]")
+    rt.install(Deployment.load(str(DEPLOY_PATH)))
+    with rt.activate():
+        model = build_model(cfg, dtype=torch.float32, param_dtype=torch.float32, device="cuda")
+        params = model.init(torch.Generator(device="cuda").manual_seed(0))
+        opt = adamw.init(params)
+        step_fn = make_train_step(model, adamw.AdamWConfig(lr=3e-4, total_steps=4))
+        for step in range(4):
+            batch = {k: v.to("cuda") for k, v in global_batch(cfg, DataConfig(), step, 2).items()}
+            params, opt, met = step_fn(params, opt, batch)
+        want = float(met["loss"])
+    err = abs(got["loss"] - want) / abs(want)
+    require(err <= DIST_TOL, f"26c: step-4 loss {got['loss']!r} against one process {want!r}: {err:.3g}")
+    print(f"  {' '.join(['REPRO_NUM_PROCESSES=2', 'python -m repro_torch.launch.train', '--fleet --dist-backend gloo'])}"
+          f" --arch granite-8b --reduced --steps 4 --ckpt-every 2 --deployment {DEPLOY_PATH.relative_to(ROOT)}: both "
+          f"processes exit 0 in {seconds:.1f}s; checkpoints {steps}; resumed to 6 in {seconds6:.1f}s ({steps6}); step-4 "
+          f"loss {got['loss']!r} against one process on the global batch {want!r} (rel {err:.3g}, limit {DIST_TOL})")
+    return {"seconds": seconds, "resume_seconds": seconds6, "checkpoints": steps, "resumed": steps6,
+            "loss": got["loss"], "ref_loss": want, "rel_err": err, "stdout": lines[0][-4:]}
+
+
+def phase_distribution(torch, mm, wk, phase) -> dict:
+    """Phase 26a-c."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+
+    t0 = time.perf_counter()
+    out = {}
+    phase("[26a] a world-1 NCCL group, mesh (1, 1): granite-8b and rwkv6-7b sharded steps against unsharded")
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{_free_port()}", world_size=1, rank=0)
+    try:
+        mesh = make_host_mesh("cuda")
+        out["world1"] = {arch: phase_dist_world1(torch, mm, wk, arch, mesh) for arch in DIST_LAYERS}
+    finally:
+        dist.destroy_process_group()
+    phase("[26b] two processes on the one card (gloo), mesh (2, 1): granite-8b FSDP over data against the global batch")
+    out["two"] = phase_dist_two(torch)
+    phase("[26c] the launcher: launch.train --fleet on two processes, checkpoints, resume")
+    out["cli"] = phase_dist_cli(torch)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  phase 26a-c in {out['seconds']:.1f}s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4601,6 +4992,9 @@ def main() -> int:
         print("chip_smoke: torch finds no CUDA device; this smoke test runs only on the GPU",
               file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--dist-child"]:  # one of 26b's two processes
+        dist_child(int(sys.argv[2]), int(sys.argv[3]), Path(sys.argv[4]))
+        return 0
     from repro_torch.kernels import _build
     from repro_torch.kernels import attention as at
     from repro_torch.kernels import matmul as mm
@@ -4647,6 +5041,11 @@ def main() -> int:
         regs = [line.split(":", 1)[1].strip() for line in log if "registers" in line]
         spills = sorted({line.strip() for line in log if "spill" in line and "0 bytes spill" not in line})
         print(f"  ptxas {name}: {len(regs)} kernels; {sorted(set(regs))}; spills {spills or 'none'}")
+    if "--only-distribution" in sys.argv[1:]:  # phase 26a-c alone (needs build/deploy_h100.json for 26c)
+        distribution = phase_distribution(torch, mm, wk, phase)
+        (ROOT / "build" / "chip_smoke_distribution.json").write_text(json.dumps(distribution, indent=1, default=str))
+        print(f"[26] distribution phase done in {time.perf_counter() - t_start:.1f}s")
+        return 0
     if "--only-training" in sys.argv[1:]:  # phase 25 alone (needs build/deploy_h100.json for 25g)
         training = phase_training(torch, mm, ops, phase)
         (ROOT / "build" / "chip_smoke_training.json").write_text(json.dumps(training, indent=1, default=str))
@@ -4822,6 +5221,8 @@ def main() -> int:
     arch_parity = phase_arch_cpu_vs_card(torch, mm)
     _free(torch)
     training = phase_training(torch, mm, ops, phase)
+    _free(torch)
+    distribution = phase_distribution(torch, mm, wk, phase)
     # Phase 23's paths, each counted from 0 just before it and read just after.
     control_launches = {fam: {"control plane: tune job tables (23a)": control["job"]["launches"][fam]}
                         for fam in mods}
@@ -4876,6 +5277,14 @@ def main() -> int:
         "training: one step, reduced models on the card (25e)": training["cpu_vs_card"]["gemm_launches"]})
     require(all(v for k, v in gemm_launches.items() if k.startswith("training")),
             f"a training path launched no GEMM: {gemm_launches}")
+    # Phase 26's paths: every GEMM of the sharded steps (each process's own counts in 26b).
+    gemm_launches.update({
+        f"distribution: {arch} sharded steps, world-1 NCCL, mesh (1, 1) (26a)": run["gemm_launches"]
+        for arch, run in distribution["world1"].items()})
+    gemm_launches["distribution: granite-8b, two processes (gloo), mesh (2, 1) (26b)"] = distribution["two"][
+        "gemm_launches"]
+    require(all(v for k, v in gemm_launches.items() if k.startswith("distribution")),
+            f"a distribution path launched no GEMM: {gemm_launches}")
     # Phase 25's recurrent paths: the WKV / scan forward kernel (forward and remat recompute) and
     # backward kernel launches of the training runs, each counted from 0 just before and read just after.
     rec_paths = {
@@ -4886,6 +5295,9 @@ def main() -> int:
         rec_paths[fam][f"training: one step, reduced {label} on the card (25e)"] = {
             "forward_kernel_launches": training["cpu_vs_card"]["forward_kernel_launches"][fam],
             "backward_kernel_launches": training["cpu_vs_card"]["backward_kernel_launches"][fam]}
+    rec_paths["wkv"]["distribution: rwkv6-7b sharded steps, world-1 NCCL, mesh (1, 1) (26a)"] = {
+        "forward_kernel_launches": distribution["world1"]["rwkv6-7b"]["wkv_launches"],
+        "backward_kernel_launches": distribution["world1"]["rwkv6-7b"]["wkv_backward_launches"]}
     train_fwd = {fam: {k: v["forward_kernel_launches"] for k, v in paths.items()} for fam, paths in rec_paths.items()}
     train_bwd = {fam: {k: v["backward_kernel_launches"] for k, v in paths.items()} for fam, paths in rec_paths.items()}
     require(all(v for paths in (*train_fwd.values(), *train_bwd.values()) for v in paths.values()),
@@ -5089,10 +5501,10 @@ def main() -> int:
         "guard": guard, "engine_chaos": chaos, "retune_on_card": retuned, "online": online,
         "attention_timing": attn_rows, "paged": paged, "paged_cpu_vs_card": paged_cpu, "slo": slo, "int8": int8,
         "router": routed, "paged_hymba": paged_hymba, "paged_launches": paged_launches, "control_plane": control,
-        "arch_serve": arch_runs, "arch_cpu_vs_card": arch_parity, "training": training,
+        "arch_serve": arch_runs, "arch_cpu_vs_card": arch_parity, "training": training, "distribution": distribution,
         "kernels": kernels["kernels"], "seconds": time.perf_counter() - t_start,
     }, indent=1, default=str))
-    print(f"[26] done in {time.perf_counter() - t_start:.1f}s")
+    print(f"[27] done in {time.perf_counter() - t_start:.1f}s")
     print(json.dumps(kernels))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -18,6 +18,15 @@ bf16 leaf as f32 (every bf16 value is exact there), which the reference's
 ``restore`` casts back with ``astype(leaf.dtype)``.  A tied model's
 ``emb.embed_t`` is derived from ``embed``: it is never saved, and a restore
 into a tree that holds one rebuilds it.
+
+Sharded state (DTensor leaves, ``dist.sharding``) is saved in the same
+format: every rank gathers each full array (a collective, so every rank
+calls ``save`` / ``save_async`` at the same steps), rank 0 alone writes, and
+every rank leaves ``save`` / ``wait`` only once the step is committed (a
+barrier of the default group).  ``restore(..., placements=)`` places each
+array as it loads, as the reference's ``shardings=`` does: every rank reads
+the full array and keeps its own shard, so a checkpoint written on one mesh
+restores onto any other, or onto none.
 """
 from __future__ import annotations
 
@@ -28,6 +37,8 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 from ..optim.adamw import DERIVED
 
@@ -48,8 +59,12 @@ def _items(tree, prefix: str = ""):
 
 
 def _to_numpy(leaf, copy: bool = False) -> np.ndarray:
-    """A leaf as a host array (bf16 widened to f32); ``copy`` never shares
-    memory with the leaf, which the trainer goes on updating in place."""
+    """A leaf as a host array (bf16 widened to f32; a DTensor's full array,
+    gathered); ``copy`` never shares memory with the leaf, which the trainer
+    goes on updating in place."""
+    if isinstance(leaf, DTensor):
+        with torch.no_grad():
+            leaf, copy = leaf.full_tensor(), False
     if isinstance(leaf, torch.Tensor):
         leaf = leaf.detach()
         if leaf.dtype == torch.bfloat16:
@@ -68,6 +83,14 @@ def _file(key: str) -> str:
     return key.replace("/", "__") + ".npy"
 
 
+def _sharded(tree) -> bool:
+    return any(isinstance(leaf, DTensor) for _, leaf in _items(tree))
+
+
+def _rank() -> int:
+    return dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
+
+
 class CheckpointManager:
     def __init__(self, directory: str | Path, keep: int = 3):
         self.dir = Path(directory)
@@ -75,6 +98,7 @@ class CheckpointManager:
         self.keep = keep
         self._thread: threading.Thread | None = None
         self._error: BaseException | None = None
+        self._pending_barrier = False  # a sharded save_async whose commit every rank awaits in wait()
 
     # -- discovery ----------------------------------------------------------
     def steps(self) -> list[int]:
@@ -91,8 +115,14 @@ class CheckpointManager:
 
     # -- save ----------------------------------------------------------------
     def save(self, step: int, tree, *, extra: dict | None = None) -> None:
-        """Blocking atomic save of a tree of tensors (or numpy arrays)."""
-        self._write(step, {key: _to_numpy(leaf) for key, leaf in _items(tree)}, extra)
+        """Blocking atomic save of a tree of tensors (or numpy arrays); of
+        DTensors, a collective written by rank 0."""
+        sharded = _sharded(tree)
+        flat = {key: _to_numpy(leaf) for key, leaf in _items(tree)}
+        if _rank() == 0:
+            self._write(step, flat, extra)
+        if sharded:
+            dist.barrier()
 
     def _write(self, step: int, flat: dict[str, np.ndarray], extra: dict | None) -> None:
         tmp = self.dir / f"step_{step}.tmp"
@@ -112,7 +142,10 @@ class CheckpointManager:
     def save_async(self, step: int, tree, *, extra: dict | None = None) -> None:
         """Copy to host memory now; write on a background thread."""
         self.wait()
+        self._pending_barrier = _sharded(tree)
         host = {key: _to_numpy(leaf, copy=True) for key, leaf in _items(tree)}  # device -> host now
+        if _rank() != 0:
+            return
 
         def work():
             try:
@@ -127,47 +160,62 @@ class CheckpointManager:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._pending_barrier:
+            self._pending_barrier = False
+            dist.barrier()
         if self._error is not None:
             err, self._error = self._error, None
             raise err
 
     # -- restore --------------------------------------------------------------
-    def restore(self, step: int, like):
+    def restore(self, step: int, like, *, placements=None):
         """Restore into the structure of ``like`` (a tree of tensors): each
         leaf with ``like``'s shape (checked), dtype and device.  NamedTuples
-        in ``like`` come back as the same type.  Returns (tree, extra)."""
+        in ``like`` come back as the same type.
+
+        ``placements``: an optional matching tree whose leaves are
+        ``(DeviceMesh, placements)`` pairs (``dist.sharding.placement_tree``):
+        each array loads as a DTensor on them, every rank keeping its own
+        shard of the full array it reads, so restore works on any mesh.
+        Returns (tree, extra)."""
         final = self.dir / f"step_{step}"
         manifest = json.loads((final / _MANIFEST).read_text())
         keys = set(manifest["keys"])
 
-        def load(node, prefix: str):
+        def load(node, place, prefix: str):
             if hasattr(node, "_asdict"):
-                return type(node)(**load(node._asdict(), prefix))
+                return type(node)(**load(node._asdict(), None if place is None else place._asdict(), prefix))
             out = {}
             for key, leaf in node.items():
                 if key in DERIVED:
                     continue
                 path = f"{prefix}{key}"
+                where = None if place is None else place[key]
                 if isinstance(leaf, dict) or hasattr(leaf, "_asdict"):
-                    out[key] = load(leaf, path + "/")
+                    out[key] = load(leaf, where, path + "/")
                     continue
                 if path not in keys:
                     raise KeyError(f"checkpoint step {step} missing array {path!r}")
                 arr = _from_numpy(np.load(final / _file(path)))
                 if tuple(arr.shape) != tuple(leaf.shape):
                     raise ValueError(f"{path}: checkpoint shape {tuple(arr.shape)} != expected {tuple(leaf.shape)}")
-                out[key] = arr.to(device=leaf.device, dtype=leaf.dtype)
+                arr = arr.to(device=leaf.device, dtype=leaf.dtype)
+                out[key] = arr if where is None else distribute_tensor(arr, *where, src_data_rank=None)
             if "embed_t" in node:
-                out["embed_t"] = out["embed"].t().contiguous()
+                embed_t = out["embed"].t().contiguous()
+                if place is not None:
+                    mesh, target = place["embed_t"]
+                    embed_t = embed_t.redistribute(mesh, target)
+                out["embed_t"] = embed_t
             return out
 
-        return load(like, ""), manifest["extra"]
+        return load(like, placements, ""), manifest["extra"]
 
-    def restore_latest(self, like):
+    def restore_latest(self, like, *, placements=None):
         step = self.latest_step()
         if step is None:
             return None
-        tree, extra = self.restore(step, like)
+        tree, extra = self.restore(step, like, placements=placements)
         return step, tree, extra
 
     # -- GC -------------------------------------------------------------------

@@ -1,15 +1,18 @@
-"""Architecture registry: ``--arch`` lookup, input shapes, GEMM harvest.
+"""Architecture registry: ``--arch`` lookup, input shapes, dry-run cells, GEMM harvest.
 
 The port registers the reference's ten configs in its order, so the default
-harvests equal the reference's; ``build_model`` builds every one of them,
-seamless-m4t-large-v2 as the encoder-decoder ``EncDecLM``.
-``ShapeSpec``, ``SHAPES``, ``shapes_for``, ``gemm_problems`` and
-``_chunk_widths`` are copied from ``repro/configs/registry.py`` (the tuning
-harvest); ``input_specs`` stays behind, it builds JAX shape structs.
+harvests and the dry run's cells equal the reference's; ``build_model``
+builds every one of them, seamless-m4t-large-v2 as the encoder-decoder
+``EncDecLM``.  Copied from ``repro/configs/registry.py``: ``ShapeSpec``,
+``SHAPES``, ``shapes_for``, ``all_cells``, ``skipped_cells``,
+``gemm_problems`` and ``_chunk_widths``; ``input_specs`` gives meta tensors
+where the reference gives ``jax.ShapeDtypeStruct``.
 """
 from __future__ import annotations
 
 import dataclasses
+
+import torch
 
 from .base import ArchConfig
 from .dbrx_132b import CONFIG as _dbrx
@@ -64,6 +67,57 @@ def shapes_for(arch: str) -> list[str]:
             continue
         out.append(name)
     return out
+
+
+def all_cells() -> list[tuple[str, str]]:
+    """Every runnable (arch, shape) dry-run cell."""
+    return [(a, s) for a in ARCHS for s in shapes_for(a)]
+
+
+def skipped_cells() -> list[tuple[str, str, str]]:
+    out = []
+    for a in ARCHS:
+        cfg = get(a)
+        if cfg.name not in _SUBQUADRATIC:
+            out.append((a, "long_500k", "pure full-attention arch; 500k ctx needs sub-quadratic attention"))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# input specs (meta tensors — no allocation)
+# ---------------------------------------------------------------------------
+def input_specs(arch: str, shape: str) -> dict[str, torch.Tensor]:
+    """Model inputs for one (arch x shape) cell, as meta tensors of the
+    reference's shapes and dtypes.
+
+    train/prefill: full-sequence tokens (+ stub modality embeddings).
+    decode: one new token per sequence (the KV/SSM cache is built separately
+    by the serving engine; see repro_torch/serve/engine.py).
+    """
+    cfg = get(arch)
+    sp = SHAPES[shape]
+    b, s = sp.global_batch, sp.seq_len
+
+    def spec(shape_, dtype=torch.int32):
+        return torch.empty(shape_, dtype=dtype, device="meta")
+
+    specs: dict[str, torch.Tensor] = {}
+    if sp.kind in ("train", "prefill"):
+        if cfg.family == "audio":
+            # Stub frontend: precomputed frame embeddings for the encoder;
+            # decoder consumes text tokens of the same nominal length.
+            specs["frames"] = spec((b, s, cfg.d_model), torch.bfloat16)
+            specs["tokens"] = spec((b, s))
+        else:
+            specs["tokens"] = spec((b, s))
+            if cfg.family == "vlm":
+                specs["image_embs"] = spec((b, cfg.n_image_tokens, cfg.d_model), torch.bfloat16)
+        if sp.kind == "train":
+            specs["targets"] = spec(specs["tokens"].shape)
+    else:  # decode
+        specs["tokens"] = spec((b, 1))
+        specs["positions"] = spec((b,))
+    return specs
 
 
 # ---------------------------------------------------------------------------

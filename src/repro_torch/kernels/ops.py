@@ -59,6 +59,8 @@ from collections import Counter
 from typing import Protocol
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import register_sharding
 
 from ..core.faults import GUARDED_EXCEPTIONS, FaultPlan, NonFiniteOutputError, incident
 from ..core.runtime import KernelRuntime, current_runtime, quarantine_redirect
@@ -69,8 +71,9 @@ from .ssm import (DEFAULT_SSM_CONFIG, SsmConfig, ssm_backward_cuda, ssm_backward
 from .wkv import (DEFAULT_WKV_CONFIG, WkvConfig, launch_chunk, wkv_backward_cuda, wkv_backward_plain, wkv_cuda,
                   wkv_plain)
 
-__all__ = ["GEMM_OP", "FixedPolicy", "GRAD_SCANS", "KernelPolicy", "NoBackwardKernelError", "SSM_FUSED_OP", "SSM_OP",
-           "WKV_OP", "attention", "gemm_phase", "matmul", "ssm_scan", "ssm_scan_fused", "wkv"]
+__all__ = ["GEMM_OP", "FixedPolicy", "GRAD_SCANS", "KernelPolicy", "NoBackwardKernelError", "SSM_BWD_OP",
+           "SSM_FUSED_BWD_OP", "SSM_FUSED_OP", "SSM_OP", "WKV_BWD_OP", "WKV_OP", "attention", "gemm_phase", "matmul",
+           "ssm_scan", "ssm_scan_fused", "wkv"]
 
 
 class KernelPolicy(Protocol):
@@ -122,6 +125,14 @@ def scan_layers(n: int):
 
 def _on_card(t: torch.Tensor) -> bool:
     return t.device.type != "cpu"
+
+
+def _through_op(*tensors) -> bool:
+    """Whether a call must go through its dispatcher op even without grad: a
+    DTensor operand (the op's sharding rule runs the kernel on each rank's
+    local shard) or a meta tensor (the op's fake impl gives the shapes; it
+    never reaches :func:`_on_card`'s choice of wrapper or plain version)."""
+    return any(isinstance(t, DTensor) or (isinstance(t, torch.Tensor) and t.is_meta) for t in tensors)
 
 
 def _select(rt, family: str, problem: tuple, select):
@@ -250,12 +261,18 @@ def matmul(
     bf16 image embeddings against f32 weights) run in f32, as the
     reference's ``jnp.dot`` promotes them.  With grad enabled and an operand
     that requires it, the call runs as the ``repro_torch::gemm`` op
-    (:data:`GEMM_OP`), whose gradient GEMMs come back here.
+    (:data:`GEMM_OP`), whose gradient GEMMs come back here.  So does a call
+    on DTensors (the op's sharding rule: each rank runs the GEMM of its local
+    shards, so selection sees the local problem) or on meta tensors (the
+    op's fake impl).
     """
     if rhs.ndim != 2:
         raise ValueError(f"rhs must be 2-D, got {tuple(rhs.shape)}")
     if torch.is_grad_enabled() and (lhs.requires_grad or rhs.requires_grad):
         return _gemm(lhs, rhs, out_dtype)
+    if _through_op(lhs, rhs):
+        with _uncounted():
+            return _gemm(lhs, rhs, out_dtype)
     return _matmul_call(lhs, rhs, out_dtype)
 
 
@@ -300,6 +317,8 @@ GRAD_GEMMS: Counter = Counter()
 class _PhaseLocal(threading.local):
     def __init__(self):
         self.label = "forward"
+        self.counted = True  # False for a call that runs the op only to reach its rule or fake
+        self.ran = None  # the config a recurrence op's last forward ran, read by its setup_context
 
 
 _phase = _PhaseLocal()
@@ -315,6 +334,22 @@ def gemm_phase(label: str):
         _phase.label = prev
 
 
+@contextlib.contextmanager
+def _uncounted():
+    """Op calls inside count in neither :data:`GRAD_GEMMS` nor :data:`GRAD_SCANS`:
+    calls without grad that take the op for its sharding rule or its fake impl."""
+    prev, _phase.counted = _phase.counted, False
+    try:
+        yield
+    finally:
+        _phase.counted = prev
+
+
+def _count(counter: Counter, key) -> None:
+    if _phase.counted:
+        counter[key] += 1
+
+
 def gemm_phase_label() -> str:
     """The label this thread's GEMMs count under now."""
     return _phase.label
@@ -325,11 +360,31 @@ def gemm_phase_label() -> str:
 def _gemm(lhs: torch.Tensor, rhs: torch.Tensor, out_dtype: torch.dtype | None) -> torch.Tensor:
     """``ops.matmul`` under grad: the selected, guarded GEMM as a dispatcher op,
     so autograd and torch's selective-checkpoint policies see it."""
-    GRAD_GEMMS[_phase.label] += 1
+    _count(GRAD_GEMMS, _phase.label)
     return _matmul_call(lhs, rhs, out_dtype)
 
 
 GEMM_OP = torch.ops.repro_torch.gemm.default
+
+
+@_gemm.register_fake
+def _gemm_fake(lhs, rhs, out_dtype):
+    return lhs.new_empty((*lhs.shape[:-1], rhs.shape[1]), dtype=out_dtype or lhs.dtype)
+
+
+R = Replicate()
+
+
+@register_sharding(GEMM_OP)
+def _gemm_sharding(lhs, rhs, out_dtype):
+    """``aten.mm``'s strategies on one mesh dim: lhs's lead dims sharded (rhs
+    replicated), rhs's columns sharded (lhs replicated), or the contraction
+    sharded on both, giving a partial sum; else everything replicated."""
+    last = lhs.ndim - 1
+    rules = [([R], [R, R, None]), ([Shard(last)], [R, Shard(1), None]),
+             ([Partial()], [Shard(last), Shard(0), None])]
+    rules += [([Shard(d)], [Shard(d), R, None]) for d in range(last)]
+    return rules
 
 
 def _gemm_setup(ctx, inputs, output):
@@ -362,10 +417,10 @@ def _gemm_backward(ctx, grad_out):
     grad_lhs = grad_rhs = None
     with rt.activate():
         if ctx.needs_input_grad[0]:
-            GRAD_GEMMS["grad_lhs"] += 1
+            _count(GRAD_GEMMS, "grad_lhs")
             grad_lhs = matmul(g, rhs.t().contiguous(), out_dtype=lhs.dtype)
         if ctx.needs_input_grad[1]:
-            GRAD_GEMMS["grad_rhs"] += 1
+            _count(GRAD_GEMMS, "grad_rhs")
             grad_rhs = matmul(lhs.reshape(-1, k).t().contiguous(), g.reshape(-1, n).contiguous(),
                               out_dtype=rhs.dtype)
     return grad_lhs, grad_rhs, None
@@ -423,6 +478,8 @@ def attention(q, k, v, *, causal: bool = True, scale: float | None = None):
 # kernel call (one per op call the backward reaches).
 GRAD_SCANS: Counter = Counter()
 
+S0, S1, S2 = Shard(0), Shard(1), Shard(2)
+
 
 def grad_scans(op: str) -> dict[str, int]:
     """:data:`GRAD_SCANS` of one op (``"wkv"``, ``"ssm_scan"``, ``"ssm_scan_fused"``), by phase."""
@@ -441,29 +498,45 @@ class _Run:
         return self.launch(self.config)
 
 
-def _setup(ctx, inputs, config, extra=()):
+def _setup(ctx, inputs, extra=()):
     """Save what a recurrence's backward reads: its inputs (and ``extra``), the
-    config its forward ran, and the runtime active at the forward, which the
-    backward (on autograd's device thread, on the card) activates."""
+    config its forward ran (left in ``_phase.ran`` by the op's forward, or its
+    fake impl), and the runtime active at the forward, which the backward (on
+    autograd's device thread, on the card) activates."""
     ctx.set_materialize_grads(False)
     ctx.save_for_backward(*inputs, *extra)
-    ctx.config = config
+    ctx.config = _phase.ran
     ctx.runtime = current_runtime()
 
 
-def _grad_call(ctx, op: str, family: str, run, run_ref, on_card: bool):
-    """One guarded backward kernel call at the forward's config, under its runtime:
-    a failing config is quarantined and the default config's backward runs."""
-    GRAD_SCANS[op, "backward"] += 1
-    rt: KernelRuntime = ctx.runtime
-    with rt.activate():
-        if not on_card:
-            return _guarded_call(rt, family, ctx.config, lambda cfg: run_ref(), run_ref, on_card=False)
-        return _guarded_call(rt, family, ctx.config, run, run_ref, on_card=True)
+def _grad_call(op: str, family: str, config, run, run_ref, on_card: bool):
+    """One guarded backward kernel call at the forward's config, under the
+    current runtime (the backward formula activates the forward's): a failing
+    config is quarantined and the default config's backward runs."""
+    _count(GRAD_SCANS, (op, "backward"))
+    rt = current_runtime()
+    if not on_card:
+        return _guarded_call(rt, family, config, lambda cfg: run_ref(), run_ref, on_card=False)
+    return _guarded_call(rt, family, config, run, run_ref, on_card=True)
 
 
 def _only_needed(ctx, grads) -> tuple:
     return tuple(g if need else None for g, need in zip(grads, ctx.needs_input_grad))
+
+
+def _opt(spec, placement):
+    """``placement`` for an optional tensor argument that is present, ``None`` for one that is not."""
+    return None if spec is None else placement
+
+
+def _dense(*outs) -> tuple:
+    """An op's outputs contiguous, as its fake impl gives them (the plain
+    versions return some transposed; a DTensor reshape views the local shard)."""
+    return tuple(t.contiguous() for t in outs)
+
+
+def _zeros_f32(like):
+    return torch.zeros_like(like, dtype=torch.float32)
 
 
 def wkv(r, k, v, logw, u, state=None):
@@ -475,12 +548,15 @@ def wkv(r, k, v, logw, u, state=None):
     version runs (it ignores the chunk, as the reference's jnp path does).
     With grad enabled and an operand that requires it, the call runs as the
     ``repro_torch::wkv`` op (:data:`WKV_OP`), whose backward is the WKV's
-    backward kernel.
+    backward kernel; on DTensors or meta tensors it runs as that op too
+    (sharded over batch or heads by its rule, never over the sequence).
     """
+    args = (*(t.contiguous() for t in (r, k, v, logw, u)), None if state is None else state.contiguous())
     if _wants_grad(r, k, v, logw, u, state):
-        o, s_out, _, _ = _wkv_op(*(t.contiguous() for t in (r, k, v, logw, u)),
-                                 None if state is None else state.contiguous())
-        return o, s_out
+        return _wkv_op(*args)[:2]
+    if _through_op(*args):
+        with _uncounted():
+            return _wkv_op(*args)[:2]
     return _wkv_call(r, k, v, logw, u, state)[0]
 
 
@@ -502,47 +578,104 @@ def _wkv_call(r, k, v, logw, u, state, keep_states: bool = False):
 
 @torch.library.custom_op("repro_torch::wkv", mutates_args=(),
                          schema="(Tensor r, Tensor k, Tensor v, Tensor logw, Tensor u, Tensor? state) "
-                                "-> (Tensor, Tensor, Tensor, Tensor)")
+                                "-> (Tensor, Tensor, Tensor)")
 def _wkv_op(r, k, v, logw, u, state):
     """``ops.wkv`` under grad as a dispatcher op.  Returns (o, final state, hs:
-    the state at every chunk's start, which the backward kernel reads (empty
-    on the CPU, whose plain backward makes its own), the chunk of the config
-    the forward ran as a 1-element int64 CPU tensor)."""
-    GRAD_SCANS["wkv", _phase.label] += 1
-    out, config = _wkv_call(r, k, v, logw, u, state, keep_states=True)
-    hs = out[2] if len(out) > 2 else r.new_empty((0,), dtype=torch.float32)
-    return out[0], out[1], hs, torch.tensor([config.chunk])
+    the state at every chunk's start, which the backward kernel reads; no
+    chunks on the CPU, whose plain backward makes its own).  The config it
+    ran is left in ``_phase.ran`` for the autograd setup."""
+    _count(GRAD_SCANS, ("wkv", _phase.label))
+    out, _phase.ran = _wkv_call(r, k, v, logw, u, state, keep_states=True)
+    b, _, h, hd = r.shape
+    hs = out[2] if len(out) > 2 else r.new_empty((b, h, 0, hd, hd), dtype=torch.float32)
+    return _dense(out[0], out[1], hs)
 
 
 WKV_OP = torch.ops.repro_torch.wkv.default
 
 
+@_wkv_op.register_fake
+def _wkv_fake(r, k, v, logw, u, state):
+    """Shapes at the default config (``hs`` holds chunks off the CPU: the meta
+    device stands for the card)."""
+    b, s, h, hd = r.shape
+    _phase.ran = DEFAULT_WKV_CONFIG
+    chunks = 0 if r.device.type == "cpu" else -(-s // launch_chunk(DEFAULT_WKV_CONFIG, s))
+    f32 = torch.float32
+    return (r.new_empty(r.shape, dtype=f32), r.new_empty((b, h, hd, hd), dtype=f32),
+            r.new_empty((b, h, chunks, hd, hd), dtype=f32))
+
+
+@register_sharding(WKV_OP)
+def _wkv_sharding(r, k, v, logw, u, state):
+    """Over batch, or over heads (u's rows with them), never over the sequence."""
+    return [([R, R, R], [R, R, R, R, R, _opt(state, R)]),
+            ([S0, S0, S0], [S0, S0, S0, S0, R, _opt(state, S0)]),
+            ([S2, S1, S1], [S2, S2, S2, S2, S0, _opt(state, S1)])]
+
+
 def _wkv_setup(ctx, inputs, output):
-    _, s_out, hs, chunk = output
-    ctx.mark_non_differentiable(hs, chunk)
-    _setup(ctx, inputs, WkvConfig(int(chunk[0])), (s_out, hs))
+    _, s_out, hs = output
+    ctx.mark_non_differentiable(hs)
+    _setup(ctx, inputs, (s_out, hs))
 
 
-def _wkv_backward(ctx, do, ds_out, _hs, _chunk):
-    """The WKV's backward kernel at the forward's config (its launch chunk, and the
-    forward's ``hs``; a redirect to another chunk makes its own), or on the CPU
-    :func:`~repro_torch.kernels.wkv.wkv_backward_plain` at that chunk."""
+def _wkv_backward(ctx, do, ds_out, _hs):
+    """The ``repro_torch::wkv_backward`` op under the forward's runtime."""
     r, k, v, logw, u, state, s_out, hs = ctx.saved_tensors
-    s = r.shape[1]
-    do = torch.zeros(r.shape, dtype=torch.float32, device=r.device) if do is None else do.contiguous()
-    ds_out = None if ds_out is None else ds_out.contiguous()
-    chunk = launch_chunk(ctx.config, s)
-    run_ref = lambda: wkv_backward_plain(r, k, v, logw, u, state, do, ds_out, chunk)
-
-    def run(cfg):
-        cfg = cfg or DEFAULT_WKV_CONFIG
-        states = (hs, s_out) if launch_chunk(cfg, s) == chunk else None
-        return wkv_backward_cuda(r, k, v, logw, u, state, do, ds_out, cfg, states)
-
-    return _only_needed(ctx, _grad_call(ctx, "wkv", "wkv", run, run_ref, _on_card(r)))
+    do = _zeros_f32(r) if do is None else do
+    with ctx.runtime.activate():
+        grads = _wkv_bwd_op(r, k, v, logw, u, state, do, ds_out, s_out, hs, ctx.config.chunk)
+    return _only_needed(ctx, (*grads[:5], None if state is None else grads[5]))
 
 
 _wkv_op.register_autograd(_wkv_backward, setup_context=_wkv_setup)
+
+
+@torch.library.custom_op("repro_torch::wkv_backward", mutates_args=(),
+                         schema="(Tensor r, Tensor k, Tensor v, Tensor logw, Tensor u, Tensor? state, Tensor do, "
+                                "Tensor? ds_out, Tensor s_out, Tensor hs, int chunk) "
+                                "-> (Tensor, Tensor, Tensor, Tensor, Tensor, Tensor)")
+def _wkv_bwd_op(r, k, v, logw, u, state, do, ds_out, s_out, hs, chunk):
+    """The WKV's backward kernel at the forward's config (its launch chunk, and the
+    forward's ``hs``; a redirect to another chunk makes its own), or on the CPU
+    :func:`~repro_torch.kernels.wkv.wkv_backward_plain` at that chunk.  Returns
+    (dr, dk, dv, dlogw, du, dstate); dstate holds nothing without a state."""
+    b, s, h, hd = r.shape
+    do = do.contiguous()
+    ds_out = None if ds_out is None else ds_out.contiguous()
+    config = WkvConfig(chunk)
+    launched = launch_chunk(config, s)
+    run_ref = lambda: wkv_backward_plain(r, k, v, logw, u, state, do, ds_out, launched)
+
+    def run(cfg):
+        cfg = cfg or DEFAULT_WKV_CONFIG
+        states = (hs, s_out) if launch_chunk(cfg, s) == launched else None
+        return wkv_backward_cuda(r, k, v, logw, u, state, do, ds_out, cfg, states)
+
+    grads = _grad_call("wkv", "wkv", config, run, run_ref, _on_card(r))
+    dstate = grads[5] if state is not None else r.new_empty((b, h, 0, 0), dtype=torch.float32)
+    return _dense(*grads[:5], dstate)
+
+
+WKV_BWD_OP = torch.ops.repro_torch.wkv_backward.default
+
+
+@_wkv_bwd_op.register_fake
+def _wkv_bwd_fake(r, k, v, logw, u, state, do, ds_out, s_out, hs, chunk):
+    b, _, h, _ = r.shape
+    dstate = torch.empty_like(state) if state is not None else r.new_empty((b, h, 0, 0), dtype=torch.float32)
+    return (*(torch.empty_like(t) for t in (r, k, v, logw, u)), dstate)
+
+
+@register_sharding(WKV_BWD_OP)
+def _wkv_bwd_sharding(r, k, v, logw, u, state, do, ds_out, s_out, hs, chunk):
+    """The forward's shardings; du sums over the batch, so over batch it is a partial sum."""
+    return [([R] * 6, [R, R, R, R, R, _opt(state, R), R, _opt(ds_out, R), R, R, None]),
+            ([S0, S0, S0, S0, Partial(), S0],
+             [S0, S0, S0, S0, R, _opt(state, S0), S0, _opt(ds_out, S0), S0, S0, None]),
+            ([S2, S2, S2, S2, S0, S1],
+             [S2, S2, S2, S2, S0, _opt(state, S1), S2, _opt(ds_out, S1), S1, S1, None])]
 
 
 def ssm_scan(dtx, dta, b, c, state=None):
@@ -553,12 +686,15 @@ def ssm_scan(dtx, dta, b, c, state=None):
     is featurized as in the reference: (S, d).  On CPU tensors the plain
     version runs.  With grad enabled and an operand that requires it, the
     call runs as the ``repro_torch::ssm_scan`` op (:data:`SSM_OP`), whose
-    backward is the scan's backward kernel.
+    backward is the scan's backward kernel; on DTensors or meta tensors it
+    runs as that op too (sharded over batch or channels, never the sequence).
     """
+    args = (*(t.contiguous() for t in (dtx, dta, b, c)), None if state is None else state.contiguous())
     if _wants_grad(dtx, dta, b, c, state):
-        y, s_out, _ = _ssm_op(*(t.contiguous() for t in (dtx, dta, b, c)),
-                              None if state is None else state.contiguous())
-        return y, s_out
+        return _ssm_op(*args)
+    if _through_op(*args):
+        with _uncounted():
+            return _ssm_op(*args)
     return _ssm_call(dtx, dta, b, c, state)[0]
 
 
@@ -575,42 +711,90 @@ def _ssm_call(dtx, dta, b, c, state):
     return _guarded_call(rt, "ssm_scan", config, run, run_ref, on_card=True, pin=pin), run.config
 
 
-def _config_tensor(config: SsmConfig) -> torch.Tensor:
-    return torch.tensor([config.block_d, config.chunk])
-
-
 @torch.library.custom_op("repro_torch::ssm_scan", mutates_args=(),
-                         schema="(Tensor dtx, Tensor dta, Tensor b, Tensor c, Tensor? state) "
-                                "-> (Tensor, Tensor, Tensor)")
+                         schema="(Tensor dtx, Tensor dta, Tensor b, Tensor c, Tensor? state) -> (Tensor, Tensor)")
 def _ssm_op(dtx, dta, b, c, state):
-    """``ops.ssm_scan`` under grad as a dispatcher op.  Returns (y, final state,
-    (block_d, chunk) of the config the forward ran as an int64 CPU tensor)."""
-    GRAD_SCANS["ssm_scan", _phase.label] += 1
-    out, config = _ssm_call(dtx, dta, b, c, state)
-    return out[0], out[1], _config_tensor(config)
+    """``ops.ssm_scan`` under grad as a dispatcher op: (y, final state); the
+    config it ran is left in ``_phase.ran`` for the autograd setup."""
+    _count(GRAD_SCANS, ("ssm_scan", _phase.label))
+    out, _phase.ran = _ssm_call(dtx, dta, b, c, state)
+    return _dense(*out)
 
 
 SSM_OP = torch.ops.repro_torch.ssm_scan.default
 
 
+def _scan_fake(x, b):
+    _phase.ran = DEFAULT_SSM_CONFIG
+    bsz, _, d = x.shape
+    return x.new_empty(x.shape, dtype=torch.float32), x.new_empty((bsz, d, b.shape[-1]), dtype=torch.float32)
+
+
+@_ssm_op.register_fake
+def _ssm_fake(dtx, dta, b, c, state):
+    return _scan_fake(dtx, b)
+
+
+@register_sharding(SSM_OP)
+def _ssm_sharding(dtx, dta, b, c, state):
+    """Over batch, or over channels (b, c replicated), never over the sequence."""
+    return [([R, R], [R, R, R, R, _opt(state, R)]),
+            ([S0, S0], [S0, S0, S0, S0, _opt(state, S0)]),
+            ([S2, S1], [S2, S2, R, R, _opt(state, S1)])]
+
+
 def _ssm_setup(ctx, inputs, output):
-    config = output[2]
-    ctx.mark_non_differentiable(config)
-    _setup(ctx, inputs, SsmConfig(*map(int, config)))
+    _setup(ctx, inputs)
 
 
-def _ssm_backward(ctx, dy, ds_out, _config):
-    """The scan's backward kernel (dta entry) at the forward's config, or on the CPU
-    :func:`~repro_torch.kernels.ssm.ssm_backward_plain` at its chunk."""
+def _ssm_backward(ctx, dy, ds_out):
+    """The ``repro_torch::ssm_scan_backward`` op under the forward's runtime."""
     dtx, dta, b, c, state = ctx.saved_tensors
-    dy = torch.zeros(dtx.shape, dtype=torch.float32, device=dtx.device) if dy is None else dy.contiguous()
-    ds_out = None if ds_out is None else ds_out.contiguous()
-    run_ref = lambda: ssm_backward_plain(dtx, dta, b, c, state, dy, ds_out, ctx.config.chunk)
-    run = lambda cfg: ssm_backward_cuda(dtx, dta, b, c, state, dy, ds_out, cfg or DEFAULT_SSM_CONFIG)
-    return _only_needed(ctx, _grad_call(ctx, "ssm_scan", "ssm_scan", run, run_ref, _on_card(dtx)))
+    dy = _zeros_f32(dtx) if dy is None else dy
+    with ctx.runtime.activate():
+        grads = _ssm_bwd_op(dtx, dta, b, c, state, dy, ds_out, ctx.config.block_d, ctx.config.chunk)
+    return _only_needed(ctx, (*grads[:4], None if state is None else grads[4]))
 
 
 _ssm_op.register_autograd(_ssm_backward, setup_context=_ssm_setup)
+
+
+def _no_state(x):
+    """The d(state) output of a scan without a state: (B, 0, 0), nothing in it."""
+    return x.new_empty((x.shape[0], 0, 0), dtype=torch.float32)
+
+
+@torch.library.custom_op("repro_torch::ssm_scan_backward", mutates_args=(),
+                         schema="(Tensor dtx, Tensor dta, Tensor b, Tensor c, Tensor? state, Tensor dy, "
+                                "Tensor? ds_out, int block_d, int chunk) -> (Tensor, Tensor, Tensor, Tensor, Tensor)")
+def _ssm_bwd_op(dtx, dta, b, c, state, dy, ds_out, block_d, chunk):
+    """The scan's backward kernel (dta entry) at the forward's config, or on the CPU
+    :func:`~repro_torch.kernels.ssm.ssm_backward_plain` at its chunk.  Returns
+    (d(dtx), d(dta), db, dc, d(state)); d(state) holds nothing without a state."""
+    dy = dy.contiguous()
+    ds_out = None if ds_out is None else ds_out.contiguous()
+    config = SsmConfig(block_d, chunk)
+    run_ref = lambda: ssm_backward_plain(dtx, dta, b, c, state, dy, ds_out, chunk)
+    run = lambda cfg: ssm_backward_cuda(dtx, dta, b, c, state, dy, ds_out, cfg or DEFAULT_SSM_CONFIG)
+    grads = _grad_call("ssm_scan", "ssm_scan", config, run, run_ref, _on_card(dtx))
+    return _dense(*grads[:4], grads[4] if state is not None else _no_state(dtx))
+
+
+SSM_BWD_OP = torch.ops.repro_torch.ssm_scan_backward.default
+
+
+@_ssm_bwd_op.register_fake
+def _ssm_bwd_fake(dtx, dta, b, c, state, dy, ds_out, block_d, chunk):
+    return (*(torch.empty_like(t) for t in (dtx, dta, b, c)),
+            torch.empty_like(state) if state is not None else _no_state(dtx))
+
+
+@register_sharding(SSM_BWD_OP)
+def _ssm_bwd_sharding(dtx, dta, b, c, state, dy, ds_out, block_d, chunk):
+    """The forward's shardings; db, dc sum over channels, so over channels they are partial sums."""
+    return [([R] * 5, [R, R, R, R, _opt(state, R), R, _opt(ds_out, R), None, None]),
+            ([S0] * 5, [S0, S0, S0, S0, _opt(state, S0), S0, _opt(ds_out, S0), None, None]),
+            ([S2, S2, Partial(), Partial(), S1], [S2, S2, R, R, _opt(state, S1), S2, _opt(ds_out, S1), None, None])]
 
 
 def ssm_scan_fused(x, dt, a, b, c, state=None):
@@ -623,12 +807,16 @@ def ssm_scan_fused(x, dt, a, b, c, state=None):
     ``ssm_cuda_fused``, so the (B, S, d, N) dta is never formed.  With grad
     enabled and an operand that requires it, the call runs as the
     ``repro_torch::ssm_scan_fused`` op (:data:`SSM_FUSED_OP`), whose backward
-    is the fused entry's backward kernel (no (B, S, d, N) tensor either).
+    is the fused entry's backward kernel (no (B, S, d, N) tensor either); on
+    DTensors or meta tensors it runs as that op too.
     """
     x, dt, a, b, c = (t.contiguous() for t in (x, dt, a, b, c))
-    if _wants_grad(x, dt, a, b, c, state):
-        y, s_out, _ = _ssm_fused_op(x, dt, a, b, c, None if state is None else state.contiguous())
-        return y, s_out
+    args = (x, dt, a, b, c, None if state is None else state.contiguous())
+    if _wants_grad(*args):
+        return _ssm_fused_op(*args)
+    if _through_op(*args):
+        with _uncounted():
+            return _ssm_fused_op(*args)
     return _ssm_fused_call(x, dt, a, b, c, state)[0]
 
 
@@ -647,27 +835,73 @@ def _ssm_fused_call(x, dt, a, b, c, state):
 
 @torch.library.custom_op("repro_torch::ssm_scan_fused", mutates_args=(),
                          schema="(Tensor x, Tensor dt, Tensor a, Tensor b, Tensor c, Tensor? state) "
-                                "-> (Tensor, Tensor, Tensor)")
+                                "-> (Tensor, Tensor)")
 def _ssm_fused_op(x, dt, a, b, c, state):
-    """``ops.ssm_scan_fused`` under grad as a dispatcher op.  Returns (y, final
-    state, (block_d, chunk) of the config the forward ran as an int64 CPU tensor)."""
-    GRAD_SCANS["ssm_scan_fused", _phase.label] += 1
-    out, config = _ssm_fused_call(x, dt, a, b, c, state)
-    return out[0], out[1], _config_tensor(config)
+    """``ops.ssm_scan_fused`` under grad as a dispatcher op: (y, final state);
+    the config it ran is left in ``_phase.ran`` for the autograd setup."""
+    _count(GRAD_SCANS, ("ssm_scan_fused", _phase.label))
+    out, _phase.ran = _ssm_fused_call(x, dt, a, b, c, state)
+    return _dense(*out)
 
 
 SSM_FUSED_OP = torch.ops.repro_torch.ssm_scan_fused.default
 
 
-def _ssm_fused_backward(ctx, dy, ds_out, _config):
-    """The fused entry's backward kernel at the forward's config, or on the CPU
-    :func:`~repro_torch.kernels.ssm.ssm_fused_backward_plain` at its chunk."""
+@_ssm_fused_op.register_fake
+def _ssm_fused_fake(x, dt, a, b, c, state):
+    return _scan_fake(x, b)
+
+
+@register_sharding(SSM_FUSED_OP)
+def _ssm_fused_sharding(x, dt, a, b, c, state):
+    """Over batch, or over channels (a's rows with them; b, c replicated)."""
+    return [([R, R], [R, R, R, R, R, _opt(state, R)]),
+            ([S0, S0], [S0, S0, R, S0, S0, _opt(state, S0)]),
+            ([S2, S1], [S2, S2, S0, R, R, _opt(state, S1)])]
+
+
+def _ssm_fused_backward(ctx, dy, ds_out):
+    """The ``repro_torch::ssm_scan_fused_backward`` op under the forward's runtime."""
     x, dt, a, b, c, state = ctx.saved_tensors
-    dy = torch.zeros(x.shape, dtype=torch.float32, device=x.device) if dy is None else dy.contiguous()
-    ds_out = None if ds_out is None else ds_out.contiguous()
-    run_ref = lambda: ssm_fused_backward_plain(x, dt, a, b, c, state, dy, ds_out, ctx.config.chunk)
-    run = lambda cfg: ssm_fused_backward_cuda(x, dt, a, b, c, state, dy, ds_out, cfg or DEFAULT_SSM_CONFIG)
-    return _only_needed(ctx, _grad_call(ctx, "ssm_scan_fused", "ssm_scan", run, run_ref, _on_card(x)))
+    dy = _zeros_f32(x) if dy is None else dy
+    with ctx.runtime.activate():
+        grads = _ssm_fused_bwd_op(x, dt, a, b, c, state, dy, ds_out, ctx.config.block_d, ctx.config.chunk)
+    return _only_needed(ctx, (*grads[:5], None if state is None else grads[5]))
 
 
 _ssm_fused_op.register_autograd(_ssm_fused_backward, setup_context=_ssm_setup)
+
+
+@torch.library.custom_op("repro_torch::ssm_scan_fused_backward", mutates_args=(),
+                         schema="(Tensor x, Tensor dt, Tensor a, Tensor b, Tensor c, Tensor? state, Tensor dy, "
+                                "Tensor? ds_out, int block_d, int chunk) "
+                                "-> (Tensor, Tensor, Tensor, Tensor, Tensor, Tensor)")
+def _ssm_fused_bwd_op(x, dt, a, b, c, state, dy, ds_out, block_d, chunk):
+    """The fused entry's backward kernel at the forward's config, or on the CPU
+    :func:`~repro_torch.kernels.ssm.ssm_fused_backward_plain` at its chunk.
+    Returns (dx, d(dt), da, db, dc, d(state)); d(state) holds nothing without a state."""
+    dy = dy.contiguous()
+    ds_out = None if ds_out is None else ds_out.contiguous()
+    config = SsmConfig(block_d, chunk)
+    run_ref = lambda: ssm_fused_backward_plain(x, dt, a, b, c, state, dy, ds_out, chunk)
+    run = lambda cfg: ssm_fused_backward_cuda(x, dt, a, b, c, state, dy, ds_out, cfg or DEFAULT_SSM_CONFIG)
+    grads = _grad_call("ssm_scan_fused", "ssm_scan", config, run, run_ref, _on_card(x))
+    return _dense(*grads[:5], grads[5] if state is not None else _no_state(x))
+
+
+SSM_FUSED_BWD_OP = torch.ops.repro_torch.ssm_scan_fused_backward.default
+
+
+@_ssm_fused_bwd_op.register_fake
+def _ssm_fused_bwd_fake(x, dt, a, b, c, state, dy, ds_out, block_d, chunk):
+    return (*(torch.empty_like(t) for t in (x, dt, a, b, c)),
+            torch.empty_like(state) if state is not None else _no_state(x))
+
+
+@register_sharding(SSM_FUSED_BWD_OP)
+def _ssm_fused_bwd_sharding(x, dt, a, b, c, state, dy, ds_out, block_d, chunk):
+    """The forward's shardings; da sums over the batch, db and dc over channels: partial sums there."""
+    return [([R] * 6, [R, R, R, R, R, _opt(state, R), R, _opt(ds_out, R), None, None]),
+            ([S0, S0, Partial(), S0, S0, S0], [S0, S0, R, S0, S0, _opt(state, S0), S0, _opt(ds_out, S0), None, None]),
+            ([S2, S2, S0, Partial(), Partial(), S1],
+             [S2, S2, S0, R, R, _opt(state, S1), S2, _opt(ds_out, S1), None, None])]

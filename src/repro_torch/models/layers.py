@@ -22,6 +22,141 @@ _NEG_INF = -1e30
 
 
 # ---------------------------------------------------------------------------
+# activation sharding, as the reference's: models call shard_act() on the
+# embedding and at every layer boundary.  On a DTensor it redistributes the
+# (B, S, ...) activation to batch over the configured axes (by default the
+# mesh's data axes, the reference launcher's constraint), so every layer of a
+# stack sees the same placements, runs the same local kernel problems, and
+# replays layer 0's selections (``ops.scan_layers``).  Plain tensors pass.
+# ---------------------------------------------------------------------------
+_ACT_SPEC: dict = {"batch": None, "seq": None}
+
+
+def set_activation_sharding(batch_axes=None, seq_axes=None) -> None:
+    _ACT_SPEC["batch"] = batch_axes
+    _ACT_SPEC["seq"] = seq_axes
+
+
+def shard_act(x: torch.Tensor) -> torch.Tensor:
+    """Constrain a (B, S, ...) DTensor activation to the configured DP / SP axes."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(x, DTensor):
+        return x
+    from ..dist.sharding import batch_pspecs, placements
+
+    mesh = x.device_mesh
+    batch, seq = _ACT_SPEC["batch"], _ACT_SPEC["seq"]
+    if batch is None and seq is None:
+        spec = batch_pspecs(x, mesh)
+    else:
+        spec = [None] * x.ndim
+        spec[0] = batch
+        if x.ndim >= 2:
+            spec[1] = seq
+    target = placements(spec, mesh)
+    return x if tuple(x.placements) == target else x.redistribute(mesh, target)
+
+
+def split(x: torch.Tensor, *shape) -> torch.Tensor:
+    """``x.reshape(*shape)`` where the reshape splits a dim (the features into
+    heads, heads into groups).  A DTensor sharded over mesh dims whose ways do
+    not divide the split's outer size (8 KV heads on a 16-way ``model`` axis)
+    is first replicated over the innermost of them until they do, as GSPMD
+    reshards it."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    if not isinstance(x, DTensor):
+        return x.reshape(*shape)
+    keep = 0
+    while keep < min(x.ndim, len(shape)) and x.shape[keep] == shape[keep]:
+        keep += 1
+    mesh = x.device_mesh
+    target = list(x.placements)
+    split_by = [i for i, pl in enumerate(target) if isinstance(pl, Shard) and pl.dim >= keep]
+    ways = 1
+    for i in split_by:
+        ways *= mesh.size(i)
+    for i in reversed(split_by):
+        if keep >= len(shape) or shape[keep] % ways == 0:
+            break
+        target[i] = Replicate()
+        ways //= mesh.size(i)
+    if tuple(target) != tuple(x.placements):
+        x = x.redistribute(mesh, target)
+    return x.reshape(*shape)
+
+
+def write(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """``dst.copy_(src)``; a DTensor ``src`` first takes ``dst``'s placements
+    (DTensor changes no placement in place)."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(dst, DTensor) and isinstance(src, DTensor) and tuple(src.placements) != tuple(dst.placements):
+        src = src.redistribute(dst.device_mesh, dst.placements)
+    dst.copy_(src)
+
+
+def on_shards(fn, args: tuple, dims: tuple, out_dims: tuple, *, heads: int, inplace: tuple = ()):
+    """``fn(*args)`` on each rank's local shards, where an arg is a DTensor;
+    ``fn(*args)`` itself otherwise.
+
+    For a computation that is independent per batch row and per head
+    (attention, a recurrence's decode step): ``dims[i]`` is arg i's (batch
+    dim, head dim), either ``None``, or ``dims[i]`` is ``None`` for an arg
+    passed as it is.  On each mesh dim the computation splits as ``args[0]``
+    is split there (a plain ``args[0]`` counts as replicated): over the batch,
+    over heads (where ``heads`` divides by the mesh dim), else not at all;
+    every arg is redistributed to match, ``fn``
+    runs on the local tensors, and its outputs come back as DTensors split
+    the same way (``out_dims``).  An arg replicated over a mesh dim the
+    computation splits gets its gradient there as a partial sum.  Args at
+    ``inplace`` are written by ``fn``: where one had to be redistributed, the
+    result is copied back into it.
+    """
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    lead = next((a for a in args if isinstance(a, DTensor)), None)
+    if lead is None:
+        return fn(*args)
+    mesh = lead.device_mesh
+    modes = []
+    for i, size in enumerate(mesh.shape):
+        pl = args[0].placements[i] if isinstance(args[0], DTensor) else Replicate()
+        if isinstance(pl, Shard) and pl.dim == dims[0][0]:
+            modes.append(0)
+        elif isinstance(pl, Shard) and pl.dim == dims[0][1] and heads % size == 0:
+            modes.append(1)
+        else:
+            modes.append(None)
+
+    def place(d):
+        return tuple(Shard(d[m]) if m is not None and d[m] is not None else Replicate() for m in modes)
+
+    placed, local = [], []
+    for a, d in zip(args, dims):
+        if a is None or d is None:
+            placed.append(a)
+            local.append(a)
+            continue
+        t = a if isinstance(a, DTensor) else DTensor.from_local(a, mesh, [Replicate()] * mesh.ndim, run_check=False)
+        t = t if tuple(t.placements) == place(d) else t.redistribute(mesh, place(d))
+        placed.append(t)
+        # Replicated over a mesh dim the computation splits: each rank's gradient is its part of a sum.
+        grads = tuple(Partial() if m is not None and not isinstance(pl, Shard) else pl
+                      for m, pl in zip(modes, t.placements))
+        local.append(t.to_local(grad_placements=grads))
+    out = fn(*local)
+    for i in inplace:
+        if isinstance(args[i], DTensor) and placed[i] is not args[i]:
+            with torch.no_grad():
+                args[i].copy_(placed[i].redistribute(mesh, args[i].placements))
+    outs = out if isinstance(out, tuple) else (out,)
+    wrapped = tuple(DTensor.from_local(o, mesh, place(d), run_check=False) for o, d in zip(outs, out_dims))
+    return wrapped if isinstance(out, tuple) else wrapped[0]
+
+
+# ---------------------------------------------------------------------------
 # remat (activation checkpoint) policy, as the reference's.
 # 'full' recomputes the whole layer in the backward (least memory, 4F flops);
 # 'dots' keeps the GEMM outputs and recomputes only the cheap ops between them
@@ -301,19 +436,37 @@ def attention_layer(
     v = ops.matmul(kv_src, p["wv"])
     if "bk" in p:
         k, v = k + p["bk"], v + p["bv"]
-    q = q.reshape(b, s, h, hd)
-    k = k.reshape(b, kv_src.shape[1], kvh, hd)
-    v = v.reshape(b, kv_src.shape[1], kvh, hd)
+    q = split(q, b, s, h, hd)
+    k = split(k, b, kv_src.shape[1], kvh, hd)
+    v = split(v, b, kv_src.shape[1], kvh, hd)
     if kv_input is None:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
-    if cache is None:  # no cache: self-attention over x, or cross-attention over kv_input
-        out = flash_attention(q, k, v, causal=causal and kv_input is None, window=window)
-        return ops.matmul(out.reshape(b, s, h * hd), p["wo"])
+    # Sharded (DTensor) q / k / v: the cache writes and the attention run on each rank's
+    # shards of the batch or of the KV heads (on_shards), as GSPMD partitions them.
+    cache = tuple(cache) if cache is not None else ()
+    cross = kv_input is not None
+
+    def attend(q, k, v, cache_positions, cache_valid, chunk_start, *cache):
+        return _attend(q, k, v, cache, cache_positions, cache_valid, window, chunk_start, cross, causal)
+
+    bh = (0, 2)  # (batch, head) dims of q, k, v, the cache and its int8 scales
+    out = on_shards(attend, (q, k, v, cache_positions, cache_valid, chunk_start, *cache),
+                    (bh, bh, bh, (0, None), (0, None), None, *([bh] * len(cache))), (bh,), heads=kvh,
+                    inplace=tuple(range(6, 6 + len(cache))))
+    return ops.matmul(out.reshape(b, s, h * hd), p["wo"])
+
+
+def _attend(q, k, v, cache, cache_positions, cache_valid, window, chunk_start, cross, causal):
+    """The cache writes and attention of :func:`attention_layer` (q: (B, S, H, hd)
+    after rope; k, v: (B, T, KV, hd)); returns (B, S, H, hd)."""
+    b, s = q.shape[:2]
+    if not cache:  # no cache: self-attention over x, or cross-attention over kv_input
+        return flash_attention(q, k, v, causal=causal and not cross, window=window)
     quant = len(cache) == 4
     k_cache, v_cache = cache[:2]
     if s == 1 and chunk_start is None:  # decode: write one token per row
-        bidx = torch.arange(b, device=x.device)
+        bidx = torch.arange(b, device=q.device)
         if quant:
             (kq, ks), (vq, vs) = quantize_kv(k[:, 0]), quantize_kv(v[:, 0])
             rows = (kq, vq, ks, vs)
@@ -343,7 +496,7 @@ def attention_layer(
             else:
                 dst[:, :s] = src
         out = flash_attention(q, k, v, window=window)
-    return ops.matmul(out.reshape(b, s, h * hd), p["wo"])
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -360,7 +513,12 @@ def mlp_layer(p: dict, x: torch.Tensor) -> torch.Tensor:
 # embeddings
 # ---------------------------------------------------------------------------
 def embed_tokens(p: dict, tokens: torch.Tensor) -> torch.Tensor:
-    return p["embed"][tokens]
+    """The rows of ``tokens``, anchored as the reference anchors every
+    embedding (:func:`shard_act`).  A sharded table is gathered whole onto
+    every rank, which looks up its own tokens (:func:`on_shards`); its
+    gradient goes back to the table's placements as a reduce-scatter."""
+    rows = on_shards(lambda t, w: w[t], (tokens, p["embed"]), ((0, None), (None, None)), ((0, None),), heads=1)
+    return shard_act(rows)
 
 
 def logits_from_hidden(p: dict, x: torch.Tensor) -> torch.Tensor:
@@ -388,6 +546,8 @@ def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor, vocab: int) 
     pv = logits.shape[-1]
     if pv != vocab:
         logits = logits.masked_fill(torch.arange(pv, device=logits.device) >= vocab, _NEG_INF)
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    logz = torch.logsumexp(logits, dim=-1, keepdim=True)
+    # (B, S, 1) throughout: on a vocab-sharded DTensor the gathered gold logit is a
+    # masked partial sum, which DTensor reduces only at the shape the gather gave it.
+    gold = torch.gather(logits, -1, targets[..., None].long())
     return (logz - gold).mean()

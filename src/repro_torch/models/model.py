@@ -84,7 +84,11 @@ def _initializers(model, generator: torch.Generator | None):
     dtype on its device.  Normals are drawn from ``generator`` (on its own
     device, seed 0 on the model's device when None) in pieces of
     ``_DRAW_ELEMS`` in order, each scaled and cast into the preallocated
-    parameter."""
+    parameter.  On the meta device (the dry run) nothing is drawn: the
+    params are shapes only."""
+    if model.device.type == "meta":
+        empty = lambda shape, _: torch.empty(shape, dtype=model.param_dtype, device="meta")
+        return empty, empty
     if generator is None:
         generator = torch.Generator(device=model.device).manual_seed(0)
 
@@ -111,6 +115,20 @@ def _init_embedding(cfg: ArchConfig, normal) -> dict:
     else:
         emb["unembed"] = normal((cfg.d_model, pv), 0.02)
     return emb
+
+
+def _placed_like(cache: dict, params: dict) -> dict:
+    """A prefill's fresh cache, placed by ``cache_pspecs`` on the params' mesh
+    where the params are DTensors (the reference's prefill returns its cache
+    with those shardings); as it is otherwise."""
+    from torch.distributed.tensor import DTensor
+
+    from ..dist import sharding as shd
+
+    embed = params["emb"]["embed"]
+    if not isinstance(embed, DTensor):
+        return cache
+    return shd.distribute_tree(cache, shd.cache_pspecs(cache, embed.device_mesh), embed.device_mesh)
 
 
 def _layer_params(blocks: dict, i: int) -> dict:
@@ -218,7 +236,7 @@ class TransformerLM:
             out, aux = MOE.moe_ffn(blk["moe"], xn, c)
         else:
             out, aux = L.mlp_layer(blk["ffn"], xn), 0.0
-        return x + out, aux
+        return L.shard_act(x + out), aux
 
     def _cross_block(self, blk: dict, x, image_embs):
         """Cross-attention over the normalised image embeddings (no rope, no
@@ -228,7 +246,7 @@ class TransformerLM:
             blk["attn"], L.rms_norm(x, blk["ln1"], c.norm_eps), c, None,
             kv_input=L.rms_norm(image_embs, blk["ln_img"], c.norm_eps),
         )
-        return x + L.mlp_layer(blk["ffn"], L.rms_norm(x, blk["ln2"], c.norm_eps))
+        return L.shard_act(x + L.mlp_layer(blk["ffn"], L.rms_norm(x, blk["ln2"], c.norm_eps)))
 
     def _forward(self, params: dict, tokens: torch.Tensor, *, image_embs=None, remat: bool = False):
         """The training forward over the stack, no cache: (hidden after the
@@ -334,7 +352,7 @@ class TransformerLM:
         c = self.cfg
         tokens = batch["tokens"]
         b, s = tokens.shape
-        cache = self.init_cache(b, cache_len)
+        cache = _placed_like(self.init_cache(b, cache_len), params)
         positions = torch.arange(s, device=self.device).expand(b, s)
         x = L.embed_tokens(params["emb"], tokens).to(self.dtype)
         after_group = None
@@ -346,8 +364,8 @@ class TransformerLM:
                 x = self._cross_block(cross, x, image_embs)
                 # Cross K/V are static per request: computed once here.
                 imn = L.rms_norm(image_embs, cross["ln_img"], c.norm_eps)
-                cache["cross_k"][g] = ops.matmul(imn, cross["attn"]["wk"]).reshape(b, -1, kvh, hd)
-                cache["cross_v"][g] = ops.matmul(imn, cross["attn"]["wv"]).reshape(b, -1, kvh, hd)
+                cache["cross_k"][g] = L.split(ops.matmul(imn, cross["attn"]["wk"]), b, imn.shape[1], kvh, hd)
+                cache["cross_v"][g] = L.split(ops.matmul(imn, cross["attn"]["wv"]), b, imn.shape[1], kvh, hd)
                 return x
 
         x = self._self_layers(params, x, positions, cache, after_group)
@@ -402,7 +420,9 @@ class TransformerLM:
                 ck, cv = cache["cross_k"][g], cache["cross_v"][g]
                 q = ops.matmul(L.rms_norm(x, cross["ln1"], c.norm_eps), cross["attn"]["wq"])
                 valid = torch.full((b,), ck.shape[1], dtype=torch.int64, device=self.device)
-                h = L.decode_attention(q.reshape(b, 1, c.n_heads, c.head_dim), ck, cv, valid)
+                bh = (0, 2)  # on each rank's shards of the batch or KV heads, if sharded
+                h = L.on_shards(L.decode_attention, (L.split(q, b, 1, c.n_heads, c.head_dim), ck, cv, valid),
+                                (bh, bh, bh, (0, None)), (bh,), heads=c.n_kv_heads)
                 x = x + ops.matmul(h.reshape(b, 1, c.q_dim), cross["attn"]["wo"])
                 return x + L.mlp_layer(cross["ffn"], L.rms_norm(x, cross["ln2"], c.norm_eps))
 
@@ -443,7 +463,7 @@ class RWKV6LM:
         x = x + h
         xn2 = L.rms_norm(x, blk["ln2"], c.norm_eps)
         h2, last2 = R.channel_mix_layer(blk["rwkv"], xn2, c, x_prev=x2)
-        return x + h2, (new_wkv, last1, last2)
+        return L.shard_act(x + h2), (new_wkv, last1, last2)
 
     def loss_fn(self, params: dict, batch: dict):
         """Mean token NLL from a zero state, each layer checkpointed.  Under
@@ -474,7 +494,7 @@ class RWKV6LM:
             blk = _layer_params(params["blocks"], i)
             x, new = self._layer(blk, x, (cache["wkv"][i], cache["x1"][i], cache["x2"][i]))
             for key, t in zip(("wkv", "x1", "x2"), new):
-                cache[key][i].copy_(t)
+                L.write(cache[key][i], t)
         return x
 
     def prefill(self, params: dict, batch: dict, cache_len: int):
@@ -482,7 +502,7 @@ class RWKV6LM:
         the f32 logits of the last position (B, 1, V_padded) and the state."""
         c = self.cfg
         tokens = batch["tokens"]
-        cache = self.init_cache(tokens.shape[0], cache_len)
+        cache = _placed_like(self.init_cache(tokens.shape[0], cache_len), params)
         x = L.embed_tokens(params["emb"], tokens).to(self.dtype)
         x = self._run(params, x, cache)
         x = L.rms_norm(x, params["final_norm"], c.norm_eps)
@@ -548,7 +568,7 @@ class HymbaLM:
         else:
             h_mamba, ssm = M.mamba_layer(blk["mamba"], xn, c)
         x = x + 0.5 * (h_attn + h_mamba)
-        return x + L.mlp_layer(blk["ffn"], L.rms_norm(x, blk["ln2"], c.norm_eps)), ssm
+        return L.shard_act(x + L.mlp_layer(blk["ffn"], L.rms_norm(x, blk["ln2"], c.norm_eps))), ssm
 
     def loss_fn(self, params: dict, batch: dict):
         """Mean token NLL, each layer checkpointed.  The layers scan here as
@@ -590,7 +610,7 @@ class HymbaLM:
         c = self.cfg
         tokens = batch["tokens"]
         b, s = tokens.shape
-        cache = self.init_cache(b, cache_len)
+        cache = _placed_like(self.init_cache(b, cache_len), params)
         positions = torch.arange(s, device=self.device).expand(b, s)
         x = L.embed_tokens(params["emb"], tokens).to(self.dtype)
         for i, kind in enumerate(self._layer_kinds()):
@@ -616,7 +636,7 @@ class HymbaLM:
                 cpos, cvalid = positions % t, torch.clamp(positions + 1, max=t)
             x, ssm = self._layer(_layer_params(params["blocks"], i), x, pos2d, kind, entry,
                                  cache_positions=cpos, cache_valid=cvalid)
-            entry["ssm"].copy_(ssm)
+            L.write(entry["ssm"], ssm)
         x = L.rms_norm(x, params["final_norm"], c.norm_eps)
         return L.logits_from_hidden(params["emb"], x), cache
 
@@ -663,12 +683,12 @@ class EncDecLM:
         c = self.cfg
         b, s, _ = frames.shape
         positions = torch.arange(s, device=self.device).expand(b, s)
-        x = frames.to(device=self.device, dtype=self.dtype)
+        x = L.shard_act(frames.to(device=self.device, dtype=self.dtype))
 
         def body(x, blk):
             x = x + L.attention_layer(blk["attn"], L.rms_norm(x, blk["ln1"], c.norm_eps), c, positions,
                                       causal=False)
-            return x + L.mlp_layer(blk["ffn"], L.rms_norm(x, blk["ln2"], c.norm_eps))
+            return L.shard_act(x + L.mlp_layer(blk["ffn"], L.rms_norm(x, blk["ln2"], c.norm_eps)))
 
         body = L.ckpt(body)
         for i in ops.scan_layers(c.n_enc_layers):
@@ -682,7 +702,7 @@ class EncDecLM:
         x = x + L.attention_layer(blk["attn"], L.rms_norm(x, blk["ln1"], c.norm_eps), c, positions,
                                   cache=cache, cache_positions=cache_positions)
         x = x + L.attention_layer(blk["cross"], L.rms_norm(x, blk["ln_x"], c.norm_eps), c, None, kv_input=memory)
-        return x + L.mlp_layer(blk["ffn"], L.rms_norm(x, blk["ln2"], c.norm_eps))
+        return L.shard_act(x + L.mlp_layer(blk["ffn"], L.rms_norm(x, blk["ln2"], c.norm_eps)))
 
     def _positions(self, b: int, s: int) -> torch.Tensor:
         return torch.arange(s, device=self.device).expand(b, s)
@@ -722,7 +742,7 @@ class EncDecLM:
         memory = self.encode(params, batch["frames"])
         tokens = batch["tokens"].to(self.device)
         b, s = tokens.shape
-        cache = self.init_cache(b, cache_len)
+        cache = _placed_like(self.init_cache(b, cache_len), params)
         x = L.embed_tokens(params["emb"], tokens).to(self.dtype)
         x = self._decode_layers(params, x, self._positions(b, s), memory, cache)
         cache["memory"] = memory

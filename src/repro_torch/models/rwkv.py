@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import ops
+from . import layers as L
 
 _LOGW_MIN, _LOGW_MAX = -5.0, -1e-3
 _DECAY_RANK = 64
@@ -70,15 +71,15 @@ def _time_mix_inputs(p, xn, x_prev, cfg):
     h, hd = cfg.n_heads, cfg.head_dim
     xs = _shift(xn, x_prev)
     mix = lambda mu: xn * mu + xs * (1.0 - mu)
-    r = ops.matmul(mix(p["mu_r"]), p["w_r"]).reshape(b, s, h, hd)
-    k = ops.matmul(mix(p["mu_k"]), p["w_k"]).reshape(b, s, h, hd)
-    v = ops.matmul(mix(p["mu_v"]), p["w_v"]).reshape(b, s, h, hd)
+    r = L.split(ops.matmul(mix(p["mu_r"]), p["w_r"]), b, s, h, hd)
+    k = L.split(ops.matmul(mix(p["mu_k"]), p["w_k"]), b, s, h, hd)
+    v = L.split(ops.matmul(mix(p["mu_v"]), p["w_v"]), b, s, h, hd)
     g = ops.matmul(mix(p["mu_g"]), p["w_g"])
     # Data-dependent per-channel decay (Finch): logw = -exp(w0 + lora(xw)).
     xw = mix(p["mu_w"])
     lora = ops.matmul(torch.tanh(ops.matmul(xw, p["wd1"])), p["wd2"])
     logw = -torch.exp(p["w0"].float() + lora.float())
-    logw = logw.clamp(_LOGW_MIN, _LOGW_MAX).reshape(b, s, h, hd)
+    logw = L.split(logw.clamp(_LOGW_MIN, _LOGW_MAX), b, s, h, hd)
     return r, k, v, g, logw
 
 
@@ -107,8 +108,10 @@ def time_mix_layer(p, xn, cfg, *, state=None, x_prev=None):
     """
     b, s, _ = xn.shape
     r, k, v, g, logw = _time_mix_inputs(p, xn, x_prev, cfg)
-    if s == 1 and state is not None:
-        o, new_state = wkv_decode_step(r, k, v, logw, p["u"], state)
+    if s == 1 and state is not None:  # on each rank's shards of the batch or heads, if sharded
+        bh, hs = (0, 2), (0, 1)
+        o, new_state = L.on_shards(wkv_decode_step, (r, k, v, logw, p["u"], state),
+                                   (bh, bh, bh, bh, (None, 0), hs), (bh, hs), heads=cfg.n_heads)
     else:
         o, new_state = ops.wkv(r, k, v, logw, p["u"], state)
     o = _head_norm(o, p["ln_w"])

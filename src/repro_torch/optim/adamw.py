@@ -10,6 +10,10 @@ params' device: an update reads nothing back to the host.
 
 Params are the model's tree of tensors; ``emb.embed_t``, a tied model's
 load-time copy of ``embed.T``, is derived, not trained (:func:`trainable`).
+Sharded params are DTensors (``dist.sharding``): the moments then carry the
+params' placements, each gradient arrives in its param's placements (the
+train step redistributes it), and the global norm's sum of squares is
+reduced over every rank by DTensor.
 """
 from __future__ import annotations
 
@@ -62,10 +66,17 @@ def like_tree(tree: dict, fn) -> dict:
 
 
 def init(params: dict) -> AdamWState:
+    """Zero moments in f32 beside each param (a DTensor param's with its
+    placements), and step 0 (replicated over a DTensor param's mesh)."""
     first = next(trainable(params))[1]
-    zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-    return AdamWState(step=torch.zeros((), dtype=torch.int32, device=first.device),
-                      m=like_tree(params, zeros), v=like_tree(params, zeros))
+    zeros = lambda p: torch.zeros_like(p, dtype=torch.float32, memory_format=torch.contiguous_format)
+    step = torch.zeros((), dtype=torch.int32, device=first.device)
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if isinstance(first, DTensor):
+        mesh = first.device_mesh
+        step = DTensor.from_local(step, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    return AdamWState(step=step, m=like_tree(params, zeros), v=like_tree(params, zeros))
 
 
 def schedule(cfg: AdamWConfig, step) -> torch.Tensor:

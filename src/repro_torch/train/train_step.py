@@ -13,10 +13,23 @@ Gradients come from ``torch.autograd.grad`` over the trained leaves, so no
 building a graph).  Every GEMM's gradient is two GEMMs through
 ``ops.matmul`` (the ``repro_torch::gemm`` op's backward): on the card, the
 hand-written kernel.
+
+Sharded training: params, moments and batch are DTensors (``dist.sharding``
+specs on a ``DeviceMesh``).  The step then computes what the unsharded step
+computes on the global batch, as the reference's one ``make_train_step``
+partitioned by GSPMD: the loss runs under DTensor's sharding propagation
+(every kernel op through its rule, on each rank's local shard), each
+gradient is redistributed to its param's placements (the all-reduce or
+reduce-scatter GSPMD would insert), the clip's global norm is reduced over
+every rank, and the metrics come back as full (replicated) 0-d tensors.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor.experimental import implicit_replication
 
 from ..optim import adamw
 
@@ -30,6 +43,24 @@ def _unflatten(paths: list[str], leaves) -> dict:
             node = node.setdefault(key, {})
         node[last] = leaf
     return out
+
+
+def _placed_like(grad: torch.Tensor, param: torch.Tensor) -> torch.Tensor:
+    """A DTensor param's gradient in the param's placements."""
+    if isinstance(param, DTensor) and tuple(grad.placements) != tuple(param.placements):
+        return grad.redistribute(param.device_mesh, param.placements)
+    return grad
+
+
+def _sharded(params: dict):
+    """Implicit replication of plain tensors (positions, masks, constants)
+    where the params are DTensors; nothing otherwise."""
+    first = next(adamw.trainable(params))[1]
+    return implicit_replication() if isinstance(first, DTensor) else contextlib.nullcontext()
+
+
+def _full(metrics: dict) -> dict:
+    return {n: v.full_tensor() if isinstance(v, DTensor) else v for n, v in metrics.items()}
 
 
 def make_train_step(model, opt_cfg: adamw.AdamWConfig, *, num_microbatches: int = 1):
@@ -48,7 +79,7 @@ def make_train_step(model, opt_cfg: adamw.AdamWConfig, *, num_microbatches: int 
         paths, leaves = zip(*adamw.trainable(params))
         loss, metrics = model.loss_fn(params, batch)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
+        grads = [torch.zeros_like(p) if g is None else _placed_like(g, p) for p, g in zip(leaves, grads)]
         return loss.detach(), {n: v.detach() for n, v in metrics.items()}, list(paths), grads
 
     def compute_grads(params: dict, batch: dict):
@@ -57,7 +88,8 @@ def make_train_step(model, opt_cfg: adamw.AdamWConfig, *, num_microbatches: int 
         for p in leaves:
             p.requires_grad_(True)
         try:
-            return _compute_grads(params, batch)
+            with _sharded(params):
+                return _compute_grads(params, batch)
         finally:
             for p, flag in zip(leaves, flags):
                 p.requires_grad_(flag)
@@ -86,12 +118,13 @@ def make_train_step(model, opt_cfg: adamw.AdamWConfig, *, num_microbatches: int 
     def train_step(params: dict, opt_state: adamw.AdamWState, batch: dict):
         loss, metrics, grads = compute_grads(params, batch)
         del batch
-        params, opt_state, opt_metrics = adamw.update(opt_cfg, grads, opt_state, params)
-        emb = params["emb"]
-        if "embed_t" in emb:
-            with torch.no_grad():
-                emb["embed_t"].copy_(emb["embed"].t())
-        metrics = dict(metrics, loss=loss, **opt_metrics)
+        with _sharded(params):
+            params, opt_state, opt_metrics = adamw.update(opt_cfg, grads, opt_state, params)
+            emb = params["emb"]
+            if "embed_t" in emb:
+                with torch.no_grad():
+                    emb["embed_t"].copy_(_placed_like(emb["embed"].t(), emb["embed_t"]))
+            metrics = _full(dict(metrics, loss=loss, **opt_metrics))
         return params, opt_state, metrics
 
     train_step.compute_grads = compute_grads

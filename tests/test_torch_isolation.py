@@ -87,3 +87,51 @@ def test_chip_smoke_imports_nothing_of_the_reference():
         elif isinstance(node, ast.ImportFrom) and node.module:
             names.add(node.module.split(".")[0])
     assert not names & {"jax", "jaxlib", "repro"}, names
+
+
+_DIST_PROBE = """
+import importlib, sys
+import torch.distributed as dist
+for name in ("repro_torch.dist.sharding", "repro_torch.launch.mesh", "repro_torch.launch.fleet",
+             "repro_torch.launch.commanalysis", "repro_torch.launch.dryrun", "repro_torch.launch.roofline",
+             "repro_torch.launch.train", "repro_torch.train.trainer", "repro_torch.ckpt.checkpoint"):
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+print(dist.is_initialized(), bad)
+"""
+
+
+def test_distribution_modules_stand_alone_and_touch_no_group():
+    """The distribution modules import neither JAX nor ``repro``, and importing them
+    starts no process group (the dry run starts its fake one, the launcher its own)."""
+    proc = subprocess.run([sys.executable, "-c", _DIST_PROBE], capture_output=True, text=True,
+                          env={"PYTHONPATH": str(SRC), "PATH": "/usr/bin:/bin"}, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split() == ["False", "[]"]
+
+
+def test_sharded_and_meta_operands_reach_only_the_dispatcher_ops(monkeypatch):
+    """A meta operand (what the dry run's DTensors hold) runs the kernel ops' fake impls,
+    never a plain version or a kernel wrapper."""
+    from repro_torch.kernels import ops
+
+    def refuse(*a, **k):
+        raise AssertionError("a plain version or kernel wrapper saw a meta tensor")
+
+    for name in ("matmul_plain", "matmul_cuda", "wkv_plain", "wkv_cuda", "ssm_plain", "ssm_cuda",
+                 "ssm_fused_plain", "ssm_cuda_fused"):
+        monkeypatch.setattr(ops, name, refuse)
+    meta = lambda *shape: torch.empty(shape, device="meta")
+    out = ops.matmul(meta(2, 8, 16), meta(16, 4), out_dtype=torch.float32)
+    assert out.is_meta and out.shape == (2, 8, 4)
+    o, s = ops.wkv(meta(1, 32, 2, 16), meta(1, 32, 2, 16), meta(1, 32, 2, 16), meta(1, 32, 2, 16), meta(2, 16))
+    assert o.is_meta and o.shape == (1, 32, 2, 16) and s.shape == (1, 2, 16, 16)
+    y, s = ops.ssm_scan_fused(meta(1, 8, 4), meta(1, 8, 4), meta(4, 3), meta(1, 8, 3), meta(1, 8, 3))
+    assert y.shape == (1, 8, 4) and s.shape == (1, 4, 3)
+
+
+def test_the_distribution_package_is_not_ignored():
+    """``dist/`` in ``.gitignore`` once kept any directory of that name out of git;
+    only the repository root's build output is ignored now."""
+    lines = (SRC.parent / ".gitignore").read_text().splitlines()
+    assert "dist/" not in lines and "/dist/" in lines

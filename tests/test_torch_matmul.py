@@ -88,13 +88,17 @@ def test_config_space_is_the_compiled_set():
     assert not mm.MatmulConfig(128, 128, 512, "mnk").is_valid()  # the TPU default is not compiled
 
 
-def test_wrapper_refuses_what_the_kernel_does_not_take():
+def test_wrapper_refuses_what_the_kernel_does_not_take(monkeypatch):
     a = torch.zeros(4, 8)
     with pytest.raises(ValueError, match="CUDA"):
         mm.matmul_cuda(a, torch.zeros(8, 4))
-    # A non-CPU tensor never takes the plain path: it reaches the kernel's wrapper.
+    # A meta tensor (the dry run's) takes the GEMM op's fake impl: shapes only, no launch.
+    out = ops.matmul(torch.zeros(4, 8, device="meta"), torch.zeros(8, 4, device="meta"))
+    assert out.is_meta and out.shape == (4, 4)
+    # A tensor on a card never takes the plain path: it reaches the kernel's wrapper.
+    monkeypatch.setattr(ops, "_on_card", lambda t: True)
     with pytest.raises(ValueError, match="CUDA"):
-        ops.matmul(torch.zeros(4, 8, device="meta"), torch.zeros(8, 4, device="meta"))
+        ops.matmul(a, torch.zeros(8, 4))
     assert mm.total_launches() == 0
 
 

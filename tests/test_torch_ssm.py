@@ -381,16 +381,20 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(kind, err):
     assert sm.total_launches() == 0
 
 
-def test_wrapper_needs_a_cuda_device():
+def test_wrapper_needs_a_cuda_device(monkeypatch):
     args = _torch(_inputs(1, 8, 16, 16, seed=1))
     with pytest.raises(ValueError, match="CUDA"):
         sm.ssm_cuda(*args)
     with pytest.raises(ValueError, match="compiled ssm config"):
         sm.ssm_cuda(*args, config=sm.SsmConfig(16, 64))
-    # A non-CPU tensor never takes the plain path: it reaches the kernel's wrapper.
+    # A meta tensor (the dry run's) takes the scan op's fake impl: shapes only, no launch.
     meta = [None if a is None else a.to("meta") for a in args]
+    y, s_out = ops.ssm_scan(*meta)
+    assert y.is_meta and y.shape == args[0].shape
+    # A tensor on a card never takes the plain path: it reaches the kernel's wrapper.
+    monkeypatch.setattr(ops, "_on_card", lambda t: True)
     with pytest.raises(ValueError, match="CUDA"):
-        ops.ssm_scan(*meta)
+        ops.ssm_scan(*args)
     assert sm.total_launches() == 0
 
 
@@ -419,15 +423,18 @@ def test_fused_wrapper_refuses_what_the_kernel_does_not_take(kind, err):
     assert sm.total_launches() == 0 and sm.ENTRY_LAUNCHES == {"fused": 0, "dta": 0}
 
 
-def test_fused_wrapper_needs_a_cuda_device():
+def test_fused_wrapper_needs_a_cuda_device(monkeypatch):
     args = _torch(_fused_inputs(1, 8, 16, 16, seed=1))
     with pytest.raises(ValueError, match="CUDA"):
         sm.ssm_cuda_fused(*args)
     with pytest.raises(ValueError, match="compiled ssm config"):
         sm.ssm_cuda_fused(*args, config=sm.SsmConfig(16, 64))
     meta = [None if a is None else a.to("meta") for a in args]
+    y, s_out = ops.ssm_scan_fused(*meta)
+    assert y.is_meta and y.shape == args[0].shape
+    monkeypatch.setattr(ops, "_on_card", lambda t: True)
     with pytest.raises(ValueError, match="CUDA"):
-        ops.ssm_scan_fused(*meta)
+        ops.ssm_scan_fused(*args)
     assert sm.total_launches() == 0
 
 

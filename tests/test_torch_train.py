@@ -248,7 +248,7 @@ def test_checkpoint_shape_check_and_gc(tmp_path):
         mgr.restore(4, {"a": torch.ones(3), "b": {"d": torch.zeros(2, 2)}})
 
 
-def test_train_cli_on_cpu_with_a_host_cpu_deployment(tmp_path, capsys):
+def test_train_cli_on_cpu_with_a_host_cpu_deployment(tmp_path, capsys, monkeypatch):
     from repro_torch.core import tuner
 
     fleet = tuner.tune_fleet(device_names=("host_cpu",), cpu_problems=3, n_kernels=3)
@@ -263,8 +263,10 @@ def test_train_cli_on_cpu_with_a_host_cpu_deployment(tmp_path, capsys):
     assert CheckpointManager(tmp_path / "ck").steps() == [2, 4]
     step, _ = train_cli.main([a if a != "4" else "6" for a in argv])  # resumes from step 4's checkpoint
     assert step == 6 and CheckpointManager(tmp_path / "ck").steps() == [2, 4, 6]
-    with pytest.raises(NotImplementedError, match="distribution slice"):
-        train_cli.main(["--arch", "granite-8b", "--fleet"])
+    for var in ("REPRO_NUM_PROCESSES", "REPRO_PROCESS_ID", "SLURM_NTASKS", "SLURM_PROCID"):
+        monkeypatch.delenv(var, raising=False)
+    step, _ = train_cli.main([a if a != "4" else "8" for a in argv] + ["--fleet"])  # one process: no group, no mesh
+    assert step == 8 and CheckpointManager(tmp_path / "ck").steps() == [4, 6, 8]
 
 
 def test_train_cli_refuses_cuda_without_a_card(monkeypatch):

@@ -293,14 +293,18 @@ def test_launch_chunk_follows_the_reference_chunk_rule():
                 assert got >= ref_chunk >= s and -(-s // got) == 1
 
 
-def test_wrapper_refuses_what_the_kernel_does_not_take():
+def test_wrapper_refuses_what_the_kernel_does_not_take(monkeypatch):
     args = _torch(_inputs(1, 8, 2, 16, seed=1))
     with pytest.raises(ValueError, match="CUDA"):
         wk.wkv_cuda(*args)
-    # A non-CPU tensor never takes the plain path: it reaches the kernel's wrapper.
+    # A meta tensor (the dry run's) takes the WKV op's fake impl: shapes only, no launch.
     meta = [None if a is None else a.to("meta") for a in args]
+    o, s_out = ops.wkv(*meta)
+    assert o.is_meta and o.shape == args[0].shape and s_out.shape == (1, 2, 16, 16)
+    # A tensor on a card never takes the plain path: it reaches the kernel's wrapper.
+    monkeypatch.setattr(ops, "_on_card", lambda t: True)
     with pytest.raises(ValueError, match="CUDA"):
-        ops.wkv(*meta)
+        ops.wkv(*args)
     assert wk.total_launches() == 0
 
 
