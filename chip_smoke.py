@@ -407,6 +407,22 @@ Phases (each one fails the run if its check fails):
    --deployment build/deploy_h100.json``: both processes exit 0,
    checkpoints at steps 2 and 4, a two-process resume to 6, the step-4 loss
    within 1e-5 of one process on the global batch;
+   26d. qwen3-moe-235b-a22b at full width (d 4096, 128 experts of ff 1536,
+   top 8, vocab 151936), 1 of 94 layers, f32, batch 8 x seq 128 (capacity
+   80 an expert): unsharded steps first (the final leaves kept in host
+   memory), then the Trainer's sharded steps on 26a's (1, 1) mesh: every
+   metric after each step and every final leaf within 1e-6 of its max
+   (bitwise equality printed), as 26a, every routing equal; the router,
+   attention projections and unembed through the GEMM kernel, counted;
+   26e. the same model on two processes of the one card (gloo), mesh (1, 2):
+   each process holds 64 of the 128 experts (the expert-parallel dispatch:
+   routes on its tokens, slots over the global order, the experts' partial
+   outputs summed over ``model``): the losses and every leaf within 1e-5 of
+   26d's unsharded steps, each process comparing its own shards; the
+   (token, slot) assignments that route otherwise than in the unsharded
+   steps are counted and printed;
+   26d and 26e print their step seconds, peak memory and the last step's
+   collectives (count and bytes, each process's);
 27. no Python collection ran during any CUDA graph capture (one there could
    free a dead engine's graphs and invalidate the capture); the ``kernels``
    JSON line, then the card line, then the result line.
@@ -4429,7 +4445,7 @@ def phase_ssm_backward(torch, ss) -> dict:
 
 # GEMMs a layer of the recurrent models' training forward (as their serving forward: rwkv6-7b
 # r, k, v, g, wd1, wd2, o, ck, cv, cr; hymba-1.5b q, k, v, o, in, dt1, dt2, b, c, out, gate, up, down).
-LAYER_GEMMS = {"rwkv6-7b": 10, "hymba-1.5b": 13}
+LAYER_GEMMS = {"rwkv6-7b": 10, "hymba-1.5b": 13, "qwen3-moe-235b-a22b": 5}  # an MoE layer: Q, K, V, O, router
 RECURRENCE = {"rwkv6-7b": ("wkv", ("wkv_bwd_state_kernel", "wkv_bwd_chunk_kernel")),
               "hymba-1.5b": ("ssm_scan_fused", ("ssm_bwd_kernel",))}
 
@@ -4642,6 +4658,9 @@ DIST_LAYERS = {"granite-8b": 2, "rwkv6-7b": 2}
 # whose gradient is summation noise takes a full +-lr step of the noise's sign (the embedding's
 # scatter-add sums in another order on two processes), so the comparison would hold the noise.
 DIST_OPT = dict(lr=3e-4, warmup_steps=2, total_steps=DIST_STEPS, eps=1e-4)
+# 26d, 26e: the MoE model at full width, cut to one layer: 3.73 G params, 14.9 GB in f32; with its
+# gradients and AdamW moments about 60 GB in one process, 30 GB a process of two on (1, 2).
+MOE_ARCH, MOE_LAYERS = "qwen3-moe-235b-a22b", 1
 
 
 def _free_port() -> int:
@@ -4672,9 +4691,10 @@ def _global_batches(torch, cfg, hosts: int, steps: int) -> list[dict]:
     return [{k: v.to("cuda") for k, v in global_batch(cfg, data, step, hosts).items()} for step in range(steps)]
 
 
-def _unsharded_steps(torch, cfg, batches: list[dict]) -> tuple[list[dict], list[dict], list[float]]:
+def _unsharded_steps(torch, cfg, batches: list[dict], *, last_on_host: bool = False):
     """The unsharded train step from the seed-0 init over ``batches``: per step the metrics,
-    every trained leaf (a clone on the card) and the synchronized step seconds."""
+    every trained leaf (a clone on the card; with ``last_on_host`` only after the last step,
+    copied to host memory) and the synchronized step seconds."""
     from repro_torch.models.model import build_model
     from repro_torch.optim import adamw
     from repro_torch.train.train_step import make_train_step
@@ -4684,15 +4704,147 @@ def _unsharded_steps(torch, cfg, batches: list[dict]) -> tuple[list[dict], list[
     opt = adamw.init(params)
     step_fn = make_train_step(model, adamw.AdamWConfig(**DIST_OPT))
     metrics, leaves, times = [], [], []
-    for batch in batches:
+    for step, batch in enumerate(batches):
         t0 = time.perf_counter()
         params, opt, met = step_fn(params, opt, batch)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         metrics.append({k: float(v) for k, v in met.items()})
-        leaves.append({p: t.detach().clone() for p, t in adamw.trainable(params)})
+        if not last_on_host:
+            leaves.append({p: t.detach().clone() for p, t in adamw.trainable(params)})
+        elif step == len(batches) - 1:
+            leaves.append({p: t.detach().cpu() for p, t in adamw.trainable(params)})
     del params, opt
     return metrics, leaves, times
+
+
+@contextlib.contextmanager
+def _recorded_routes(torch, sharded: bool):
+    """Every MoE routing while the context is open, on the host: per call an int64 (3, T k) of
+    each assignment's expert, slot and kept flag (a sharded call: this rank's tokens)."""
+    from repro_torch.models import moe
+
+    name = "_sharded_route" if sharded else "route"
+    original, calls = getattr(moe, name), []
+
+    def record(*args, **kwargs):
+        out = original(*args, **kwargs)
+        r = out[0] if sharded else out
+        calls.append(torch.stack([r.flat_e, r.slot.to(r.flat_e.dtype), r.keep.to(r.flat_e.dtype)]).cpu())
+        return out
+
+    setattr(moe, name, record)
+    try:
+        yield calls
+    finally:
+        setattr(moe, name, original)
+
+
+def _routes_differing(got: list, want: list) -> int:
+    """Assignments (token, slot) routed to another expert or slot, or kept otherwise, over every call."""
+    require(len(got) == len(want) and all(a.shape == b.shape for a, b in zip(got, want)),
+            f"routings differ in number or shape: {[tuple(a.shape) for a in got]} against "
+            f"{[tuple(b.shape) for b in want]}")
+    return sum(int((a != b).any(dim=0).sum()) for a, b in zip(got, want))
+
+
+def _local_slice(torch, full, t):
+    """The part of ``full`` that DTensor ``t``'s local shard holds (each mesh dim's Shard
+    splits as ``torch.chunk`` does, in mesh order)."""
+    from torch.distributed.tensor import Shard
+
+    coord = t.device_mesh.get_coordinate()
+    for i, pl in enumerate(t.placements):
+        if isinstance(pl, Shard):
+            full = torch.chunk(full, t.device_mesh.size(i), dim=pl.dim)[coord[i]]
+    return full
+
+
+def phase_moe_reference(torch) -> dict:
+    """26d/26e's reference: MOE_ARCH at full width, MOE_LAYERS deep, f32, DIST_STEPS unsharded
+    steps on the one data shard's batches, the final leaves in host memory, every routing kept."""
+    cfg = _train_cfg(MOE_ARCH, n_layers=MOE_LAYERS)
+    _free(torch)
+    torch.cuda.reset_peak_memory_stats()
+    rt = _train_runtime("chip_smoke[26d reference]")
+    with rt.activate(), _recorded_routes(torch, sharded=False) as routes:
+        metrics, leaves, times = _unsharded_steps(torch, cfg, _global_batches(torch, cfg, 1, DIST_STEPS),
+                                                  last_on_host=True)
+    peak = torch.cuda.max_memory_allocated()
+    _free(torch)
+    cap = max(1, int(TRAIN_BATCH * TRAIN_SEQ * cfg.moe.top_k / cfg.moe.n_experts * cfg.moe.capacity_factor))
+    kept = [int(r[2].sum()) for r in routes]
+    print(f"  {MOE_ARCH}, {cfg.n_layers} of {_train_cfg(MOE_ARCH).n_layers} layers, f32, batch {TRAIN_BATCH} x seq "
+          f"{TRAIN_SEQ}, unsharded: losses {[round(m['loss'], 6) for m in metrics]}; step ms "
+          f"{[round(t * 1e3, 1) for t in times]}; peak {peak / 1e9:.2f} GB; capacity {cap} an expert; "
+          f"{len(routes)} routings (forward and recompute a step), assignments kept {kept} of "
+          f"{TRAIN_BATCH * TRAIN_SEQ * cfg.moe.top_k}")
+    return {"metrics": metrics, "leaves": leaves[-1], "step_s": times, "peak_bytes": peak, "routes": routes,
+            "capacity": cap, "kept": kept}
+
+
+def phase_dist_moe_world1(torch, mm, mesh, ref: dict) -> dict:
+    """26d: MOE_ARCH's Trainer sharded steps on the world-1 NCCL group's (1, 1) mesh against
+    ``ref``'s unsharded steps: every metric after each step and every final leaf within
+    DIST_TOL_WORLD1 (bitwise equality printed), as 26a; every routing equal."""
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.launch.commanalysis import CollectiveCounter
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    cfg = _train_cfg(MOE_ARCH, n_layers=MOE_LAYERS)
+    _free(torch)
+    torch.cuda.reset_peak_memory_stats()
+    rt = _train_runtime("chip_smoke[26d]")
+    counter = CollectiveCounter()
+    with rt.activate():
+        model = build_model(cfg, dtype=torch.float32, param_dtype=torch.float32, device="cuda")
+        trainer = Trainer(model, cfg, DataConfig(global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ),
+                          adamw.AdamWConfig(**DIST_OPT), TrainerConfig(total_steps=DIST_STEPS), mesh=mesh)
+        params, opt = trainer.init_state(0)
+        mm.reset_launches()
+        worst, bitwise, times, metrics = {}, True, [], []
+        with _recorded_routes(torch, sharded=True) as routes:
+            for step in range(DIST_STEPS):
+                t0 = time.perf_counter()
+                with counter if step == DIST_STEPS - 1 else contextlib.nullcontext():
+                    params, opt, met = trainer.step_fn(params, opt, trainer._batch(step))
+                    torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                metrics.append({k: float(v) for k, v in met.items()})
+                for key, want in ref["metrics"][step].items():
+                    worst[f"step {step + 1} {key}"] = abs(metrics[-1][key] - want) / max(abs(want), 1e-30)
+                    bitwise &= metrics[-1][key] == want
+        gemms = mm.total_launches()
+        for path, t in adamw.trainable(params):
+            want = ref["leaves"][path].to("cuda")
+            full = t.full_tensor()
+            worst[path] = _rel(torch, full, want)
+            bitwise &= bool(torch.equal(full, want))
+            del want, full
+        per_step = _step_gemms(MOE_ARCH, model)
+        peak = torch.cuda.max_memory_allocated()
+        del trainer, params, opt, model
+    _free(torch)
+    differing = _routes_differing(routes, ref["routes"])
+    top = max(worst.items(), key=lambda kv: kv[1])
+    require(top[1] <= DIST_TOL_WORLD1, f"26d: sharded against unsharded {top[0]} {top[1]:.3g} "
+                                       f"(limit {DIST_TOL_WORLD1})")
+    require(differing == 0, f"26d: {differing} assignments routed otherwise on (1, 1)")
+    require(gemms == DIST_STEPS * per_step, f"26d: {gemms} GEMM launches, want {DIST_STEPS} x {per_step}")
+    print(f"  {MOE_ARCH}, {cfg.n_layers} layer, f32, world-1 NCCL group, mesh (1, 1): {DIST_STEPS} sharded steps, "
+          f"losses {[round(m['loss'], 6) for m in metrics]}; worst against unsharded {top[0]} {top[1]:.3g} (limit "
+          f"{DIST_TOL_WORLD1}); bitwise equal to the unsharded steps: {bitwise}; assignments routed otherwise: "
+          f"{differing}")
+    print(f"  step ms sharded {[round(t * 1e3, 1) for t in times]}, unsharded "
+          f"{[round(t * 1e3, 1) for t in ref['step_s']]}; GEMM launches {gemms} ({per_step} a step); peak "
+          f"{peak / 1e9:.2f} GB (unsharded {ref['peak_bytes'] / 1e9:.2f}); the last step's collectives "
+          f"{counter.summary()}")
+    return {"arch": MOE_ARCH, "n_layers": cfg.n_layers, "metrics": metrics, "ref_metrics": ref["metrics"],
+            "worst": worst, "bitwise": bitwise, "step_s": times, "ref_step_s": ref["step_s"], "gemm_launches": gemms,
+            "gemm_launches_per_step": per_step, "peak_bytes": peak, "ref_peak_bytes": ref["peak_bytes"],
+            "routes_differing": differing, "collectives_last_step": counter.summary()}
 
 
 def phase_dist_world1(torch, mm, wk, arch: str, mesh) -> dict:
@@ -4761,10 +4913,12 @@ def phase_dist_world1(torch, mm, wk, arch: str, mesh) -> dict:
 
 
 def dist_child(rank: int, port: int, work: Path) -> None:
-    """26b's process ``rank`` of two on the one card: a gloo group (NCCL refuses two ranks on
-    one device), the host mesh (2, 1), granite-8b's state sharded over ``data`` as
-    ``param_pspecs`` gives it, its host shard of each batch; DIST_STEPS Trainer steps; the
-    gathered leaves (rank 0) against the parent's unsharded steps on the global batch."""
+    """Process ``rank`` of two on the one card (26b, 26e): a gloo group (NCCL refuses two
+    ranks on one device), the mesh of ``work/job.json`` over ("data", "model"), its arch's
+    state sharded as ``param_pspecs`` gives it, its host shard of each batch; DIST_STEPS
+    Trainer steps.  Each leaf's local shard against the same part of the parent's unsharded
+    steps on the global batch (``work/ref.pt``, mapped, not read whole); an MoE arch's
+    routings to ``work/routes<rank>.pt``."""
     import torch
 
     from repro_torch.data.pipeline import DataConfig
@@ -4772,19 +4926,20 @@ def dist_child(rank: int, port: int, work: Path) -> None:
     from repro_torch.kernels import matmul as mm
     from repro_torch.launch import fleet
     from repro_torch.launch.commanalysis import CollectiveCounter
-    from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models.model import build_model
     from repro_torch.optim import adamw
     from repro_torch.train.trainer import Trainer, TrainerConfig
 
+    job = json.loads((work / "job.json").read_text())
     _build.load_all(["matmul"])  # the parent's build, loaded
     topo = fleet.initialize(fleet.FleetTopology(f"127.0.0.1:{port}", 2, rank), backend="gloo")
     torch.cuda.set_device(fleet.local_device_index(topo))
     import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
 
-    mesh = make_host_mesh("cuda")
-    cfg = _train_cfg("granite-8b", n_layers=DIST_LAYERS["granite-8b"])
-    rt = _train_runtime(f"chip_smoke[26b rank {rank}]")
+    mesh = init_device_mesh("cuda", tuple(job["mesh"]), mesh_dim_names=("data", "model"))
+    cfg = _train_cfg(job["arch"], n_layers=job["n_layers"])
+    rt = _train_runtime(f"chip_smoke[{job['phase']} rank {rank}]")
     with rt.activate():
         model = build_model(cfg, dtype=torch.float32, param_dtype=torch.float32, device="cuda")
         trainer = Trainer(model, cfg, DataConfig(global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ),
@@ -4797,55 +4952,54 @@ def dist_child(rank: int, port: int, work: Path) -> None:
         mm.reset_launches()
         metrics, times = [], []
         counter = CollectiveCounter()  # the last step's collectives, by kind: count and result bytes
-        for step in range(DIST_STEPS):
-            t0 = time.perf_counter()
-            with counter if step == DIST_STEPS - 1 else contextlib.nullcontext():
-                params, opt, met = trainer.step_fn(params, opt, trainer._batch(step))
-                torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-            metrics.append({k: float(v) for k, v in met.items()})
+        routing = _recorded_routes(torch, sharded=True) if cfg.moe is not None else contextlib.nullcontext([])
+        with routing as routes:
+            for step in range(DIST_STEPS):
+                t0 = time.perf_counter()
+                with counter if step == DIST_STEPS - 1 else contextlib.nullcontext():
+                    params, opt, met = trainer.step_fn(params, opt, trainer._batch(step))
+                    torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                metrics.append({k: float(v) for k, v in met.items()})
         launches = mm.total_launches()
         peak = torch.cuda.max_memory_allocated()
-        worst = {}
-        ref = torch.load(work / "ref.pt") if rank == 0 else None
+        ref = torch.load(work / "ref.pt", mmap=True)
+        diffs = {}  # path -> (max |got - want| over this rank's shard, max |want| over it)
         for path, t in adamw.trainable(params):
-            full = t.full_tensor()
-            if rank == 0:
-                worst[path] = _rel(torch, full.cpu(), ref["leaves"][path])
-        if rank == 0:
-            for step, (got, want) in enumerate(zip(metrics, ref["metrics"])):
-                for key in want:
-                    worst[f"step {step + 1} {key}"] = abs(got[key] - want[key]) / max(abs(want[key]), 1e-30)
+            want = _local_slice(torch, ref["leaves"][path], t).to("cuda")
+            diffs[path] = (float((t.to_local() - want).abs().max()), float(want.abs().max()))
+            del want
+        worst = {f"step {step + 1} {key}": abs(got[key] - want[key]) / max(abs(want[key]), 1e-30)
+                 for step, (got, want) in enumerate(zip(metrics, ref["metrics"])) for key in want}
+        if routes:
+            torch.save(routes, work / f"routes{rank}.pt")
     (work / f"child{rank}.json").write_text(json.dumps({
         "rank": rank, "backend": dist.get_backend(), "mesh": list(mesh.shape), "data_shard": [
             trainer.pipeline.data.host_index, trainer.pipeline.data.host_count], "metrics": metrics,
-        "step_s": times, "gemm_launches": launches, "gemm_launches_per_step": _step_gemms("granite-8b", model),
-        "held_bytes": held, "peak_bytes": peak, "worst": worst, "collectives_last_step": counter.summary()}))
+        "step_s": times, "gemm_launches": launches, "gemm_launches_per_step": _step_gemms(job["arch"], model),
+        "held_bytes": held, "peak_bytes": peak, "worst": worst, "leaf_diffs": diffs,
+        "collectives_last_step": counter.summary()}))
     dist.destroy_process_group()
 
 
-def phase_dist_two(torch) -> dict:
-    """26b: the reference (unsharded steps on the two data shards' global batch), then two
-    processes on the one card (``dist_child``)."""
+def _run_children(torch, phase: str, arch: str, n_layers: int, mesh: tuple, ref: dict) -> tuple[list[dict], float]:
+    """``ref`` (metrics and final leaves of one process on the global batch) to ``build/dist_<phase>/ref.pt``,
+    then the two ``dist_child`` processes on ``mesh``; each process's record, the seconds they took."""
     import shutil
 
-    from repro_torch.optim import adamw
-
-    cfg = _train_cfg("granite-8b", n_layers=DIST_LAYERS["granite-8b"])
-    work = ROOT / "build" / "dist_26b"
+    work = ROOT / "build" / f"dist_{phase}"
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
-    rt = _train_runtime("chip_smoke[26b reference]")
-    with rt.activate():
-        metrics, leaves, _ = _unsharded_steps(torch, cfg, _global_batches(torch, cfg, 2, DIST_STEPS))
-    torch.save({"metrics": metrics, "leaves": {p: t.cpu() for p, t in leaves[-1].items()}}, work / "ref.pt")
-    del leaves
-    _free(torch)
+    (work / "job.json").write_text(json.dumps({"phase": phase, "arch": arch, "n_layers": n_layers,
+                                               "mesh": list(mesh)}))
+    torch.save({"metrics": ref["metrics"], "leaves": ref["leaves"]}, work / "ref.pt")
     port = _free_port()
     t0 = time.perf_counter()
     procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--dist-child", str(r), str(port), str(work)],
                               cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-                              env={**__import__("os").environ, "PYTHONPATH": str(ROOT / "src")}) for r in range(2)]
+                              # two processes share the card: segments that grow keep what one frees usable
+                              env={**__import__("os").environ, "PYTHONPATH": str(ROOT / "src"),
+                                   "PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"}) for r in range(2)]
     try:
         outs = [p.communicate(timeout=400)[0] for p in procs]
     finally:
@@ -4854,11 +5008,45 @@ def phase_dist_two(torch) -> dict:
                 p.kill()
     seconds = time.perf_counter() - t0
     for r, (p, out) in enumerate(zip(procs, outs)):
-        require(p.returncode == 0, f"26b rank {r} exited {p.returncode}:\n{out[-3000:]}")
+        require(p.returncode == 0, f"{phase} rank {r} exited {p.returncode}:\n{out[-3000:]}")
     kids = [json.loads((work / f"child{r}.json").read_text()) for r in range(2)]
-    top = max(kids[0]["worst"].items(), key=lambda kv: kv[1])
+    for kid in kids:
+        kid["routes"] = torch.load(work / f"routes{kid['rank']}.pt") if (work / f"routes{kid['rank']}.pt").exists() else []
+    # every leaf: the largest difference over both processes' shards, over the largest value
+    worst = dict(kids[0]["worst"])
+    for path in kids[0]["leaf_diffs"]:
+        diff = max(kid["leaf_diffs"][path][0] for kid in kids)
+        worst[path] = diff / max(max(kid["leaf_diffs"][path][1] for kid in kids), 1e-30)
+    for kid in kids:
+        kid.pop("leaf_diffs")
+        kid["worst_all"] = worst
+    shutil.rmtree(work, ignore_errors=True)
+    return kids, seconds
+
+
+def _print_children(kids: list[dict]) -> None:
+    for kid in kids:
+        print(f"  rank {kid['rank']}: holds {kid['held_bytes']['params'] / 1e9:.3f} GB of params (of "
+              f"{kid['held_bytes']['full_params'] / 1e9:.3f}) and {kid['held_bytes']['moments'] / 1e9:.3f} GB of "
+              f"moments; step ms {[round(t * 1e3, 1) for t in kid['step_s']]}; peak {kid['peak_bytes'] / 1e9:.2f} GB; "
+              f"GEMM launches {kid['gemm_launches']}; the last step's collectives {kid['collectives_last_step']}")
+
+
+def phase_dist_two(torch) -> dict:
+    """26b: the reference (unsharded steps on the two data shards' global batch), then two
+    processes on the one card (``dist_child``), mesh (2, 1)."""
+    cfg = _train_cfg("granite-8b", n_layers=DIST_LAYERS["granite-8b"])
+    rt = _train_runtime("chip_smoke[26b reference]")
+    with rt.activate():
+        metrics, leaves, _ = _unsharded_steps(torch, cfg, _global_batches(torch, cfg, 2, DIST_STEPS),
+                                              last_on_host=True)
+    _free(torch)
+    kids, seconds = _run_children(torch, "26b", "granite-8b", cfg.n_layers, (2, 1),
+                                  {"metrics": metrics, "leaves": leaves[-1]})
+    del leaves
+    top = max(kids[0]["worst_all"].items(), key=lambda kv: kv[1])
     print(f"  worst against one process: " + ", ".join(
-        f"{k} {v:.3g}" for k, v in sorted(kids[0]["worst"].items(), key=lambda kv: -kv[1])[:6]))
+        f"{k} {v:.3g}" for k, v in sorted(kids[0]["worst_all"].items(), key=lambda kv: -kv[1])[:6]))
     require(top[1] <= DIST_TOL, f"26b: two processes against the global batch: {top[0]} {top[1]:.3g} (limit {DIST_TOL})")
     for kid in kids:
         require(kid["backend"] == "gloo" and kid["mesh"] == [2, 1] and kid["data_shard"] == [kid["rank"], 2],
@@ -4871,18 +5059,51 @@ def phase_dist_two(torch) -> dict:
         colls = kid["collectives_last_step"]
         require(colls.get("all-gather_count", 0) > 0 and colls.get("reduce-scatter_count", 0) > 0,
                 f"26b rank {kid['rank']}: a step's collectives {colls}")
-    shutil.rmtree(work, ignore_errors=True)
     print(f"  two processes on the one card, gloo (NCCL refuses two ranks on one device; its collectives move the "
           f"card's tensors through host memory), mesh (2, 1), granite-8b {cfg.n_layers} layers f32, FSDP over data: "
           f"{DIST_STEPS} steps in {seconds:.1f}s with start-up; losses {[round(m['loss'], 6) for m in kids[0]['metrics']]}"
           f" against one process on the global batch {[round(m['loss'], 6) for m in metrics]}; worst {top[0]} "
           f"{top[1]:.3g} (limit {DIST_TOL})")
-    for kid in kids:
-        print(f"  rank {kid['rank']}: holds {kid['held_bytes']['params'] / 1e9:.3f} GB of params (of "
-              f"{kid['held_bytes']['full_params'] / 1e9:.3f}) and {kid['held_bytes']['moments'] / 1e9:.3f} GB of "
-              f"moments; step ms {[round(t * 1e3, 1) for t in kid['step_s']]}; peak {kid['peak_bytes'] / 1e9:.2f} GB; "
-              f"GEMM launches {kid['gemm_launches']}; the last step's collectives {kid['collectives_last_step']}")
+    _print_children(kids)
     return {"children": kids, "ref_metrics": metrics, "seconds": seconds, "worst": top,
+            "gemm_launches": sum(k["gemm_launches"] for k in kids)}
+
+
+def phase_dist_moe_two(torch, ref: dict) -> dict:
+    """26e: MOE_ARCH on two processes of the one card (gloo), mesh (1, 2): each holds half the
+    experts; the losses and every leaf against ``ref`` (one process on the same global batch)
+    within DIST_TOL; the assignments routed otherwise than in ``ref`` counted."""
+    kids, seconds = _run_children(torch, "26e", MOE_ARCH, MOE_LAYERS, (1, 2), ref)
+    worst = kids[0]["worst_all"]
+    top = max(worst.items(), key=lambda kv: kv[1])
+    differing = [_routes_differing(kid["routes"], ref["routes"]) for kid in kids]
+    n_assign = sum(int(r.shape[1]) for r in ref["routes"])
+    for kid in kids:
+        kid.pop("routes")
+    print(f"  worst against one process: " + ", ".join(
+        f"{k} {v:.3g}" for k, v in sorted(worst.items(), key=lambda kv: -kv[1])[:6]))
+    print(f"  (token, slot) assignments routed otherwise than one process on the global batch: {differing} (ranks "
+          f"0, 1) of {n_assign} over {len(ref['routes'])} routings")
+    require(top[1] <= DIST_TOL, f"26e: two processes against the global batch: {top[0]} {top[1]:.3g} (limit "
+                                f"{DIST_TOL}; assignments routed otherwise: {differing})")
+    experts = _train_cfg(MOE_ARCH).moe.n_experts
+    for kid in kids:
+        require(kid["backend"] == "gloo" and kid["mesh"] == [1, 2] and kid["data_shard"] == [0, 1],
+                f"26e rank {kid['rank']}: {kid['backend']}, mesh {kid['mesh']}, data shard {kid['data_shard']}")
+        require(kid["gemm_launches"] == DIST_STEPS * kid["gemm_launches_per_step"],
+                f"26e rank {kid['rank']}: {kid['gemm_launches']} GEMM launches, want {DIST_STEPS} x "
+                f"{kid['gemm_launches_per_step']}")
+        held = kid["held_bytes"]
+        require(held["params"] < 0.6 * held["full_params"], f"26e rank {kid['rank']} holds {held}")
+        colls = kid["collectives_last_step"]
+        require(colls.get("all-reduce_count", 0) > 0, f"26e rank {kid['rank']}: a step's collectives {colls}")
+    print(f"  two processes on the one card, gloo, mesh (1, 2), {MOE_ARCH} {MOE_LAYERS} layer f32, {experts // 2} of "
+          f"{experts} experts a process: {DIST_STEPS} steps in {seconds:.1f}s with start-up; losses "
+          f"{[round(m['loss'], 6) for m in kids[0]['metrics']]} against one process on the global batch "
+          f"{[round(m['loss'], 6) for m in ref['metrics']]}; worst {top[0]} {top[1]:.3g} (limit {DIST_TOL})")
+    _print_children(kids)
+    return {"children": kids, "ref_metrics": ref["metrics"], "seconds": seconds, "worst": top,
+            "routes_differing": differing, "assignments": n_assign,
             "gemm_launches": sum(k["gemm_launches"] for k in kids)}
 
 
@@ -4962,7 +5183,7 @@ def phase_dist_cli(torch) -> dict:
 
 
 def phase_distribution(torch, mm, wk, phase) -> dict:
-    """Phase 26a-c."""
+    """Phase 26a-e."""
     import torch.distributed as dist
 
     from repro_torch.launch.mesh import make_host_mesh
@@ -4974,14 +5195,21 @@ def phase_distribution(torch, mm, wk, phase) -> dict:
     try:
         mesh = make_host_mesh("cuda")
         out["world1"] = {arch: phase_dist_world1(torch, mm, wk, arch, mesh) for arch in DIST_LAYERS}
+        phase(f"[26d] {MOE_ARCH} at full width, {MOE_LAYERS} layer: unsharded steps, then sharded on the (1, 1) mesh")
+        moe_ref = phase_moe_reference(torch)
+        out["moe_world1"] = phase_dist_moe_world1(torch, mm, mesh, moe_ref)
     finally:
         dist.destroy_process_group()
     phase("[26b] two processes on the one card (gloo), mesh (2, 1): granite-8b FSDP over data against the global batch")
     out["two"] = phase_dist_two(torch)
+    phase(f"[26e] two processes on the one card (gloo), mesh (1, 2): {MOE_ARCH}, half the experts a process, "
+          f"against 26d's unsharded steps")
+    out["moe_two"] = phase_dist_moe_two(torch, moe_ref)
+    del moe_ref
     phase("[26c] the launcher: launch.train --fleet on two processes, checkpoints, resume")
     out["cli"] = phase_dist_cli(torch)
     out["seconds"] = time.perf_counter() - t0
-    print(f"  phase 26a-c in {out['seconds']:.1f}s")
+    print(f"  phase 26a-e in {out['seconds']:.1f}s")
     return out
 
 
@@ -4992,7 +5220,7 @@ def main() -> int:
         print("chip_smoke: torch finds no CUDA device; this smoke test runs only on the GPU",
               file=sys.stderr)
         return 2
-    if sys.argv[1:2] == ["--dist-child"]:  # one of 26b's two processes
+    if sys.argv[1:2] == ["--dist-child"]:  # one of 26b's or 26e's two processes
         dist_child(int(sys.argv[2]), int(sys.argv[3]), Path(sys.argv[4]))
         return 0
     from repro_torch.kernels import _build
@@ -5041,7 +5269,7 @@ def main() -> int:
         regs = [line.split(":", 1)[1].strip() for line in log if "registers" in line]
         spills = sorted({line.strip() for line in log if "spill" in line and "0 bytes spill" not in line})
         print(f"  ptxas {name}: {len(regs)} kernels; {sorted(set(regs))}; spills {spills or 'none'}")
-    if "--only-distribution" in sys.argv[1:]:  # phase 26a-c alone (needs build/deploy_h100.json for 26c)
+    if "--only-distribution" in sys.argv[1:]:  # phase 26a-e alone (needs build/deploy_h100.json for 26c)
         distribution = phase_distribution(torch, mm, wk, phase)
         (ROOT / "build" / "chip_smoke_distribution.json").write_text(json.dumps(distribution, indent=1, default=str))
         print(f"[26] distribution phase done in {time.perf_counter() - t_start:.1f}s")
@@ -5282,6 +5510,10 @@ def main() -> int:
         f"distribution: {arch} sharded steps, world-1 NCCL, mesh (1, 1) (26a)": run["gemm_launches"]
         for arch, run in distribution["world1"].items()})
     gemm_launches["distribution: granite-8b, two processes (gloo), mesh (2, 1) (26b)"] = distribution["two"][
+        "gemm_launches"]
+    gemm_launches[f"distribution: {MOE_ARCH} sharded steps, world-1 NCCL, mesh (1, 1) (26d)"] = distribution[
+        "moe_world1"]["gemm_launches"]
+    gemm_launches[f"distribution: {MOE_ARCH}, two processes (gloo), mesh (1, 2) (26e)"] = distribution["moe_two"][
         "gemm_launches"]
     require(all(v for k, v in gemm_launches.items() if k.startswith("distribution")),
             f"a distribution path launched no GEMM: {gemm_launches}")

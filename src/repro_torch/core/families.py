@@ -122,6 +122,11 @@ def family_names() -> list[str]:
     return sorted(_REGISTRY, key=lambda n: (n != "matmul", n))
 
 
+def families() -> list[KernelFamily]:
+    """The registered families, in :func:`family_names` order."""
+    return [_REGISTRY[n] for n in family_names()]
+
+
 def is_registered(name: str) -> bool:
     return name in _REGISTRY
 
@@ -232,3 +237,24 @@ SSM_SCAN = register_family(
         model_matrix=_ssm_model,
     )
 )
+
+
+def build_family_dataset(
+    family: str | KernelFamily,
+    problems: list[tuple] | None = None,
+    device_name: str = "gpu_nvidia_h100_80gb_hbm3",
+):
+    """Any registered family's table on the H100 model (``fam.model_matrix``) as a
+    ``TuningDataset`` (``source="model"``), as ``dataset.build_model_dataset`` builds
+    the GEMM's; ``problems`` default to the family's harvest.  Measured tables
+    come from ``core/gpubench.py``."""
+    from .dataset import TuningDataset
+
+    fam = family if isinstance(family, KernelFamily) else get_family(family)
+    if fam.model_matrix is None:
+        raise ValueError(f"kernel family {fam.name!r} has no model table")
+    problems = list(problems if problems is not None else fam.harvest(None))
+    configs = list(fam.config_space())
+    perf = fam.model_matrix(problems, configs, device_name)
+    return TuningDataset(device=device_name, problems=problems, configs=configs, perf=perf,
+                         source="model", family=fam.name)

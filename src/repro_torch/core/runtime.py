@@ -837,6 +837,18 @@ def default_runtime() -> KernelRuntime:
     return rt
 
 
+def reset_default_runtime() -> KernelRuntime:
+    """Replace the default runtime with a fresh one (test isolation).
+
+    Threads still dispatching against the old default keep their reference's
+    state; new calls that reach the default see the fresh runtime.
+    """
+    global _default_runtime
+    with _default_lock:
+        _default_runtime = KernelRuntime(name="default")
+        return _default_runtime
+
+
 def current_runtime() -> KernelRuntime:
     """The innermost runtime activated on this thread, else the default."""
     stack = _active.stack

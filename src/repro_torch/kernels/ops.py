@@ -55,6 +55,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import threading
+import warnings
 from collections import Counter
 from typing import Protocol
 
@@ -73,7 +74,16 @@ from .wkv import (DEFAULT_WKV_CONFIG, WkvConfig, launch_chunk, wkv_backward_cuda
 
 __all__ = ["GEMM_OP", "FixedPolicy", "GRAD_SCANS", "KernelPolicy", "NoBackwardKernelError", "SSM_BWD_OP",
            "SSM_FUSED_BWD_OP", "SSM_FUSED_OP", "SSM_OP", "WKV_BWD_OP", "WKV_OP", "attention", "gemm_phase", "matmul",
-           "ssm_scan", "ssm_scan_fused", "wkv"]
+           "ssm_scan", "ssm_scan_fused", "wkv",
+           # launcher-side selection helpers (route through the current runtime)
+           "select_kernel_config", "select_matmul_config", "select_ssm_config", "select_wkv_config",
+           # runtime-state readers (current-runtime passthroughs)
+           "active_device", "device_policies", "device_resolution", "get_kernel_policy", "policy_epoch",
+           "selection_log", "selection_logging_enabled", "shape_cache_stats",
+           # deprecated global mutators (shims over the current runtime)
+           "activate_device", "clear_device_policies", "clear_selection_log", "clear_shape_cache",
+           "set_kernel_policy", "set_kernel_policy_for_device", "set_pallas_enabled", "set_selection_logging",
+           "set_shape_cache_cap"]
 
 
 class KernelPolicy(Protocol):
@@ -121,6 +131,136 @@ def scan_layers(n: int):
     layer 0's kernel calls select, later layers replay its configs
     (``KernelRuntime.scan_layers``)."""
     return current_runtime().scan_layers(n)
+
+
+# ---------------------------------------------------------------------------
+# deprecated module-level API: thin shims over the current (default) runtime,
+# as the reference's
+# ---------------------------------------------------------------------------
+def _warn_global(old: str, new: str) -> None:
+    warnings.warn(
+        f"repro_torch.kernels.ops.{old}() mutates shared global runtime state and is "
+        f"deprecated; hold a repro_torch.KernelRuntime and call {new} instead",
+        DeprecationWarning,
+        stacklevel=3,
+    )
+
+
+def set_kernel_policy(policy: KernelPolicy | None) -> None:
+    """Deprecated shim: ``KernelRuntime.install(policy)`` on the current runtime."""
+    _warn_global("set_kernel_policy", "KernelRuntime.install(policy)")
+    current_runtime().install(policy)
+
+
+def get_kernel_policy() -> KernelPolicy | None:
+    return current_runtime().policy()
+
+
+def set_kernel_policy_for_device(device: str, policy: KernelPolicy | None) -> None:
+    """Deprecated shim: ``KernelRuntime.install_for_device(device, policy)``."""
+    _warn_global("set_kernel_policy_for_device", "KernelRuntime.install_for_device(device, policy)")
+    current_runtime().install_for_device(device, policy)
+
+
+def device_policies() -> dict[str, KernelPolicy]:
+    """Registered per-device policies of the current runtime (name -> policy)."""
+    return current_runtime().device_policies()
+
+
+def active_device() -> str | None:
+    """Canonical name of the current runtime's live registered device."""
+    return current_runtime().active_device()
+
+
+def device_resolution() -> tuple[str | None, str | None]:
+    """(requested, resolved) device names from the last device activation."""
+    return current_runtime().device_resolution()
+
+
+def activate_device(device: str | None = None, *, strict: bool = False) -> str:
+    """Deprecated shim: ``KernelRuntime.activate_device(device)``."""
+    _warn_global("activate_device", "KernelRuntime.activate_device(device)")
+    return current_runtime().activate_device(device, strict=strict)
+
+
+def clear_device_policies() -> None:
+    """Deprecated shim: ``KernelRuntime.clear_device_policies()``."""
+    _warn_global("clear_device_policies", "KernelRuntime.clear_device_policies()")
+    current_runtime().clear_device_policies()
+
+
+def set_pallas_enabled(enabled: bool, *, interpret: bool = False) -> None:
+    """The reference switches its ops between the Pallas kernels and their jnp
+    versions; the port has no such switch: a CUDA tensor always launches the
+    hand-written kernel and only a CPU tensor takes the plain version."""
+    raise NotImplementedError(
+        "set_pallas_enabled has no counterpart in repro_torch: a CUDA tensor always runs the hand-written "
+        "kernel, and the plain version runs only for CPU tensors")
+
+
+def set_selection_logging(enabled: bool, *, cap: int | None = None) -> None:
+    """Deprecated shim: ``KernelRuntime.set_selection_logging(enabled)``."""
+    _warn_global("set_selection_logging", "KernelRuntime.set_selection_logging(enabled)")
+    current_runtime().set_selection_logging(enabled, cap=cap)
+
+
+def selection_logging_enabled() -> bool:
+    return current_runtime().selection_logging_enabled()
+
+
+def selection_log() -> list[tuple]:
+    """Dispatch decisions of the current runtime (op, problem, config)."""
+    return current_runtime().selection_log()
+
+
+def clear_selection_log() -> None:
+    """Deprecated shim: ``KernelRuntime.clear_selection_log()``."""
+    _warn_global("clear_selection_log", "KernelRuntime.clear_selection_log()")
+    current_runtime().clear_selection_log()
+
+
+def clear_shape_cache() -> None:
+    """Deprecated shim: ``KernelRuntime.clear_shape_cache()``."""
+    _warn_global("clear_shape_cache", "KernelRuntime.clear_shape_cache()")
+    current_runtime().clear_shape_cache()
+
+
+def set_shape_cache_cap(cap: int) -> None:
+    """Deprecated shim: ``KernelRuntime.set_shape_cache_cap(cap)``."""
+    _warn_global("set_shape_cache_cap", "KernelRuntime.set_shape_cache_cap(cap)")
+    current_runtime().set_shape_cache_cap(cap)
+
+
+def shape_cache_stats() -> dict:
+    """Dispatch shape-cache counters of the current runtime (this thread)."""
+    return current_runtime().shape_cache_stats()
+
+
+def policy_epoch() -> int:
+    """Policy epoch of the current runtime (swap observability)."""
+    return current_runtime().policy_epoch()
+
+
+def select_kernel_config(family: str, problem: tuple):
+    """Launcher-side selection against the current runtime: shape-memoized under the
+    family-qualified key, logged as ``(family, problem, config)``; ``None`` when no
+    policy is installed or the policy does not cover this family."""
+    return current_runtime().select_config(family, problem)
+
+
+def select_matmul_config(m: int, k: int, n: int, batch: int = 1) -> MatmulConfig | None:
+    """The selection :func:`matmul` makes, on its own; ``None`` when no policy is installed."""
+    return current_runtime().select_matmul_config(m, k, n, batch)
+
+
+def select_wkv_config(s: int, hd: int) -> WkvConfig | None:
+    """The selection :func:`wkv` makes, on its own."""
+    return current_runtime().select_wkv_config(s, hd)
+
+
+def select_ssm_config(s: int, d: int) -> SsmConfig | None:
+    """The selection :func:`ssm_scan` makes, on its own."""
+    return current_runtime().select_ssm_config(s, d)
 
 
 def _on_card(t: torch.Tensor) -> bool:

@@ -40,10 +40,25 @@ record).  The units are identical, so the reckoning is exact for counts,
 FLOPs and bytes; ``temp_bytes`` assumes the peak grows by the same amount
 each layer.
 
-Options (``--opt``): ``grad_bf16``, ``micro4``, ``remat_dots``, ``kv_int8``.
-``seq_model``, ``cache_seq_model`` and ``moe_cap_data`` need the reference's
-activation and MoE sharding constraints, which the port does not have yet:
-they are refused by name.
+Options (``--opt``, the reference's, set as its ``build_cell`` sets them):
+
+  * ``grad_bf16``: gradients rounded to bf16 before the update;
+  * ``micro4``: 4-way microbatch gradient accumulation;
+  * ``remat_dots``: remat "dots" (GEMM outputs kept) instead of "full";
+  * ``kv_int8``: an int8 KV cache (dense, MoE and VLM archs);
+  * ``seq_model``: sequence parallelism, train and prefill cells other than
+    long_500k: activations split their batch over the data axes and their
+    sequence over ``model`` between blocks
+    (``layers.set_activation_sharding(dp, "model")``);
+  * ``cache_seq_model``: context-parallel decode: the KV cache's sequence
+    dim over ``model`` (``cache_pspecs(kv_seq_axis="model")``).
+    ``cache_pspecs`` reads the axis only where it splits the sequence
+    (``shard_seq``), so this changes only long_500k cells with a KV cache,
+    which means hymba-1.5b's;
+  * ``moe_cap_data``: the MoE dispatch and expert buffers split experts over
+    ``model`` and capacity over ``data`` (``layers.set_moe_sharding("model",
+    "data")``), so the data ranks' slots are reduce-scattered along C, not
+    all-reduced.
 
 Usage:
   python -m repro_torch.launch.dryrun --all [--mesh both]
@@ -71,9 +86,7 @@ from ..train.train_step import make_train_step
 from .commanalysis import CollectiveCounter, collective_kind, local_call
 from .mesh import make_production_mesh, production_mesh_shape
 
-OPTIONS = ("grad_bf16", "micro4", "remat_dots", "kv_int8")
-# The reference's options that constrain activations or MoE buffers (src/repro/models/layers.py:27-66).
-NEEDS_CONSTRAINTS = ("seq_model", "cache_seq_model", "moe_cap_data")
+OPTIONS = ("grad_bf16", "micro4", "remat_dots", "kv_int8", "seq_model", "cache_seq_model", "moe_cap_data")
 
 
 # ---------------------------------------------------------------------------
@@ -205,10 +218,6 @@ def production_mesh(kind: str):
 # ---------------------------------------------------------------------------
 def check_opts(opts) -> frozenset:
     opts = frozenset(opts)
-    refused = sorted(opts & set(NEEDS_CONSTRAINTS))
-    if refused:
-        raise ValueError(f"--opt {','.join(refused)} needs the reference's activation / MoE sharding constraints "
-                         f"(src/repro/models/layers.py:27-66), which the port does not have yet")
     unknown = sorted(opts - set(OPTIONS))
     if unknown:
         raise ValueError(f"unknown --opt {unknown}; known: {list(OPTIONS)}")
@@ -259,7 +268,8 @@ def build_cell(cfg, shape: str, mesh, opts: frozenset):
     cache = model.init_cache(b, sp.seq_len)
     if cfg.family == "audio":  # the decoder needs the encoder memory
         cache["memory"] = torch.empty((b, sp.seq_len, cfg.d_model), dtype=torch.bfloat16, device="meta")
-    dcache = _distribute(cache, shd.cache_pspecs(cache, mesh, shard_seq=shard_seq), mesh)
+    kv_seq_axis = "model" if "cache_seq_model" in opts else None
+    dcache = _distribute(cache, shd.cache_pspecs(cache, mesh, shard_seq=shard_seq, kv_seq_axis=kv_seq_axis), mesh)
     toks = {"tokens": inputs["tokens"], "positions": inputs["positions"]}
     t_spec = ({k: shd.P(*([None] * v.ndim)) for k, v in toks.items()} if shard_seq
               else shd.batch_pspecs(toks, mesh))
@@ -350,8 +360,14 @@ def run_cell(arch: str, shape: str, mesh_kind: str, out_dir: Path | None, opts: 
     shard_seq = shape == "long_500k"
     t0 = time.time()
     try:
-        L.set_activation_sharding(batch_axes=None, seq_axes="data" if shard_seq else None)
+        if "seq_model" in opts and not shard_seq and registry.SHAPES[shape].kind in ("train", "prefill"):
+            dp = tuple(a for a in ("pod", "data") if a in mesh.mesh_dim_names)
+            L.set_activation_sharding(batch_axes=dp, seq_axes="model")
+        else:  # batch over the data axes (unset), or long_500k's sequence over data
+            L.set_activation_sharding(batch_axes=None, seq_axes="data" if shard_seq else None)
         L.set_remat_policy("dots" if "remat_dots" in opts else "full")
+        if "moe_cap_data" in opts:
+            L.set_moe_sharding(ep_axes="model", cap_axes="data")
         cfgs, weights, depths = probes(cfg)
         # The first run of an op's shapes in a process also counts ops DTensor runs while it
         # works out their sharding (hymba-1.5b's train_4k: 46% more bytes at 4 layers); a
@@ -363,6 +379,7 @@ def run_cell(arch: str, shape: str, mesh_kind: str, out_dir: Path | None, opts: 
     finally:
         L.set_activation_sharding(None, None)
         L.set_remat_policy("full")
+        L.set_moe_sharding(None, None)
     record = {"arch": arch, "shape": shape, "mesh": mesh_kind, "opts": sorted(opts), "devices": int(mesh.size()),
               "run_s": round(time.time() - t0, 2), "n_layers": cfg.n_layers, "probe_depths": depths, **record,
               "reckoned": "from shapes on meta tensors; no time or memory was measured"}

@@ -98,8 +98,11 @@ def analyze_record(rec: dict) -> dict:
     }
 
 
-def load_records(dir_: Path, mesh: str) -> list[dict]:
-    return [json.loads(p.read_text()) for p in sorted(dir_.glob(f"*__{mesh}.json"))]
+def load_records(dir_: Path, mesh: str, opts: str = "") -> list[dict]:
+    """The dry run's records of ``mesh``: without options, or under ``opts`` ("a+b", as the
+    dry run names its records ``<arch>__<shape>__<mesh>@<opts>.json``)."""
+    suffix = f"@{opts}" if opts else ""
+    return [json.loads(p.read_text()) for p in sorted(dir_.glob(f"*__{mesh}{suffix}.json"))]
 
 
 def table(rows: list[dict]) -> str:
@@ -122,9 +125,10 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--dir", default="build/dryrun")
     ap.add_argument("--mesh", default="single", choices=["single", "multi"])
+    ap.add_argument("--opt", default="", help="the records of a dry-run option, e.g. moe_cap_data")
     ap.add_argument("--json-out", default=None)
     args = ap.parse_args(argv)
-    rows = [analyze_record(r) for r in load_records(Path(args.dir), args.mesh)]
+    rows = [analyze_record(r) for r in load_records(Path(args.dir), args.mesh, args.opt)]
     rows.sort(key=lambda r: r["roofline_fraction"])
     print(table(rows))
     worst = [r for r in rows if r["roofline_fraction"] < 0.5]

@@ -37,25 +37,70 @@ def set_activation_sharding(batch_axes=None, seq_axes=None) -> None:
     _ACT_SPEC["seq"] = seq_axes
 
 
+def act_spec(x: torch.Tensor, mesh):
+    """The spec :func:`shard_act` gives a (B, S, ...) activation: the configured
+    batch / seq axes, or with neither set the batch's spec on ``mesh``."""
+    from ..dist.sharding import P, batch_pspecs
+
+    batch, seq = _ACT_SPEC["batch"], _ACT_SPEC["seq"]
+    if batch is None and seq is None:
+        return batch_pspecs(x, mesh)
+    spec = [None] * x.ndim
+    spec[0] = batch
+    if x.ndim >= 2:
+        spec[1] = seq
+    return P(*spec)
+
+
+def _constrain(x: torch.Tensor, spec) -> torch.Tensor:
+    from ..dist.sharding import placements
+
+    target = placements(spec, x.device_mesh)
+    return x if tuple(x.placements) == target else x.redistribute(x.device_mesh, target)
+
+
 def shard_act(x: torch.Tensor) -> torch.Tensor:
     """Constrain a (B, S, ...) DTensor activation to the configured DP / SP axes."""
     from torch.distributed.tensor import DTensor
 
     if not isinstance(x, DTensor):
         return x
-    from ..dist.sharding import batch_pspecs, placements
+    return _constrain(x, act_spec(x, x.device_mesh))
 
-    mesh = x.device_mesh
-    batch, seq = _ACT_SPEC["batch"], _ACT_SPEC["seq"]
-    if batch is None and seq is None:
-        spec = batch_pspecs(x, mesh)
-    else:
-        spec = [None] * x.ndim
-        spec[0] = batch
-        if x.ndim >= 2:
-            spec[1] = seq
-    target = placements(spec, mesh)
-    return x if tuple(x.placements) == target else x.redistribute(mesh, target)
+
+# MoE dispatch-buffer sharding, as the reference's (set by the launcher; see
+# ``moe.moe_ffn``).  Splitting the (E, C, ...) buffer's capacity dim over data
+# turns the data ranks' all-reduce of their disjoint slots into a reduce-scatter.
+_MOE_SPEC: dict = {"ep": None, "cap": None}
+
+
+def set_moe_sharding(ep_axes=None, cap_axes=None) -> None:
+    _MOE_SPEC["ep"] = ep_axes
+    _MOE_SPEC["cap"] = cap_axes
+
+
+def moe_buf_spec(ndim: int):
+    """The spec :func:`shard_moe_buf` gives an (E, C, ...) buffer: experts over the
+    configured ``ep`` axes, capacity over ``cap``; with neither set, the port's
+    default, experts over ``model`` as the expert weights are and capacity
+    replicated (the reference then leaves the buffer to GSPMD)."""
+    from ..dist.sharding import P
+
+    ep, cap = _MOE_SPEC["ep"], _MOE_SPEC["cap"]
+    spec = [None] * ndim
+    spec[0] = "model" if ep is None and cap is None else ep
+    if ndim >= 2:
+        spec[1] = cap
+    return P(*spec)
+
+
+def shard_moe_buf(x: torch.Tensor) -> torch.Tensor:
+    """Constrain an (E, C, feature) DTensor MoE dispatch / expert buffer; plain tensors pass."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(x, DTensor):
+        return x
+    return _constrain(x, moe_buf_spec(x.ndim))
 
 
 def split(x: torch.Tensor, *shape) -> torch.Tensor:

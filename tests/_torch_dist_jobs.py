@@ -15,6 +15,15 @@ checkpoint under ``<work>/ckpt.<arch>.<mesh>``.  The four-process job runs its
 all-gathers through ``fleet.route_all_gather_through_c10d``.  With a restore-from mesh,
 each rank also restores that mesh's checkpoint onto this mesh's placements and
 rank 0 writes the gathered leaves to ``<work>/<arch>.restored.<mesh>.npz``.
+
+An arch entry names its config (``arch``), depth and, for an MoE variant, a
+``capacity_factor``.  For an MoE entry every rank also holds ``moe_ffn`` on
+layer 0's params against the unsharded function on the global input (seeded
+numpy x and output weights), as the buffers are constrained by default, with
+``moe_cap_data`` and with ``seq_model``'s activations: output, aux loss, the
+gradients of x and of the params, its own tokens' kept mask against the
+unsharded mask's rows, and the dispatch buffer's local shape; it
+writes ``<work>/<arch>.moe.<mesh>.<rank>.json``.
 """
 from __future__ import annotations
 
@@ -36,6 +45,8 @@ from repro_torch.data.pipeline import DataConfig
 from repro_torch.dist import sharding as shd
 from repro_torch.launch import fleet
 from repro_torch.launch.commanalysis import CollectiveCounter
+from repro_torch.models import layers as L
+from repro_torch.models import moe
 from repro_torch.models.model import build_model
 from repro_torch.optim import adamw
 from repro_torch.train.train_step import make_train_step
@@ -58,9 +69,77 @@ def _gathered(tree) -> dict:
     return {p: t.detach().numpy() for p, t in adamw.trainable(shd.gather_tree(tree))}
 
 
+def job_cfg(spec: dict):
+    cfg = dataclasses.replace(registry.get(spec["arch"]).reduced(), n_layers=spec["n_layers"])
+    if spec.get("capacity_factor") is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=spec["capacity_factor"]))
+    return cfg
+
+
+# moe_ffn's variants: (buffer constraint, activation constraint)
+MOE_VARIANTS = {"default": ((None, None), (None, None)), "moe_cap_data": (("model", "data"), (None, None)),
+                "seq_model": ((None, None), (("data",), "model"))}
+
+
+def check_moe(cfg, params: dict, mesh, seed: int = 5) -> dict:
+    """``moe_ffn`` on layer 0's params, sharded under each variant, against the unsharded function."""
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((4, 8, cfg.d_model)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal(x.shape).astype(np.float32))
+    layer = {k: v[0].detach().clone() for k, v in params["blocks"]["moe"].items()}
+    ref_p = {k: v.clone().requires_grad_(True) for k, v in layer.items()}
+    ref_x = x.clone().requires_grad_(True)
+    out, aux = moe.moe_ffn(ref_p, ref_x, cfg)
+    ((out * w).sum() + 3.0 * aux).backward()
+    ref = moe.route(layer, x, cfg)
+    data, model = mesh.get_coordinate()
+    rows = x.shape[0] // mesh.size(0) * x.shape[1] * cfg.moe.top_k  # this data rank's assignments
+    block = slice(data * rows, (data + 1) * rows)
+    # The same tokens routed on their own: capacity and slots from the local tokens alone.
+    alone = moe.route(layer, x[data * (x.shape[0] // mesh.size(0)):(data + 1) * (x.shape[0] // mesh.size(0))], cfg)
+    result = {"rank": dist.get_rank(), "coordinate": [data, model], "capacity": ref.capacity,
+              "dropped": int((~ref.keep).sum()), "alone_differs": bool(not torch.equal(alone.keep, ref.keep[block]))}
+    rel = lambda a, b: float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+    for name, (buf_axes, act_axes) in MOE_VARIANTS.items():
+        shapes = []
+        constrain = L.shard_moe_buf
+
+        def recording(t, constrain=constrain, shapes=shapes):
+            t = constrain(t)
+            shapes.append(list(t.to_local().shape))
+            return t
+
+        L.set_moe_sharding(*buf_axes)
+        L.set_activation_sharding(*act_axes)
+        L.shard_moe_buf = recording
+        try:
+            p_spec = shd.param_pspecs(params["blocks"]["moe"], mesh)
+            dp = {k: v[0].detach() for k, v in shd.distribute_tree(params["blocks"]["moe"], p_spec, mesh).items()}
+            dp = {k: v.requires_grad_(True) for k, v in dp.items()}
+            dx = L.shard_act(shd.distribute_tree({"x": x}, shd.batch_pspecs({"x": x}, mesh), mesh)["x"])
+            dx = dx.detach().requires_grad_(True)
+            dw = shd.distribute_tree({"w": w}, shd.batch_pspecs({"w": w}, mesh), mesh)["w"]
+            counter = CollectiveCounter()
+            with counter:
+                got, got_aux = moe.moe_ffn(dp, dx, cfg)
+                ((got * dw).sum() + 3.0 * got_aux).backward()
+            route = moe.route(dp, dx, cfg)
+            errs = {"out": rel(got.full_tensor(), out), "aux": rel(got_aux.full_tensor(), aux),
+                    "grad x": rel(dx.grad.full_tensor(), ref_x.grad)}
+            errs |= {f"grad {k}": rel(v.grad.full_tensor(), ref_p[k].grad) for k, v in dp.items()}
+        finally:
+            L.shard_moe_buf = constrain
+            L.set_moe_sharding(None, None)
+            L.set_activation_sharding(None, None)
+        result[name] = {"errors": errs, "keep_equal": bool(torch.equal(route.keep, ref.keep[block])),
+                        "buffer_shapes": shapes, "x_placements": [str(p) for p in dx.placements],
+                        "collectives": counter.summary()}
+    return result
+
+
 def run_arch(job: dict, arch: str, work: Path, mesh, tag: str, restore_from: str) -> None:
     spec = job["archs"][arch]
-    cfg = dataclasses.replace(registry.get(arch).reduced(), n_layers=spec["n_layers"])
+    cfg = job_cfg(spec)
     model = build_model(cfg, dtype=torch.float32, param_dtype=torch.float32, device="cpu")
     with np.load(work / f"{arch}.params.npz") as z:
         params = params_from_jax(_unflatten(dict(z)), cfg, device="cpu", dtype=torch.float32)
@@ -68,6 +147,8 @@ def run_arch(job: dict, arch: str, work: Path, mesh, tag: str, restore_from: str
     tcfg = TrainerConfig(total_steps=job["steps"], ckpt_dir=str(work / f"ckpt.{arch}.{tag}"))
     trainer = Trainer(model, cfg, DataConfig(global_batch=job["batch"], seq_len=job["seq"]), opt_cfg, tcfg,
                       mesh=mesh)
+    if cfg.moe is not None:
+        (work / f"{arch}.moe.{tag}.{dist.get_rank()}.json").write_text(json.dumps(check_moe(cfg, params, mesh)))
     p_spec = shd.param_pspecs(params, mesh)
     params = shd.distribute_tree(params, p_spec, mesh)
     opt = adamw.init(params)

@@ -22,16 +22,20 @@ from repro_torch.weights import params_from_jax
 
 
 @functools.cache
-def reduced_pair(arch: str, n_layers: int | None = None):
+def reduced_pair(arch: str, n_layers: int | None = None, capacity_factor: float | None = None):
     """(jax_model, jax_params, torch_model, torch_params) for ``arch``.reduced(), f32, CPU.
 
     ``n_layers`` overrides the reduced depth (2): a 4-layer Hymba has a
-    sliding-window layer, the 2-layer one only global layers."""
+    sliding-window layer, the 2-layer one only global layers.
+    ``capacity_factor`` overrides an MoE config's."""
     jcfg = jax_registry.get(arch).reduced()
     tcfg = torch_registry.get(arch).reduced()
     if n_layers is not None:
         jcfg = dataclasses.replace(jcfg, n_layers=n_layers)
         tcfg = dataclasses.replace(tcfg, n_layers=n_layers)
+    if capacity_factor is not None:
+        jcfg = dataclasses.replace(jcfg, moe=dataclasses.replace(jcfg.moe, capacity_factor=capacity_factor))
+        tcfg = dataclasses.replace(tcfg, moe=dataclasses.replace(tcfg.moe, capacity_factor=capacity_factor))
     jm = jax_build_model(jcfg, dtype=jnp.float32, param_dtype=jnp.float32)
     jp = jm.init(jax.random.PRNGKey(0))
     tm = torch_build_model(tcfg, dtype=torch.float32, param_dtype=torch.float32, device="cpu")

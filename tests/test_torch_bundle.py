@@ -19,13 +19,16 @@ import pytest
 import torch
 
 from repro_torch.core import bundle as bundle_mod
-from repro_torch.core import codegen, dataset, devices, families, pipeline
+from repro_torch.core import codegen, dataset, devices, pipeline
 from repro_torch.core.bundle import BundleFormatError, BundleIntegrityError, DeploymentBundle, install_bundle
 from repro_torch.core.dispatch import Deployment
 from repro_torch.core.runtime import KernelRuntime, uncompiled_configs
 from repro_torch.kernels import attention as at
 from repro_torch.kernels import matmul as mm
 from repro_torch.kernels import ssm, wkv
+
+# The submodules themselves: the package exports the functions of these names, as the reference does.
+families = importlib.import_module("repro_torch.core.families")
 
 jax_bundle, jax_codegen, jax_dataset, jax_families, jax_pipeline, jax_attention = (
     importlib.import_module(m) for m in ("repro.core.bundle", "repro.core.codegen", "repro.core.dataset",

@@ -22,6 +22,15 @@ the reference.  The sharded
 runs are also held to each other.  A checkpoint written on (2, 1)
 restores onto (1, 2) with equal leaves; ``launch.train --fleet --device cpu``
 trains on two processes.
+
+Reduced qwen3-moe-235b-a22b trains on the same meshes (experts over
+``model``: each rank holds E / model of them), at its own capacity factor and
+at 0.5, where experts overflow and which assignments are dropped depends on
+the tokens of the other data ranks.  In the same jobs ``moe_ffn`` is held to
+the unsharded function on the global input (``tests/_torch_dist_jobs.py``):
+output, aux loss and every gradient within 1e-5 of their max, the kept mask
+exactly, the local buffer (E / model, C, d), or (E / model, C / data, d)
+under ``moe_cap_data``.
 """
 import dataclasses
 import json
@@ -48,7 +57,12 @@ from repro_torch.train.trainer import global_batch
 
 ROOT = Path(__file__).resolve().parents[1]
 JOBS = Path(__file__).resolve().parent / "_torch_dist_jobs.py"
-ARCHS = {"granite-8b": 2, "rwkv6-7b": 2, "hymba-1.5b": 4}  # n_layers: Hymba's 4 hold a window layer
+# name -> (arch, n_layers, capacity_factor or None: the config's); Hymba's 4 layers hold a window layer
+ARCHS = {"granite-8b": ("granite-8b", 2, None), "rwkv6-7b": ("rwkv6-7b", 2, None), "hymba-1.5b": ("hymba-1.5b", 4, None),
+         "qwen3-moe-235b-a22b": ("qwen3-moe-235b-a22b", 2, None),
+         "qwen3-moe-235b-a22b-cf0.5": ("qwen3-moe-235b-a22b", 2, 0.5)}
+MOE = [name for name, (arch, _, _) in ARCHS.items() if arch.startswith("qwen3-moe")]
+MESHES = ["2x1", "1x2", "2x2"]
 OPT = dict(lr=1e-3, warmup_steps=2, total_steps=2, eps=1e-4)
 BATCH, SEQ, STEPS = 4, 16, 2
 # rwkv6-7b's known gap between the packages (tests/test_torch_train.py): step 2's gradient norm and u.
@@ -87,12 +101,12 @@ def _run(work: Path, tag: str, restore_from: str = "") -> None:
 def runs(tmp_path_factory):
     """The reference's two global-batch steps per arch, and the three sharded jobs."""
     work = tmp_path_factory.mktemp("dist")
-    job = {"archs": {a: {"n_layers": n} for a, n in ARCHS.items()}, "opt": OPT, "batch": BATCH, "seq": SEQ,
-           "steps": STEPS}
+    job = {"archs": {name: {"arch": a, "n_layers": n, "capacity_factor": cf} for name, (a, n, cf) in ARCHS.items()},
+           "opt": OPT, "batch": BATCH, "seq": SEQ, "steps": STEPS}
     (work / "job.json").write_text(json.dumps(job))
     ref = {}
-    for arch, n_layers in ARCHS.items():
-        jm, jp, tm, tp = reduced_pair(arch, n_layers)
+    for arch, (name, n_layers, cf) in ARCHS.items():
+        jm, jp, tm, tp = reduced_pair(name, n_layers, cf)
         np.savez(work / f"{arch}.params.npz", **_flat(jax.tree.map(np.asarray, jp)))
         step_fn = jax_make_train_step(jm, jax_adamw.AdamWConfig(**OPT))
         port_fn = make_train_step(tm, adamw.AdamWConfig(**OPT))
@@ -126,7 +140,7 @@ def _load(work: Path, arch: str, tag: str):
         return meta, dict(z)
 
 
-@pytest.mark.parametrize("tag", ["2x1", "1x2", "2x2"])
+@pytest.mark.parametrize("tag", MESHES)
 @pytest.mark.parametrize("arch", list(ARCHS))
 def test_sharded_steps_equal_reference(runs, arch, tag):
     work, ref = runs
@@ -168,7 +182,7 @@ def test_sharded_runs_agree(runs, arch):
         assert np.abs(a - p21[path]).max() <= tol * max(np.abs(p21[path]).max(), 1e-30), path
 
 
-@pytest.mark.parametrize("tag", ["2x1", "1x2", "2x2"])
+@pytest.mark.parametrize("tag", MESHES)
 @pytest.mark.parametrize("arch", list(ARCHS))
 def test_a_sharded_step_issues_collectives(runs, arch, tag):
     """Every mesh gathers FSDP-sharded params and reduces gradients each step
@@ -184,10 +198,14 @@ def test_params_are_sharded_as_the_specs_say(runs, arch):
     """On (2, 2) a column-parallel weight holds a quarter, FSDP over data and TP over model."""
     work, _ = runs
     meta, params = _load(work, arch, "2x2")
-    name = {"granite-8b": "blocks/attn/wq", "rwkv6-7b": "blocks/rwkv/w_r", "hymba-1.5b": "blocks/attn/wq"}[arch]
+    name = "blocks/rwkv/w_r" if arch == "rwkv6-7b" else "blocks/attn/wq"
     full = params[name].shape
     assert tuple(meta["local_shapes"][name]) == (full[0], full[1] // 2, full[2] // 2)
     assert meta["placements"][name] == [str(Shard(1)), str(Shard(2))]
+    if arch in MOE:  # the expert stacks: experts over model, FSDP over data
+        full = params["blocks/moe/w_gate"].shape
+        assert tuple(meta["local_shapes"]["blocks/moe/w_gate"]) == (full[0], full[1] // 2, full[2] // 2, full[3])
+        assert meta["placements"]["blocks/moe/w_gate"] == [str(Shard(2)), str(Shard(1))]
 
 
 @pytest.mark.parametrize("arch", list(ARCHS))
@@ -202,6 +220,50 @@ def test_checkpoint_restores_onto_another_mesh(runs, arch):
     for path, a in held.items():
         np.testing.assert_array_equal(restored[f"params/{path}"], a, err_msg=path)
     assert any(k.startswith("opt/m/") and np.abs(v).max() > 0 for k, v in restored.items())
+
+
+def _moe(work: Path, arch: str, tag: str) -> list[dict]:
+    world = int(np.prod([int(n) for n in tag.split("x")]))
+    return [json.loads((work / f"{arch}.moe.{tag}.{rank}.json").read_text()) for rank in range(world)]
+
+
+@pytest.mark.parametrize("variant", ["default", "moe_cap_data", "seq_model"])
+@pytest.mark.parametrize("tag", MESHES)
+@pytest.mark.parametrize("arch", MOE)
+def test_sharded_moe_ffn_equals_unsharded(runs, arch, tag, variant):
+    """Every rank: ``moe_ffn``'s output, aux loss and gradients within 1e-5 of the unsharded
+    function's on the global input, its own tokens' kept mask equal to the unsharded mask's rows,
+    and its buffers (E / model, C, d), capacity split over data under ``moe_cap_data``."""
+    data, model = (int(n) for n in tag.split("x"))
+    cfg = ARCHS[arch]
+    for rank in _moe(runs[0], arch, tag):
+        got = rank[variant]
+        worst = max(got["errors"].items(), key=lambda kv: kv[1])
+        assert worst[1] <= 1e-5, (rank["rank"], worst)
+        assert got["keep_equal"], rank["rank"]
+        n_experts = 4  # the reduced config's
+        cap = rank["capacity"] // data if variant == "moe_cap_data" else rank["capacity"]
+        assert got["buffer_shapes"] == [[n_experts // model, cap, 64]], got["buffer_shapes"]
+        colls = got["collectives"]
+        if data > 1:  # the counts are gathered over data; with moe_cap_data the buffer is reduce-scattered
+            assert colls.get("all-gather_count", 0) > 0
+            if variant == "moe_cap_data":
+                assert colls.get("reduce-scatter_count", 0) > 0
+        if model > 1:  # the experts' partial outputs are summed over model
+            assert colls.get("all-reduce_count", 0) > 0
+        if variant == "seq_model" and model > 1:
+            assert got["x_placements"] == [str(Shard(0)), str(Shard(1))]
+    assert cfg[2] is None or rank["dropped"] > 0  # capacity factor 0.5: experts overflow
+
+
+@pytest.mark.parametrize("tag", ["2x1", "2x2"])
+def test_dropped_assignments_depend_on_other_data_ranks(runs, tag):
+    """At capacity factor 0.5 a data rank routing its tokens alone (capacity and slots from its
+    own tokens) keeps another set than the global routing the sharded layer reproduces."""
+    ranks = _moe(runs[0], "qwen3-moe-235b-a22b-cf0.5", tag)
+    assert all(r["dropped"] > 0 for r in ranks)
+    assert any(r["alone_differs"] for r in ranks)
+    assert all(r[v]["keep_equal"] for r in ranks for v in ("default", "moe_cap_data", "seq_model"))
 
 
 def _free_port() -> int:

@@ -10,8 +10,14 @@
     (``jax.eval_shape``), each sharded dim divided as JAX divides it;
   * probing two depths extrapolates exactly: a 3-layer cell from probes at
     1 and 2 layers equals the 3-layer cell itself (counts, FLOPs, bytes);
-  * the options the port lacks constraints for are refused by name, and a
-    failing cell prints ``FAIL`` and exits nonzero, as the reference's;
+  * the MoE archs' cells, qwen3-moe-235b-a22b's train step and dbrx-132b's
+    decode step at reduced depth, and each of the reference's constraint
+    options on one cell (``seq_model``, ``cache_seq_model``,
+    ``moe_cap_data``): accepted, recorded in ``opts``, ``argument_bytes`` equal
+    to the reference's specs (with ``kv_seq_axis="model"`` for
+    ``cache_seq_model``); under ``moe_cap_data`` the expert work is split over
+    data, so the cell's FLOPs fall;
+  * a failing cell prints ``FAIL`` and exits nonzero, as the reference's;
   * the roofline over synthetic records, with the H100's constants.
 """
 import dataclasses
@@ -71,6 +77,23 @@ def test_cell_record(records, family):
         assert rec["alias_bytes"] > 0
 
 
+MOE_CELLS = {"qwen3-moe-235b-a22b": ("train_4k", 2), "dbrx-132b": ("decode_32k", 2)}
+# option -> the cell it runs on (arch, shape, n_layers)
+OPTION_CELLS = {"seq_model": ("granite-8b", "train_4k", 2), "cache_seq_model": ("hymba-1.5b", "long_500k", 5),
+                "moe_cap_data": ("dbrx-132b", "decode_32k", 2)}
+
+
+@pytest.fixture(scope="module")
+def moe_records():
+    return {arch: dryrun.run_cell(arch, shape, "single", None, n_layers=n) for arch, (shape, n) in MOE_CELLS.items()}
+
+
+@pytest.fixture(scope="module")
+def option_records():
+    return {opt: dryrun.run_cell(arch, shape, "single", None, frozenset({opt}), n_layers=n)
+            for opt, (arch, shape, n) in OPTION_CELLS.items()}
+
+
 def _ref_local_bytes(spec, shape, itemsize) -> int:
     n = 1
     for d, size in enumerate(shape):
@@ -83,27 +106,102 @@ def _ref_local_bytes(spec, shape, itemsize) -> int:
     return n * itemsize
 
 
-def test_argument_bytes_equal_the_references_specs(records):
-    """The granite-8b train cell (2 layers): bf16 params, f32 moments, the int32 step and
-    batch, each leaf's local bytes from the reference's specs and shapes."""
-    arch, shape, n = CELLS["dense"]
+def _ref_argument_bytes(arch: str, shape: str, n: int, opts=frozenset()) -> int:
+    """A cell's arguments, each leaf's local bytes from the reference's specs and shapes (as its
+    ``build_cell`` places them): bf16 params; f32 moments, the int32 step and the batch (train);
+    the batch (prefill); the cache and the step's tokens (decode)."""
     cfg = dataclasses.replace(jax_registry.get(arch), n_layers=n)
     jm = jax_build_model(cfg, dtype=jnp.bfloat16, param_dtype=jnp.bfloat16)
     mesh = types.SimpleNamespace(axis_names=("data", "model"))
     pshape = jax.eval_shape(jm.init, jax.random.PRNGKey(0))
     pspec = jax_shd.param_pspecs(pshape, mesh)
-    oshape = jax.eval_shape(jax_adamw.init, pshape)
-    ospec = jax_shd.opt_pspecs(oshape, pspec)
     inputs = jax_registry.input_specs(arch, shape)
-    bspec = jax_shd.batch_pspecs(inputs, mesh)
+    sp = jax_registry.SHAPES[shape]
+    trees = [(pshape, pspec)]
+    if sp.kind == "train":
+        oshape = jax.eval_shape(jax_adamw.init, pshape)
+        trees += [(oshape, jax_shd.opt_pspecs(oshape, pspec)), (inputs, jax_shd.batch_pspecs(inputs, mesh))]
+    elif sp.kind == "prefill":
+        trees.append((inputs, jax_shd.batch_pspecs(inputs, mesh)))
+    else:
+        shard_seq = shape == "long_500k"
+        cache = jax.eval_shape(lambda: jm.init_cache(sp.global_batch, sp.seq_len))
+        kv_seq_axis = "model" if "cache_seq_model" in opts else None
+        trees.append((cache, jax_shd.cache_pspecs(cache, mesh, shard_seq=shard_seq, kv_seq_axis=kv_seq_axis)))
+        toks = {"tokens": inputs["tokens"], "positions": inputs["positions"]}
+        trees.append((toks, {k: jax.sharding.PartitionSpec() for k in toks} if shard_seq
+                      else jax_shd.batch_pspecs(toks, mesh)))
     total = 0
-    for tree, specs in ((pshape, pspec), (oshape, ospec), (inputs, bspec)):
+    for tree, specs in trees:
         leaves = jax.tree_util.tree_leaves(tree)
         spec_leaves = jax.tree_util.tree_leaves(specs, is_leaf=lambda x: isinstance(x, jax.sharding.PartitionSpec))
         assert len(leaves) == len(spec_leaves)
         total += sum(_ref_local_bytes(s, leaf.shape, np.dtype(leaf.dtype).itemsize)
                      for leaf, s in zip(leaves, spec_leaves))
-    assert records["dense"]["argument_bytes"] == total
+    return total
+
+
+def test_argument_bytes_equal_the_references_specs(records):
+    """The granite-8b train cell (2 layers): bf16 params, f32 moments, the int32 step and
+    batch, each leaf's local bytes from the reference's specs and shapes."""
+    arch, shape, n = CELLS["dense"]
+    assert records["dense"]["argument_bytes"] == _ref_argument_bytes(arch, shape, n)
+
+
+@pytest.mark.parametrize("arch", list(MOE_CELLS))
+def test_moe_cells(moe_records, arch):
+    """The MoE archs' cells run under DTensor: the reference's keys, finite numbers, the
+    arguments of the reference's specs, the expert-parallel dispatch's collectives."""
+    shape, n = MOE_CELLS[arch]
+    rec = moe_records[arch]
+    assert set(rec) == KEYS and (rec["arch"], rec["shape"], rec["n_layers"]) == (arch, shape, n)
+    for key in ("flops", "bytes_accessed", "argument_bytes", "output_bytes", "temp_bytes"):
+        assert math.isfinite(rec[key]) and rec[key] > 0, key
+    assert rec["argument_bytes"] == _ref_argument_bytes(arch, shape, n)
+    # the counts gathered over data, the partial outputs and the buffer's slots reduced
+    assert rec["collectives"].get("all-gather_count", 0) > 0 and rec["collectives"].get("all-reduce_count", 0) > 0
+    if registry.SHAPES[shape].kind == "train":
+        assert rec["collectives"].get("reduce-scatter_count", 0) > 0 and rec["alias_bytes"] > 0
+
+
+@pytest.mark.parametrize("opt", list(OPTION_CELLS))
+def test_constraint_options(option_records, opt):
+    arch, shape, n = OPTION_CELLS[opt]
+    rec = option_records[opt]
+    assert rec["opts"] == [opt] and (rec["arch"], rec["shape"]) == (arch, shape)
+    assert rec["argument_bytes"] == _ref_argument_bytes(arch, shape, n, frozenset({opt}))
+    for key in ("flops", "bytes_accessed", "temp_bytes"):
+        assert math.isfinite(rec[key]) and rec[key] > 0, key
+
+
+def test_cache_seq_model_places_the_kv_cache_over_model():
+    """hymba-1.5b's long_500k cell: every KV leaf's sequence dim moves from ``data`` to ``model``;
+    the SSM state's placements stay."""
+    from torch.distributed.tensor import Shard
+
+    cfg = dataclasses.replace(registry.get("hymba-1.5b"), n_layers=4)
+    mesh = dryrun.production_mesh("single")
+    caches = {opts: dryrun.build_cell(cfg, "long_500k", mesh, opts)[1][1]
+              for opts in (frozenset(), frozenset({"cache_seq_model"}))}
+    moved = 0
+    for name, layer in caches[frozenset({"cache_seq_model"})].items():
+        for leaf, t in layer.items():
+            before = caches[frozenset()][name][leaf].placements
+            if leaf in ("k", "v"):
+                seq = next(p.dim for p in before if isinstance(p, Shard))
+                assert tuple(before) != tuple(t.placements) and t.placements[1] == Shard(seq), (name, leaf)
+                moved += 1
+            else:
+                assert tuple(before) == tuple(t.placements), (name, leaf)
+    assert moved == 2 * cfg.n_layers
+
+
+def test_moe_cap_data_splits_the_expert_work(moe_records, option_records):
+    """dbrx-132b's decode step: with capacity over data the experts' einsums run on each data
+    rank's capacity rows only, not on all of them on every data rank."""
+    assert option_records["moe_cap_data"]["flops"] < moe_records["dbrx-132b"]["flops"]
+    colls = option_records["moe_cap_data"]["collectives"]
+    assert colls.get("reduce-scatter_count", 0) > 0  # the buffer's slots, along C
 
 
 def test_probes_extrapolate_exactly():
@@ -132,10 +230,9 @@ def test_probe_plans():
         "llama-3.2-vision-90b").cross_every]
 
 
-@pytest.mark.parametrize("opt", dryrun.NEEDS_CONSTRAINTS)
-def test_options_needing_constraints_are_refused(opt):
-    with pytest.raises(ValueError, match=f"{opt}.*activation / MoE sharding constraints"):
-        dryrun.main(["--arch", "granite-8b", "--shape", "train_4k", "--opt", opt])
+def test_unknown_options_are_refused():
+    with pytest.raises(ValueError, match="unknown --opt"):
+        dryrun.main(["--arch", "granite-8b", "--shape", "train_4k", "--opt", "seq_data"])
 
 
 def test_a_failing_cell_prints_fail_and_exits_nonzero(tmp_path, capsys):
@@ -170,7 +267,9 @@ def test_roofline_table_and_records(tmp_path, capsys):
         rec = _record(shape=shape, flops=flops, bytes_accessed=1e9 if shape == "train_4k" else 9e12)
         (tmp_path / f"granite-8b__{shape}__single.json").write_text(json.dumps(rec))
     (tmp_path / "granite-8b__train_4k__multi.json").write_text(json.dumps(_record(mesh="multi", devices=512)))
+    (tmp_path / "granite-8b__train_4k__single@seq_model.json").write_text(json.dumps(_record(opts=["seq_model"])))
     assert len(roofline.load_records(tmp_path, "single")) == 2
+    assert [r["opts"] for r in roofline.load_records(tmp_path, "single", "seq_model")] == [["seq_model"]]
     roofline.main(["--dir", str(tmp_path), "--mesh", "single", "--json-out", str(tmp_path / "rows.json")])
     out = capsys.readouterr().out
     assert "| granite-8b | decode_32k |" in out and "2 cells;" in out and "reckoned, not measured" in out

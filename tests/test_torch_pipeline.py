@@ -19,11 +19,14 @@ import numpy as np
 import pytest
 
 from repro.core.perfmodel import build_perf_matrix as jax_build_perf_matrix
-from repro_torch.core import attnmodel, families, perfmodel, pipeline, recmodel
+from repro_torch.core import attnmodel, perfmodel, pipeline, recmodel
 from repro_torch.core.dispatch import Deployment
 from repro_torch.kernels import attention as at
 from repro_torch.kernels import matmul as mm
 from repro_torch.kernels import ssm, wkv
+
+# The submodules themselves: the package exports the functions of these names, as the reference does.
+families = importlib.import_module("repro_torch.core.families")
 
 jax_dataset, jax_families, jax_pipeline, jax_matmul = (importlib.import_module(m) for m in (
     "repro.core.dataset", "repro.core.families", "repro.core.pipeline", "repro.kernels.matmul"))

@@ -29,12 +29,15 @@ from repro.core.faults import FaultPlan as JaxFaultPlan
 from repro.core.runtime import KernelRuntime as JaxRuntime
 from repro.core.tuner import tune as jax_tune
 from repro.kernels.attention import attention_config_space as jax_attention_space
-from repro_torch.core import attnmodel, dataset, families, perfmodel, retune
+from repro_torch.core import attnmodel, dataset, perfmodel, retune
 from repro_torch.core.bundle import DeploymentBundle
 from repro_torch.core.faults import FaultPlan
 from repro_torch.core.runtime import KernelRuntime
 from repro_torch.kernels import attention as at
 from repro_torch.kernels.matmul import MatmulConfig
+
+# The submodules themselves: the package exports the functions of these names, as the reference does.
+families = importlib.import_module("repro_torch.core.families")
 
 jax_retune, jax_families, jax_attnmodel = (importlib.import_module(f"repro.core.{m}")
                                            for m in ("retune", "families", "attnmodel"))

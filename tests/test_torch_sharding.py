@@ -185,3 +185,101 @@ def test_initialize_is_a_no_op_for_one_process_and_refuses_nccl_without_a_card(m
         fleet.initialize(fleet.FleetTopology("127.0.0.1:1", 2, 0))
     with pytest.raises(ValueError, match="backend must be"):
         fleet.initialize(fleet.FleetTopology("127.0.0.1:1", 2, 0), backend="mpi")
+
+
+# ---------------------------------------------------------------------------
+# the activation and MoE-buffer constraints (layers.shard_act / shard_moe_buf)
+# ---------------------------------------------------------------------------
+def _norm(spec) -> tuple:
+    """A spec as a tuple, a one-name tuple entry as that name (``P`` normalises so)."""
+    return tuple(e[0] if isinstance(e, tuple) and len(e) == 1 else e for e in spec)
+
+
+@pytest.fixture
+def constraints(monkeypatch):
+    """Both packages' constraint settings, reset after the test; the reference's specs
+    captured from its ``with_sharding_constraint`` calls."""
+    from repro.models import layers as jax_layers
+    from repro_torch.models import layers
+
+    captured = []
+    monkeypatch.setattr(jax.lax, "with_sharding_constraint", lambda x, spec: captured.append(spec) or x)
+    yield jax_layers, layers, captured
+    for pkg in (jax_layers, layers):
+        pkg.set_activation_sharding(None, None)
+        pkg.set_moe_sharding(None, None)
+
+
+def _dp(mesh: str):
+    return ("pod", "data") if mesh == "multi" else ("data",)
+
+
+# (batch, seq) as the reference's build_cell sets them: no option (and cache_seq_model,
+# moe_cap_data), seq_model (train and prefill), long_500k
+ACT = {"default": lambda dp: (dp, None), "seq_model": lambda dp: (dp, "model"), "long_500k": lambda dp: (None, "data")}
+
+
+@pytest.mark.parametrize("mesh", ["single", "multi"])
+@pytest.mark.parametrize("option", list(ACT))
+def test_activation_spec_equals_reference(constraints, option, mesh):
+    jax_layers, layers, captured = constraints
+    axes = MESHES[mesh]
+    for pkg in (jax_layers, layers):
+        pkg.set_activation_sharding(*ACT[option](_dp(mesh)))
+    for shape in ((8, 16, 32), (8, 16), (8, 16, 4, 8)):
+        captured.clear()
+        jax_layers.shard_act(jnp.zeros(shape))
+        assert len(captured) == 1
+        got = layers.act_spec(torch.empty(shape, device="meta"), axes)
+        assert isinstance(got, shd.P) and _norm(got) == _norm(captured[0]), (shape, got, captured[0])
+
+
+@pytest.mark.parametrize("mesh", ["single", "multi"])
+def test_default_activation_spec_is_the_reference_launchers(constraints, mesh):
+    """With nothing set the port anchors the batch over the data axes: the spec the reference's
+    launcher sets for every cell that is not long_500k or seq_model."""
+    jax_layers, layers, captured = constraints
+    jax_layers.set_activation_sharding(_dp(mesh), None)
+    jax_layers.shard_act(jnp.zeros((8, 16, 32)))
+    assert _norm(layers.act_spec(torch.empty((8, 16, 32), device="meta"), MESHES[mesh])) == _norm(captured[0])
+
+
+@pytest.mark.parametrize("ep, cap", [("model", "data"), ("model", None), (None, "data"), (("pod", "data"), "model")])
+def test_moe_buffer_spec_equals_reference(constraints, ep, cap):
+    """``moe_cap_data`` is ("model", "data"); the others are what ``set_moe_sharding`` takes."""
+    jax_layers, layers, captured = constraints
+    for pkg in (jax_layers, layers):
+        pkg.set_moe_sharding(ep, cap)
+    for shape in ((4, 6, 8), (4, 6)):
+        captured.clear()
+        jax_layers.shard_moe_buf(jnp.zeros(shape))
+        got = layers.moe_buf_spec(len(shape))
+        assert isinstance(got, shd.P) and _norm(got) == _norm(captured[0]), (shape, got, captured[0])
+
+
+def test_default_moe_buffer_spec(constraints):
+    """Unset, the reference leaves the buffer to GSPMD (no constraint); the port keeps experts over
+    ``model``, as the expert weights are, and capacity replicated: the reference's spec for
+    ``set_moe_sharding("model", None)``."""
+    jax_layers, layers, captured = constraints
+    jax_layers.shard_moe_buf(jnp.zeros((4, 6, 8)))
+    assert captured == []
+    jax_layers.set_moe_sharding("model", None)
+    jax_layers.shard_moe_buf(jnp.zeros((4, 6, 8)))
+    assert _norm(layers.moe_buf_spec(3)) == _norm(captured[0]) == ("model", None, None)
+    assert shd.placements(layers.moe_buf_spec(3), MESHES["multi"]) == (Replicate(), Replicate(), Shard(0))
+    layers.set_moe_sharding("model", "data")
+    assert shd.placements(layers.moe_buf_spec(3), MESHES["multi"]) == (Replicate(), Shard(1), Shard(0))
+
+
+def test_constraints_pass_plain_tensors():
+    from repro_torch.models import layers
+
+    x = torch.ones(4, 6, 8)
+    layers.set_moe_sharding("model", "data")
+    layers.set_activation_sharding(("data",), "model")
+    try:
+        assert layers.shard_moe_buf(x) is x and layers.shard_act(x) is x
+    finally:
+        layers.set_moe_sharding(None, None)
+        layers.set_activation_sharding(None, None)

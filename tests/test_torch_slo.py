@@ -27,7 +27,6 @@ from _torch_toys import JaxToy, Toy, same_requests, status_equal
 from repro.core.runtime import KernelRuntime as JaxRuntime
 from repro.core.runtime import Objective as JaxObjective
 from repro.serve.engine import ServingEngine as JaxEngine
-from repro_torch.core import families
 from repro_torch.core.dispatch import Deployment
 from repro_torch.core.online import OnlinePolicy
 from repro_torch.core.runtime import KernelRuntime, Objective
@@ -35,6 +34,8 @@ from repro_torch.kernels import matmul as mm
 from repro_torch.kernels.ops import FixedPolicy
 from repro_torch.serve.engine import ServingEngine
 
+# The families module itself: the package exports the function of that name, as the reference does.
+families = importlib.import_module("repro_torch.core.families")
 jax_dataset, jax_families, jax_dispatch, jax_matmul, jax_online = (importlib.import_module(m) for m in (
     "repro.core.dataset", "repro.core.families", "repro.core.dispatch", "repro.kernels.matmul",
     "repro.core.online"))

@@ -24,7 +24,7 @@ import torch
 from repro.configs import registry as jax_registry
 from repro.kernels.attention import attention_config_space as jax_attention_space
 from repro_torch.configs import registry
-from repro_torch.core import attnmodel, classify, cluster, codegen, dataset, families, gpubench, normalize, pca, recmodel
+from repro_torch.core import attnmodel, classify, cluster, codegen, dataset, gpubench, pca, recmodel
 from repro_torch.core import pipeline, retune, tuner
 from repro_torch.core.dispatch import Deployment
 from repro_torch.core.runtime import KernelRuntime
@@ -32,6 +32,10 @@ from repro_torch.kernels import attention as at
 from repro_torch.kernels import matmul as mm
 from repro_torch.kernels import ops
 from repro_torch.launch import tune as tune_cli
+
+# The submodules themselves: the package exports the functions of these names, as the reference does.
+families = importlib.import_module("repro_torch.core.families")
+normalize = importlib.import_module("repro_torch.core.normalize")
 
 # The reference's modules by path: ``repro.core`` re-exports functions under
 # some module names (``normalize``).
