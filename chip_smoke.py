@@ -12,13 +12,16 @@ Phases (each one fails the run if its check fails):
    block_k, k not a multiple of block_k x splits, m = 1, n = 16), at a
    16-byte-misaligned base (the cp.async path) and at every GEMM shape that
    full-width granite-8b, rwkv6-7b and hymba-1.5b serving, and phase 24's five
-   models (with the VLM's cross K / V over 1024 image rows), give the kernel, against
+   models (with the VLM's cross K / V over 1024 image rows), give the kernel,
+   and in f32 alone (1024, 4096, 1024) and seamless's head gradient (1024,
+   256256, 1024), which the f32 kernel splits along k, against
    ``matmul_plain`` (TF32 off), each config called twice in a row on the same
    inputs: both within the limit and bitwise equal (the split-k counters are
    left at 0 and the partials summed in split order); then 8 more passes over
    the bf16 pairs with fresh inputs, for races.  Error = max|kernel -
    plain| / max|plain|; limits 1e-2 (bf16 out), 1e-3 (f32 out from bf16), 1e-5
-   (f32 in);
+   (f32 in; x sqrt(K / 16384) above K = 16384, ``matmul.f32_limit``); split
+   f32 launches must occur;
 3b. WKV against plain: every compiled chunk config, r/k/v in bf16 and f32,
    head dims 16 and 64, S in {1, 7, 16, 50, 128, 300} (and the served
    (1, S, 64, 64) at S in {32, 64, 128}), with and without an initial state,
@@ -328,10 +331,15 @@ Phases (each one fails the run if its check fails):
    (k, n) of their Q, K/V, O, FFN and vocab GEMMs, seamless's head a K = 256,256
    reduction in grad_lhs) and phase 3's split-k / cp.async edges, bf16 and f32: the
    output and both gradients against autograd of ``matmul_plain`` on the card
-   (TF32 off) within phase 3's limits, 3 launches a forward + backward; each
+   (TF32 off) within phase 3's limits, 3 launches a forward + backward, split
+   f32 launches among them (granite-8b's K/V projection and seamless's head
+   gradient: 64 output tiles); each
    of the three GEMMs of every granite projection timed with CUDA events
    beside its bound, the plain version and torch.matmul, and the two
-   transpose copies the backward makes;
+   transpose copies the backward makes; where ``build/parent`` holds the
+   parent commit, ``scripts/gemm_ab.py --f32`` times the parent's f32 kernel
+   and this one in turns at one granite-8b layer's GEMMs and seamless's head
+   gradient;
    25b. granite-8b at full width (d 4096, ff 14336, vocab 49152), 2 of 36
    layers, f32 as the launcher trains: ``Trainer`` for 6 steps at batch 8, seq
    128, remat "full" (its final checkpoint included): the loss falls, every
@@ -527,6 +535,10 @@ def _misaligned(torch, x):
     return out
 
 
+# Phase 3's f32-only shapes, which the f32 kernel splits along k under its wide tiles
+# (matmul.split_k_f32): granite-8b's K/V projection and seamless's head gradient at 1024 rows.
+F32_SPLIT_SHAPES = [(1024, 4096, 1024), (1024, 256256, 1024)]
+
 # Extra passes of phase 3 over the bf16 pairs, with fresh inputs: a race between the TMA
 # ring's stages once showed in only one of several such passes before it was fixed.
 RACE_PASSES = 8
@@ -545,10 +557,12 @@ def phase_kernel_vs_plain(torch, mm) -> dict:
     shapes.append(IMAGE_ROWS_MKN)
     g = torch.Generator(device="cuda").manual_seed(1)
     worst = {pair: {"rel": 0.0, "abs": 0.0} for pair in TOL}
+    split_worst = {}
     checks = 0
     mm.reset_launches()
     cases = [(*shape, False) for shape in shapes] + [(4, 4096, 1024, True)]
-    for m, k, n, misaligned, pairs in [(*c, TOL) for c in cases] + [
+    f32_split = [(m, k, n, False, {("f32", "f32"): mm.f32_limit(k)}) for m, k, n in F32_SPLIT_SHAPES]
+    for m, k, n, misaligned, pairs in [(*c, TOL) for c in cases] + f32_split + [
             (*c, {p: t for p, t in TOL.items() if p[0] == "bf16"}) for _ in range(RACE_PASSES) for c in cases]:
         a32 = torch.randn(m, k, device="cuda", generator=g)
         b32 = torch.randn(k, n, device="cuda", generator=g)
@@ -564,21 +578,31 @@ def phase_kernel_vs_plain(torch, mm) -> dict:
                 where = f"{cfg.name()} {src}->{dst} at {(m, k, n)}{' (misaligned base)' if misaligned else ''}"
                 for got in (first.float(), second.float()):
                     err = (got - want).abs().max().item()
-                    require(err / scale <= tol, f"{where}: rel err {err / scale:.3g} > {tol}")
-                    w = worst[(src, dst)]
-                    w["rel"], w["abs"] = max(w["rel"], err / scale), max(w["abs"], err)
+                    require(err / scale <= tol, f"{where}: rel err {err / scale:.3g} > {tol:.3g}")
+                    if (m, k, n) in F32_SPLIT_SHAPES:  # held to their own limit, reported apart
+                        split_worst[(m, k, n)] = max(split_worst.get((m, k, n), 0.0), err / scale)
+                    else:
+                        w = worst[(src, dst)]
+                        w["rel"], w["abs"] = max(w["rel"], err / scale), max(w["abs"], err)
                     checks += 1
                 require(torch.equal(first, second), f"{where}: two calls in a row differ")
     torch.cuda.synchronize()
-    paths = dict(mm.PATH_LAUNCHES)
+    paths, splits = dict(mm.PATH_LAUNCHES), dict(mm.SPLIT_LAUNCHES)
     require(all(paths.values()), f"a kernel path was never launched: {paths}")
+    require(splits["simt_f32"] > 0, f"no f32 launch split k: {splits}")
     for (src, dst), w in worst.items():
         print(f"  {src}->{dst}: worst rel err {w['rel']:.3g} (limit {TOL[(src, dst)]}), "
               f"worst abs err {w['abs']:.3g}")
+    print("  f32 alone: " + "; ".join(
+        f"{shape} worst rel err {e:.3g} (limit {mm.f32_limit(shape[1]):.3g}), splits by config "
+        f"{sorted({mm.split_k_f32(shape[0], shape[2], shape[1], c) for c in mm.config_space()})}"
+        for shape, e in split_worst.items()))
     print(f"  {checks} checks over {len(cases)} shapes x {len(mm.config_space())} configs x 2 calls (3 type pairs, then "
-          f"{RACE_PASSES} passes of the 2 bf16 pairs): all within tolerance, both calls bitwise equal; launches by "
-          f"path {paths}")
-    return {f"{s}->{d}": w for (s, d), w in worst.items()} | {"checks": checks, "paths": paths}
+          f"{RACE_PASSES} passes of the 2 bf16 pairs) and {len(F32_SPLIT_SHAPES)} f32 shapes: all within tolerance, "
+          f"both calls bitwise equal; launches by path {paths}, of them split along k {splits}")
+    return {f"{s}->{d}": w for (s, d), w in worst.items()} | {
+        "checks": checks, "paths": paths, "split_launches": splits,
+        "f32_split_shapes": {"x".join(map(str, shape)): e for shape, e in split_worst.items()}}
 
 
 def _wkv_inputs(torch, g, b, s, h, hd, dtype, decay, with_state):
@@ -3656,15 +3680,9 @@ def phase_arch_cpu_vs_card(torch, mm) -> dict:
 TRAIN_ROWS = 1024  # granite-8b's and seamless's training GEMMs at batch 8, seq 128: B * S rows
 # seamless-m4t-large-v2's (k, n): Q, K, V, O (self and cross), gate and up, down, the vocab head
 SEAMLESS_KN = [(1024, 1024), (1024, 8192), (8192, 1024), (1024, 256256)]
-# 25a's f32 limit: phase 3's 1e-5 up to a reduction of 16,384 terms (phase 3's longest is 14,336),
-# then growing as sqrt(K): two f32 sums of K terms in other orders drift apart as a random walk of
-# K roundings, while the largest output grows as sqrt(K) too only for random signs.  Seamless's head
-# gradient sums K = 256,256 (limit 3.95e-5); both sides are also held against an f64 product.
-F32_K_ANCHOR = 16384
-
-
-def _f32_limit(k_red: int) -> float:
-    return TOL[("f32", "f32")] * max(1.0, k_red / F32_K_ANCHOR) ** 0.5
+# 25a's f32 limit (and phase 3's at its f32-only shapes) is ``matmul.f32_limit``: 1e-5 up to a
+# reduction of 16,384 terms, then growing as sqrt(K).  Seamless's head gradient sums K = 256,256
+# (limit 3.95e-5); both sides are also held against an f64 product.
 TRAIN_BATCH, TRAIN_SEQ = 8, 128
 TRAIN_PARITY_TOL = 1e-4  # 25e: card against CPU, relative to each gradient's max (f32, sums in other orders)
 BF16_FED = ("cross/attn/wk", "cross/attn/wv", "cross/ln_img")  # 25e: VLM leaves behind bf16 roundings (2^-8)
@@ -3709,7 +3727,9 @@ def phase_grad_gemms(torch, mm, ops) -> dict:
     and seamless-m4t-large-v2's training shapes and phase 3's split-k / cp.async
     edges; then each of the three
     GEMMs of every granite projection timed with CUDA events beside its bound, the
-    plain version and torch.matmul, and the transpose copies the backward makes."""
+    plain version and torch.matmul, and the transpose copies the backward makes; and
+    where build/parent holds the parent commit, its f32 kernel against this one in
+    turns (``scripts/gemm_ab.py --f32``)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     dt = {"bf16": torch.bfloat16, "f32": torch.float32}
     g = torch.Generator(device="cuda").manual_seed(25)
@@ -3749,11 +3769,11 @@ def phase_grad_gemms(torch, mm, ops) -> dict:
                     err = (got.float() - ref.float()).abs().max().item()
                     scale = ref.float().abs().max().item()
                     tol = TOL[(name, "bf16")] if got.dtype == torch.bfloat16 else (
-                        TOL[("bf16", "f32")] if name == "bf16" else _f32_limit(k_red))
+                        TOL[("bf16", "f32")] if name == "bf16" else mm.f32_limit(k_red))
                     require(err / scale <= tol, f"{where} {what}: rel err {err / scale:.3g} > {tol:.3g}")
                     w = worst[name]
                     w["rel"], w["abs"] = max(w["rel"], err / scale), max(w["abs"], err)
-                    if name == "f32" and k_red > F32_K_ANCHOR:
+                    if name == "f32" and k_red > mm.F32_K_ANCHOR:
                         a64, b64 = a.detach().reshape(-1, k).double(), b.detach().double()
                         g64 = gout.reshape(-1, n).double()
                         e64 = {"out": lambda: a64 @ b64, "grad_lhs": lambda: g64 @ b64.t(),
@@ -3765,8 +3785,10 @@ def phase_grad_gemms(torch, mm, ops) -> dict:
                             exact.update(kernel=errs[0], plain=errs[1], where=f"{where} {what}", k=k_red, tol=tol)
                         del a64, b64, g64, e64
     paths = dict(mm.PATH_LAUNCHES)
+    split_f32 = mm.SPLIT_LAUNCHES["simt_f32"]
     counts = dict(ops.GRAD_GEMMS)
     require(all(c == 3 for c in launches_per_case), f"launches per forward + backward {launches_per_case}, want 3")
+    require(split_f32 > 0, f"no f32 training GEMM split k: {dict(mm.SPLIT_LAUNCHES)}")
     require(counts == {"forward": 2 * len(cases), "grad_lhs": 2 * len(cases), "grad_rhs": 2 * len(cases)},
             f"gradient GEMMs by phase {counts}")
     require(all(paths.values()), f"a GEMM path saw no training launch: {paths}")
@@ -3775,9 +3797,10 @@ def phase_grad_gemms(torch, mm, ops) -> dict:
           f"grad_rhs through matmul.cu, 3 launches each "
           f"(by phase {counts}; by path {paths}); worst rel err bf16 {worst['bf16']['rel']:.3g} (limits "
           f"{TOL[('bf16', 'bf16')]} bf16 out, {TOL[('bf16', 'f32')]} f32 out), f32 {worst['f32']['rel']:.3g} (limit "
-          f"{_f32_limit(0)} up to K = {F32_K_ANCHOR}, x sqrt(K / {F32_K_ANCHOR}) above); against an f64 product at "
-          f"{exact['where']} (K = {exact.get('k')}): kernel {exact['kernel']:.3g}, torch.matmul f32 "
-          f"{exact['plain']:.3g} (limit {exact.get('tol', 0):.3g}))")
+          f"{mm.f32_limit(0)} up to K = {mm.F32_K_ANCHOR}, x sqrt(K / {mm.F32_K_ANCHOR}) above); against an f64 "
+          f"product at {exact['where']} (K = {exact.get('k')}): kernel {exact['kernel']:.3g}, torch.matmul f32 "
+          f"{exact['plain']:.3g} (limit {exact.get('tol', 0):.3g})); f32 launches that split k: {split_f32} of "
+          f"{paths['simt_f32']}")
 
     rows = []
     for name, dtype in dt.items():
@@ -3832,8 +3855,20 @@ def phase_grad_gemms(torch, mm, ops) -> dict:
                   f"{key} " + " / ".join(f"{v:.3f}" for v in per_layer[name][key])
                   for key in ("ms", "bound_ms", "plain_ms", "library_ms"))
               + f"; the backward's transposes {per_layer[name]['transposes_ms']:.3f}")
+    parent = None
+    base = ROOT / "build" / "parent"
+    if (base / "src" / "repro_torch" / "kernels" / "csrc" / "matmul.cu").is_file():
+        sys.path.insert(0, str(ROOT / "scripts"))
+        import gemm_ab
+
+        parent = gemm_ab.run_f32_turns(base)
+        gemm_ab.report_f32(parent)
+        parent["layer_sums"] = gemm_ab.f32_layer_sums(parent)
+    else:
+        print("  no build/parent: the parent's f32 kernel is not measured in this run")
     return {"worst": worst, "f32_against_f64": exact, "granite_layer": per_layer, "launches": sum(launches_per_case),
-            "by_phase": counts, "paths": paths, "cases": len(cases), "rows": rows}
+            "by_phase": counts, "paths": paths, "split_f32_launches": split_f32, "cases": len(cases), "rows": rows,
+            "parent_f32_ab": parent}
 
 
 def _train_cfg(arch: str, **kw):
@@ -5580,6 +5615,10 @@ def main() -> int:
                 "measured_as": "torch.profiler, one warm step: the GEMM kernels it recorded, of the step's wall"},
             "granite_f32_gemm_share_estimate_from_25a":
                 training["granite"]["f32"]["gemm_share_estimate_from_25a"],
+            "granite_layer_f32_ms": {key: training["grad_gemms"]["granite_layer"]["f32"][key] for key in (
+                "ms", "bound_ms", "library_ms")} | {"as": "forward / grad_lhs / grad_rhs: a layer's 7 GEMMs, 1024 rows"},
+            "f32_head_grad_against_f64": training["grad_gemms"]["f32_against_f64"],
+            "split_f32_launches_25a": training["grad_gemms"]["split_f32_launches"],
         },
     }, {
         "name": "wkv",

@@ -2,6 +2,7 @@
 """Time the port's GEMM from two source trees in turns on one card.
 
     python3 scripts/gemm_ab.py --base build/parent --out build/gemm_ab.json
+    python3 scripts/gemm_ab.py --f32 --base build/parent --out build/gemm_ab_f32.json
 
 ``--base`` is another checkout of the repository (for example ``git archive``
 of a parent commit unpacked under ``build/``); the other tree is this one.
@@ -17,6 +18,16 @@ back, at the decode shapes).  The
 turns run base, this tree, this tree, base, so that drift on the card falls
 on both alike; each tree's number is the mean of its two turns.
 ``chip_smoke.py`` calls :func:`run_turns` when ``build/parent`` exists.
+
+``--f32`` times the training path's f32 GEMMs instead (:func:`run_f32_turns`):
+the forward, grad_lhs and grad_rhs GEMMs of one full-width granite-8b layer
+at 1024 rows (batch 8 x seq 128) and seamless-m4t-large-v2's head gradient
+(1024, 256256) @ (256256, 1024), each under ``DEFAULT_CONFIG`` (what
+training launches) beside ``torch.matmul`` in f32 with TF32 off (a
+yardstick only) and the bound 2mnk / 67e12 (operations: FP32 outside the
+tensor cores), in the same turns; and, in each turn, the head gradient's
+error against an f64 product, the kernel's beside ``torch.matmul``'s.
+``chip_smoke.py`` runs it too when ``build/parent`` exists.
 """
 from __future__ import annotations
 
@@ -31,6 +42,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 BF16_FLOPS = 989e12
+F32_FLOPS = 67e12  # outside the tensor cores
 # GEMM launches per decode step (batch 4) of each served model, by (k, n), as chip_smoke.py
 # phases 4, 8 and 12 count them; the vocab GEMMs emit f32 logits.
 DECODE_STEP = {
@@ -43,6 +55,24 @@ DECODE_STEP = {
 DECODE_KN = {arch: list(step) for arch, step in DECODE_STEP.items()}
 VOCAB_KN = {(4096, 49152), (4096, 65536), (1600, 32128)}
 TALL = (16384, 4096, 14336)
+
+
+# The f32 mode: one granite-8b layer's GEMMs by (k, n) and count (Q and O, K and V, gate and
+# up, down) at TRAIN_ROWS rows, each as its forward and the two GEMMs of its backward; and
+# seamless's head gradient, a K = 256,256 reduction over 64 output tiles of 128 x 128.
+TRAIN_ROWS = 1024
+GRANITE_LAYER = {(4096, 4096): 2, (4096, 1024): 2, (4096, 14336): 2, (14336, 4096): 1}
+SEAMLESS_HEAD_GRAD = (TRAIN_ROWS, 256256, 1024)
+
+
+def layer_gemms(k: int, n: int) -> dict[str, tuple[int, int, int]]:
+    """(m, k, n) of the forward and both gradient GEMMs of a (k, n) projection."""
+    return {"forward": (TRAIN_ROWS, k, n), "grad_lhs": (TRAIN_ROWS, n, k), "grad_rhs": (k, TRAIN_ROWS, n)}
+
+
+def f32_shapes() -> list[tuple[int, int, int]]:
+    layer = [mkn for k, n in GRANITE_LAYER for mkn in layer_gemms(k, n).values()]
+    return [*dict.fromkeys(layer), SEAMLESS_HEAD_GRAD]
 
 
 def shapes() -> list[tuple[int, int, int]]:
@@ -87,6 +117,35 @@ def worker(src: Path, todo: list[tuple[int, int, int]]) -> dict:
     return {"src": str(src), "default": mm.DEFAULT_CONFIG.name(), "rows": rows}
 
 
+def worker_f32(src: Path, todo: list[tuple[int, int, int]]) -> dict:
+    """Times ``todo`` in f32 with the matmul of the tree whose package root is ``src``."""
+    sys.path.insert(0, str(src))
+    import torch
+
+    from repro_torch.core.gpubench import time_ms
+    from repro_torch.kernels import matmul as mm
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("gemm_ab times on the card and torch finds no CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(4)
+    rows, exact = [], None
+    for m, k, n in todo:
+        a = torch.randn(m, k, device="cuda", generator=g)
+        b = torch.randn(k, n, device="cuda", generator=g)
+        ms = time_ms(lambda i: mm.matmul_cuda(a, b), n_warm=2, n_runs=5)
+        library = time_ms(lambda i: torch.matmul(a, b), n_warm=2, n_runs=5)
+        rows.append({"m": m, "k": k, "n": n, "ms": ms, "library_ms": library})
+        if (m, k, n) == SEAMLESS_HEAD_GRAD:
+            e64 = a.double() @ b.double()
+            scale = e64.abs().max().item()
+            exact = {"kernel": (mm.matmul_cuda(a, b).double() - e64).abs().max().item() / scale,
+                     "library": (torch.matmul(a, b).double() - e64).abs().max().item() / scale}
+            del e64
+        del a, b
+    return {"src": str(src), "default": mm.DEFAULT_CONFIG.name(), "rows": rows, "against_f64": exact}
+
+
 def host_us(torch, fn, n: int = 200) -> float:
     """Host microseconds per call: ``n`` calls enqueued back to back, no sync between."""
     for _ in range(20):
@@ -100,11 +159,11 @@ def host_us(torch, fn, n: int = 200) -> float:
     return (t1 - t0) / n * 1e6
 
 
-def _turn(src: Path, todo, timeout: float) -> dict:
+def _turn(src: Path, todo, timeout: float, f32: bool = False) -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         out = Path(tmp) / "turn.json"
         subprocess.run([sys.executable, __file__, "--worker", str(src), "--shapes", json.dumps(todo),
-                        "--out", str(out)], check=True, timeout=timeout)
+                        "--out", str(out), *(["--f32"] if f32 else [])], check=True, timeout=timeout)
         return json.loads(out.read_text())
 
 
@@ -131,6 +190,58 @@ def run_turns(base: Path, todo=None, timeout: float = 600.0) -> dict:
                          "turns_default_ms": [r1["per_config_ms"][t1["default"]], r2["per_config_ms"][t1["default"]]]})
         merged[name] = rows
     return {"order": ["base", "this", "this", "base"], "base": str(base), "trees": merged}
+
+
+def f32_bound_ms(m: int, k: int, n: int) -> float:
+    return 2 * m * k * n / F32_FLOPS * 1e3  # operations bound them: 230-340 FLOP a byte
+
+
+def run_f32_turns(base: Path, timeout: float = 900.0) -> dict:
+    """The f32 mode's turns (base, this tree, this tree, base); each tree's per-shape
+    numbers the mean of its two turns, with both turns' kernel times kept."""
+    todo = [list(s) for s in f32_shapes()]
+    trees = {"base": base / "src", "this": ROOT / "src"}
+    turns = {name: [] for name in trees}
+    for name in ("base", "this", "this", "base"):
+        turns[name].append(_turn(trees[name], todo, timeout, f32=True))
+    merged = {}
+    for name, (t1, t2) in turns.items():
+        merged[name] = {"rows": [{"m": r1["m"], "k": r1["k"], "n": r1["n"], "ms": (r1["ms"] + r2["ms"]) / 2,
+                                  "turns_ms": [r1["ms"], r2["ms"]],
+                                  "library_ms": (r1["library_ms"] + r2["library_ms"]) / 2,
+                                  "bound_ms": f32_bound_ms(r1["m"], r1["k"], r1["n"])}
+                                 for r1, r2 in zip(t1["rows"], t2["rows"])],
+                        "against_f64": [t1["against_f64"], t2["against_f64"]]}
+    return {"order": ["base", "this", "this", "base"], "base": str(base), "mode": "f32", "trees": merged}
+
+
+def f32_layer_sums(result: dict) -> dict:
+    """Per tree: one granite-8b layer's forward / grad_lhs / grad_rhs GEMM time (each
+    shape's time times its count), its torch.matmul time and its bound, in ms."""
+    sums = {}
+    for tree, res in result["trees"].items():
+        by = {(r["m"], r["k"], r["n"]): r for r in res["rows"]}
+        sums[tree] = {key: {what: sum(c * by[layer_gemms(k, n)[what]][key] for (k, n), c in GRANITE_LAYER.items())
+                            for what in ("forward", "grad_lhs", "grad_rhs")}
+                      for key in ("ms", "library_ms", "bound_ms")}
+    return sums
+
+
+def report_f32(result: dict) -> None:
+    for base_row, row in zip(result["trees"]["base"]["rows"], result["trees"]["this"]["rows"]):
+        print(f"  f32 ({row['m']}, {row['k']}, {row['n']}): DEFAULT_CONFIG {base_row['ms']:.3f} -> {row['ms']:.3f} ms "
+              f"(turns {[round(t, 3) for t in base_row['turns_ms']]} -> {[round(t, 3) for t in row['turns_ms']]}); "
+              f"bound {row['bound_ms']:.3f} (operations); torch.matmul {row['library_ms']:.3f}")
+    sums = f32_layer_sums(result)
+    for what in ("forward", "grad_lhs", "grad_rhs"):
+        print(f"  one granite-8b layer's {what} GEMMs at {TRAIN_ROWS} rows, f32: {sums['base']['ms'][what]:.3f} -> "
+              f"{sums['this']['ms'][what]:.3f} ms; bound {sums['this']['bound_ms'][what]:.3f}; torch.matmul "
+              f"{sums['this']['library_ms'][what]:.3f}")
+    for tree in ("base", "this"):
+        errs = result["trees"][tree]["against_f64"]
+        print(f"  {tree}: {SEAMLESS_HEAD_GRAD} against an f64 product, relative to its max: kernel "
+              f"{[format(e['kernel'], '.3g') for e in errs]}, torch.matmul "
+              f"{[format(e['library'], '.3g') for e in errs]}")
 
 
 def step_sums(result: dict) -> dict:
@@ -166,23 +277,25 @@ def main(argv=None) -> int:
     ap.add_argument("--base", type=Path, default=ROOT / "build" / "parent")
     ap.add_argument("--out", type=Path, default=ROOT / "build" / "gemm_ab.json")
     ap.add_argument("--report", type=Path, help="print the numbers of a saved result instead of measuring")
+    ap.add_argument("--f32", action="store_true", help="time the training path's f32 GEMMs (module docstring)")
     ap.add_argument("--worker", type=Path, help=argparse.SUPPRESS)
     ap.add_argument("--shapes", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.worker is not None:
-        result = worker(args.worker, [tuple(s) for s in json.loads(args.shapes)])
+        result = (worker_f32 if args.f32 else worker)(args.worker, [tuple(s) for s in json.loads(args.shapes)])
         args.out.write_text(json.dumps(result))
         return 0
     if args.report is not None:
-        report(json.loads(args.report.read_text()))
+        result = json.loads(args.report.read_text())
+        (report_f32 if result.get("mode") == "f32" else report)(result)
         return 0
     if not (args.base / "src" / "repro_torch" / "kernels" / "csrc" / "matmul.cu").is_file():
         print(f"gemm_ab: {args.base} holds no src/repro_torch/kernels/csrc/matmul.cu", file=sys.stderr)
         return 2
-    result = run_turns(args.base)
+    result = run_f32_turns(args.base) if args.f32 else run_turns(args.base)
     args.out.parent.mkdir(parents=True, exist_ok=True)
     args.out.write_text(json.dumps(result, indent=1))
-    report(result)
+    (report_f32 if args.f32 else report)(result)
     print(f"  -> {args.out}")
     return 0
 

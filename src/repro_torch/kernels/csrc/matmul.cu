@@ -40,8 +40,39 @@
 //     unaligned base) run a 3-stage cp.async ring (scalar loads where a row is not
 //     16-byte aligned) with the same split-k epilogue. The wrapper chooses the path
 //     and counts its launches per path.
-//   * f32 inputs use a tiled SIMT FMA path in full f32 (no TF32), matching
-//     preferred_element_type=f32 on the TPU; it takes no split.
+//
+// The f32 path (f32 inputs and output; the training path, which trains in f32). It
+// computes preferred_element_type=f32 in full f32: FFMA on f32 values, no TF32 and no
+// 3xTF32, either of which would change what is computed. Its bound is operations: 2mnk
+// FLOP over the 67 TFLOP/s of the FP32 pipes outside the tensor cores (a granite-8b
+// layer GEMM at 1024 rows does 230-340 FLOP per byte of its operands and output; the
+// card turns 20 FLOP per HBM byte). So the design gives as many instruction slots as it
+// can to FFMA:
+//   * A ring of 3-4 stages of A and B tiles (as many as ~110 KB hold, so two CTAs share
+//     an SM) filled by 16-byte cp.async (4-byte ones where a row is not 16-byte aligned
+//     or K or N is not a multiple of 4). Step s + STAGES - 1 loads while step s
+//     computes; one __syncthreads a step both publishes the stage that landed and frees
+//     the stage computed last.
+//   * A stays m-major in shared memory, as it lies in memory, and each thread reads it
+//     as float4 along k (LDS.128): one load gives a row's next 4 k. The 8 lanes of a
+//     quarter-warp (one LDS.128 wavefront) share their rows, so every A load is a
+//     broadcast: no bank conflict, no padding. Transposing A on its way in to a [k][m]
+//     layout would need register-staged loads in place of cp.async, and padding against
+//     the 32-way conflict of a warp storing one row's k values.
+//   * Warp-tiled register micro-tiles of contiguous 4-wide fragments: at 128 x 128, 256
+//     threads of 8 x 8 outputs, a warp 32 x 64 as 4 x 8 lanes, a thread's 8 columns two
+//     float4 fragments 32 apart. Each 4 k steps a thread reads 8 float4 of A and 8 of B
+//     for 256 FFMA: one LDS.128 per 16 FFMA (scalar reads of an 8 x 8 micro-tile
+//     strided by 16 rows and columns: one LDS.32 per 4). The 8 lanes of a
+//     quarter-warp read 128 contiguous bytes of B: no conflict. 64 x 128 tiles take 8 x
+//     8 at 128 threads; the 16- and 32-row tiles 4 x 4 (2 x 4 at 16 x 64) at 128.
+//   * In-kernel split-k along blockIdx.z with the bf16 path's ordered epilogue
+//     (reduce_tile: partials in the per-stream workspace, the last CTA sums them in
+//     split order). The wrapper (kernels/matmul.py::split_k_f32) splits only an (m, n)
+//     grid smaller than the card, into the count whose grid leaves the fewest SM slots
+//     idle (up to two CTAs an SM, at least 8 k steps a split). At 1024 rows that is
+//     granite-8b's K/V projection and seamless's 256,256-term head gradient (64 tiles
+//     each): 4 splits fill the card, and each thread sums a quarter of the terms.
 // Left for later: persistent tiles, clusters with TMA multicast, stages and warps as
 // config axes, a TMA store epilogue.
 //
@@ -54,8 +85,10 @@ namespace {
 typedef __nv_bfloat16 bf16;
 
 constexpr int kStages = 3;             // cp.async ring depth of the fallback kernel
-constexpr int kRingBudget = 110 * 1024;  // TMA ring bytes per CTA: two CTAs fit on one SM
+constexpr int kRingBudget = 110 * 1024;  // TMA and f32 ring bytes per CTA: two CTAs fit on one SM
 constexpr int kMaxTmaStages = 8;
+constexpr int kMinF32Stages = 3;         // the f32 ring: 3-4 stages within kRingBudget
+constexpr int kMaxF32Stages = 4;
 
 // wgmma (the PTX helpers, mbarriers, TMA and the wgmma fence are in hopper.cuh) --------
 // D(64x128, f32) += A(64x16, K-major, smem) * B(16x128, MN-major, smem).
@@ -116,19 +149,17 @@ __device__ __forceinline__ void store_frag(OutT* C, int M, int N, int r0, int c0
   }
 }
 
-// With one split the tile is stored. Otherwise the partial goes to the workspace slot
-// (tile, split) in fragment order (coalesced 16-byte stores), and the last CTA of the
-// tile sums the slots in split order, stores C and resets the tile's counter.
-template <int NF, int NC, typename OutT>
-__device__ __forceinline__ void finish_tile(const float (&acc)[NF][4], const int (&rows)[NF],
-                                            const int (&cols)[NF], OutT* C, int M, int N,
-                                            int tile, float* ws, int* counters, int ctid,
-                                            volatile int* flag) {
+// With one split the tile is stored (store(f, v) for each of a thread's NF float4
+// fragments). Otherwise the partial goes to the workspace slot (tile, split) in fragment
+// order (coalesced 16-byte stores), and the last CTA of the tile sums the slots in split
+// order, stores C and resets the tile's counter.
+template <int NF, int NC, typename Store>
+__device__ __forceinline__ void reduce_tile(const float (&acc)[NF][4], Store store, int tile, float* ws,
+                                            int* counters, int ctid, volatile int* flag) {
   const int splits = gridDim.z;
   if (splits == 1) {
 #pragma unroll
-    for (int f = 0; f < NF; ++f)
-      store_frag(C, M, N, rows[f], cols[f], make_float4(acc[f][0], acc[f][1], acc[f][2], acc[f][3]));
+    for (int f = 0; f < NF; ++f) store(f, make_float4(acc[f][0], acc[f][1], acc[f][2], acc[f][3]));
     return;
   }
   float4* tile_ws = reinterpret_cast<float4*>(ws) + (size_t)tile * splits * (NF * NC);
@@ -164,8 +195,18 @@ __device__ __forceinline__ void finish_tile(const float (&acc)[NF][4], const int
         }
   }
 #pragma unroll
-  for (int f = 0; f < NF; ++f) store_frag(C, M, N, rows[f], cols[f], v[f]);
+  for (int f = 0; f < NF; ++f) store(f, v[f]);
   if (ctid == 0) counters[tile] = 0;  // ready for the next call on this stream
+}
+
+// The bf16 kernels' epilogue: fragments in the m16n8 accumulator layout (store_frag).
+template <int NF, int NC, typename OutT>
+__device__ __forceinline__ void finish_tile(const float (&acc)[NF][4], const int (&rows)[NF],
+                                            const int (&cols)[NF], OutT* C, int M, int N,
+                                            int tile, float* ws, int* counters, int ctid,
+                                            volatile int* flag) {
+  reduce_tile<NF, NC>(acc, [&](int f, float4 v) { store_frag(C, M, N, rows[f], cols[f], v); }, tile, ws,
+                      counters, ctid, flag);
 }
 
 // The k steps of this CTA's split: [kt0, kt0 + nk). Every split but the last has
@@ -239,12 +280,24 @@ struct TmaTile {
 };
 
 template <int BM, int BN, int BK>
-struct F32Tile {
-  static constexpr int THREADS = 256;  // 16 x 16 threads
-  static constexpr int TM = BM / 16;   // rows per thread
-  static constexpr int TN = BN / 16;   // cols per thread
-  static constexpr int SMEM = (BK * BM + BK * BN) * 4;
-  static_assert(BM % 16 == 0 && BN % 16 == 0, "f32 tile must be a multiple of 16");
+struct F32Tile {  // the f32 kernel: thread micro-tiles, warp layout and cp.async ring
+  static constexpr int TN = BM >= 64 ? 8 : 4;  // cols a thread: TN / 4 float4 fragments
+  static constexpr int TM = BM >= 64 ? 8 : (BM * BN / 512 < 4 ? BM * BN / 512 : 4);  // rows a thread
+  static constexpr int TY = BM / TM, TX = BN / TN;  // the tile's threads, as a TY x TX grid
+  static constexpr int THREADS = TY * TX;
+  static constexpr int LX = 8, LY = 4;              // a warp: 4 x 8 threads, lane = 8 ly + lx
+  static constexpr int WX = TX / LX, WY = TY / LY;  // warps along n and m
+  static constexpr int WTM = LY * TM, WTN = LX * TN;  // warp tile
+  static constexpr int NFN = TN / 4;                // float4 fragments along n, 4 LX apart
+  static constexpr int NF = TM * NFN;               // float4 fragments a thread holds
+  static constexpr int A_STAGE = BM * BK, B_STAGE = BK * BN;  // floats: A [BM][BK], B [BK][BN]
+  static constexpr int STAGE = (A_STAGE + B_STAGE) * 4;
+  static constexpr int FIT = kRingBudget / STAGE;
+  static constexpr int STAGES = FIT < kMinF32Stages ? kMinF32Stages : (FIT > kMaxF32Stages ? kMaxF32Stages : FIT);
+  static constexpr int SMEM = STAGES * STAGE;
+  static_assert(TX % LX == 0 && TY % LY == 0 && THREADS == 32 * WX * WY, "whole warps of 4 x 8 threads");
+  static_assert(TN % 4 == 0 && BK % 4 == 0, "float4 fragments along n and k");
+  static_assert((A_STAGE / 4) % THREADS == 0 && (B_STAGE / 4) % THREADS == 0, "whole 16-byte chunks a thread");
 };
 
 // Rows of the A box: whole 64-row slabs up to BM for the wgmma tiles, BM for the others.
@@ -539,77 +592,148 @@ __global__ void __launch_bounds__(128)
 }
 
 // ---------------------------------------------------------------------------
-// f32 SIMT kernel (full-precision FMA, no TF32)
+// f32 kernel (full-precision FFMA, no TF32): cp.async ring, warp-tiled micro-tiles,
+// split-k (VEC = false copies element by element: a row that is not 16-byte aligned)
 // ---------------------------------------------------------------------------
-template <int BM, int BN, int BK>
-__global__ void __launch_bounds__(256)
+// 4-byte async copy; pred = false zero-fills the destination without reading.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool pred) {
+  int n = pred ? 4 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(n));
+}
+
+template <int BM, int BN, int BK, bool VEC>
+__global__ void __launch_bounds__(F32Tile<BM, BN, BK>::THREADS, 2)
     gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ B, float* __restrict__ C,
-                    int M, int N, int K, int order) {
+                    int M, int N, int K, int order, float* __restrict__ ws, int* __restrict__ counters) {
   using T = F32Tile<BM, BN, BK>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* sA = reinterpret_cast<float*>(smem_raw);  // [BK][BM], transposed
-  float* sB = sA + BK * BM;                        // [BK][BN]
+  __shared__ int flag;
+  float* sA = reinterpret_cast<float*>(smem_raw);  // STAGES x [BM][BK]
+  float* sB = sA + T::STAGES * T::A_STAGE;         // STAGES x [BK][BN]
 
-  const int tm = order == 0 ? blockIdx.y : blockIdx.x;
-  const int tn = order == 0 ? blockIdx.x : blockIdx.y;
+  const int gn = (N + BN - 1) / BN;
+  int tm, tn;
+  tile_coords(order, (M + BM - 1) / BM, gn, tm, tn);
   const int m0 = tm * BM, n0 = tn * BN;
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int row0 = (warp / T::WX) * T::WTM + (lane / T::LX) * T::TM;  // this thread's TM rows
+  const int col0 = (warp % T::WX) * T::WTN + (lane % T::LX) * 4;      // its first fragment's cols
+  int kt0, nk;
+  split_range(K, BK, kt0, nk);
 
-  float acc[T::TM][T::TN];
+  auto load_stage = [&](int stage, int kt) {
+    const int k0 = (kt0 + kt) * BK;
+    float* a_dst = sA + stage * T::A_STAGE;
+    float* b_dst = sB + stage * T::B_STAGE;
+    constexpr int A_CPR = BK / 4, B_CPR = BN / 4;  // 16-byte chunks a row
 #pragma unroll
-  for (int i = 0; i < T::TM; ++i)
+    for (int it = 0; it < BM * A_CPR / T::THREADS; ++it) {
+      const int c = tid + it * T::THREADS;
+      const int r = c / A_CPR, cc = (c % A_CPR) * 4;
+      const int gm = m0 + r, gk = k0 + cc;
+      float* dst = a_dst + r * BK + cc;
+      if (VEC) {  // K % 4 == 0: a chunk is wholly inside or wholly outside
+        const bool ok = gm < M && gk < K;
+        cp_async16(dst, ok ? A + (size_t)gm * K + gk : A, ok);
+      } else {
 #pragma unroll
-    for (int j = 0; j < T::TN; ++j) acc[i][j] = 0.f;
+        for (int e = 0; e < 4; ++e) {
+          const bool ok = gm < M && gk + e < K;
+          cp_async4(dst + e, ok ? A + (size_t)gm * K + gk + e : A, ok);
+        }
+      }
+    }
+#pragma unroll
+    for (int it = 0; it < BK * B_CPR / T::THREADS; ++it) {
+      const int c = tid + it * T::THREADS;
+      const int r = c / B_CPR, cc = (c % B_CPR) * 4;
+      const int gk = k0 + r, gc = n0 + cc;
+      float* dst = b_dst + r * BN + cc;
+      if (VEC) {  // N % 4 == 0
+        const bool ok = gk < K && gc < N;
+        cp_async16(dst, ok ? B + (size_t)gk * N + gc : B, ok);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool ok = gk < K && gc + e < N;
+          cp_async4(dst + e, ok ? B + (size_t)gk * N + gc + e : B, ok);
+        }
+      }
+    }
+  };
 
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    for (int c = tid; c < BM * BK; c += T::THREADS) {
-      const int r = c / BK, kk = c % BK;  // consecutive threads read one row: coalesced
-      const int gm = m0 + r, gk = k0 + kk;
-      sA[kk * BM + r] = (gm < M && gk < K) ? A[(size_t)gm * K + gk] : 0.f;
-    }
-    for (int c = tid; c < BK * BN; c += T::THREADS) {
-      const int kk = c / BN, cn = c % BN;
-      const int gk = k0 + kk, gn = n0 + cn;
-      sB[kk * BN + cn] = (gk < K && gn < N) ? B[(size_t)gk * N + gn] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      float a[T::TM], b[T::TN];
+  // acc[i * NFN + j] holds row row0 + i, cols col0 + 4 LX j .. + 3.
+  float acc[T::NF][4];
 #pragma unroll
-      for (int i = 0; i < T::TM; ++i) a[i] = sA[kk * BM + ty + 16 * i];
+  for (int f = 0; f < T::NF; ++f)
 #pragma unroll
-      for (int j = 0; j < T::TN; ++j) b[j] = sB[kk * BN + tx + 16 * j];
+    for (int e = 0; e < 4; ++e) acc[f][e] = 0.f;
+
 #pragma unroll
-      for (int i = 0; i < T::TM; ++i)
-#pragma unroll
-        for (int j = 0; j < T::TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
+  for (int s = 0; s < T::STAGES - 1; ++s) {
+    if (s < nk) load_stage(s, s);
+    cp_async_commit();
   }
 
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<T::STAGES - 2>();  // step kt has landed (this thread's copies)
+    __syncthreads();                 // ... and everyone's; the stage of step kt - 1 is free again
+    const int next = kt + T::STAGES - 1;
+    if (next < nk) load_stage(next % T::STAGES, next);
+    cp_async_commit();
+
+    const float* a_s = sA + (kt % T::STAGES) * T::A_STAGE + row0 * BK;
+    const float* b_s = sB + (kt % T::STAGES) * T::B_STAGE + col0;
 #pragma unroll
-  for (int i = 0; i < T::TM; ++i) {
-    const int r = m0 + ty + 16 * i;
-    if (r >= M) continue;
+    for (int kk = 0; kk < BK; kk += 4) {
+      float4 a[T::TM];  // rows row0 + i, k = kk .. kk + 3
 #pragma unroll
-    for (int j = 0; j < T::TN; ++j) {
-      const int cn = n0 + tx + 16 * j;
-      if (cn < N) C[(size_t)r * N + cn] = acc[i][j];
+      for (int i = 0; i < T::TM; ++i) a[i] = *reinterpret_cast<const float4*>(a_s + i * BK + kk);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        float4 b[T::NFN];
+#pragma unroll
+        for (int j = 0; j < T::NFN; ++j)
+          b[j] = *reinterpret_cast<const float4*>(b_s + (kk + q) * BN + j * 4 * T::LX);
+#pragma unroll
+        for (int i = 0; i < T::TM; ++i) {
+          const float av = q == 0 ? a[i].x : q == 1 ? a[i].y : q == 2 ? a[i].z : a[i].w;
+#pragma unroll
+          for (int j = 0; j < T::NFN; ++j) {
+            float* c = acc[i * T::NFN + j];
+            c[0] = fmaf(av, b[j].x, c[0]);
+            c[1] = fmaf(av, b[j].y, c[1]);
+            c[2] = fmaf(av, b[j].z, c[2]);
+            c[3] = fmaf(av, b[j].w, c[3]);
+          }
+        }
+      }
     }
   }
+  cp_async_wait<0>();
+
+  const bool vec_out = (N & 3) == 0;  // C comes from torch.empty: 16-byte aligned rows then
+  auto store = [&](int f, float4 v) {
+    const int r = m0 + row0 + f / T::NFN, c = n0 + col0 + (f % T::NFN) * 4 * T::LX;
+    if (r >= M || c >= N) return;
+    float* p = C + (size_t)r * N + c;
+    if (vec_out) {  // N % 4 == 0: the fragment is wholly inside
+      *reinterpret_cast<float4*>(p) = v;
+    } else {
+      p[0] = v.x;
+      if (c + 1 < N) p[1] = v.y;
+      if (c + 2 < N) p[2] = v.z;
+      if (c + 3 < N) p[3] = v.w;
+    }
+  };
+  reduce_tile<T::NF, T::THREADS>(acc, store, tm * gn + tn, ws, counters, tid, &flag);
 }
 
 // ---------------------------------------------------------------------------
 // host-side launch
 // ---------------------------------------------------------------------------
-// The f32 kernel: a 2-D grid, the order's fast axis on blockIdx.x.
-dim3 grid_for(int M, int N, int BM, int BN, int order) {
-  const unsigned gm = (M + BM - 1) / BM, gn = (N + BN - 1) / BN;
-  return order == 0 ? dim3(gn, gm) : dim3(gm, gn);
-}
-
-// The bf16 kernels: every output tile on blockIdx.x (tile_coords), the splits on z.
+// Every kernel: every output tile on blockIdx.x (tile_coords), the splits on z.
 dim3 grid_banded(int M, int N, int BM, int BN, int splits) {
   return dim3(((M + BM - 1) / BM) * ((N + BN - 1) / BN), 1, splits);
 }
@@ -655,16 +779,19 @@ cudaError_t run_cp_async(const void* a, const void* b, void* c, int M, int N, in
 }
 
 template <int BM, int BN, int BK>
-cudaError_t run_f32(const void* a, const void* b, void* c, int M, int N, int K, int order,
-                    cudaStream_t stream) {
+cudaError_t run_f32(const void* a, const void* b, void* c, int M, int N, int K, int order, int splits,
+                    float* ws, int* counters, cudaStream_t stream) {
   using T = F32Tile<BM, BN, BK>;
-  static std::atomic<unsigned long long> done{0};
-  auto kernel = &gemm_f32_kernel<BM, BN, BK>;
-  cudaError_t err = opt_in(kernel, T::SMEM, done);
+  // 16-byte cp.async needs every row start 16-byte aligned: K % 4 for A, N % 4 for B.
+  const bool vec = K % 4 == 0 && N % 4 == 0 && reinterpret_cast<uintptr_t>(a) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(b) % 16 == 0;
+  static std::atomic<unsigned long long> done_vec{0}, done_scalar{0};
+  auto kernel = vec ? &gemm_f32_kernel<BM, BN, BK, true> : &gemm_f32_kernel<BM, BN, BK, false>;
+  cudaError_t err = opt_in(kernel, T::SMEM, vec ? done_vec : done_scalar);
   if (err != cudaSuccess) return err;
-  kernel<<<grid_for(M, N, BM, BN, order), T::THREADS, T::SMEM, stream>>>(
-      static_cast<const float*>(a), static_cast<const float*>(b), static_cast<float*>(c), M, N,
-      K, order);
+  kernel<<<grid_banded(M, N, BM, BN, splits), T::THREADS, T::SMEM, stream>>>(
+      static_cast<const float*>(a), static_cast<const float*>(b), static_cast<float*>(c), M, N, K, order, ws,
+      counters);
   return cudaGetLastError();
 }
 
@@ -726,12 +853,16 @@ int repro_matmul_bf16(int bm, int bn, int bk, int order, int out_f32, int tma, c
   return (int)cudaErrorInvalidValue;
 }
 
-// f32 inputs and output.
-int repro_matmul_f32(int bm, int bn, int bk, int order, const void* a, const void* b, void* c,
-                     int M, int N, int K, void* stream) {
+// f32 inputs and output; splits, ws and counters as for repro_matmul_bf16.
+int repro_matmul_f32(int bm, int bn, int bk, int order, const void* a, const void* b, void* c, int M, int N,
+                     int K, int splits, void* ws, void* counters, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define X(bm_, bn_, bk_) \
-  if (bm == bm_ && bn == bn_ && bk == bk_) return (int)run_f32<bm_, bn_, bk_>(a, b, c, M, N, K, order, s);
+  float* w = static_cast<float*>(ws);
+  int* ctr = static_cast<int*>(counters);
+  if (splits < 1 || (splits > 1 && (w == nullptr || ctr == nullptr))) return (int)cudaErrorInvalidValue;
+#define X(bm_, bn_, bk_)                          \
+  if (bm == bm_ && bn == bn_ && bk == bk_)        \
+    return (int)run_f32<bm_, bn_, bk_>(a, b, c, M, N, K, order, splits, w, ctr, s);
   REPRO_MATMUL_TILES(X)
 #undef X
   return (int)cudaErrorInvalidValue;

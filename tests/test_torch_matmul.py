@@ -6,8 +6,9 @@ against ``matmul_pallas`` in interpret mode on the same numpy inputs.  The
 CUDA kernel itself runs only on the card (``cuda`` marker; chip_smoke.py
 holds every compiled config against the plain version there).
 
-Tolerances: f32 outputs 1e-5 (the sums differ only in order); bf16 outputs one
-bf16 ulp (2**-7 ~ 8e-3 relative), since a sum that lands near a rounding
+Tolerances: f32 outputs 1e-5 (the sums differ only in order; from f32 inputs
+``matmul.f32_limit``, which grows as sqrt(K) above 16,384 terms); bf16 outputs
+one bf16 ulp (2**-7 ~ 8e-3 relative), since a sum that lands near a rounding
 boundary may round either way.
 """
 import jax.numpy as jnp
@@ -84,6 +85,16 @@ def test_config_space_is_the_compiled_set():
     assert any(c.block_m <= 16 for c in space)  # decode GEMV tiles
     assert mm.DEFAULT_CONFIG in space
     assert all(max(c.smem_bytes(p) for p in mm.PATHS) <= mm.SMEM_LIMIT for c in space)
+    # The f32 kernel's cp.async ring: 3-4 stages of A (bm x bk) and B (bk x bn) f32 tiles,
+    # as many as the ring budget holds; the library reports the same bytes (tile_row).
+    for c in space:
+        stage = (c.block_m * c.block_k + c.block_k * c.block_n) * 4
+        assert 3 <= c.f32_stages() <= 4 and c.smem_bytes("simt_f32") == c.f32_stages() * stage
+        assert c.f32_stages() == 3 or c.smem_bytes("simt_f32") <= mm.RING_BUDGET
+        assert mm.tile_row(c)[-1] == c.smem_bytes("simt_f32")
+    assert [mm.MatmulConfig(*t).smem_bytes("simt_f32") for t in mm._TILES] == [122880, 110592, 98304, 98304, 98304]
+    # Two CTAs of the default tile share an SM's 228 KB (1 KB reserved a CTA).
+    assert 2 * (mm.DEFAULT_CONFIG.smem_bytes("simt_f32") + 1024) <= 228 * 1024
     assert set(mm.LAUNCHES) == {c.name() for c in space}
     assert not mm.MatmulConfig(128, 128, 512, "mnk").is_valid()  # the TPU default is not compiled
 
@@ -114,31 +125,59 @@ _SERVED_KN = {
                    (1600, 5504), (5504, 1600), (1600, 32128)],
 }
 _SERVED_M = (1, 4, 32, 64, 128, 256)
+# Every f32 GEMM that training granite-8b, hymba-1.5b and seamless-m4t-large-v2 gives the
+# kernel at batch 8 x seq 128: each projection's (k, n) as its forward (1024, k, n), its
+# grad_lhs (1024, n, k) and its grad_rhs (k, 1024, n). Seamless's (k, n): Q, K, V, O (self
+# and cross), gate and up, down, the vocab head (a K = 256,256 reduction in grad_lhs).
+_TRAIN_ROWS = 1024
+_TRAINED_KN = {
+    "granite-8b": _SERVED_KN["granite-8b"],
+    "hymba-1.5b": _SERVED_KN["hymba-1.5b"],
+    "seamless-m4t-large-v2": [(1024, 1024), (1024, 8192), (8192, 1024), (1024, 256256)],
+}
 
 
-@pytest.mark.parametrize("arch", sorted(_SERVED_KN))
+def _gemms(arch: str) -> list[tuple[int, int, int]]:
+    """(m, k, n) of every GEMM of ``arch``: served at _SERVED_M rows, or ("<arch> f32
+    training") its training GEMMs at _TRAIN_ROWS rows."""
+    if arch.endswith(" f32 training"):
+        return [mkn for k, n in _TRAINED_KN[arch.split()[0]]
+                for mkn in ((_TRAIN_ROWS, k, n), (_TRAIN_ROWS, n, k), (k, _TRAIN_ROWS, n))]
+    return [(m, k, n) for m in _SERVED_M for k, n in _SERVED_KN[arch]]
+
+
+@pytest.mark.parametrize("arch", sorted(_SERVED_KN) + [f"{a} f32 training" for a in sorted(_TRAINED_KN)])
 @pytest.mark.parametrize("config", mm.config_space(), ids=lambda c: c.name())
 def test_split_k_partitions_every_served_gemm(arch, config):
     bk = config.block_k
-    for m in _SERVED_M:
-        for k, n in _SERVED_KN[arch]:
-            splits = mm.split_k(m, n, k, config)
-            ranges = mm.k_ranges(k, bk, splits)
-            assert len(ranges) == splits >= 1
-            assert ranges[0][0] == 0 and ranges[-1][1] == k  # [0, k) covered ...
-            assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))  # ... exactly once, in order
-            assert all(stop > start for start, stop in ranges), (m, k, n, splits)  # no split is empty
-            assert all((stop - start) % bk == 0 for start, stop in ranges[:-1])  # whole k steps
-            tiles = -(-m // config.block_m) * -(-n // config.block_n)
-            steps = -(-k // bk)
-            min_steps = -(-mm.SPLIT_MIN_BYTES // (bk * config.block_n * 2))
-            if tiles >= mm.SPLIT_CTAS:
-                assert splits == 1
-            else:  # the grid reaches SPLIT_CTAS, unless the weight bytes per split would run short
-                assert tiles * splits >= mm.SPLIT_CTAS or splits >= (steps // min_steps) // 2, (m, k, n, splits)
-                assert splits <= max(1, steps // min_steps) and tiles * (splits - 1) < mm.SPLIT_CTAS
-                # the partials fit the workspace allocated once per stream
-                assert tiles * splits * config.block_m * config.block_n <= mm.WORKSPACE_FLOATS
+    f32 = arch.endswith(" f32 training")
+    for m, k, n in _gemms(arch):
+        splits = (mm.split_k_f32 if f32 else mm.split_k)(m, n, k, config)
+        ranges = mm.k_ranges(k, bk, splits)
+        assert len(ranges) == splits >= 1
+        assert ranges[0][0] == 0 and ranges[-1][1] == k  # [0, k) covered ...
+        assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))  # ... exactly once, in order
+        assert all(stop > start for start, stop in ranges), (m, k, n, splits)  # no split is empty
+        assert all((stop - start) % bk == 0 for start, stop in ranges[:-1])  # whole k steps
+        tiles = -(-m // config.block_m) * -(-n // config.block_n)
+        steps = -(-k // bk)
+        min_steps = -(-mm.SPLIT_MIN_BYTES // (bk * config.block_n * 2))
+        # the partials fit the workspace allocated once per stream
+        assert tiles * splits * config.block_m * config.block_n <= mm.WORKSPACE_FLOATS or splits == 1
+        if f32:  # split only a grid smaller than the card, up to two CTAs an SM
+            fill = lambda s: tiles * s / (mm.H100_SMS * -(-tiles * s // mm.H100_SMS))
+            if tiles >= mm.H100_SMS:
+                assert splits == 1, (m, k, n, splits)
+            else:
+                cap = min(max(1, steps // mm.F32_SPLIT_MIN_STEPS), mm.F32_CTAS_PER_SM * mm.H100_SMS // tiles)
+                assert splits <= cap and tiles * splits <= mm.F32_CTAS_PER_SM * mm.H100_SMS
+                # no count the rule may take fills more of the card's last wave
+                assert all(fill(splits) >= fill(s) for s in range(1, cap + 1)), (m, k, n, splits)
+        elif tiles >= mm.SPLIT_CTAS:
+            assert splits == 1
+        else:  # the grid reaches SPLIT_CTAS, unless the weight bytes per split would run short
+            assert tiles * splits >= mm.SPLIT_CTAS or splits >= (steps // min_steps) // 2, (m, k, n, splits)
+            assert splits <= max(1, steps // min_steps) and tiles * (splits - 1) < mm.SPLIT_CTAS
 
 
 def test_split_k_fills_the_card_at_decode():
@@ -154,6 +193,14 @@ def test_split_k_fills_the_card_at_decode():
     # The 128 x 128 tile at (4096, 4096): 32 tiles, 2 splits; on a 32-SM card, none.
     assert mm.split_k(4, 4096, 4096, mm.DEFAULT_CONFIG) == 2
     assert mm.split_k(4, 4096, 4096, mm.DEFAULT_CONFIG, sm_count=32) == 1
+    # f32 at 1024 training rows under the default 128 x 128 tile: granite-8b's K/V
+    # projection and seamless's head gradient have 64 tiles, and 4 splits (256 CTAs, two
+    # an SM) leave 8 of 264 CTA slots idle where 2 or 3 would leave 4 SMs or half a wave.
+    assert mm.split_k_f32(1024, 1024, 4096, mm.DEFAULT_CONFIG) == 4
+    assert mm.split_k_f32(1024, 1024, 256256, mm.DEFAULT_CONFIG) == 4
+    assert mm.k_ranges(256256, 32, 4) == [(0, 64064), (64064, 128128), (128128, 192192), (192192, 256256)]
+    assert mm.split_k_f32(1024, 4096, 4096, mm.DEFAULT_CONFIG) == 1  # 256 tiles fill the card
+    assert mm.split_k_f32(1024, 1024, 4096, mm.DEFAULT_CONFIG, sm_count=64) == 1
 
 
 def _split_mirror(a, b, config, splits, out_dtype):
@@ -170,24 +217,34 @@ _RAGGED = [(1, 48, 1600), (4, 1000, 16), (3, 4100, 96), (1, 64, 4096), (4, 1600,
 
 
 @pytest.mark.parametrize("shape", _RAGGED, ids=lambda s: "x".join(map(str, s)))
-@pytest.mark.parametrize("out", ["bf16", "f32"])
+@pytest.mark.parametrize("out", ["bf16", "f32", "f32-in"])
 def test_split_k_mirror_matches_reference(shape, out):
+    """bf16 inputs to bf16 or f32 outputs under :func:`split_k`; "f32-in": f32 inputs and
+    output under :func:`split_k_f32`, held at ``f32_limit(k)`` of max |reference|."""
     m, k, n = shape
-    jout, tout = _DTYPES[out]
+    f32_in = out == "f32-in"
+    jin, tin = _DTYPES["f32" if f32_in else "bf16"]
+    jout, tout = _DTYPES["f32" if f32_in else out]
     a, b = _operands(m, k, n, seed=k + n)
-    # bf16 inputs, as the kernel takes them; the mirror sums their f32 values.
-    ta, tb = torch.from_numpy(a).bfloat16(), torch.from_numpy(b).bfloat16()
+    # The kernel's input type; the mirror sums their f32 values.
+    ta, tb = torch.from_numpy(a).to(tin), torch.from_numpy(b).to(tin)
     a32, b32 = ta.float().numpy(), tb.float().numpy()
-    want = jax_matmul_ref(jnp.asarray(a, jnp.bfloat16), jnp.asarray(b, jnp.bfloat16), out_dtype=jout)
+    want = jax_matmul_ref(jnp.asarray(a, jin), jnp.asarray(b, jin), out_dtype=jout)
     plain = mm.matmul_plain(ta, tb, tout)
     scale = float(np.abs(plain.float().numpy()).max())
     _close(plain, want, tout, scale)
+    rule = mm.split_k_f32 if f32_in else mm.split_k
     split_seen = False
     for cfg in mm.config_space():
-        splits = mm.split_k(m, n, k, cfg)
+        splits = rule(m, n, k, cfg)
         split_seen |= splits > 1
         got = _split_mirror(a32, b32, cfg, splits, tout)
         assert got.dtype == tout and tuple(got.shape) == (m, n)
+        if f32_in:
+            want32 = np.asarray(want, np.float32)
+            assert np.abs(got.numpy() - want32).max() / scale <= mm.f32_limit(k), (cfg, splits)
+            assert np.abs(got.numpy() - plain.numpy()).max() / scale <= mm.f32_limit(k), (cfg, splits)
+            continue
         _close(got, want, tout, scale)
         np.testing.assert_allclose(got.float().numpy() / scale, plain.float().numpy() / scale, **_tol(tout))
     assert split_seen or k <= 64  # each shape with more than one k step splits under some config
@@ -199,7 +256,8 @@ def test_kernel_matches_plain_on_card():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator(device="cuda").manual_seed(0)
-    for m, k, n in [(1, 100, 96), (37, 4100, 1024), (128, 4096, 1024), *_RAGGED]:
+    # (1024, 4096, 1024) and (64, 8192, 64): f32 splits under the wide tiles (split_k_f32).
+    for m, k, n in [(1, 100, 96), (37, 4100, 1024), (128, 4096, 1024), (1024, 4096, 1024), (64, 8192, 64), *_RAGGED]:
         for src, dst, tol in [(torch.bfloat16, torch.bfloat16, 1e-2),
                               (torch.bfloat16, torch.float32, 1e-3),
                               (torch.float32, torch.float32, 1e-5)]:
