@@ -381,7 +381,9 @@ Phases (each one fails the run if its check fails):
    25f-ii. the scan backward (csrc/ssm.cu ``ssm_bwd_kernel``), both entries,
    every compiled config and N 8 and 16, the same cases, and a long (1, 2048,
    1600, 16) call, each against f64 too; checked, repeated and timed at
-   hymba-1.5b's shape (B 8, S 128, d 1600, N 16) as 25f-i;
+   hymba-1.5b's shape (B 8, S 128, d 1600, N 16) as 25f-i, with the
+   kernel's registers, CTAs an SM and waves there; where ``build/parent``
+   exists, the parent's backward in turns (``scripts/ssm_ab.py --bwd``);
    25f-iii. rwkv6-7b at full width (d 4096, ff 14336, vocab 65536), 2 of 32
    layers, f32: ``Trainer`` 6 steps at batch 8, seq 128, remat "full"; the
    loss falls, every parameter has a non-zero gradient, per step and layer the
@@ -437,7 +439,8 @@ Phases (each one fails the run if its check fails):
 
 ``python3 chip_smoke.py --only-training`` runs phases 1, 2 and 25 alone (25g
 needs ``build/deploy_h100.json`` from a tune); ``--only-distribution`` runs
-phases 1, 2 and 26 alone (26c needs it too).
+phases 1, 2 and 26 alone (26c needs it too); ``--only-scan-backward`` runs
+phases 1, 2 and 25f-ii alone (with ``build/parent``, its turns too).
 
 Each phase's header shows the seconds since the start.
 
@@ -4464,18 +4467,43 @@ def phase_ssm_backward(torch, ss) -> dict:
         y, _ = plain(*leaves)
         plain_ms = _time_ms(lambda i: torch.autograd.grad(y, leaves, dy, retain_graph=True), n_warm=1, n_runs=3)
         launches = _kernel_launches(call, ("ssm_bwd_kernel",))
+        # The compiled kernel's residency at this shape: registers, CTAs an SM, waves of its grid.
+        res = ss.bwd_residency(ss.DEFAULT_SSM_CONFIG, n, entry == "fused", 0)
+        grid = b * -(-d // ss.DEFAULT_SSM_CONFIG.block_d)
+        waves = grid / (torch.cuda.get_device_properties(0).multi_processor_count * res["ctas"])
         row = {"entry": entry, "shape": [b, s, d, n], "config": ss.DEFAULT_SSM_CONFIG.name(), "ms": ms,
                "plain_autograd_ms": plain_ms, "bound_ms": bound, "bytes": nbytes, "ops": ops_n,
                "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= ops_n / F32_FLOPS else "operations",
-               "kernel_launches_per_call": launches, "worst": at_shape}
+               "kernel_launches_per_call": launches, "worst": at_shape, **res, "grid": grid, "waves": waves,
+               "threads": ss.DEFAULT_SSM_CONFIG.bwd_threads(n),
+               "smem_bytes": ss.DEFAULT_SSM_CONFIG.bwd_smem_bytes(n, entry == "fused")}
         out["timing"].append(row)
         print(f"  {entry} entry at hymba-1.5b's training shape {HYMBA_TRAIN_SHAPE}, {row['config']}: two calls "
               f"bitwise equal; worst rel err by leaf against autograd of the plain version (/ f64): "
               f"{_worst_text(at_shape)}; backward {ms:.4f} ms, bound {bound:.4f} ms ({row['bound_by']}: "
               f"{nbytes / 1e6:.1f} MB); autograd of the plain version {plain_ms:.2f} ms; kernels per call {launches}; "
-              f"library: none")
+              f"library: none; {res['registers']} registers and {res['local_bytes']} spilled bytes a thread, "
+              f"{row['threads']} threads and {row['smem_bytes']} bytes of shared memory a CTA, {res['ctas']} CTAs an "
+              f"SM, grid {grid} = {waves:.2f} waves")
         del args, dy, leaves, y
+    out["parent_ab"] = phase_ssm_bwd_parent_ab()
     return out
+
+
+def phase_ssm_bwd_parent_ab() -> dict | None:
+    """The parent's scan backward against this one, in turns (``scripts/ssm_ab.py --bwd``), where
+    build/parent holds the parent's tree."""
+    base = ROOT / "build" / "parent"
+    if not (base / "src" / "repro_torch" / "kernels" / "csrc" / "ssm.cu").is_file():
+        print("  no build/parent: the parent's backward kernel is not measured in this run")
+        return None
+    sys.path.insert(0, str(ROOT / "scripts"))
+    import ssm_ab
+
+    print("  the parent's backward against this one, in turns (parent, this, this, parent; scripts/ssm_ab.py --bwd):")
+    result = ssm_ab.run_bwd_turns(base)
+    ssm_ab.report_bwd(result)
+    return result
 
 
 # GEMMs a layer of the recurrent models' training forward (as their serving forward: rwkv6-7b
@@ -5309,6 +5337,16 @@ def main() -> int:
         (ROOT / "build" / "chip_smoke_distribution.json").write_text(json.dumps(distribution, indent=1, default=str))
         print(f"[26] distribution phase done in {time.perf_counter() - t_start:.1f}s")
         return 0
+    if "--only-scan-backward" in sys.argv[1:]:  # phase 25f-ii alone
+        restore = _no_plain_on_card(ops)
+        try:
+            phase("[25f-ii] the scan backward kernel (ssm.cu ssm_bwd_kernel), both entries, every config; timing")
+            scan_bwd = phase_ssm_backward(torch, ss)
+        finally:
+            restore()
+        (ROOT / "build" / "chip_smoke_scan_backward.json").write_text(json.dumps(scan_bwd, indent=1, default=str))
+        print(f"[25f-ii] scan backward phase done in {time.perf_counter() - t_start:.1f}s")
+        return 0
     if "--only-training" in sys.argv[1:]:  # phase 25 alone (needs build/deploy_h100.json for 25g)
         training = phase_training(torch, mm, ops, phase)
         (ROOT / "build" / "chip_smoke_training.json").write_text(json.dumps(training, indent=1, default=str))
@@ -5744,9 +5782,12 @@ def main() -> int:
         "bound_by": ssm_bwd_row["bound_by"],
         "library_ms": None,
         "library_note": "no single PyTorch call computes the selective scan's gradient",
-        "design": "ssm_bwd_kernel: a thread a (channel, state index); a forward walk keeping every chunk's start "
-                  "state, then the chunks in reverse, each recomputed in registers; sums over N by shuffles, over "
-                  "channels by shuffles and per-CTA partials (fused entry: dt * x, dt * a in registers)",
+        "design": "ssm_bwd_kernel: the forward's layout (4 threads a channel, time groups of "
+                  "8 steps); each chunk's inputs staged by a cp.async ring on mbarriers; a time-grouped forward walk "
+                  "to the chunk starts; each chunk in reverse in time groups, the state and the gradient "
+                  "recurrences folded over the groups' pairs; outputs staged and stored 16 bytes at a time; sums in "
+                  "fixed trees, per-CTA partials (fused entry: dt * x, dt * a in registers)",
+        "registers": ssm_bwd_row["registers"], "ctas_an_sm": ssm_bwd_row["ctas"], "waves": ssm_bwd_row["waves"],
         "kernel_launches_per_call": ssm_bwd_row["kernel_launches_per_call"],
         "timed_as": f"one fused-entry call at hymba-1.5b's training shape {HYMBA_TRAIN_SHAPE} (B, S, d, N), "
                     f"{ssm_bwd_row['config']}; plain_ms: autograd's backward of ssm_fused_plain there",

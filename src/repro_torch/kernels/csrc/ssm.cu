@@ -434,31 +434,64 @@ cudaError_t run(Args p, int B, int n_seg, cudaStream_t stream) {
 // and the JAX package trains Hymba through XLA's gradient of src/repro/kernels/ref.py:24
 // ssm_scan_ref (src/repro/kernels/ops.py:461, the use_pallas=False path); ops.ssm_scan_fused's
 // autograd op (repro_torch::ssm_scan_fused) runs this once per layer of every training step.
-// For one channel ch and state index n, with dh the gradient of h_t, from dh = ds_out at t = S:
-//   dh += dy_t[ch] c_t[n];   d(dta)_t = dh e^{dta_t} h_{t-1};   d(dtx)_t = sum_n dh b_t[n];
-//   db_t[n] = sum_ch dh dtx_t;   dc_t[n] = sum_ch dy_t h_t;   dh = e^{dta_t} dh,
-// and d(state) the last dh. The fused entry forms dtx = dt x and dta = dt a as the forward, and
-// gives dx = d(dtx) dt, d(dt) = d(dtx) x + sum_n d(dta) a and da = sum over B and S of
-// d(dta) dt, so no (B, S, d, N) tensor is read or written. kernels/ref.py::ssm_scan_vjp_ref is the
-// same algorithm in PyTorch.
-//
-// Design: one thread a (channel, state index), BD channels a CTA (BD x N threads), grid
-// B x ceil(d / BD). A CTA first walks its channels forward through the whole sequence, writing
-// the state at every chunk's start to a workspace ck (B, n_chunks, d, N); then it takes the
-// chunks in reverse: it recomputes a chunk's CHUNK states from its start (in registers: the
-// reverse step needs h_{t-1}, and dividing by e^{dta} to step back is unstable) and walks them
-// back. The sums over n are shuffle trees within a channel's N lanes; the sums over channels
-// (db, dc) a shuffle tree within a warp, then the warps' partials of every step of the chunk,
-// summed in warp order after it, one partial a CTA (B, n_dblocks, S, N) that the wrapper sums
-// over the channel blocks; da's partial is one per batch row (B, d, N). No atomics: two calls
-// are bitwise equal. The backward is not cut into segments: a training call's grid (B 8 at
-// hymba's d 1600: 800 CTAs at BD 16) fills the card, and the long single-row calls the forward
-// cuts are prefills, which run no backward.
+// For one channel ch and state index n, with G_t the gradient of h_t and e_t = exp(dta_t):
+//   G_t = dy_t[ch] c_t[n] + e_{t+1} G_{t+1}  (G_{S-1} adds the final state's cotangent),
+//   d(dta)_t = G_t e_t h_{t-1};  d(dtx)_t = sum_n G_t b_t[n];  db_t[n] = sum_ch G_t dtx_t;
+//   dc_t[n] = sum_ch dy_t h_t;  d(state) = e_0 G_0.
+// The fused entry forms dtx = dt x and dta = dt a as the forward and gives dx = d(dtx) dt,
+// d(dt) = d(dtx) x + sum_n d(dta) a and da = sum over B and S of d(dta) dt, so no (B, S, d, N)
+// tensor is read or written. kernels/ref.py::ssm_scan_vjp_ref computes the same function
+// sequentially (the plain version); tests/test_torch_ssm_grad.py::_bwd_mirror follows this
+// kernel's order of work.
 //
 // Bound on this card: at hymba-1.5b's training shape (B 8, S 128, d 1600, N 16) the fused entry
-// reads x, dt, dy (3 x 6.6 MB), a, b, c and writes dx, d(dt) (2 x 6.6 MB), db, dc and da: ~33 MB,
-// 10 us at 3.35 TB/s; the work is ~25 f32 operations and two exponentials a (t, ch, n) (~0.2 us
-// at 67 TFLOP/s). A step-by-step scan is bound in practice by its 2 S dependent steps.
+// must move ~33 MB (x, dt, dy in; dx, d(dt) out; a, b, c, da, db, dc): ~10 us at 3.35 TB/s; its
+// work, ~20 f32 operations and one exponential a (t, ch, n), ~8 us at 67 TFLOP/s and ~7 us on
+// the SFU. The dta entry reads dta and writes d(dta), (B, S, d, N) each: ~230 MB, ~69 us. What
+// set the pace of the kernel this one replaces (a thread a (ch, n), each step's inputs loaded
+// from device memory inside the dependent chain, 1.06 ms there) was latency: every step waited
+// on a round trip to memory.
+//
+// What the design does:
+//   * The forward's layout: LANES = 4 threads a channel, each holding K = N / 4 state indices
+//     in registers; BD channels; W = CHUNK / 8 time groups, group w taking steps [8 w, 8 w + 8)
+//     of every chunk: 4 BD W threads a CTA, grid B x ceil(d / BD).
+//   * Inputs staged: a ring of STAGES stages of CHUNK steps in shared memory, filled by cp.async
+//     on "full" / "empty" mbarriers as the forward's (Ring above). The ring runs one sequence of
+//     items: chunks 0 .. n - 2 in order (x and dt, or dtx and dta, and b: the chunk starts), then
+//     chunks n - 1 .. 0 in reverse (those and dy, c). STAGES - 1 items of loads are in flight
+//     while one is computed, and every step reads only shared memory and registers.
+//   * The chunk starts: the forward walk runs each chunk in time groups and folds the groups'
+//     (decay product, end state) pairs in group order, as the forward's phases 1 and 2; the state
+//     at each chunk's start goes to the workspace ck (3.3 MB at the training shape, in L2).
+//   * Each chunk in reverse, in four short passes:
+//       1. recompute: each group runs its 8 steps from a zero state, keeping each step's state hz
+//          in registers and its e_t (the pass's one exponential) in shared memory, and its pair
+//          (P_w, E_w);
+//       2. states: the chunk's start state folded through the earlier groups' pairs is the
+//          group's start state hw, and a step's state is hz + az hw, az the decays so far;
+//       3. the adjoint is a first-order linear recurrence too: each group walks its steps back
+//          from a zero gradient to its pair (P_w, E'_w); the gradient entering the chunk folded
+//          through the later groups' pairs in reverse group order is each group's entering
+//          gradient, and the fold over all W groups the gradient leaving the chunk, bitwise the
+//          same in every group (W = 1: the walk of pass 4 gives it);
+//       4. each group walks its steps back again from its entering gradient, forming the outputs.
+//     So every dependent chain is 8 steps and a fold of W pairs, not the sequence.
+//   * Sums in fixed trees: over n within a thread, then across the channel's 4 lanes four steps
+//     at a time (reduce4, as the forward's y); over channels (db, dc) across a warp's 8 channels
+//     by a butterfly that halves the values a lane keeps each round (channel_sum), then the warps'
+//     partials in warp order after the chunk; da over the time groups in group order at the end.
+//     One partial a CTA for db and dc (B, n_dblocks, S, N), one a batch row for da (B, d, N),
+//     which the wrapper sums (torch.sum). No atomics: two calls are bitwise equal.
+//   * Outputs staged: a chunk's dx and d(dt) (or d(dtx)) go to shared memory and leave after it as
+//     16-byte stores of the CTA's channels, step by step; the dta entry's d(dta) leaves from
+//     registers as 16-byte stores, 512 contiguous bytes a warp.
+//   * Ragged edges load zeros (e = 1 and no input: the gradient passes through unchanged) and
+//     write nothing.
+// Two exponentials a (t, ch, n) remain: the forward walk's and the recompute's; a forward kernel
+// that wrote the chunk starts under grad would save the walk. The backward is not cut into
+// segments: a training call's grid (B 8 at hymba's d 1600: 800 CTAs at BD 16) fills the card, and
+// the long single-row calls the forward cuts are prefills, which run no backward.
 struct BwdArgs {
   const float* x;   // fused: x (B, S, D); else dtx (B, S, D)
   const float* d;   // fused: dt (B, S, D); else dta (B, S, D, N)
@@ -478,144 +511,514 @@ struct BwdArgs {
   int S, D, n_dblocks;
 };
 
-template <int N, int BD, int CHUNK>
-struct BwdShape {
-  static constexpr int THREADS = BD * N;
-  static constexpr int WARPS = THREADS / 32;
-  static constexpr int BYTES = CHUNK * WARPS * 2 * N * 4;  // every step's warp partials of db and dc
+// The geometry and shared-memory layout (floats) of one backward instantiation. STAGES ring
+// stages, each CHUNK steps of
+//   xs: x (fused) or dtx, BD a step;  ds: dt (fused), BD a step, or dta, BD * N;
+//   ys: dy, BD a step;  bs, cs: N a step (ys and cs filled by the reverse items only);
+// then the time groups' pairs (W > 1): the forward walk's two buffers of [W][P, E][BD][N], the
+// reverse pass's [W][P, E, E'][BD][N], da's [W][BD][N] at the end, all in one region; the warps'
+// partials of db and dc, [CHUNK][WG][2][N]; the chunk's d(dtx) or dx, and d(dt), [CHUNK][BD] each;
+// and (fused) the chunk's e_t, [CHUNK][BD][N]. The dta entry keeps e_t in its stage, in place of
+// the dta it came from, which nothing reads after the recompute.
+template <int N, int BD, int CHUNK, bool FUSED>
+struct BwdRing {
+  static constexpr int L = 8;  // steps a time group takes of each chunk
+  static constexpr int W = CHUNK / L;
+  static constexpr int GT = BD * LANES;  // threads of a time group
+  static constexpr int THREADS = GT * W;
+  static constexpr int WG = GT / 32;  // warps of a time group
+  static constexpr int STAGES = FUSED ? 3 : 2;
+  static constexpr int D_STEP = FUSED ? BD : BD * N;
+  static constexpr int XS = 0;
+  static constexpr int DS = XS + CHUNK * BD;
+  static constexpr int YS = DS + CHUNK * D_STEP;
+  static constexpr int BS = YS + CHUNK * BD;
+  static constexpr int CS = BS + CHUNK * N;
+  static constexpr int STAGE = CS + CHUNK * N;
+  static constexpr int PAIRS = STAGES * STAGE;
+  static constexpr int PAIR_FLOATS = W > 1 ? 4 * W * BD * N : 0;
+  static constexpr int RED = PAIRS + PAIR_FLOATS;
+  static constexpr int OUT = RED + CHUNK * WG * 2 * N;
+  static constexpr int OUTS = FUSED ? 2 : 1;
+  static constexpr int ES = OUT + OUTS * CHUNK * BD;
+  static constexpr int BYTES = (ES + (FUSED ? CHUNK * BD * N : 0)) * 4;
+  // At most 128 registers a thread, so that 512 threads share an SM at the smallest CTA count.
+  static constexpr int MIN_CTAS = THREADS >= 512 ? 1 : 512 / THREADS;
+  static_assert(CHUNK % L == 0 && GT % 32 == 0, "a chunk is whole time groups of whole warps");
+  static_assert(BYTES <= 227 * 1024, "shared memory of one CTA");
 };
 
+template <int K>
+__device__ __forceinline__ void store_k(float* dst, const float (&v)[K]) {
+  if constexpr (K == 4) {
+    *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+    *reinterpret_cast<float2*>(dst) = make_float2(v[0], v[1]);
+  }
+}
+
+// Sums v (V = 8 or 4 values a lane) over the 8 lanes of a warp that share lane % 4 (the warp's 8
+// channels, one lane q each) by a butterfly over the lane masks 16, 8 and 4: each round a lane
+// keeps half of what it holds and adds its partner's copy of that half, while it holds more than
+// one value. Lane returns value (lane >> 2) & 7 (V = 8) or (lane >> 3) & 3 (V = 4) of the sum;
+// the order is ((c0 + c4) + (c2 + c6)) + ((c1 + c5) + (c3 + c7)) over the channels c.
+template <int V>
+__device__ __forceinline__ float channel_sum(const float (&v)[V], int lane) {
+  static_assert(V == 8 || V == 4, "2 K values a lane");
+  constexpr int C1 = V / 2, C2 = V / 4;
+  const bool h16 = lane & 16, h8 = lane & 8, h4 = lane & 4;
+  float r1[C1], r2[C2];
+#pragma unroll
+  for (int i = 0; i < C1; ++i) {
+    const float keep = h16 ? v[i + C1] : v[i], send = h16 ? v[i] : v[i + C1];
+    r1[i] = keep + __shfl_xor_sync(0xffffffffu, send, 16);
+  }
+#pragma unroll
+  for (int i = 0; i < C2; ++i) {
+    const float keep = h8 ? r1[i + C2] : r1[i], send = h8 ? r1[i] : r1[i + C2];
+    r2[i] = keep + __shfl_xor_sync(0xffffffffu, send, 8);
+  }
+  if constexpr (C2 == 2) {
+    const float keep = h4 ? r2[1] : r2[0], send = h4 ? r2[0] : r2[1];
+    return keep + __shfl_xor_sync(0xffffffffu, send, 4);
+  } else {
+    return r2[0] + __shfl_xor_sync(0xffffffffu, r2[0], 4);
+  }
+}
+
 template <int N, int BD, int CHUNK, bool FUSED>
-__global__ void __launch_bounds__(BwdShape<N, BD, CHUNK>::THREADS) ssm_bwd_kernel(const BwdArgs p) {
-  using SH = BwdShape<N, BD, CHUNK>;
-  constexpr int T = SH::THREADS, WARPS = SH::WARPS;
-  static_assert(T % 32 == 0 && 32 % N == 0, "a warp holds whole channels");
-  extern __shared__ __align__(16) float red[];  // [CHUNK][WARPS][2][N]
+__global__ void __launch_bounds__(BwdRing<N, BD, CHUNK, FUSED>::THREADS, BwdRing<N, BD, CHUNK, FUSED>::MIN_CTAS)
+ssm_bwd_kernel(const BwdArgs p) {
+  using R = BwdRing<N, BD, CHUNK, FUSED>;
+  constexpr int L = R::L, W = R::W, T = R::THREADS, WARPS = T / 32, WG = R::WG;
+  constexpr int K = N / LANES;
+  static_assert(N % LANES == 0 && (K == 2 || K == 4) && L % LANES == 0, "layout");
+  extern __shared__ __align__(16) float ring[];
+  __shared__ __align__(8) uint64_t full[R::STAGES], empty[R::STAGES];
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int lc = tid / N, n = tid % N;
+  const float* __restrict__ x_in = p.x;
+  const float* __restrict__ d_in = p.d;
+  const float* __restrict__ b_in = p.b;
+  const float* __restrict__ c_in = p.c;
+  const float* __restrict__ dy_in = p.dy;
+  float* __restrict__ gx = p.gx;
+  float* __restrict__ gd = p.gd;
+  float* __restrict__ gb = p.gb;
+  float* __restrict__ gc = p.gc;
+
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int w = tid / R::GT;  // time group: whole warps
+  const int tl = tid % R::GT;
+  const int lc = tl / LANES, q = tl % LANES, n0 = q * K;
+  const int wg = tl / 32;  // warp within the group
   const int bi = blockIdx.x / p.n_dblocks, dblk = blockIdx.x % p.n_dblocks;
-  const int ch = dblk * BD + lc;
-  const bool live = ch < p.D;
   const int S = p.S, D = p.D;
+  const int ch0 = dblk * BD, ch = ch0 + lc;
+  const bool live = ch < D;
+  const int live_ch = min(BD, D - ch0);
   const int n_chunks = (S + CHUNK - 1) / CHUNK;
-  const size_t row0 = (size_t)bi * S;
-  const float av = (FUSED && live) ? p.a[(size_t)ch * N + n] : 0.f;
-  const size_t st = ((size_t)bi * D + ch) * N + n;
-  auto ck = [&](int k) { return p.ck + ((size_t)(bi * n_chunks + k) * D + ch) * N + n; };
+  const int n_fwd = n_chunks - 1, n_items = n_fwd + n_chunks;
+  const size_t row0 = (size_t)bi * S;  // (bi, 0) in a (B, S, ...) array
+  const bool vec = (D & 3) == 0;
+  const size_t st = ((size_t)bi * D + ch) * N + n0;  // this thread's K values of a (B, D, N) array
+  float* const ck = p.ck + ((size_t)bi * n_chunks * D + ch) * N + n0;  // + k D N: chunk k's start
+  float* const pr = ring + R::PAIRS;
+  float* const __restrict__ red = ring + R::RED;
+  float* const __restrict__ outs = ring + R::OUT;
 
-  // The inputs of step t: dtx, dta, b_n (zeros for a channel past d).
-  auto step = [&](int t, float& dtx, float& dta, float& dt, float& xv) {
-    const size_t i = (row0 + t) * D + ch;
-    if (FUSED) {
-      dt = live ? p.d[i] : 0.f;
-      xv = live ? p.x[i] : 0.f;
-      dtx = __fmul_rn(dt, xv);
-      dta = __fmul_rn(dt, av);
+  // Loads outside the ring first, so their latency overlaps the set-up: a (fused entry), the
+  // given state and the final state's cotangent.
+  float av[K], h[K], dh[K], da[K];
+#pragma unroll
+  for (int i = 0; i < K; ++i) {
+    av[i] = (FUSED && live) ? p.a[(size_t)ch * N + n0 + i] : 0.f;
+    h[i] = (live && p.s0) ? p.s0[st + i] : 0.f;
+    dh[i] = (live && p.ds) ? p.ds[st + i] : 0.f;
+    da[i] = 0.f;
+  }
+
+  if (tid == 0) {
+    for (int s = 0; s < R::STAGES; ++s) {
+      mbar_init(smem_addr(&full[s]), T);
+      mbar_init(smem_addr(&empty[s]), WARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // Item i of the ring's sequence: chunk i of the forward walk (i < n_fwd), else chunk
+  // n_items - 1 - i of the reverse pass. Every thread issues its share of the copies, then arrives
+  // on the stage's full barrier once they land.
+  auto issue = [&](int i) {
+    const bool rev = i >= n_fwd;
+    const int t0 = (rev ? n_items - 1 - i : i) * CHUNK;
+    float* sg = ring + (i % R::STAGES) * R::STAGE;
+    if (vec) {
+      for (int e = tid; e < CHUNK * BD / 4; e += T) {
+        const int j = e / (BD / 4), c4 = (e % (BD / 4)) * 4;
+        const bool ok = t0 + j < S && c4 < live_ch;
+        const size_t off = ok ? (row0 + t0 + j) * D + ch0 + c4 : 0;
+        cp_async16(sg + R::XS + j * BD + c4, x_in + off, ok);
+        if (FUSED) cp_async16(sg + R::DS + j * BD + c4, d_in + off, ok);
+        if (rev) cp_async16(sg + R::YS + j * BD + c4, dy_in + off, ok);
+      }
     } else {
-      dtx = live ? p.x[i] : 0.f;
-      dta = live ? p.d[i * N + n] : 0.f;
+      for (int e = tid; e < CHUNK * BD; e += T) {
+        const int j = e / BD, c1 = e % BD;
+        const bool ok = t0 + j < S && c1 < live_ch;
+        const size_t off = ok ? (row0 + t0 + j) * D + ch0 + c1 : 0;
+        cp_async4(sg + R::XS + e, x_in + off, ok);
+        if (FUSED) cp_async4(sg + R::DS + e, d_in + off, ok);
+        if (rev) cp_async4(sg + R::YS + e, dy_in + off, ok);
+      }
+    }
+    if (!FUSED) {  // dta rows: BD * N contiguous floats a step, 16-byte aligned (N % 4 == 0)
+      for (int e = tid; e < CHUNK * BD * N / 4; e += T) {
+        const int j = e / (BD * N / 4), c4 = (e % (BD * N / 4)) * 4;
+        const bool ok = t0 + j < S && c4 < live_ch * N;
+        const size_t off = ok ? ((row0 + t0 + j) * D + ch0) * N + c4 : 0;
+        cp_async16(sg + R::DS + j * BD * N + c4, d_in + off, ok);
+      }
+    }
+    for (int e = tid; e < CHUNK * N / 4; e += T) {
+      const int j = e / (N / 4), c4 = (e % (N / 4)) * 4;
+      const bool ok = t0 + j < S;
+      const size_t off = ok ? (row0 + t0 + j) * N + c4 : 0;
+      cp_async16(sg + R::BS + j * N + c4, b_in + off, ok);
+      if (rev) cp_async16(sg + R::CS + j * N + c4, c_in + off, ok);
+    }
+    cp_async_mbar_arrive(smem_addr(&full[i % R::STAGES]));
+  };
+
+  for (int i = 0; i < R::STAGES - 1 && i < n_items; ++i) issue(i);
+  if (w == 0 && live) store_k<K>(ck, h);  // chunk 0 starts at the given state
+
+  // Step j's dtx and K dta values from stage sg (fused: formed from dt, x and a as the forward).
+  auto inputs = [&](const float* sg, int j, float& dtx, float (&dta)[K]) {
+    if (FUSED) {
+      const float dt = sg[R::DS + j * BD + lc];
+      dtx = __fmul_rn(dt, sg[R::XS + j * BD + lc]);
+#pragma unroll
+      for (int i = 0; i < K; ++i) dta[i] = __fmul_rn(dt, av[i]);
+    } else {
+      dtx = sg[R::XS + j * BD + lc];
+      load_k<K>(sg + R::DS + j * BD * N + lc * N + n0, dta);
     }
   };
 
-  // 1. Forward: the state at every chunk's start.
-  float h = (live && p.s0) ? p.s0[st] : 0.f;
-  for (int t = 0; t < S; ++t) {
-    if (t % CHUNK == 0 && live) *ck(t / CHUNK) = h;
-    float dtx, dta, dt = 0.f, xv = 0.f;
-    step(t, dtx, dta, dt, xv);
-    h = fmaf(expf(dta), h, __fmul_rn(dtx, p.b[(row0 + t) * N + n]));
-  }
-
-  // 2. The chunks in reverse.
-  float dh = (live && p.ds) ? p.ds[st] : 0.f;
-  float da = 0.f;
-  for (int k = n_chunks - 1; k >= 0; --k) {
-    const int t0 = k * CHUNK;
-    const float h0 = live ? *ck(k) : 0.f;
-    float hr[CHUNK];
-    float hc = h0;
-#pragma unroll
-    for (int j = 0; j < CHUNK; ++j) {
-      if (t0 + j < S) {
-        float dtx, dta, dt = 0.f, xv = 0.f;
-        step(t0 + j, dtx, dta, dt, xv);
-        hc = fmaf(expf(dta), hc, __fmul_rn(dtx, p.b[(row0 + t0 + j) * N + n]));
-      }
-      hr[j] = hc;
+  for (int i = 0; i < n_items; ++i) {
+    // Refill the stage item i - 1 used (a fresh one at i = 0) with item i + STAGES - 1, once every
+    // warp is done with item i - 1: its (in / STAGES - 1)-th use.
+    const int in = i + R::STAGES - 1;
+    if (in < n_items) {
+      if (in >= R::STAGES) mbar_wait(smem_addr(&empty[in % R::STAGES]), (in / R::STAGES - 1) & 1);
+      issue(in);
     }
+    const int s = i % R::STAGES;
+    float* const sg = ring + s * R::STAGE;
+
+    if (i < n_fwd) {
+      // The forward walk over chunk i: each group from a zero state to its pair, then the fold in
+      // group order from the chunk's start state to the next chunk's.
+      mbar_wait(smem_addr(&full[s]), (i / R::STAGES) & 1);
+      float hr[K], ar[K];
 #pragma unroll
-    for (int j = CHUNK - 1; j >= 0; --j) {
-      const int t = t0 + j;
-      if (t >= S) continue;  // uniform over the CTA
-      float dtx, dta, dt = 0.f, xv = 0.f;
-      step(t, dtx, dta, dt, xv);
-      const size_t i = (row0 + t) * D + ch;
-      const float dyv = live ? p.dy[i] : 0.f;
-      const float bn = p.b[(row0 + t) * N + n], cn = p.c[(row0 + t) * N + n];
-      dh = fmaf(dyv, cn, dh);
-      const float e = expf(dta);
-      const float g_dta = dh * e * (j > 0 ? hr[j - 1] : h0);
-      float s1 = dh * bn, s2 = g_dta * av;
-      float pb = dh * dtx, pc = dyv * hr[j];
+      for (int k = 0; k < K; ++k) hr[k] = 0.f, ar[k] = 1.f;
 #pragma unroll
-      for (int off = N / 2; off > 0; off >>= 1) {  // over the channel's N lanes
-        s1 += __shfl_xor_sync(0xffffffffu, s1, off);
-        if (FUSED) s2 += __shfl_xor_sync(0xffffffffu, s2, off);
-      }
+      for (int jj = 0; jj < L; ++jj) {
+        const int j = w * L + jj;
+        float dtx, dta[K], bv[K];
+        inputs(sg, j, dtx, dta);
+        load_k<K>(sg + R::BS + j * N + n0, bv);
 #pragma unroll
-      for (int off = N; off < 32; off <<= 1) {  // over the warp's channels
-        pb += __shfl_xor_sync(0xffffffffu, pb, off);
-        pc += __shfl_xor_sync(0xffffffffu, pc, off);
-      }
-      if (lane < N) {
-        red[((j * WARPS + warp) * 2 + 0) * N + n] = pb;
-        red[((j * WARPS + warp) * 2 + 1) * N + n] = pc;
-      }
-      if (live) {
-        if (FUSED) {
-          da = fmaf(g_dta, dt, da);
-          if (n == 0) {
-            p.gx[i] = s1 * dt;
-            p.gd[i] = fmaf(s1, xv, s2);
-          }
-        } else {
-          p.gd[i * N + n] = g_dta;
-          if (n == 0) p.gx[i] = s1;
+        for (int k = 0; k < K; ++k) {
+          const float e = ex2(__fmul_rn(dta[k], LOG2E));
+          hr[k] = fmaf(e, hr[k], __fmul_rn(dtx, bv[k]));
+          ar[k] = __fmul_rn(ar[k], e);
         }
       }
-      dh *= e;
+      __syncwarp();
+      if (lane == 0) mbar_arrive(smem_addr(&empty[s]));
+      if constexpr (W > 1) {
+        float* pb = pr + (i & 1) * (2 * W * BD * N);  // [W][P, E][BD][N], two buffers
+        store_k<K>(pb + (w * 2 * BD + lc) * N + n0, ar);
+        store_k<K>(pb + ((w * 2 + 1) * BD + lc) * N + n0, hr);
+        __syncthreads();
+#pragma unroll
+        for (int v = 0; v < W; ++v) {
+          float pv[K], ev[K];
+          load_k<K>(pb + (v * 2 * BD + lc) * N + n0, pv);
+          load_k<K>(pb + ((v * 2 + 1) * BD + lc) * N + n0, ev);
+#pragma unroll
+          for (int k = 0; k < K; ++k) h[k] = fmaf(pv[k], h[k], ev[k]);
+        }
+      } else {
+#pragma unroll
+        for (int k = 0; k < K; ++k) h[k] = fmaf(ar[k], h[k], hr[k]);
+      }
+      if (w == 0 && live) store_k<K>(ck + (size_t)(i + 1) * D * N, h);
+      continue;
     }
-    __syncthreads();
-    // The chunk's db and dc: the warps' partials of each step summed in warp order.
-    for (int q = tid; q < CHUNK * 2 * N; q += T) {
-      const int j = q / (2 * N), which = (q / N) % 2, nn = q % N;
-      const int t = t0 + j;
-      if (t < S) {
-        float s = 0.f;
-        for (int w = 0; w < WARPS; ++w) s += red[((j * WARPS + w) * 2 + which) * N + nn];
-        (which ? p.gc : p.gb)[(((size_t)bi * p.n_dblocks + dblk) * S + t) * N + nn] = s;
+
+    // The reverse pass over chunk k.
+    const int k = n_items - 1 - i;
+    const int t0 = k * CHUNK;
+    if (i == n_fwd) __syncthreads();  // the forward walk's pairs read, its chunk starts written
+    float h0[K];
+    {
+      const float* src = ck + (size_t)k * D * N;  // written in this kernel: through L2
+#pragma unroll
+      for (int kk = 0; kk < K; ++kk) h0[kk] = live ? __ldcg(src + kk) : 0.f;
+    }
+    mbar_wait(smem_addr(&full[s]), (i / R::STAGES) & 1);
+
+    // 1. Recompute: the group's steps from a zero state; hz[jj] the state after step jj, its
+    // decays to shared memory (step j's K at e_at + j BD N); (ar, hz[L - 1]) the group's pair.
+    float* const e_at = (FUSED ? ring + R::ES : sg + R::DS) + lc * N + n0;
+    float hz[L][K], ar[K];
+    {
+      float hr[K];
+#pragma unroll
+      for (int kk = 0; kk < K; ++kk) hr[kk] = 0.f, ar[kk] = 1.f;
+#pragma unroll
+      for (int jj = 0; jj < L; ++jj) {
+        const int j = w * L + jj;
+        float dtx, dta[K], bv[K];
+        inputs(sg, j, dtx, dta);
+        load_k<K>(sg + R::BS + j * N + n0, bv);
+        float e[K];
+#pragma unroll
+        for (int kk = 0; kk < K; ++kk) {
+          e[kk] = ex2(__fmul_rn(dta[kk], LOG2E));
+          hr[kk] = fmaf(e[kk], hr[kk], __fmul_rn(dtx, bv[kk]));
+          ar[kk] = __fmul_rn(ar[kk], e[kk]);
+          hz[jj][kk] = hr[kk];
+        }
+        store_k<K>(e_at + j * BD * N, e);
       }
     }
+    // [W][P, E, E'][BD][N]
+    auto pair = [&](int v, int which) { return pr + ((v * 3 + which) * BD + lc) * N + n0; };
+    if constexpr (W > 1) {
+      store_k<K>(pair(w, 0), ar);
+      store_k<K>(pair(w, 1), hz[L - 1]);
+    }
+    __syncthreads();  // the pairs; and the last chunk's partials and outputs have left
+
+    // 2. States: hw, the chunk's start folded through the earlier groups' pairs; then each step's
+    // state hz + az hw in place.
+    float hw[K];
+#pragma unroll
+    for (int kk = 0; kk < K; ++kk) hw[kk] = h0[kk];
+    if constexpr (W > 1) {
+      for (int v = 0; v < w; ++v) {
+        float pv[K], ev[K];
+        load_k<K>(pair(v, 0), pv);
+        load_k<K>(pair(v, 1), ev);
+#pragma unroll
+        for (int kk = 0; kk < K; ++kk) hw[kk] = fmaf(pv[kk], hw[kk], ev[kk]);
+      }
+    }
+    {
+      float az[K];
+#pragma unroll
+      for (int kk = 0; kk < K; ++kk) az[kk] = 1.f;
+#pragma unroll
+      for (int jj = 0; jj < L; ++jj) {
+        float e[K];
+        load_k<K>(e_at + (w * L + jj) * BD * N, e);
+#pragma unroll
+        for (int kk = 0; kk < K; ++kk) {
+          az[kk] = __fmul_rn(az[kk], e[kk]);
+          hz[jj][kk] = fmaf(az[kk], hw[kk], hz[jj][kk]);
+        }
+      }
+    }
+
+    // 3. The adjoint's pairs and fold: gin, the gradient entering this group; dh, leaving the chunk.
+    float gin[K];
+    if constexpr (W > 1) {
+      {
+        float gz[K];
+#pragma unroll
+        for (int kk = 0; kk < K; ++kk) gz[kk] = 0.f;
+#pragma unroll
+        for (int jj = L - 1; jj >= 0; --jj) {
+          const int j = w * L + jj;
+          const float dyv = sg[R::YS + j * BD + lc];
+          float cv[K], e[K];
+          load_k<K>(sg + R::CS + j * N + n0, cv);
+          load_k<K>(e_at + j * BD * N, e);
+#pragma unroll
+          for (int kk = 0; kk < K; ++kk) gz[kk] = __fmul_rn(fmaf(dyv, cv[kk], gz[kk]), e[kk]);
+        }
+        store_k<K>(pair(w, 2), gz);
+      }
+      __syncthreads();
+#pragma unroll
+      for (int v = W - 1; v >= 0; --v) {
+        if (v == w) {
+#pragma unroll
+          for (int kk = 0; kk < K; ++kk) gin[kk] = dh[kk];
+        }
+        float pv[K], ev[K];
+        load_k<K>(pair(v, 0), pv);
+        load_k<K>(pair(v, 2), ev);
+#pragma unroll
+        for (int kk = 0; kk < K; ++kk) dh[kk] = fmaf(pv[kk], dh[kk], ev[kk]);
+      }
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < K; ++kk) gin[kk] = dh[kk];
+    }
+
+    // 4. The walk back from gin with the outputs, four steps at a time: the sums over n reduced
+    // across the channel's lanes (reduce4: lane q ends with step jb + q's), the sums over the
+    // warp's channels by channel_sum, kept until the walk's end, then stored as the warps' partials.
+    float csum[L];
+#pragma unroll
+    for (int jb = L - LANES; jb >= 0; jb -= LANES) {
+      float acc1[LANES], acc2[LANES];
+#pragma unroll
+      for (int u = LANES - 1; u >= 0; --u) {
+        const int jj = jb + u, j = w * L + jj, t = t0 + j;
+        float dtx, dtv = 0.f;
+        if (FUSED) {
+          dtv = sg[R::DS + j * BD + lc];
+          dtx = __fmul_rn(dtv, sg[R::XS + j * BD + lc]);
+        } else {
+          dtx = sg[R::XS + j * BD + lc];
+        }
+        const float dyv = sg[R::YS + j * BD + lc];
+        float bv[K], cv[K], e[K], gdta[K], part[2 * K];
+        load_k<K>(sg + R::BS + j * N + n0, bv);
+        load_k<K>(sg + R::CS + j * N + n0, cv);
+        load_k<K>(e_at + j * BD * N, e);
+        float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < K; ++kk) {
+          const float grad_h = fmaf(dyv, cv[kk], gin[kk]);
+          const float ge = __fmul_rn(grad_h, e[kk]);
+          gdta[kk] = __fmul_rn(ge, jj ? hz[jj - 1][kk] : hw[kk]);
+          gin[kk] = ge;
+          s1 = fmaf(grad_h, bv[kk], s1);
+          if (FUSED) {
+            s2 = fmaf(gdta[kk], av[kk], s2);
+            da[kk] = fmaf(gdta[kk], dtv, da[kk]);
+          }
+          part[kk] = __fmul_rn(grad_h, dtx);
+          part[K + kk] = __fmul_rn(dyv, hz[jj][kk]);
+        }
+        if (!FUSED && live && t < S) store_k<K>(gd + ((row0 + t) * D + ch) * N + n0, gdta);
+        csum[jj] = channel_sum<2 * K>(part, lane);
+        acc1[u] = s1;
+        acc2[u] = s2;
+      }
+      const float y1 = reduce4(acc1, q);
+      const int j = w * L + jb + q;
+      if (FUSED) {
+        const float y2 = reduce4(acc2, q);
+        outs[j * BD + lc] = __fmul_rn(y1, sg[R::DS + j * BD + lc]);
+        outs[(CHUNK + j) * BD + lc] = fmaf(y1, sg[R::XS + j * BD + lc], y2);
+      } else {
+        outs[j * BD + lc] = y1;
+      }
+    }
+    {
+      const int v = K == 4 ? (lane >> 2) & 7 : (lane >> 3) & 3;  // the value this lane holds
+      if (K == 4 || !(lane & 4)) {
+#pragma unroll
+        for (int jj = 0; jj < L; ++jj) red[(((w * L + jj) * WG + wg) * 2 + v / K) * N + n0 + v % K] = csum[jj];
+      }
+    }
+    if constexpr (W == 1) {
+#pragma unroll
+      for (int kk = 0; kk < K; ++kk) dh[kk] = gin[kk];
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(smem_addr(&empty[s]));
     __syncthreads();
+
+    // The chunk's db and dc partials (the warps' partials of each step summed in warp order), then
+    // its d(dtx) or dx, and d(dt), a step's BD channels at a time.
+    for (int e = tid; e < CHUNK * 2 * N / 4; e += T) {
+      const int j = e / (2 * N / 4), r = (e % (2 * N / 4)) * 4, which = r / N, nn = r % N;
+      const int t = t0 + j;
+      if (t < S) {
+        float4 acc = *reinterpret_cast<const float4*>(red + ((j * WG) * 2 + which) * N + nn);
+#pragma unroll
+        for (int g = 1; g < WG; ++g) {
+          const float4 o = *reinterpret_cast<const float4*>(red + ((j * WG + g) * 2 + which) * N + nn);
+          acc.x += o.x, acc.y += o.y, acc.z += o.z, acc.w += o.w;
+        }
+        float* dst = (which ? gc : gb) + (((size_t)bi * p.n_dblocks + dblk) * S + t) * N + nn;
+        *reinterpret_cast<float4*>(dst) = acc;
+      }
+    }
+    if (vec) {
+      for (int e = tid; e < R::OUTS * CHUNK * BD / 4; e += T) {
+        const int o = e / (CHUNK * BD / 4), r = e % (CHUNK * BD / 4);
+        const int j = r / (BD / 4), c4 = (r % (BD / 4)) * 4, t = t0 + j;
+        if (t < S && c4 < live_ch)
+          *reinterpret_cast<float4*>((o ? gd : gx) + (row0 + t) * D + ch0 + c4) =
+              *reinterpret_cast<const float4*>(outs + (o * CHUNK + j) * BD + c4);
+      }
+    } else {
+      for (int e = tid; e < R::OUTS * CHUNK * BD; e += T) {
+        const int o = e / (CHUNK * BD), r = e % (CHUNK * BD), j = r / BD, c1 = r % BD, t = t0 + j;
+        if (t < S && c1 < live_ch) (o ? gd : gx)[(row0 + t) * D + ch0 + c1] = outs[(o * CHUNK + j) * BD + c1];
+      }
+    }
   }
-  if (live) {
-    if (p.gs) p.gs[st] = dh;
-    if (FUSED) p.ga[st] = da;
+
+  if (live && w == 0 && p.gs) store_k<K>(p.gs + st, dh);
+  if constexpr (FUSED) {
+    if constexpr (W > 1) {  // da's groups summed in group order
+      store_k<K>(pr + (w * BD + lc) * N + n0, da);
+      __syncthreads();
+      if (w == 0 && live) {
+        for (int v = 1; v < W; ++v) {
+          float o[K];
+          load_k<K>(pr + (v * BD + lc) * N + n0, o);
+#pragma unroll
+          for (int kk = 0; kk < K; ++kk) da[kk] += o[kk];
+        }
+        store_k<K>(p.ga + st, da);
+      }
+    } else if (live) {
+      store_k<K>(p.ga + st, da);
+    }
   }
 }
 
 template <int N, int BD, int CHUNK, bool FUSED>
 cudaError_t run_bwd(BwdArgs p, int B, cudaStream_t stream) {
-  using SH = BwdShape<N, BD, CHUNK>;
+  using R = BwdRing<N, BD, CHUNK, FUSED>;
   auto kernel = &ssm_bwd_kernel<N, BD, CHUNK, FUSED>;
   p.n_dblocks = (p.D + BD - 1) / BD;
   const long long grid = (long long)p.n_dblocks * B;
   if (grid > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SH::BYTES);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, R::BYTES);
   if (err != cudaSuccess) return err;
-  kernel<<<(unsigned)grid, SH::THREADS, SH::BYTES, stream>>>(p);
+  kernel<<<(unsigned)grid, R::THREADS, R::BYTES, stream>>>(p);
   return cudaGetLastError();
+}
+
+// CTAs of ssm_bwd_kernel one SM holds at once; out[0] its registers a thread, out[1] its local
+// (spilled) bytes a thread. -1 if a query fails.
+template <int N, int BD, int CHUNK, bool FUSED>
+int bwd_occupancy(int* out) {
+  using R = BwdRing<N, BD, CHUNK, FUSED>;
+  auto kernel = &ssm_bwd_kernel<N, BD, CHUNK, FUSED>;
+  cudaFuncAttributes attr;
+  int n = 0;
+  if (cudaFuncGetAttributes(&attr, kernel) != cudaSuccess ||
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, R::BYTES) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, R::THREADS, R::BYTES) != cudaSuccess)
+    return -1;
+  out[0] = attr.numRegs;
+  out[1] = (int)attr.localSizeBytes;
+  return n;
 }
 
 }  // namespace
@@ -709,8 +1112,8 @@ int repro_ssm_fused(int block_d, int chunk, int n_state, const void* x, const vo
   return (int)cudaErrorInvalidValue;
 }
 
-// Writes (block_d, chunk, N, threads, smem bytes) of the backward per compiled instantiation;
-// returns the count.
+// Writes (block_d, chunk, N, threads, smem bytes) of the backward per compiled instantiation
+// (the dta entry's bytes, the larger; the fused entry's ring holds dt, not dta); returns the count.
 int repro_ssm_bwd_configs(int* out, int cap) {
   int n = 0;
 #define Z(BD, C, NS)                                \
@@ -718,8 +1121,8 @@ int repro_ssm_bwd_configs(int* out, int cap) {
     out[5 * n + 0] = BD;                            \
     out[5 * n + 1] = C;                             \
     out[5 * n + 2] = NS;                            \
-    out[5 * n + 3] = BwdShape<NS, BD, C>::THREADS;  \
-    out[5 * n + 4] = BwdShape<NS, BD, C>::BYTES;    \
+    out[5 * n + 3] = BwdRing<NS, BD, C, false>::THREADS; \
+    out[5 * n + 4] = BwdRing<NS, BD, C, false>::BYTES;   \
   }                                                 \
   ++n;
 #define Y(BD, C) REPRO_SSM_STATES(Z, BD, C)
@@ -757,6 +1160,21 @@ int repro_ssm_bwd(int block_d, int chunk, int n_state, int fused, const void* x,
 #undef Y
 #undef Z
   return (int)cudaErrorInvalidValue;
+}
+
+// CTAs of the backward of ``fused``'s entry one SM holds at once, on the current device; regs[0]
+// its registers a thread, regs[1] its spilled bytes a thread. -1 if the query fails.
+int repro_ssm_bwd_occupancy(int block_d, int chunk, int n_state, int fused, int* regs) {
+#define Z(BD, C, NS)                                                                      \
+  if (block_d == BD && chunk == C && n_state == NS)                                       \
+    return fused ? bwd_occupancy<NS, BD, C, true>(regs) : bwd_occupancy<NS, BD, C, false>(regs);
+#define Y(BD, C) REPRO_SSM_STATES(Z, BD, C)
+#define X(BD) REPRO_SSM_CHUNKS(Y, BD)
+  REPRO_SSM_BLOCK_DS(X)
+#undef X
+#undef Y
+#undef Z
+  return -1;
 }
 
 const char* repro_ssm_error_string(int err) {

@@ -181,11 +181,12 @@ def ssm_scan_ref(dtx, dta, b, c, state=None):
 
 
 def ssm_scan_vjp_ref(dtx, dta, b, c, state, dy, ds_out, chunk: int):
-    """Oracle for kernels/ssm.py's backward: the scan's VJP by the algorithm of
-    ``csrc/ssm.cu``'s ``ssm_bwd_kernel``, in the compute dtype (f32, f64 for
-    f64 dtx): a forward pass that keeps the state at every chunk's start, then
-    the chunks in reverse, each chunk's states recomputed from its start and
-    walked back step by step:
+    """Oracle for kernels/ssm.py's backward: the scan's VJP computed
+    sequentially, in the compute dtype (f32, f64 for f64 dtx): a forward pass
+    that keeps the state at every chunk's start, then the chunks in reverse,
+    each chunk's states recomputed from its start and walked back step by step
+    (``csrc/ssm.cu``'s ``ssm_bwd_kernel`` computes the same function in time
+    groups with both recurrences folded over the groups' pairs):
 
       dh += dy_t c_t;  d(dta)_t = dh e^{dta_t} h_{t-1};  d(dtx)_t = sum_N dh b_t;
       db_t = sum_d dh dtx_t;  dc_t = sum_d dy_t h_t;  dh = e^{dta_t} dh,

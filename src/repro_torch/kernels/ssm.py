@@ -23,11 +23,14 @@ pair), :func:`config_space`, the segment rule :func:`ssm_segments` (and
 :func:`ssm_plain` and :func:`ssm_fused_plain`, and the launch counters.
 
 The backward (``ssm_bwd_kernel`` in the same source, both entries) is
-:func:`ssm_backward_cuda` / :func:`ssm_fused_backward_cuda`: one thread a
-(channel, state index), a forward walk keeping the state at every chunk's
-start, then the chunks in reverse, each chunk's states recomputed from its
-start; :func:`ssm_backward_plain` / :func:`ssm_fused_backward_plain` are the
-same algorithm in PyTorch.
+:func:`ssm_backward_cuda` / :func:`ssm_fused_backward_cuda`: the forward's
+layout (4 threads a channel, time groups of 8 steps), the chunks' inputs
+staged by a cp.async ring, a time-grouped forward walk keeping the state at
+every chunk's start, then the chunks in reverse, each in time groups with
+both the state and the gradient recurrence folded over the groups' pairs.
+:func:`ssm_backward_plain` / :func:`ssm_fused_backward_plain` compute the
+same function sequentially (``ref.ssm_scan_vjp_ref``); the kernel's own order
+of work is mirrored in ``tests/test_torch_ssm_grad.py``.
 
 Layout at the public functions is the reference's ``ops.ssm_scan``: dtx
 (B, S, d), dta (B, S, d, N), b/c (B, S, N), state (B, d, N) or None, all
@@ -88,13 +91,24 @@ class SsmConfig:
         return LANES * self.block_d * self.time_groups()
 
     def bwd_threads(self, n: int) -> int:
-        """Threads of one backward CTA (csrc/ssm.cu BwdShape): one a (channel, state index)."""
-        return self.block_d * n
+        """Threads of one backward CTA (csrc/ssm.cu BwdRing): as the forward's, LANES a
+        channel for each time group (``n`` does not change it)."""
+        return self.threads()
 
-    def bwd_smem_bytes(self, n: int) -> int:
-        """Dynamic shared memory of the backward (csrc/ssm.cu BwdShape): every step of a
-        chunk's warp partials of db and dc."""
-        return self.chunk * (self.bwd_threads(n) // 32) * 2 * n * 4
+    def bwd_smem_bytes(self, n: int, fused: bool = False) -> int:
+        """Dynamic shared memory of the backward (csrc/ssm.cu BwdRing): STAGES ring stages of
+        ``chunk`` steps of x/dtx, dt (block_d) or dta (block_d * N), dy (block_d floats), b
+        and c (N); with more than one time group the pairs' region (4 x groups x block_d x
+        N); the warps' partials of db and dc (chunk x warps a group x 2 N); the chunk's
+        outputs (chunk x block_d, two for the fused entry); the fused entry's exponentials
+        (chunk x block_d x N; the dta entry keeps them in its stage, in place of dta)."""
+        stages, d_step = (3, self.block_d) if fused else (2, self.block_d * n)
+        w = self.time_groups()
+        pairs = 4 * w * self.block_d * n if w > 1 else 0
+        red = self.chunk * (LANES * self.block_d // 32) * 2 * n
+        outs = (2 if fused else 1) * self.chunk * self.block_d
+        exps = self.chunk * self.block_d * n if fused else 0
+        return (stages * self.chunk * (2 * self.block_d + d_step + 2 * n) + pairs + red + outs + exps) * 4
 
     def smem_bytes(self, n: int, fused: bool) -> int:
         """Dynamic shared memory of the output pass (csrc/ssm.cu Ring): STAGES stages of
@@ -204,9 +218,11 @@ def ssm_fused_plain(x, dt, a, b, c, state=None):
 
 
 def ssm_backward_plain(dtx, dta, b, c, state, dy, ds_out, chunk: int):
-    """The VJP of :func:`ssm_plain` in plain PyTorch, by the algorithm of the
-    dta entry's backward kernel (``chunk``: the config's, the stride of the
-    kept start states).  ``dy`` (B, S, d) and ``ds_out`` (B, d, N) or None are
+    """The VJP of :func:`ssm_plain` in plain PyTorch: the sequential oracle
+    ``ref.ssm_scan_vjp_ref`` (``chunk``: the config's, the stride of its kept
+    start states), the function the dta entry's backward kernel computes in
+    time groups (its order of work: ``tests/test_torch_ssm_grad.py``
+    ``_bwd_mirror``).  ``dy`` (B, S, d) and ``ds_out`` (B, d, N) or None are
     the cotangents of y and the final state.  Returns (d(dtx), d(dta), db,
     dc, d(state)) in their inputs' dtypes (d(state) None without a state)."""
     g = ssm_scan_vjp_ref(dtx, dta, b, c, state, dy, ds_out, chunk)
@@ -214,10 +230,10 @@ def ssm_backward_plain(dtx, dta, b, c, state, dy, ds_out, chunk: int):
 
 
 def ssm_fused_backward_plain(x, dt, a, b, c, state, dy, ds_out, chunk: int):
-    """The VJP of :func:`ssm_fused_plain` in plain PyTorch, by the algorithm of the
-    fused entry's backward kernel: the dta entry's with dtx = dt * x and
-    dta = dt * a, then dx = d(dtx) dt, d(dt) = d(dtx) x + sum_N d(dta) a and
-    da = sum over B and S of d(dta) dt.  Returns (dx, d(dt), da, db, dc,
+    """The VJP of :func:`ssm_fused_plain` in plain PyTorch, the function the
+    fused entry's backward kernel computes: :func:`ssm_backward_plain`'s with
+    dtx = dt * x and dta = dt * a, then dx = d(dtx) dt, d(dt) = d(dtx) x +
+    sum_N d(dta) a and da = sum over B and S of d(dta) dt.  Returns (dx, d(dt), da, db, dc,
     d(state)) in their inputs' dtypes (d(state) None without a state)."""
     g_dtx, g_dta, g_b, g_c, g_s = ssm_scan_vjp_ref(dt * x, dt[..., None] * a, b, c, state, dy, ds_out, chunk)
     acc = g_dtx.dtype
@@ -252,6 +268,8 @@ def _lib() -> ctypes.CDLL:
     lib.repro_ssm_bwd.restype = i
     lib.repro_ssm_bwd_configs.argtypes = [ctypes.POINTER(ctypes.c_int), i]
     lib.repro_ssm_bwd_configs.restype = i
+    lib.repro_ssm_bwd_occupancy.argtypes = [i, i, i, i, ctypes.POINTER(ctypes.c_int)]
+    lib.repro_ssm_bwd_occupancy.restype = i
     compiled = compiled_configs(lib)
     want = [(c.block_d, c.chunk, n, c.threads(), c.smem_bytes(n, False), c.smem_bytes(n, True))
             for c in config_space() for n in _STATES]
@@ -289,6 +307,19 @@ def resident_ctas(config: SsmConfig, n: int, fused: bool, index: int) -> int:
     if got < 1:
         raise KernelLaunchError(f"ssm kernel {config.name()} (N {n}, fused {fused}): occupancy query failed ({got})")
     return got
+
+
+@functools.cache
+def bwd_residency(config: SsmConfig, n: int, fused: bool, index: int) -> dict[str, int]:
+    """The compiled backward of ``config`` on CUDA device ``index``: the CTAs one SM holds at
+    once (``ctas``), registers a thread (``registers``) and spilled bytes a thread
+    (``local_bytes``), from the occupancy calculator and the function's attributes."""
+    regs = (ctypes.c_int * 2)()
+    with torch.cuda.device(index):
+        got = _lib().repro_ssm_bwd_occupancy(config.block_d, config.chunk, n, int(fused), regs)
+    if got < 1:
+        raise KernelLaunchError(f"ssm backward {config.name()} (N {n}, fused {fused}): occupancy query failed ({got})")
+    return {"ctas": got, "registers": regs[0], "local_bytes": regs[1]}
 
 
 def launch_segments(b: int, s: int, d: int, n: int, config: SsmConfig, fused: bool, index: int) -> int:
@@ -426,6 +457,9 @@ def _launch_bwd(entry: str, seq, a, b, c, state, dy, ds_out, n, config):
                               or not t.is_contiguous()):
             raise ValueError(f"ssm backward: {what} must be a contiguous f32 {shape} on {dev}, got {t.dtype} "
                              f"{tuple(t.shape)} on {t.device}")
+    # The kernel copies 16 bytes at a time from 16-byte-aligned bases.
+    seq = [t if t.data_ptr() % 16 == 0 else t.clone() for t in seq]
+    b, c, dy = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (b, c, dy))
     n_blocks = -(-d // config.block_d)
     ck = torch.empty((bsz, -(-s // config.chunk), d, n), dtype=torch.float32, device=dev)
     gx = torch.empty_like(x)
