@@ -135,6 +135,10 @@ Phases (each one fails the run if its check fails):
    ``attention.launch_splits`` names (every decode shape splits); then 8 more
    passes over the bf16 shapes with fresh inputs.  Limits relative to
    max|plain|: 1e-2 for a bf16 output, 1e-4 for f32; every output finite;
+   then the SASS of every attention kernel (``scripts/attn_race.py``): no
+   stage release may leave a shared load of the ring in flight (block_q 32's
+   release overtook its ldmatrix loads, and a TMA overwrote a V tile still
+   being read: 4 wrong results in 36,000 calls before the fix);
 17. tune on the card, every family, as the fleet of the card and host_cpu:
    ``python -m repro_torch.launch.tune --devices <card>,host_cpu --archs
    granite-8b,rwkv6-7b,hymba-1.5b --n-kernels 4 --cpu-problems 8 --bundle
@@ -370,14 +374,18 @@ Phases (each one fails the run if its check fails):
    seconds printed):
    25f-i. the WKV backward (csrc/wkv_bwd.cu) at every compiled (chunk, hd),
    bf16 and f32 r/k/v, a ragged S and an S below the chunk, with and without
-   an initial state and a final-state cotangent: every gradient against
-   autograd of ``wkv_plain`` on the card (TF32 off) within 1e-4 of its max
-   (bf16 leaves 1e-2), and f32 against f64 autograd within 1e-4 (the f32
-   plain's own gap printed beside it); two calls bitwise equal; at
-   rwkv6-7b's training shape (B 8, S 128, H 64, hd 64), f32 and bf16,
+   an initial state and a final-state cotangent, at the wrapper's segments
+   and in one segment: every gradient against autograd of ``wkv_plain`` on
+   the card (TF32 off) within 1e-4 of its max (bf16 leaves 1e-2), and f32
+   against f64 autograd within 1e-4 (the f32 plain's own gap printed beside
+   it); two calls bitwise equal; at rwkv6-7b's training shape (B 8, S 128,
+   H 64, hd 64), f32 and bf16, and the long (1, 2048, 64, 64) f32 call,
    checked and repeated as that, then timed with CUDA events beside its
    bound (the function's bytes and operations) and autograd of the plain
-   version;
+   version, with the walk's registers, spills, shared memory, CTAs an SM,
+   grid, waves and segments; at the training shape one kernel a call and
+   no state-gradient workspace; where ``build/parent`` exists, the parent's
+   backward in turns (``scripts/wkv_ab.py --bwd``);
    25f-ii. the scan backward (csrc/ssm.cu ``ssm_bwd_kernel``), both entries,
    every compiled config and N 8 and 16, the same cases, and a long (1, 2048,
    1600, 16) call, each against f64 too; checked, repeated and timed at
@@ -439,8 +447,9 @@ Phases (each one fails the run if its check fails):
 
 ``python3 chip_smoke.py --only-training`` runs phases 1, 2 and 25 alone (25g
 needs ``build/deploy_h100.json`` from a tune); ``--only-distribution`` runs
-phases 1, 2 and 26 alone (26c needs it too); ``--only-scan-backward`` runs
-phases 1, 2 and 25f-ii alone (with ``build/parent``, its turns too).
+phases 1, 2 and 26 alone (26c needs it too); ``--only-wkv-backward`` runs
+phases 1, 2 and 25f-i alone, and ``--only-scan-backward`` phases 1, 2 and
+25f-ii (each with ``build/parent``, its turns too).
 
 Each phase's header shows the seconds since the start.
 
@@ -451,6 +460,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import gc
+import importlib
 import json
 import statistics
 import subprocess
@@ -1098,7 +1108,7 @@ def _kernel_name(key: str) -> str:
     reaches through einsum, also hold "gemm_" in theirs)."""
     if any(f"gemm_{path}_kernel" in key for path in ("tma", "bf16", "f32")):
         return GEMM_KERNELS
-    for kernel in ("wkv_bwd_state_kernel", "wkv_bwd_chunk_kernel", "ssm_bwd_kernel"):
+    for kernel in ("wkv_bwd_walk_kernel", "wkv_bwd_state_kernel", "ssm_bwd_kernel"):
         if kernel in key:
             return f"{kernel.split('_')[0].replace('ssm', 'ssm_scan')} backward ({kernel})"
     for kernel in ("wkv_state_kernel", "wkv_output_kernel", "ssm_state_kernel", "ssm_output_kernel"):
@@ -1695,14 +1705,23 @@ def phase_attention_vs_plain(torch, at) -> dict:
     require(all(any(f"(2, 3, 1, {skv}, {d}) causal={c} {cfg.name()}" in splits_seen for c in (True, False))
                 for skv in (4103, 32768) for d in (64, 128) for cfg in at.config_space()),
             f"a decode shape did not split: {sorted(splits_seen)}")
+    sys.path.insert(0, str(ROOT / "scripts"))
+    import attn_race
+
+    sass = attn_race.overtaking_arrives(("attention",))["attention"]
+    late = {fn: n for fn, n in sass.items() if fn != "functions"}
+    require(not late, f"attention stage releases that can overtake a shared load in flight: {late}")
     for name, w in worst.items():
         print(f"  {name}: worst rel err {w['rel']:.3g} (limit {ATTN_TOL[name]}), worst abs err {w['abs']:.3g}")
+    print(f"  SASS of the {sass['functions']} attention kernels: no stage release can overtake a shared load "
+          f"(scripts/attn_race.py)")
     print(f"  {checks} checks ({len(ATTN_SHAPES)} shapes x 2 head dims x 2 dtypes x 2 masks x "
           f"{len(at.config_space())} configs x 2 calls, then {RACE_PASSES} bf16 passes with fresh inputs): every "
           f"output finite, both calls bitwise equal; at (40, 24) and (300, 200) causal the rows that see nothing are "
           f"zeros; launches by path {paths}; {len(splits_seen)} (shape, mask, config) triples split KV, "
           f"{min(splits_seen.values())}-{max(splits_seen.values())} splits")
-    return {"worst": worst, "checks": checks, "paths": paths, "splits": splits_seen}
+    return {"worst": worst, "checks": checks, "paths": paths, "splits": splits_seen,
+            "sass_kernels_read": sass["functions"]}
 
 
 def _full_tables(result) -> dict:
@@ -4250,6 +4269,7 @@ def phase_train_cpu_vs_card(torch, mm) -> dict:
 # an f32 gradient to bf16 once (2^-8 relative), so two roundings apart.
 BWD_TOL = {"f32": 1e-4, "bf16": 1e-2}
 RWKV_TRAIN_SHAPE = (8, 128, 64, 64)  # B, S, H, hd: rwkv6-7b at batch 8, seq 128
+WKV_BWD_LONG = (1, 2048, 64, 64)  # one long row: few heads, many chunks (the walk cut into segments)
 HYMBA_TRAIN_SHAPE = (8, 128, 1600, 16)  # B, S, d, N: hymba-1.5b at batch 8, seq 128
 
 
@@ -4307,12 +4327,16 @@ def _autograd(torch, fn, leaves, cots):
 def phase_wkv_backward(torch, wk) -> dict:
     """25f-i: the WKV backward kernel (csrc/wkv_bwd.cu) at every compiled (chunk, hd), bf16 and
     f32 r/k/v, a ragged S and an S below the chunk, with and without an initial state and a
-    final-state cotangent: against autograd of ``wkv_plain`` on the card (TF32 off) and, for f32,
-    f64 autograd of it; two calls bitwise equal; then timed at rwkv6-7b's training shape."""
+    final-state cotangent, each at the segments the wrapper picks and in one segment: against
+    autograd of ``wkv_plain`` on the card (TF32 off) and, for f32, f64 autograd of it; two calls
+    bitwise equal; then checked and timed at rwkv6-7b's training shape (one kernel a call, no
+    state-gradient workspace) and at the long (1, 2048, 64, 64) call, with the walk's residency;
+    where ``build/parent`` exists, the parent's backward in turns (``scripts/wkv_ab.py --bwd``)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator(device="cuda").manual_seed(27)
     names = ("r", "k", "v", "logw", "u", "state")
     worst, checks = {}, 0
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     t0 = time.perf_counter()
     for cfg in wk.config_space():
         for hd in (16, 64):
@@ -4323,36 +4347,51 @@ def phase_wkv_backward(torch, wk) -> dict:
                     args = list(_wkv_inputs(torch, g, 2, s, 3, hd, dtype, "dist", with_state))
                     do = torch.randn((2, s, 3, hd), device="cuda", generator=g)
                     ds = torch.randn((2, 3, hd, hd), device="cuda", generator=g) if with_ds else None
-                    got = wk.wkv_backward_cuda(*args, do, ds, cfg)
-                    again = wk.wkv_backward_cuda(*args, do, ds, cfg)
-                    where = f"{cfg.name()} hd {hd} {dtype} S {s} state={with_state} ds_out={with_ds}"
-                    require(all(x is None or torch.equal(x, y) for x, y in zip(got, again)),
-                            f"{where}: two calls differ")
                     ref = _autograd(torch, wk.wkv_plain, args, (do, ds))
                     exact = None
                     if dtype == torch.float32:
                         exact = _autograd(torch, wk.wkv_plain, [None if t is None else t.double() for t in args],
                                           (do.double(), None if ds is None else ds.double()))
-                    _check_grads(_grad_errs(torch, got, ref, exact), names, where, worst)
-                    checks += 1
+                    n = -(-s // wk.launch_chunk(cfg, s))
+                    # The wrapper's segments (a chunk a segment here: 6 heads leave the slots empty),
+                    # then all of a head's chunks in one.
+                    for seg_len in (None, n):
+                        got = wk._backward(*args, do, ds, cfg, None, seg_len)
+                        again = wk._backward(*args, do, ds, cfg, None, seg_len)
+                        where = (f"{cfg.name()} hd {hd} {dtype} S {s} state={with_state} ds_out={with_ds} "
+                                 f"segment length {seg_len or 'by the wrapper'}")
+                        require(all(x is None or torch.equal(x, y) for x, y in zip(got, again)),
+                                f"{where}: two calls differ")
+                        _check_grads(_grad_errs(torch, got, ref, exact), names, where, worst)
+                        checks += 1
     torch.cuda.synchronize()
     print(f"  {checks} checks in {time.perf_counter() - t0:.1f}s ({len(wk.config_space())} chunks x hd 16, 64 x f32, "
           f"bf16 x 4 cases: ragged S with a "
           f"state and a final-state cotangent, ragged S without, S below the chunk with a state, S below with a "
-          f"cotangent), each called twice, bitwise equal; worst rel err by leaf against autograd of wkv_plain "
+          f"cotangent; each at the wrapper's segments and in one segment), each called twice, bitwise equal; worst "
+          f"rel err by leaf against autograd of wkv_plain "
           f"(limits f32 {BWD_TOL['f32']}, bf16 leaves {BWD_TOL['bf16']}) and against f64 (the f32 plain's own "
           f"beside it): " + "; ".join(f"d{k} {v['rel']:.3g} / f64 {v['rel_f64']:.3g} (plain {v['plain_rel_f64']:.3g})"
                                       for k, v in worst.items()))
-    b, s, h, hd = RWKV_TRAIN_SHAPE
     out = {"checks": checks, "worst": worst, "timing": []}
-    for dtype in (torch.float32, torch.bfloat16):
+    for shape, dtype in ((RWKV_TRAIN_SHAPE, torch.float32), (RWKV_TRAIN_SHAPE, torch.bfloat16),
+                         (WKV_BWD_LONG, torch.float32)):
+        b, s, h, hd = shape
         args = list(_wkv_inputs(torch, g, b, s, h, hd, dtype, "dist", False))
         do = torch.randn((b, s, h, hd), device="cuda", generator=g)
         _, s_fin, hs = wk.wkv_cuda(*args, config=wk.DEFAULT_WKV_CONFIG, keep_states=True)
         call = lambda: wk.wkv_backward_cuda(*args, do, None, wk.DEFAULT_WKV_CONFIG, (hs, s_fin))
-        # Checked as above at the shape the main path gives the kernel, then timed there.
-        where = f"rwkv6-7b's training shape {RWKV_TRAIN_SHAPE} {dtype}"
+        # Checked as above at the shape the main path gives the kernel, then timed there. Memory
+        # beyond the gradients during a call: du's partials, and dS at the segments' ends where
+        # the call is cut (the parent's kernel allocated a state-gradient workspace the size of hs).
+        where = f"the backward at {shape} {dtype}"
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
         got = call()
+        torch.cuda.synchronize()
+        extra = torch.cuda.max_memory_allocated() - before - sum(x.numel() * x.element_size() for x in got
+                                                                 if x is not None)
         require(all(x is None or torch.equal(x, y) for x, y in zip(got, call())), f"{where}: two calls differ")
         exact = None
         if dtype == torch.float32:
@@ -4367,7 +4406,7 @@ def phase_wkv_backward(torch, wk) -> dict:
         n = b * s * h * hd
         # Each input read once (r, k, v, u in their type; logw, do f32), each output written
         # once (dr, dk, dv in r's type, dlogw f32); du is (H, hd). The forward's chunk start
-        # states hs are this design's workspace, not the function's: they are not counted.
+        # states hs are this design's input beside the function's, not counted.
         nbytes = 3 * n * size * 2 + 2 * n * 4 + n * 4 + h * hd * size * 2
         # The recurrent VJP's count, the fewest for this function: per token and head, the state's
         # gradient dS = w (.) dS + r^T do (3 hd^2), dr = S do (2 hd^2), dk = dS v (2 hd^2),
@@ -4378,19 +4417,52 @@ def phase_wkv_backward(torch, wk) -> dict:
         leaves = [t.detach().requires_grad_(True) for t in args[:5]]
         o, _ = wk.wkv_plain(*leaves)
         plain = _time_ms(lambda i: torch.autograd.grad(o, leaves, do, retain_graph=True), n_runs=5)
-        launches = _kernel_launches(call, ("wkv_bwd_state_kernel", "wkv_bwd_chunk_kernel"))
+        launches = _kernel_launches(call, ("wkv_bwd_walk_kernel", "wkv_bwd_state_kernel"))
+        # The walk's residency and segments at this shape.
+        chunk = wk.launch_chunk(wk.DEFAULT_WKV_CONFIG, s)
+        res = wk.bwd_residency(wk.WkvConfig(chunk), hd, 0, dtype == torch.bfloat16, args[4].dtype == torch.float32)
+        n_chunks = -(-s // chunk)
+        seg_len = wk.bwd_segment_len(b * h, n_chunks, sms, res["ctas"])
+        n_seg = -(-n_chunks // seg_len)
+        grid = b * h * n_seg
+        if shape == RWKV_TRAIN_SHAPE:
+            require(n_seg == 1 and (launches is None or launches == {"wkv_bwd_walk_kernel": 1.0,
+                                                                      "wkv_bwd_state_kernel": 0.0}),
+                    f"{where}: want one walk kernel a call, got {n_seg} segments, kernels {launches}")
+            require(extra < 1 << 20, f"{where}: {extra} bytes beyond the gradients (a workspace?)")
         row = {"dtype": str(dtype).split(".")[-1], "shape": [b, s, h, hd], "config": wk.DEFAULT_WKV_CONFIG.name(),
                "ms": ms, "plain_autograd_ms": plain, "bound_ms": bound, "bytes": nbytes, "ops": ops_n,
                "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= ops_n / F32_FLOPS else "operations",
-               "kernel_launches_per_call": launches, "worst": at_shape}
+               "kernel_launches_per_call": launches, "worst": at_shape, **res, "threads": 256,
+               "smem_bytes": wk.WkvConfig(chunk).bwd_smem_bytes(hd), "grid": grid,
+               "waves": grid / (sms * res["ctas"]), "segments": n_seg, "extra_bytes": extra}
         out["timing"].append(row)
-        print(f"  at rwkv6-7b's training shape {RWKV_TRAIN_SHAPE} {row['dtype']}, {row['config']}: two calls bitwise "
+        print(f"  at {shape} {row['dtype']}, {row['config']}: two calls bitwise "
               f"equal; worst rel err by leaf against autograd of wkv_plain (/ f64): {_worst_text(at_shape)}; "
               f"backward {ms:.4f} ms, bound {bound:.4f} ms ({row['bound_by']}: {nbytes / 1e6:.1f} MB, "
               f"{ops_n / 1e9:.2f} Gop f32); autograd of wkv_plain {plain:.3f} ms; kernels per call {launches}; "
-              f"library: none")
+              f"library: none; {res['registers']} registers and {res['local_bytes']} spilled bytes a thread, 256 "
+              f"threads and {row['smem_bytes']} bytes of shared memory a CTA, {res['ctas']} CTAs an SM, grid {grid} "
+              f"= {row['waves']:.2f} waves, {n_seg} segment(s); {extra} bytes allocated beyond the gradients")
         del args, do, hs, s_fin, leaves, o
+    out["parent_ab"] = phase_bwd_parent_ab("wkv_ab", "wkv_bwd.cu")
     return out
+
+
+def phase_bwd_parent_ab(script: str, source: str) -> dict | None:
+    """The parent's backward kernel against this one, in turns (``scripts/<script>.py --bwd``:
+    parent, this, this, parent), where build/parent holds the parent's tree with ``source``."""
+    base = ROOT / "build" / "parent"
+    if not (base / "src" / "repro_torch" / "kernels" / "csrc" / source).is_file():
+        print("  no build/parent: the parent's backward kernel is not measured in this run")
+        return None
+    sys.path.insert(0, str(ROOT / "scripts"))
+    ab = importlib.import_module(script)
+
+    print(f"  the parent's backward against this one, in turns (parent, this, this, parent; scripts/{script}.py --bwd):")
+    result = ab.run_bwd_turns(base)
+    ab.report_bwd(result)
+    return result
 
 
 def phase_ssm_backward(torch, ss) -> dict:
@@ -4486,30 +4558,14 @@ def phase_ssm_backward(torch, ss) -> dict:
               f"{row['threads']} threads and {row['smem_bytes']} bytes of shared memory a CTA, {res['ctas']} CTAs an "
               f"SM, grid {grid} = {waves:.2f} waves")
         del args, dy, leaves, y
-    out["parent_ab"] = phase_ssm_bwd_parent_ab()
+    out["parent_ab"] = phase_bwd_parent_ab("ssm_ab", "ssm.cu")
     return out
-
-
-def phase_ssm_bwd_parent_ab() -> dict | None:
-    """The parent's scan backward against this one, in turns (``scripts/ssm_ab.py --bwd``), where
-    build/parent holds the parent's tree."""
-    base = ROOT / "build" / "parent"
-    if not (base / "src" / "repro_torch" / "kernels" / "csrc" / "ssm.cu").is_file():
-        print("  no build/parent: the parent's backward kernel is not measured in this run")
-        return None
-    sys.path.insert(0, str(ROOT / "scripts"))
-    import ssm_ab
-
-    print("  the parent's backward against this one, in turns (parent, this, this, parent; scripts/ssm_ab.py --bwd):")
-    result = ssm_ab.run_bwd_turns(base)
-    ssm_ab.report_bwd(result)
-    return result
 
 
 # GEMMs a layer of the recurrent models' training forward (as their serving forward: rwkv6-7b
 # r, k, v, g, wd1, wd2, o, ck, cv, cr; hymba-1.5b q, k, v, o, in, dt1, dt2, b, c, out, gate, up, down).
 LAYER_GEMMS = {"rwkv6-7b": 10, "hymba-1.5b": 13, "qwen3-moe-235b-a22b": 5}  # an MoE layer: Q, K, V, O, router
-RECURRENCE = {"rwkv6-7b": ("wkv", ("wkv_bwd_state_kernel", "wkv_bwd_chunk_kernel")),
+RECURRENCE = {"rwkv6-7b": ("wkv", ("wkv_bwd_walk_kernel", "wkv_bwd_state_kernel")),
               "hymba-1.5b": ("ssm_scan_fused", ("ssm_bwd_kernel",))}
 
 
@@ -5337,6 +5393,17 @@ def main() -> int:
         (ROOT / "build" / "chip_smoke_distribution.json").write_text(json.dumps(distribution, indent=1, default=str))
         print(f"[26] distribution phase done in {time.perf_counter() - t_start:.1f}s")
         return 0
+    if "--only-wkv-backward" in sys.argv[1:]:  # phase 25f-i alone
+        restore = _no_plain_on_card(ops)
+        try:
+            phase("[25f-i] the WKV backward kernel (wkv_bwd.cu) against autograd of wkv_plain, every (chunk, hd); "
+                  "timing")
+            wkv_bwd = phase_wkv_backward(torch, wk)
+        finally:
+            restore()
+        (ROOT / "build" / "chip_smoke_wkv_backward.json").write_text(json.dumps(wkv_bwd, indent=1, default=str))
+        print(f"[25f-i] WKV backward phase done in {time.perf_counter() - t_start:.1f}s")
+        return 0
     if "--only-scan-backward" in sys.argv[1:]:  # phase 25f-ii alone
         restore = _no_plain_on_card(ops)
         try:
@@ -5759,9 +5826,11 @@ def main() -> int:
         "bound_by": wkv_bwd_row["bound_by"],
         "library_ms": None,
         "library_note": "no single PyTorch call computes the WKV recurrence's gradient",
-        "design": "a reverse pass over the chunk boundaries carrying the state's gradient into a workspace "
-                  "(wkv_bwd_state_kernel), then every chunk's dr, dk, dv, dlogw and du partial at once from the "
-                  "forward's chunk start states (wkv_bwd_chunk_kernel, 16 x 16 blocks of the scores recomputed)",
+        "design": "one reverse walk a head (wkv_bwd_walk_kernel): blocks of up to 16 rows from the last, the "
+                  "state's gradient carried in registers, the forward's chunk start states read through a 2-stage "
+                  "cp.async ring on mbarriers, one exponential a (t, tau, channel), the (rows, hd) x (hd, hd) "
+                  "products as register tiles of float4 reads; few heads cut into segments, the reverse pass "
+                  "(wkv_bwd_state_kernel) writing the state's gradient at their ends",
         "kernel_launches_per_call": wkv_bwd_row["kernel_launches_per_call"],
         "timed_as": f"one call at rwkv6-7b's training shape {RWKV_TRAIN_SHAPE} (B, S, H, hd), f32, "
                     f"{wkv_bwd_row['config']}; plain_ms: autograd's backward of wkv_plain there",

@@ -51,8 +51,11 @@
 //     own, so one's softmax runs while the other's products hold the tensor cores (5-10%
 //     at prefill, PERF.md). The softmax takes 2^x from the SFU alone (ex2.approx).
 //   * block_q 32: two warps of mma.sync m16n8k16 (ldmatrix from the swizzled boxes), fed
-//     from the same ring. A warp releases a stage after the last mma.sync that consumes its
-//     ldmatrix results has issued, so every load of it has landed.
+//     from the same ring. A warp releases a stage only once it has waited for the next one
+//     (as csrc/matmul.cu's mma.sync path does): ptxas issues an arrive placed right after a
+//     stage's last ldmatrix ahead of the loads still in flight, and the producer's next TMA
+//     then overwrote a V tile that was still being read (4 wrong results in 36,000 calls
+//     at (1, 32, 4096, 4096, 64) on an H100, none after; scripts/attn_race.py).
 //   * Masks only where they bite: a warp tests (row, column) only in the KV blocks that
 //     cross the causal diagonal of its rows or the end of skv; every block wholly inside
 //     runs with no per-element test.
@@ -551,6 +554,11 @@ __global__ void __launch_bounds__(TmaTile<HD, BQ, BKV>::THREADS, 1)
       for (int it = 0; it < n; ++it) {
         const int st = it % T::STAGES;
         mbar_wait(full0 + 8 * st, (it / T::STAGES) & 1);
+        // Release the previous stage, not this one: its ldmatrix results fed the mma.syncs
+        // of the previous iteration, all issued before this wait (an acquire, in a loop of
+        // its own), so every load of that stage has landed. The last stage is never
+        // released: the producer has no block left to load into it.
+        if (it > 0 && lane == 0) mbar_arrive(empty0 + 8 * ((it - 1) % T::STAGES));
         const unsigned k_st = ring + st * T::STAGE, v_st = k_st + T::KV_BYTES;
         const int kv0 = (j0 + it) * BKV;
         // S = Q K^T: K is [kv][d], the col-major B; plain ldmatrix gives two n8 tiles' B.
@@ -590,10 +598,6 @@ __global__ void __launch_bounds__(TmaTile<HD, BQ, BKV>::THREADS, 1)
             mma_bf16_16816(o[dt + 1], a, r[2], r[3]);
           }
         }
-        // The mma.syncs above consumed every ldmatrix result of stage st, so every load of
-        // it has landed: release it.
-        __syncwarp();
-        if (lane == 0) mbar_arrive(empty0 + 8 * st);
       }
     }
   }

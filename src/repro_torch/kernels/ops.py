@@ -36,7 +36,7 @@ GEMMs through :func:`matmul` (the same selection, guard and kernel); remat
 backward is the recurrence's own backward kernel (``wkv_backward_cuda``,
 ``ssm_backward_cuda``, ``ssm_fused_backward_cuda``) at the config the
 forward ran, selected and guarded as the forward, or on CPU tensors its plain
-version (``wkv_backward_plain``, ...), the same algorithm.  :func:`attention`
+version (``wkv_backward_plain``, ...), the same function.  :func:`attention`
 has no backward kernel (no model trains through it): on a CUDA tensor with
 grad it raises :class:`NoBackwardKernelError` rather than return an output
 that no gradient flows through; on CPU tensors its plain version keeps

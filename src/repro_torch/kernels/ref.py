@@ -85,8 +85,11 @@ def wkv_states_ref(k, v, logw, state=None, chunk: int = 16):
 
 
 def wkv_backward_ref(r, k, v, logw, u, state, do, ds_out, chunk: int, hs=None, s_final=None):
-    """Oracle for kernels/wkv.py's backward: the WKV's VJP by the algorithm of
-    ``csrc/wkv_bwd.cu``.
+    """Oracle for kernels/wkv.py's backward: the WKV's VJP chunk by chunk at the
+    forward's launch chunk.  ``csrc/wkv_bwd.cu`` computes the same function in
+    another order: one reverse walk a head in blocks of up to 16 rows, the
+    state's gradient carried from block to block (``tests/test_torch_wkv_grad.py
+    ::_bwd_mirror`` is that order in numpy).
 
     Inputs as :func:`wkv_ref` takes them; ``do`` (B, S, H, hd) and
     ``ds_out`` (B, H, hd, hd) or None are the cotangents of the output and

@@ -12,10 +12,12 @@ through one plain C entry point.  This module holds:
   * :func:`wkv_cuda` — the wrapper: checks, allocates, launches, counts;
   * :func:`wkv_plain` — the plain PyTorch version, for CPU tensors and for
     holding the kernel to account on the card;
-  * :func:`wkv_backward_cuda` — the VJP through ``csrc/wkv_bwd.cu``'s pair
-    (a reverse pass over the chunk boundaries carrying the state's gradient
-    into a workspace, then every chunk's gradients at once from the forward's
-    ``hs``), and :func:`wkv_backward_plain`, the same algorithm in PyTorch;
+  * :func:`wkv_backward_cuda` — the VJP through ``csrc/wkv_bwd.cu``'s walk
+    (one CTA a head walks its positions in reverse in blocks of up to 16 rows,
+    carrying the state's gradient in registers and reading the forward's
+    ``hs``; :func:`bwd_segment_len` cuts a head's chunks into segments where
+    heads are few), and :func:`wkv_backward_plain`, the same function chunk by
+    chunk in PyTorch;
   * ``LAUNCHES`` / ``BWD_LAUNCHES`` — per-config launch counters.
 
 Layout at the public functions is the reference's: r/k/v/logw (B, S, H, hd),
@@ -30,7 +32,7 @@ import functools
 
 import torch
 
-from ._build import launch_error
+from ._build import KernelLaunchError, launch_error
 from .ref import wkv_backward_ref, wkv_ref
 
 _CHUNKS = (8, 16, 32, 64, 128)  # csrc/wkv.cu REPRO_WKV_CHUNKS
@@ -76,11 +78,19 @@ class WkvConfig:
 
     def bwd_smem_bytes(self, hd: int) -> int:
         """Dynamic shared memory of the larger of the backward's two kernels
-        (csrc/wkv_bwd.cu BwdChunkSmem, BwdStateSmem)."""
-        L, p, tb = self.chunk, hd + 1, min(self.chunk, 16)
-        chunk = 4 * (6 * L * p + hd * p + 2 * tb * (tb + 1) + 2 * L + 2 * hd)
+        (csrc/wkv_bwd.cu WalkSmem, BwdStateSmem).  The walk's: a ring of two
+        stages of a block of m = min(chunk, 16) rows (r, k, v, logw, do and the
+        block's start state, rows padded to hd + 4 floats), the state's
+        gradient (or, at hd 16, the pair pass's dk partials), A's partials (a
+        warp's at hd 64), k^, dA, D and four vectors; the same at every chunk
+        from 16 on, since longer chunks are walked in blocks of 16."""
+        L = self.chunk
+        m, ps = min(L, 16), hd + 4
+        stage = 5 * m * ps + hd * ps
+        partials = 8 if hd == 64 else max(1, hd // 32)
+        walk = 4 * (2 * stage + max(hd * ps, 256 * m) + partials * m * m + m * ps + m * m + m + 3 * hd + 256)
         kr = hd // 2 if hd > 16 else hd
-        return max(chunk, 4 * (2 * L * kr + L * hd + kr))
+        return max(walk, 4 * (2 * L * kr + L * hd + kr))
 
     def is_valid(self) -> bool:
         return self.chunk in _CHUNKS and all(max(self.smem_bytes(hd), self.bwd_smem_bytes(hd)) <= SMEM_LIMIT
@@ -99,7 +109,8 @@ DEFAULT_WKV_CONFIG = WkvConfig(16)
 
 # Launch counters: config name -> calls.  wkv_cuda adds one to LAUNCHES per call
 # (its two kernel launches), wkv_backward_cuda one to BWD_LAUNCHES per call (the
-# backward's two), and nowhere else; callers reset with reset_launches().
+# walk, and the reverse pass where the call is cut into segments), and nowhere
+# else; callers reset with reset_launches().
 LAUNCHES: dict[str, int] = {c.name(): 0 for c in config_space()}
 BWD_LAUNCHES: dict[str, int] = {c.name(): 0 for c in config_space()}
 
@@ -170,10 +181,12 @@ def _bwd_lib() -> ctypes.CDLL:
 
     lib = load("wkv_bwd")
     ptr, i = ctypes.c_void_p, ctypes.c_int
-    lib.repro_wkv_bwd.argtypes = [i, i, i, i] + [ptr] * 16 + [i, i, i, ptr]
+    lib.repro_wkv_bwd.argtypes = [i, i, i, i] + [ptr] * 17 + [i, i, i, i, ptr]
     lib.repro_wkv_bwd.restype = i
     lib.repro_wkv_bwd_configs.argtypes = [ctypes.POINTER(ctypes.c_int), i]
     lib.repro_wkv_bwd_configs.restype = i
+    lib.repro_wkv_bwd_occupancy.argtypes = [i, i, i, i, ctypes.POINTER(ctypes.c_int)]
+    lib.repro_wkv_bwd_occupancy.restype = i
     lib.repro_wkv_bwd_error_string.argtypes = [i]
     lib.repro_wkv_bwd_error_string.restype = ctypes.c_char_p
     compiled = compiled_bwd_configs(lib)
@@ -189,6 +202,37 @@ def compiled_bwd_configs(lib: ctypes.CDLL | None = None) -> list[tuple[int, ...]
     buf = (ctypes.c_int * (3 * 64))()
     n = lib.repro_wkv_bwd_configs(buf, 64)
     return [tuple(buf[3 * i : 3 * i + 3]) for i in range(n)]
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.cache
+def bwd_residency(config: WkvConfig, hd: int, index: int, bf16: bool = False, u_f32: bool = True) -> dict[str, int]:
+    """The compiled backward walk of ``config`` at head dim ``hd`` (r/k/v bf16 or
+    f32, u f32 or in r's type) on CUDA device ``index``: the CTAs one SM holds at
+    once (``ctas``), registers a thread (``registers``) and spilled bytes a
+    thread (``local_bytes``), from the occupancy calculator and the function's
+    attributes."""
+    regs = (ctypes.c_int * 2)()
+    with torch.cuda.device(index):
+        got = _bwd_lib().repro_wkv_bwd_occupancy(config.chunk, hd, int(bf16), int(u_f32), regs)
+    if got < 1:
+        raise KernelLaunchError(f"wkv backward {config.name()} (hd {hd}): occupancy query failed ({got})")
+    return {"ctas": got, "registers": regs[0], "local_bytes": regs[1]}
+
+
+def bwd_segment_len(bh: int, n_chunks: int, sm_count: int, resident: int) -> int:
+    """Chunks a segment of the backward walk: all of a head's (one segment, one
+    kernel) where its B·H CTAs fill the card's CTA slots (``sm_count`` ×
+    ``resident``); else the chunks cut into as many segments as the slots hold
+    copies of the B·H heads, so every slot gets a CTA (the reverse pass then
+    writes the state's gradient at the segments' ends)."""
+    slots = sm_count * resident
+    n_seg = min(n_chunks, slots // bh) if bh < slots else 1
+    return -(-n_chunks // max(1, n_seg))
 
 
 def launch_chunk(config: WkvConfig, s: int) -> int:
@@ -292,16 +336,34 @@ def wkv_backward_cuda(r, k, v, logw, u, state, do, ds_out, config: WkvConfig = D
     state.  Raises on anything the kernels do not take, and when a launch
     reports an error.
 
-    Each call allocates its outputs, the workspace ``dhs`` (the size of
-    ``hs``) and du's per-chunk partials, launches the reverse pass, then the
-    chunk kernel, on the current stream, and sums the partials over B and the
-    chunks (``torch.sum``, a fixed order), with no host sync.
+    Each call allocates its outputs and du's partials (B, H, segments, hd),
+    launches the walk (one CTA a head and segment) on the current stream, and
+    sums the partials over B and the segments (``torch.sum``, a fixed order),
+    with no host sync.  The segments are :func:`bwd_segment_len`'s under the
+    device's SM count and the walk's residency; with more than one, the
+    reverse pass runs first and writes the state's gradient at the segments'
+    ends into a workspace (B, H, segments - 1, hd, hd).  A chunk of 64 or 128
+    also takes a workspace of its blocks' start states (B, H, segments,
+    chunk / 16 - 2, hd, hd).  Inputs whose base is not 16-byte aligned are
+    copied first (the walk reads them in 16-byte pieces).
     """
+    return _backward(r, k, v, logw, u, state, do, ds_out, config, states)
+
+
+def _backward(r, k, v, logw, u, state, do, ds_out, config: WkvConfig, states, seg_len: int | None = None):
+    """:func:`wkv_backward_cuda` with ``seg_len`` chunks a segment, or
+    :func:`bwd_segment_len`'s where None (any value from 1 to the chunks a head
+    holds gives the same function)."""
     _check("wkv_backward_cuda", r, k, v, logw, u, state, config)
     b, s, h, hd = r.shape
     dev = r.device
     chunk = launch_chunk(config, s)
     n = -(-s // chunk)
+    if seg_len is None:
+        res = bwd_residency(WkvConfig(chunk), hd, dev.index, r.dtype == torch.bfloat16, u.dtype == torch.float32)
+        seg_len = bwd_segment_len(b * h, n, _sm_count(dev.index), res["ctas"])
+    if not 1 <= seg_len <= n:
+        raise ValueError(f"wkv_backward_cuda: segment length {seg_len} outside 1 .. {n}")
     if states is None:
         _, s_fin, hs = wkv_cuda(r, k, v, logw, u, state, config, keep_states=True)
     else:
@@ -315,16 +377,20 @@ def wkv_backward_cuda(r, k, v, logw, u, state, do, ds_out, config: WkvConfig = D
             raise ValueError(f"wkv_backward_cuda: {what} must be a contiguous f32 {shape} on {dev}, got "
                              f"{t.dtype} {tuple(t.shape)} on {t.device}")
     lib = _bwd_lib()
-    dhs = torch.empty_like(hs)
+    r, k, v, logw, do, hs = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (r, k, v, logw, do, hs))
+    n_seg = -(-n // seg_len)
+    blocks = chunk // min(chunk, 16)
+    dsw = torch.empty((b, h, n_seg - 1, hd, hd), dtype=torch.float32, device=dev) if n_seg > 1 else None
+    ws = torch.empty((b, h, n_seg, blocks - 2, hd, hd), dtype=torch.float32, device=dev) if blocks > 2 else None
     dr, dk, dv = (torch.empty_like(t) for t in (r, k, v))
     dlogw = torch.empty_like(logw)
-    du_part = torch.empty((b, h, n, hd), dtype=torch.float32, device=dev)
+    du_part = torch.empty((b, h, n_seg, hd), dtype=torch.float32, device=dev)
     dstate = None if state is None else torch.empty_like(state)
     ptr = lambda t: None if t is None else t.data_ptr()
     err = lib.repro_wkv_bwd(
         chunk, hd, int(r.dtype == torch.bfloat16), int(u.dtype == torch.float32),
-        *(ptr(t) for t in (r, k, v, logw, u, do, ds_out, hs, s_fin, dhs, dr, dk, dv, dlogw, du_part, dstate)),
-        b, s, h, torch.cuda.current_stream(dev).cuda_stream,
+        *(ptr(t) for t in (r, k, v, logw, u, do, ds_out, hs, s_fin, dsw, ws, dr, dk, dv, dlogw, du_part, dstate)),
+        b, s, h, seg_len, torch.cuda.current_stream(dev).cuda_stream,
     )
     if err != 0:
         msg = lib.repro_wkv_bwd_error_string(err).decode()

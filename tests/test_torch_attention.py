@@ -18,6 +18,10 @@ held against the reference at every compiled config, so the formulation the
 kernel computes is checked before any card runs it; the split rule
 (``kv_splits``) is checked at the served problems.
 
+The SASS reader of ``scripts/attn_race.py``, on which phase 16 of chip_smoke.py
+gates the attention kernels' stage releases, is checked here on made-up runs of
+instructions and on the block_q 32 consumer as ptxas once scheduled it.
+
 Tolerances: f32 atol/rtol 1e-5 (f32 on both sides, sums in another order);
 bf16 inputs within 1e-2 of max |reference| (the output is rounded to bf16 on
 both sides, and a rounding step apart is 2^-8 relative).
@@ -408,3 +412,69 @@ def test_kernel_matches_plain_on_card():
                                                                              causal, 0) > 1
                         delta = {p: c - paths[p] for p, c in at.PATH_LAUNCHES.items() if c != paths[p]}
                         assert delta == {path: 2, **({"split": 2} if split else {})}, (where, delta)
+
+
+# --- scripts/attn_race.py's SASS reader (chip_smoke.py phase 16 gates on it) ---------------
+def _attn_race():
+    import importlib.util
+
+    path = Path(__file__).resolve().parents[1] / "scripts" / "attn_race.py"
+    spec = importlib.util.spec_from_file_location("attn_race", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _sass(*ins) -> str:
+    """A function as ``cuobjdump -sass`` prints it: each instruction's second encoding
+    word carries its control bits from bit 41 (write scoreboard at 5-7, 7 for none; wait
+    mask at 11-16)."""
+    lines = ["\t\tFunction : k"]
+    for addr, text, wr, wait in ins:
+        ctl = (wr << 5) | (7 << 8) | (wait << 11)
+        lines.append(f"        /*{addr}*/                   {text} ;          /* 0x0000000000000000 */")
+        lines.append(f"                                                            /* 0x{ctl << 41:016x} */")
+    return "\n".join(lines)
+
+
+_WAIT = ("0f00", "SYNCS.PHASECHK.TRANS64.TRYWAIT P0, [R11+URZ+0x19000], R10", 7, 0)
+_LOADS = (("0f10", "LDSM.16.MT88.4 R56, [R30+0x8800]", 0, 0), ("0f20", "LDSM.16.MT88.4 R108, [R34+0x8800]", 5, 0),
+          ("0f30", "HMMA.16816.F32.BF16 R100, R124, R116, R100", 7, 0))
+_RELEASE = "@!P0 SYNCS.ARRIVE.TRANS64.A1T0 RZ, [R12+URZ+0x19018], RZ"
+
+
+# The block_q 32 consumer before its fix, as ptxas scheduled it (attention.cu at
+# fa_bq32_bkv64, d 64: the release issued behind three ldmatrix whose scoreboards nothing waits on).
+_REAL = """\t\tFunction : attn_tma_kernel
+        /*5a80*/                   LDSM.16.MT88.4 R56, [R30+0x8800] ;                                 /* 0x008800001e38783b */
+                                                                                                      /* 0x000e2a0000004200 */
+        /*5ab0*/                   LDSM.16.MT88.4 R104, [R7+0x8800] ;                                 /* 0x008800000768783b */
+                                                                                                      /* 0x000f2a0000004200 */
+        /*5ae0*/                   LDSM.16.MT88.4 R108, [R34+0x8800] ;                                /* 0x00880000226c783b */
+                                                                                                      /* 0x000f620000004200 */
+        /*5b00*/                   HMMA.16816.F32.BF16 R100, R124, R116, R100 ;                       /* 0x000000747c64723c */
+                                                                                                      /* 0x000fe20000041864 */
+        /*5b10*/              @!P0 SYNCS.ARRIVE.TRANS64.A1T0 RZ, [R12+URZ+0x19018], RZ ;              /* 0x019018ff0cff89a7 */
+                                                                                                      /* 0x0001e2000810003f */
+"""
+
+
+@pytest.mark.parametrize("case,text,late", [
+    ("ptxas's schedule before the fix", _REAL, 3),
+    ("release behind loads in flight", _sass(_WAIT, *_LOADS, ("0f40", _RELEASE, 7, 0)), 2),
+    ("release waits on both scoreboards", _sass(_WAIT, *_LOADS, ("0f40", _RELEASE, 7, 0b100001)), 0),
+    ("an instruction between waits", _sass(_WAIT, *_LOADS, ("0f38", "FADD R1, R2, R3", 7, 0b100001),
+                                           ("0f40", _RELEASE, 7, 0)), 0),
+    ("one scoreboard left in flight", _sass(_WAIT, *_LOADS, ("0f40", _RELEASE, 7, 0b000001)), 1),
+    ("release right after the next wait", _sass(*_LOADS, _WAIT, ("0f40", _RELEASE, 7, 0)), 0),
+    ("a producer's expect_tx arrive", _sass(_WAIT, *_LOADS, ("0f40", "SYNCS.ARRIVE.TRANS64 RZ, [R8+URZ+0x19030], R0",
+                                                               7, 0)), 0),
+])
+def test_sass_reader_finds_releases_that_overtake_loads(case, text, late):
+    ar = _attn_race()
+    funcs = ar.parse_sass(text)
+    assert len(funcs) == 1
+    (ins,) = funcs.values()
+    found = ar.overtaken_loads(ins)
+    assert sum(len(f["loads"]) for f in found) == late, (case, found)
+    assert len(found) == (1 if late else 0)
