@@ -18,10 +18,15 @@ Phases (each one fails the run if its check fails):
    ``matmul_plain`` (TF32 off), each config called twice in a row on the same
    inputs: both within the limit and bitwise equal (the split-k counters are
    left at 0 and the partials summed in split order); then 8 more passes over
-   the bf16 pairs with fresh inputs, for races.  Error = max|kernel -
-   plain| / max|plain|; limits 1e-2 (bf16 out), 1e-3 (f32 out from bf16), 1e-5
-   (f32 in; x sqrt(K / 16384) above K = 16384, ``matmul.f32_limit``); split
-   f32 launches must occur;
+   the bf16 pairs with fresh inputs, for races; compute-bound shapes
+   (``PERSISTENT_SHAPES``: 3 and 5 tile rows, n off the tile edge) take the
+   persistent kernel, which must launch; then the transposed operands at every
+   bf16 config (lhs as ``.t()`` of its transpose, then rhs), twice each,
+   within the same limits and bitwise equal, read in place on the TMA path
+   (never copied there).  Error = max|kernel - plain| / max|plain|; limits
+   1e-2 (bf16 out), 1e-3 (f32 out from bf16), 1e-5 (f32 in; x sqrt(K /
+   16384) above K = 16384, ``matmul.f32_limit``); split f32 launches must
+   occur;
 3b. WKV against plain: every compiled chunk config, r/k/v in bf16 and f32,
    head dims 16 and 64, S in {1, 7, 16, 50, 128, 300} (and the served
    (1, S, 64, 64) at S in {32, 64, 128}), with and without an initial state,
@@ -138,12 +143,13 @@ Phases (each one fails the run if its check fails):
    then the SASS of every attention kernel (``scripts/attn_race.py``): no
    stage release may leave a shared load of the ring in flight (block_q 32's
    release overtook its ldmatrix loads, and a TMA overwrote a V tile still
-   being read: 4 wrong results in 36,000 calls before the fix);
+   being read: 4 wrong results in 36,000 calls before the fix), nor may
+   the GEMM's wgmma kernels' (the persistent kernel's releases are read);
 17. tune on the card, every family, as the fleet of the card and host_cpu:
    ``python -m repro_torch.launch.tune --devices <card>,host_cpu --archs
    granite-8b,rwkv6-7b,hymba-1.5b --n-kernels 4 --cpu-problems 8 --bundle
    build/bundle_h100.json --out build/deploy_h100.json`` in process (one
-   tune: ``--out`` is the fleet's card Deployment): the matmul (99 problems x 10 configs), attention (11 x 9), WKV
+   tune: ``--out`` is the fleet's card Deployment): the matmul (99 problems x 12 configs), attention (11 x 9), WKV
    (4 x 5, through ``wkv_cuda`` at 64 heads, bf16) and scan (3 x 9, through
    ``ssm_cuda_fused``) tables measured with the port's kernels, every cell
    (``measured_fraction`` 1.0, full config-space widths, every family's
@@ -337,13 +343,16 @@ Phases (each one fails the run if its check fails):
    output and both gradients against autograd of ``matmul_plain`` on the card
    (TF32 off) within phase 3's limits, 3 launches a forward + backward, split
    f32 launches among them (granite-8b's K/V projection and seamless's head
-   gradient: 64 output tiles); each
+   gradient: 64 output tiles), the transposed operands each case's backward
+   copied (``matmul.TRANSPOSE_COPIES``: none for bf16 at the training shapes,
+   whose backward the TMA path reads in place; two for f32); each
    of the three GEMMs of every granite projection timed with CUDA events
-   beside its bound, the plain version and torch.matmul, and the two
-   transpose copies the backward makes; where ``build/parent`` holds the
-   parent commit, ``scripts/gemm_ab.py --f32`` times the parent's f32 kernel
-   and this one in turns at one granite-8b layer's GEMMs and seamless's head
-   gradient;
+   beside its bound, the plain version and torch.matmul (bf16 gradients on the
+   transposed views), with the ratio to torch.matmul of one layer's sums, and
+   what a transpose copy costs; where ``build/parent`` holds the parent
+   commit, ``scripts/gemm_ab.py --f32`` times the parent's f32 kernel and this
+   one in turns at one granite-8b layer's GEMMs and seamless's head gradient,
+   and ``--train`` the bf16 tall GEMM and the layer's three GEMMs;
    25b. granite-8b at full width (d 4096, ff 14336, vocab 49152), 2 of 36
    layers, f32 as the launcher trains: ``Trainer`` for 6 steps at batch 8, seq
    128, remat "full" (its final checkpoint included): the loss falls, every
@@ -352,10 +361,12 @@ Phases (each one fails the run if its check fails):
    median), peak memory, one profiled step (its GEMM kernels' time and share;
    the kernels it recorded) beside an estimate of the step's GEMM time from
    25a's CUDA-event times; then 3 bf16
-   steps (TMA / wgmma, no SIMT launch);
+   steps (TMA / wgmma, no SIMT launch; the persistent kernel launched, no
+   transposed operand copied);
    25c. resume on the card (reduced granite-8b, f32): 6 steps against 3 +
-   resume + 3, params within 1e-4 (the embedding's backward adds with
-   atomics);
+   resume + 3, params within 1e-4 (a limit set while the embedding's
+   backward added with atomics; its gradient is now an ordered sum,
+   layers.table_grad, and the run prints the worst difference);
    25d. seamless-m4t-large-v2 at its full size (24 + 24 layers, d 1024, vocab
    256206, about 2.0 B params), f32: 3 loss_fn + AdamW steps at batch 8, seq
    128 (GEMM launches by the same formula; the loss falls), then prefill and 4
@@ -448,8 +459,9 @@ Phases (each one fails the run if its check fails):
 ``python3 chip_smoke.py --only-training`` runs phases 1, 2 and 25 alone (25g
 needs ``build/deploy_h100.json`` from a tune); ``--only-distribution`` runs
 phases 1, 2 and 26 alone (26c needs it too); ``--only-wkv-backward`` runs
-phases 1, 2 and 25f-i alone, and ``--only-scan-backward`` phases 1, 2 and
-25f-ii (each with ``build/parent``, its turns too).
+phases 1, 2 and 25f-i alone, ``--only-scan-backward`` phases 1, 2 and
+25f-ii, and ``--only-gemm`` phases 1, 2, 3, 7's tall GEMM and 25a (each with
+``build/parent``, its turns too; results in ``build/chip_smoke_gemm.json``).
 
 Each phase's header shows the seconds since the start.
 
@@ -462,6 +474,7 @@ import dataclasses
 import gc
 import importlib
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -555,16 +568,21 @@ F32_SPLIT_SHAPES = [(1024, 4096, 1024), (1024, 256256, 1024)]
 # Extra passes of phase 3 over the bf16 pairs, with fresh inputs: a race between the TMA
 # ring's stages once showed in only one of several such passes before it was fixed.
 RACE_PASSES = 8
+# Phase 3's compute-bound shapes, which the persistent kernel runs under its tiles
+# (matmul.uses_persistent): tile rows even and odd (a cluster whose second CTA falls off
+# m: 3 and 5 rows of 128), n off the tile edge, and a granite-8b layer GEMM at 1024 rows.
+PERSISTENT_SHAPES = [(384, 1024, 1032), (640, 512, 2048), (1024, 4096, 4096), (256, 2048, 8192)]
 
 
 def phase_kernel_vs_plain(torch, mm) -> dict:
     """Every compiled config against the plain version, all three type pairs,
     each config twice in a row on the same inputs; then RACE_PASSES more
-    passes over the bf16 pairs."""
+    passes over the bf16 pairs; then the transposed operands (the backward's)
+    at every bf16 config (:func:`_transposed_vs_plain`)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     dt = {"bf16": torch.bfloat16, "f32": torch.float32}
     shapes = [(m, k, n) for m in (1, 4, 37, 128) for k in (100, 4100) for n in (96, 1024)]
-    shapes += SPLIT_SHAPES
+    shapes += SPLIT_SHAPES + PERSISTENT_SHAPES
     shapes += [(m, k, n) for m in (1, 4, 32, 64, 128)
                for k, n in dict.fromkeys(GRANITE_KN + RWKV_KN + HYMBA_KN + ARCH_KN)]
     shapes.append(IMAGE_ROWS_MKN)
@@ -601,8 +619,10 @@ def phase_kernel_vs_plain(torch, mm) -> dict:
                 require(torch.equal(first, second), f"{where}: two calls in a row differ")
     torch.cuda.synchronize()
     paths, splits = dict(mm.PATH_LAUNCHES), dict(mm.SPLIT_LAUNCHES)
+    kernels = dict(mm.TMA_KERNEL_LAUNCHES)
     require(all(paths.values()), f"a kernel path was never launched: {paths}")
     require(splits["simt_f32"] > 0, f"no f32 launch split k: {splits}")
+    require(all(kernels.values()), f"a TMA kernel was never launched: {kernels}")
     for (src, dst), w in worst.items():
         print(f"  {src}->{dst}: worst rel err {w['rel']:.3g} (limit {TOL[(src, dst)]}), "
               f"worst abs err {w['abs']:.3g}")
@@ -612,10 +632,63 @@ def phase_kernel_vs_plain(torch, mm) -> dict:
         for shape, e in split_worst.items()))
     print(f"  {checks} checks over {len(cases)} shapes x {len(mm.config_space())} configs x 2 calls (3 type pairs, then "
           f"{RACE_PASSES} passes of the 2 bf16 pairs) and {len(F32_SPLIT_SHAPES)} f32 shapes: all within tolerance, "
-          f"both calls bitwise equal; launches by path {paths}, of them split along k {splits}")
+          f"both calls bitwise equal; launches by path {paths}, of them split along k {splits}; TMA launches by "
+          f"kernel {kernels}")
+    transposed = _transposed_vs_plain(torch, mm, shapes[:16] + SPLIT_SHAPES + PERSISTENT_SHAPES + [
+        (m, k, n) for m in (4, 128) for k, n in GRANITE_KN])
     return {f"{s}->{d}": w for (s, d), w in worst.items()} | {
-        "checks": checks, "paths": paths, "split_launches": splits,
-        "f32_split_shapes": {"x".join(map(str, shape)): e for shape, e in split_worst.items()}}
+        "checks": checks, "paths": paths, "split_launches": splits, "tma_kernels": kernels,
+        "f32_split_shapes": {"x".join(map(str, shape)): e for shape, e in split_worst.items()},
+        "transposed": transposed}
+
+
+def _transposed_vs_plain(torch, mm, shapes) -> dict:
+    """Phase 3's transposed operands: at every bf16 config and both bf16 type pairs, lhs
+    passed as ``lhs.t()`` of its row-major transpose (the backward's grad_rhs) and rhs
+    as ``rhs.t()`` (grad_lhs), each call twice, against the plain version at phase 3's
+    limits and bitwise equal twice; where a tensor map takes the view (matmul.tma_aligned)
+    the TMA kernels read it in place, else the wrapper copies it (TRANSPOSE_COPIES), and
+    exactly there. How often the result is bitwise the row-major call's is counted."""
+    dt = {"bf16": torch.bfloat16, "f32": torch.float32}
+    g = torch.Generator(device="cuda").manual_seed(31)
+    worst = {pair: 0.0 for pair in TOL if pair[0] == "bf16"}
+    checks = same_bits = calls = want_copies = 0
+    mm.reset_launches()
+    for m, k, n in shapes:
+        a = torch.randn(m, k, device="cuda", generator=g).bfloat16()
+        b = torch.randn(k, n, device="cuda", generator=g).bfloat16()
+        views = {"lhs": (a.t().contiguous().t(), b), "rhs": (a, b.t().contiguous().t())}
+        for (_, dst), tol in ((p, t) for p, t in TOL.items() if p[0] == "bf16"):
+            want = mm.matmul_plain(a, b, dt[dst]).float()
+            scale = want.abs().max().item()
+            for cfg in mm.config_space():
+                direct = mm.matmul_cuda(a, b, cfg, out_dtype=dt[dst])
+                for side, (lhs, rhs) in views.items():
+                    first = mm.matmul_cuda(lhs, rhs, cfg, out_dtype=dt[dst])
+                    second = mm.matmul_cuda(lhs, rhs, cfg, out_dtype=dt[dst])
+                    calls += 2
+                    ta, tb = mm.transposed(lhs), mm.transposed(rhs)  # a vector's view is row-major too
+                    want_copies += 2 * ((ta or tb) and not mm.tma_aligned(m, n, k, ta, tb, lhs.data_ptr(),
+                                                                          rhs.data_ptr()))
+                    where = f"{cfg.name()} bf16->{dst} at {(m, k, n)}, {side} transposed"
+                    err = (first.float() - want).abs().max().item() / scale
+                    require(err <= tol, f"{where}: rel err {err:.3g} > {tol:.3g}")
+                    require(torch.equal(first, second), f"{where}: two calls in a row differ")
+                    worst[("bf16", dst)] = max(worst[("bf16", dst)], err)
+                    same_bits += bool(torch.equal(first, direct))
+                    checks += 1
+    torch.cuda.synchronize()
+    reads, copies, kernels = dict(mm.TRANSPOSED_READS), dict(mm.TRANSPOSE_COPIES), dict(mm.TMA_KERNEL_LAUNCHES)
+    require(all(reads.values()) and kernels["persistent"] > 0, f"no transposed read in place: {reads} {kernels}")
+    require(sum(copies.values()) == want_copies,
+            f"transposed operands copied {copies}, want {want_copies}: one for each view a tensor map cannot take")
+    print(f"  transposed operands: {checks} checks ({len(shapes)} shapes x 2 bf16 pairs x {len(mm.config_space())} "
+          f"configs x lhs / rhs, each called twice): worst rel err " + ", ".join(
+              f"bf16->{d} {e:.3g} (limit {TOL[('bf16', d)]})" for (_, d), e in worst.items())
+          + f"; both calls bitwise equal; {same_bits} of {checks} bitwise the row-major call's; read in place "
+          f"{reads} (TMA launches by kernel {kernels}), copied {copies} of {calls} calls")
+    return {"checks": checks, "worst": {f"bf16->{d}": e for (_, d), e in worst.items()}, "same_bits": same_bits,
+            "reads_in_place": reads, "copies": copies, "tma_kernels": kernels}
 
 
 def _wkv_inputs(torch, g, b, s, h, hd, dtype, decay, with_state):
@@ -1106,7 +1179,7 @@ GEMM_KERNELS = "matmul (gemm_*_kernel)"
 def _kernel_name(key: str) -> str:
     """The port's kernels by name (cuBLAS kernels, which the models' plain attention
     reaches through einsum, also hold "gemm_" in theirs)."""
-    if any(f"gemm_{path}_kernel" in key for path in ("tma", "bf16", "f32")):
+    if any(f"gemm_{path}_kernel" in key for path in ("tma", "persistent", "bf16", "f32")):
         return GEMM_KERNELS
     for kernel in ("wkv_bwd_walk_kernel", "wkv_bwd_state_kernel", "ssm_bwd_kernel"):
         if kernel in key:
@@ -1448,7 +1521,10 @@ def phase_timing(torch, mm, per_step: dict, kn_list, ms=(4, 128)) -> list[dict]:
 
 
 def phase_tall(torch, mm) -> dict:
-    """The harvest's tallest GEMM, (16384, 4096, 14336) bf16, under every config."""
+    """The harvest's tallest GEMM, (16384, 4096, 14336) bf16, under every config (the
+    128-row tiles on the persistent kernel, as the wrapper routes it), and at the
+    persistent tiles with the bf16 operand transposed as the backward passes it
+    (lhs view, rhs view)."""
     m, k, n = TALL
     g = torch.Generator(device="cuda").manual_seed(9)
     a = torch.randn(m, k, device="cuda", generator=g).bfloat16()
@@ -1456,14 +1532,22 @@ def phase_tall(torch, mm) -> dict:
     flops = 2 * m * k * n
     bound = max(flops / BF16_FLOPS, (m * k + k * n + m * n) * 2 / HBM_BYTES_PER_S) * 1e3
     per_cfg = {cfg.name(): _time_ms(lambda i, c=cfg: mm.matmul_cuda(a, b, c), n_runs=5) for cfg in mm.config_space()}
+    wide = [cfg for cfg in mm.config_space() if cfg.tile() in mm.PERSISTENT_TILES]
+    at, bt = a.t().contiguous().t(), b.t().contiguous().t()
+    views = {f"{cfg.name()} {side}": _time_ms(lambda i, c=cfg, l=l, r=r: mm.matmul_cuda(l, r, c), n_runs=5)
+             for cfg in wide for side, (l, r) in (("lhs view", (at, b)), ("rhs view", (a, bt)))}
     library = _time_ms(lambda i: torch.matmul(a, b), n_runs=5)
     tflops = {name: flops / ms / 1e9 for name, ms in per_cfg.items()}
     best = min(per_cfg, key=per_cfg.get)
     print(f"  {TALL} bf16: {mm.DEFAULT_CONFIG.name()} {per_cfg[mm.DEFAULT_CONFIG.name()]:.3f} ms "
-          f"({tflops[mm.DEFAULT_CONFIG.name()]:.1f} TFLOP/s), best {best} {per_cfg[best]:.3f} ms; bound {bound:.3f} ms "
-          f"(operations); torch.matmul {library:.3f} ms ({flops / library / 1e9:.1f} TFLOP/s)")
+          f"({tflops[mm.DEFAULT_CONFIG.name()]:.1f} TFLOP/s), best {best} {per_cfg[best]:.3f} ms "
+          f"({tflops[best]:.1f} TFLOP/s); bound {bound:.3f} ms (operations); torch.matmul {library:.3f} ms "
+          f"({flops / library / 1e9:.1f} TFLOP/s)")
     print("    " + ", ".join(f"{name} {t:.0f}" for name, t in tflops.items()) + " TFLOP/s")
+    print("    transposed operands: " + ", ".join(f"{name} {flops / ms / 1e9:.0f}" for name, ms in views.items())
+          + " TFLOP/s")
     return {"shape": list(TALL), "per_config_ms": per_cfg, "tflops": tflops, "bound_ms": bound,
+            "transposed_ms": views, "best": best, "best_tflops": tflops[best],
             "library_ms": library, "library_tflops": flops / library / 1e9}
 
 
@@ -1551,22 +1635,29 @@ def phase_wkv_timing(torch, wk) -> list[dict]:
     return rows
 
 
-def _kernel_launches(fn, names, calls=4) -> dict | None:
+def _kernel_launches(fn, names, calls=4, tries=3) -> dict | None:
     """Device kernels per call of ``fn`` whose names hold one of ``names``, by
     name, over ``calls`` calls (torch.profiler); None where it records none.
-    A small torch op opens the window: the profiler may drop its first kernel."""
+    A small torch op opens the window: the profiler may drop its first kernel.
+    Every call launches a whole number of each kernel, so a count that is not a
+    multiple of ``calls`` means the profiler dropped records (PERF.md §7): the
+    window is profiled again, up to ``tries`` times, and the last counts are
+    returned, whole or not."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        torch.ones(1, device="cuda").add_(1)
-        for _ in range(calls):
-            fn()
+    for _ in range(tries):
         torch.cuda.synchronize()
-    counts = {n: sum(e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA and n in e.key)
-              for n in names}
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.ones(1, device="cuda").add_(1)
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        counts = {n: sum(e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA and n in e.key)
+                  for n in names}
+        if all(c % calls == 0 for c in counts.values()):
+            break
     return {n: c / calls for n, c in counts.items()} if any(counts.values()) else None
 
 
@@ -1708,20 +1799,36 @@ def phase_attention_vs_plain(torch, at) -> dict:
     sys.path.insert(0, str(ROOT / "scripts"))
     import attn_race
 
-    sass = attn_race.overtaking_arrives(("attention",))["attention"]
+    releases = {}
+    read = attn_race.overtaking_arrives(("attention", "matmul"), releases=releases)
+    sass = read["attention"]
     late = {fn: n for fn, n in sass.items() if fn != "functions"}
     require(not late, f"attention stage releases that can overtake a shared load in flight: {late}")
+    # The GEMM's wgmma kernels (the persistent one, and the ring kernel's 64- and 128-row
+    # tiles) must have none either; its mma.sync tiles release the previous stage (read
+    # against csrc/matmul.cu: no race) and are reported.
+    wgmma = lambda fn: "gemm_persistent_kernel" in fn or re.search(r"gemm_tma_kernelILi(64|128)E", fn)
+    mm_late = {fn: n for fn, n in read["matmul"].items() if fn != "functions"}
+    mm_wgmma = {fn: n for fn, n in releases["matmul"].items() if wgmma(fn)}
+    require(not {fn: n for fn, n in mm_late.items() if wgmma(fn)},
+            f"GEMM wgmma kernels' stage releases that can overtake a shared load in flight: {mm_late}")
+    require(any("gemm_persistent_kernel" in fn for fn in mm_wgmma),
+            f"no stage release read in the persistent GEMM kernel: {sorted(releases['matmul'])[:4]}")
     for name, w in worst.items():
         print(f"  {name}: worst rel err {w['rel']:.3g} (limit {ATTN_TOL[name]}), worst abs err {w['abs']:.3g}")
     print(f"  SASS of the {sass['functions']} attention kernels: no stage release can overtake a shared load "
-          f"(scripts/attn_race.py)")
+          f"(scripts/attn_race.py); of the {read['matmul']['functions']} GEMM kernels, the {len(mm_wgmma)} wgmma "
+          f"ones ({sum(mm_wgmma.values())} stage releases, {sum('persistent' in fn for fn in mm_wgmma)} persistent): "
+          f"none; the mma.sync ones' previous-stage releases: {sum(mm_late.values())} candidates in {len(mm_late)} "
+          f"kernels")
     print(f"  {checks} checks ({len(ATTN_SHAPES)} shapes x 2 head dims x 2 dtypes x 2 masks x "
           f"{len(at.config_space())} configs x 2 calls, then {RACE_PASSES} bf16 passes with fresh inputs): every "
           f"output finite, both calls bitwise equal; at (40, 24) and (300, 200) causal the rows that see nothing are "
           f"zeros; launches by path {paths}; {len(splits_seen)} (shape, mask, config) triples split KV, "
           f"{min(splits_seen.values())}-{max(splits_seen.values())} splits")
     return {"worst": worst, "checks": checks, "paths": paths, "splits": splits_seen,
-            "sass_kernels_read": sass["functions"]}
+            "sass_kernels_read": sass["functions"], "sass_matmul_kernels_read": read["matmul"]["functions"],
+            "sass_matmul_wgmma_releases": mm_wgmma, "sass_matmul_mma_sync_candidates": mm_late}
 
 
 def _full_tables(result) -> dict:
@@ -3708,7 +3815,9 @@ SEAMLESS_KN = [(1024, 1024), (1024, 8192), (8192, 1024), (1024, 256256)]
 TRAIN_BATCH, TRAIN_SEQ = 8, 128
 TRAIN_PARITY_TOL = 1e-4  # 25e: card against CPU, relative to each gradient's max (f32, sums in other orders)
 BF16_FED = ("cross/attn/wk", "cross/attn/wv", "cross/ln_img")  # 25e: VLM leaves behind bf16 roundings (2^-8)
-RESUME_TOL = dict(rtol=1e-4, atol=1e-5)  # 25c: the embedding's backward adds with atomics
+# 25c: set while the embedding's backward added with atomics (layers.table_grad now sums in
+# order); kept until a run shows the resume bitwise.
+RESUME_TOL = dict(rtol=1e-4, atol=1e-5)
 
 
 class _PlainOnCard(RuntimeError):
@@ -3747,11 +3856,15 @@ def phase_grad_gemms(torch, mm, ops) -> dict:
     """25a: ``ops.matmul``'s forward and both gradients through the kernel against
     autograd of ``matmul_plain`` on the card, bf16 and f32 (TF32 off), at granite-8b's
     and seamless-m4t-large-v2's training shapes and phase 3's split-k / cp.async
-    edges; then each of the three
-    GEMMs of every granite projection timed with CUDA events beside its bound, the
-    plain version and torch.matmul, and the transpose copies the backward makes; and
-    where build/parent holds the parent commit, its f32 kernel against this one in
-    turns (``scripts/gemm_ab.py --f32``)."""
+    edges, with the transposed operands each backward copied, by path
+    (``matmul.TRANSPOSE_COPIES``: a bf16 backward on the TMA path reads rhs^T
+    and lhs2^T in place and copies none); then each of the three GEMMs of every
+    granite projection timed with CUDA events beside its bound, the plain
+    version and torch.matmul (bf16: the gradients on the transposed views, as
+    the backward passes them; f32: on copies, as its kernel reads them), and
+    what a transpose copy costs; and where build/parent holds the parent
+    commit, its f32 kernel against this one in turns (``scripts/gemm_ab.py
+    --f32``), and its bf16 kernel at the training shapes (``--train``)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     dt = {"bf16": torch.bfloat16, "f32": torch.float32}
     g = torch.Generator(device="cuda").manual_seed(25)
@@ -3761,6 +3874,7 @@ def phase_grad_gemms(torch, mm, ops) -> dict:
     exact = {"kernel": 0.0, "plain": 0.0, "where": None}  # f32: the largest reduction's errors against f64
     rt = _train_runtime("chip_smoke[25a]")
     launches_per_case = []
+    copies_by_case = {}  # (dtype, k, n) -> transposed operands the case's backward copied
     mm.reset_launches()
     ops.GRAD_GEMMS.clear()
     with rt.activate():
@@ -3775,11 +3889,13 @@ def phase_grad_gemms(torch, mm, ops) -> dict:
                     a = _misaligned(torch, a)
                 a.requires_grad_(True)
                 b.requires_grad_(True)
-                before = mm.total_launches()
+                before, copied = mm.total_launches(), sum(mm.TRANSPOSE_COPIES.values())
                 out = ops.matmul(a, b, out_dtype=out_dtype)
                 ga, gb = torch.autograd.grad(out, (a, b), gout.to(out_dtype))
                 torch.cuda.synchronize()
                 launches_per_case.append(mm.total_launches() - before)
+                if len(lead) == 2:  # the training shapes
+                    copies_by_case[(name, k, n)] = sum(mm.TRANSPOSE_COPIES.values()) - copied
                 ap, bp = a.detach().requires_grad_(True), b.detach().requires_grad_(True)
                 want = mm.matmul_plain(ap.reshape(-1, k), bp, out_dtype).reshape(*lead, n)
                 wa, wb = torch.autograd.grad(want, (ap, bp), gout.to(out_dtype))
@@ -3809,6 +3925,9 @@ def phase_grad_gemms(torch, mm, ops) -> dict:
     paths = dict(mm.PATH_LAUNCHES)
     split_f32 = mm.SPLIT_LAUNCHES["simt_f32"]
     counts = dict(ops.GRAD_GEMMS)
+    copies, reads = dict(mm.TRANSPOSE_COPIES), dict(mm.TRANSPOSED_READS)
+    require(all(copies_by_case[(name, k, n)] == (2 if name == "f32" else 0) for name in dt for k, n in GRANITE_KN),
+            f"transposed operands copied by the training shapes' backward: {copies_by_case}")
     require(all(c == 3 for c in launches_per_case), f"launches per forward + backward {launches_per_case}, want 3")
     require(split_f32 > 0, f"no f32 training GEMM split k: {dict(mm.SPLIT_LAUNCHES)}")
     require(counts == {"forward": 2 * len(cases), "grad_lhs": 2 * len(cases), "grad_rhs": 2 * len(cases)},
@@ -3822,7 +3941,8 @@ def phase_grad_gemms(torch, mm, ops) -> dict:
           f"{mm.f32_limit(0)} up to K = {mm.F32_K_ANCHOR}, x sqrt(K / {mm.F32_K_ANCHOR}) above); against an f64 "
           f"product at {exact['where']} (K = {exact.get('k')}): kernel {exact['kernel']:.3g}, torch.matmul f32 "
           f"{exact['plain']:.3g} (limit {exact.get('tol', 0):.3g})); f32 launches that split k: {split_f32} of "
-          f"{paths['simt_f32']}")
+          f"{paths['simt_f32']}; transposed operands copied by path {copies} (the training shapes' bf16 backward: "
+          f"{sum(v for (d, _, _), v in copies_by_case.items() if d == 'bf16')}), read in place {reads}")
 
     rows = []
     for name, dtype in dt.items():
@@ -3835,10 +3955,11 @@ def phase_grad_gemms(torch, mm, ops) -> dict:
             x = torch.randn(TRAIN_ROWS, k, device="cuda", generator=g).to(dtype)
             w = torch.randn(k, n, device="cuda", generator=g).to(dtype)
             gy = torch.randn(TRAIN_ROWS, n, device="cuda", generator=g).to(dtype)
-            wt, xt = w.t().contiguous(), x.t().contiguous()
+            # The backward's operands as it passes them: bf16 views read in place, f32 copies.
+            wt, xt = (w.t(), x.t()) if name == "bf16" else (w.t().contiguous(), x.t().contiguous())
             gemms = {  # (lhs, rhs, out dtype): the forward and the two GEMMs of its backward
                 "forward": (x, w, out_dtype), "grad_lhs": (gy, wt, dtype), "grad_rhs": (xt, gy, dtype)}
-            row = {"dtype": name, "m": TRAIN_ROWS, "k": k, "n": n}
+            row = {"dtype": name, "m": TRAIN_ROWS, "k": k, "n": n, "backward_copies": copies_by_case[(name, k, n)]}
             for what, (lhs, rhs, od) in gemms.items():
                 mm_, kk = lhs.shape
                 nn = rhs.shape[1]
@@ -3847,6 +3968,8 @@ def phase_grad_gemms(torch, mm, ops) -> dict:
                 row[what] = {
                     "mkn": (mm_, kk, nn),
                     "ms": _time_ms(lambda i: mm.matmul_cuda(lhs, rhs, out_dtype=od), n_runs=n_runs),
+                    "kernel": "persistent" if name == "bf16" and mm.uses_persistent(mm_, nn, kk, mm.DEFAULT_CONFIG)
+                    else "ring" if name == "bf16" else "simt_f32",
                     "plain_ms": _time_ms(lambda i: mm.matmul_plain(lhs, rhs, od), n_runs=n_runs),
                     "library_ms": _time_ms(lambda i: torch.matmul(lhs, rhs).to(od), n_runs=n_runs),
                     "bound_ms": max(flops / peak, nbytes / HBM_BYTES_PER_S) * 1e3,
@@ -3871,12 +3994,16 @@ def phase_grad_gemms(torch, mm, ops) -> dict:
                                  for what in ("forward", "grad_lhs", "grad_rhs")]
                            for key in ("ms", "bound_ms", "plain_ms", "library_ms")}
         per_layer[name]["transposes_ms"] = sum(c * (by_kn[kn]["copies_ms"]["rhs_t"] + by_kn[kn]["copies_ms"]["lhs_t"])
+                                               * (by_kn[kn]["backward_copies"] > 0)
                                                for kn, c in GRANITE_LAYER_GEMMS.items())
+        per_layer[name]["over_library"] = [ms / lib for ms, lib in zip(per_layer[name]["ms"],
+                                                                        per_layer[name]["library_ms"])]
         print(f"  {name}, one granite-8b layer's 7 GEMMs at {TRAIN_ROWS} rows (the rows above summed), forward / "
               f"grad_lhs / grad_rhs ms: " + "; ".join(
                   f"{key} " + " / ".join(f"{v:.3f}" for v in per_layer[name][key])
-                  for key in ("ms", "bound_ms", "plain_ms", "library_ms"))
-              + f"; the backward's transposes {per_layer[name]['transposes_ms']:.3f}")
+                  for key in ("ms", "bound_ms", "plain_ms", "library_ms", "over_library"))
+              + f"; the backward's transposes {per_layer[name]['transposes_ms']:.3f} ms (copies a layer's backward "
+                f"makes: {sum(c * by_kn[kn]['backward_copies'] for kn, c in GRANITE_LAYER_GEMMS.items())})")
     parent = None
     base = ROOT / "build" / "parent"
     if (base / "src" / "repro_torch" / "kernels" / "csrc" / "matmul.cu").is_file():
@@ -3886,11 +4013,16 @@ def phase_grad_gemms(torch, mm, ops) -> dict:
         parent = gemm_ab.run_f32_turns(base)
         gemm_ab.report_f32(parent)
         parent["layer_sums"] = gemm_ab.f32_layer_sums(parent)
+        parent_bf16 = gemm_ab.run_train_turns(base)
+        gemm_ab.report_train(parent_bf16)
     else:
-        print("  no build/parent: the parent's f32 kernel is not measured in this run")
+        parent_bf16 = None
+        print("  no build/parent: the parent's f32 and bf16 training kernels are not measured in this run")
     return {"worst": worst, "f32_against_f64": exact, "granite_layer": per_layer, "launches": sum(launches_per_case),
             "by_phase": counts, "paths": paths, "split_f32_launches": split_f32, "cases": len(cases), "rows": rows,
-            "parent_f32_ab": parent}
+            "transpose_copies": copies, "transposed_reads": reads,
+            "backward_copies_by_case": {f"{d} {k}x{n}": v for (d, k, n), v in copies_by_case.items()},
+            "parent_f32_ab": parent, "parent_bf16_train_ab": parent_bf16}
 
 
 def _train_cfg(arch: str, **kw):
@@ -3934,9 +4066,37 @@ def _step_gemm_ms(rows: list, dtype: str, n_layers: int) -> tuple[float, float]:
     by_kn = {(r["k"], r["n"]): r for r in rows if r["dtype"] == dtype}
     gemm = lambda kn: (2 * by_kn[kn]["forward"]["ms"] + by_kn[kn]["grad_lhs"]["ms"] + by_kn[kn]["grad_rhs"]["ms"]
                        - (by_kn[kn]["forward"]["ms"] if kn == (4096, 49152) else 0.0))
-    copies = lambda kn: by_kn[kn]["copies_ms"]["rhs_t"] + by_kn[kn]["copies_ms"]["lhs_t"]
+    copies = lambda kn: (by_kn[kn]["copies_ms"]["rhs_t"] + by_kn[kn]["copies_ms"]["lhs_t"]) * (
+        by_kn[kn]["backward_copies"] > 0)  # a bf16 backward reads both in place
     counts = {kn: n_layers * c for kn, c in GRANITE_LAYER_GEMMS.items()} | {(4096, 49152): 1}
     return sum(c * gemm(kn) for kn, c in counts.items()), sum(c * copies(kn) for kn, c in counts.items())
+
+
+def _live_cuda(torch, top: int = 6) -> dict:
+    """What is allocated on the card between phases: ``memory_allocated``, the bytes
+    of the CUDA storages Python objects reach (each storage once), the kernels'
+    cached workspaces among them, and the largest storages by shape and dtype with
+    the module global that holds each where one does (else None)."""
+    gc.collect()
+    storages = {}
+    for obj in gc.get_objects():
+        if isinstance(obj, torch.Tensor) and obj.is_cuda:
+            st = obj.untyped_storage()
+            storages.setdefault(st.data_ptr(), (st.nbytes(), obj))
+    held = {}
+    for name, mod in list(sys.modules.items()):
+        if name.startswith("repro_torch") or name in ("__main__", "chip_smoke"):
+            for attr, val in list(vars(mod).items()):
+                for t in (val.values() if isinstance(val, dict) else [val]):
+                    for x in (t if isinstance(t, (tuple, list)) else [t]):
+                        if isinstance(x, torch.Tensor) and x.is_cuda:
+                            held.setdefault(x.untyped_storage().data_ptr(), f"{name}.{attr}")
+    workspaces = sum(n for ptr, (n, _) in storages.items() if held.get(ptr, "").endswith("._WORKSPACE"))
+    largest = sorted(storages.items(), key=lambda kv: -kv[1][0])[:top]
+    return {"allocated": torch.cuda.memory_allocated(), "python_reachable": sum(n for n, _ in storages.values()),
+            "storages": len(storages), "workspaces": workspaces,
+            "largest": [{"bytes": n, "shape": list(t.shape), "dtype": str(t.dtype), "held_by": held.get(ptr)}
+                        for ptr, (n, t) in largest]}
 
 
 def phase_train_granite(torch, mm, ops, grad_rows: list) -> dict:
@@ -3952,13 +4112,18 @@ def phase_train_granite(torch, mm, ops, grad_rows: list) -> dict:
 
     cfg = _train_cfg("granite-8b", n_layers=2)
     _free(torch)
+    live = _live_cuda(torch)
+    print(f"  allocated before the phase {live['allocated'] / 1e9:.3f} GB: {live['storages']} CUDA storages Python "
+          f"reaches hold {live['python_reachable'] / 1e9:.3f} GB (the kernels' workspaces {live['workspaces'] / 1e9:.3f});"
+          f" largest " + ", ".join(f"{x['bytes'] / 1e9:.3f} GB {x['dtype']} {x['shape']} ({x['held_by']})"
+                                   for x in live["largest"]))
     torch.cuda.reset_peak_memory_stats()
     ckpt_dir = ROOT / "build" / "train_ckpt_25b"
     import shutil
 
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     rt = _train_runtime("chip_smoke[25b]")
-    out = {}
+    out = {"live_before": live}
     with rt.activate():
         model = build_model(cfg, dtype=torch.float32, param_dtype=torch.float32, device="cuda")
         trainer = Trainer(model, cfg, DataConfig(global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ),
@@ -3999,7 +4164,7 @@ def phase_train_granite(torch, mm, ops, grad_rows: list) -> dict:
               f"batch {TRAIN_BATCH} x seq {TRAIN_SEQ} in {train_s:.1f}s (final checkpoint included); losses "
               f"{[round(v, 4) for v in losses]}")
         print(f"  step ms {[round(t * 1e3, 1) for t in times]} (warm median {warm_ms:.1f}); peak memory "
-              f"{peak / 1e9:.2f} GB; GEMM launches per step {per_step} = forward + recompute + 2 backward per GEMM "
+              f"{peak / 1e9:.2f} GB ({(peak - live['allocated']) / 1e9:.2f} above the phase's start); GEMM launches per step {per_step} = forward + recompute + 2 backward per GEMM "
               f"(by phase over 6 steps {by_phase}); every one of {len(norms)} parameters has a non-zero gradient "
               f"(smallest max |g| {min(norms.values()):.3g})")
         events_ms, copies_ms = _step_gemm_ms(grad_rows, "f32", cfg.n_layers)
@@ -4024,6 +4189,7 @@ def phase_train_granite(torch, mm, ops, grad_rows: list) -> dict:
 
         # bf16: the TMA / wgmma path, 3 steps.
         torch.cuda.reset_peak_memory_stats()
+        bf16_base = torch.cuda.memory_allocated()
         model = build_model(cfg, dtype=torch.bfloat16, param_dtype=torch.bfloat16, device="cuda")
         params = model.init(torch.Generator(device="cuda").manual_seed(0))
         opt = adamw.init(params)
@@ -4040,16 +4206,23 @@ def phase_train_granite(torch, mm, ops, grad_rows: list) -> dict:
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
             losses.append(float(met["loss"]))
-        paths = dict(mm.PATH_LAUNCHES)
+        paths, kernels = dict(mm.PATH_LAUNCHES), dict(mm.TMA_KERNEL_LAUNCHES)
+        copies, reads = dict(mm.TRANSPOSE_COPIES), dict(mm.TRANSPOSED_READS)
         require(mm.total_launches() == 3 * per_step and paths["simt_f32"] == 0,
                 f"bf16 steps: {mm.total_launches()} launches (want {3 * per_step}), by path {paths}")
+        require(not any(copies.values()) and all(reads.values()) and kernels["persistent"] > 0,
+                f"bf16 steps: transposed operands copied {copies}, read in place {reads}; TMA kernels {kernels}")
         require(all(v == v for v in losses), f"bf16 losses {losses}")
         gemm_ms, copies_ms = _step_gemm_ms(grad_rows, "bf16", cfg.n_layers)
         out["bf16"] = {"losses": losses, "step_s": times, "paths": paths, "peak_bytes": torch.cuda.max_memory_allocated(),
                        "gemm_launches": mm.total_launches(), "gemm_ms_estimate_from_25a": gemm_ms,
-                       "transpose_copies_ms_estimate_from_25a": copies_ms}
+                       "transpose_copies_ms_estimate_from_25a": copies_ms, "tma_kernels": kernels,
+                       "transpose_copies": copies, "transposed_reads": reads}
         print(f"  bf16: 3 steps, losses {[round(v, 4) for v in losses]}, step ms {[round(t * 1e3, 1) for t in times]}, "
-              f"GEMM launches by path {paths}, peak memory {out['bf16']['peak_bytes'] / 1e9:.2f} GB; estimate from "
+              f"GEMM launches by path {paths} (TMA by kernel {kernels}; transposed operands read in place {reads}, "
+              f"copied {copies}), peak memory {out['bf16']['peak_bytes'] / 1e9:.2f} GB "
+              f"({(out['bf16']['peak_bytes'] - bf16_base) / 1e9:.2f} above the {bf16_base / 1e9:.3f} allocated before "
+              f"the bf16 model); estimate from "
               f"25a's CUDA-event times: the step's GEMMs {gemm_ms:.2f} ms, its transpose copies {copies_ms:.2f} ms")
         del model, params, opt, step_fn
     _free(torch)
@@ -4075,8 +4248,8 @@ def phase_train_resume(torch, mm) -> dict:
 
     def trainer(sub):
         model = build_model(cfg, dtype=torch.float32, param_dtype=torch.float32, device="cuda")
-        # eps 1e-4: at 1e-8 an element whose gradient is a cancelling sum (atomics: another
-        # order each run) takes a full +-lr step of the noise's sign.
+        # eps 1e-4: at 1e-8 an element whose gradient is a cancelling sum takes a full +-lr
+        # step of its rounding's sign, so any sum in another order each run would show.
         return Trainer(model, cfg, DataConfig(global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ),
                        adamw.AdamWConfig(lr=1e-3, eps=1e-4, warmup_steps=2, total_steps=6),
                        TrainerConfig(total_steps=6, ckpt_every=3, ckpt_dir=str(root / sub), log_every=1))
@@ -5376,7 +5549,9 @@ def main() -> int:
     wkv_bwd_cfgs = wk.compiled_bwd_configs()
     print(f"  matmul.cu, wkv.cu, wkv_bwd.cu, ssm.cu and attention.cu -> sm_90a in {time.perf_counter() - t0:.1f}s "
           f"(nvcc in parallel: {', '.join(f'{k} {v:.1f}s' for k, v in _build.build_seconds.items())})")
-    print(f"  matmul tiles (bm, bn, bk, smem bf16, smem f32): {tiles}")
+    print(f"  matmul tiles (bm, bn, bk, TMA ring stages, smem TMA, cp.async, f32): {tiles}; persistent kernel "
+          f"(bm, bn, bk, stages, smem, threads): {mm.compiled_persistent_tiles()}, on this card (registers at launch, "
+          f"local bytes, clusters of 2): {[mm.persistent_residency(mm.MatmulConfig(*t)) for t in mm.PERSISTENT_TILES]}")
     print(f"  wkv instantiations (chunk, hd, smem): {wkv_cfgs}; backward (chunk, hd, smem): {wkv_bwd_cfgs}")
     print(f"  ssm instantiations (block_d, chunk, N, threads): {ssm_cfgs}")
     print(f"  attention instantiations (block_q, block_kv, hd, bf16 threads, stages, smem, f32 threads, smem): "
@@ -5413,6 +5588,24 @@ def main() -> int:
             restore()
         (ROOT / "build" / "chip_smoke_scan_backward.json").write_text(json.dumps(scan_bwd, indent=1, default=str))
         print(f"[25f-ii] scan backward phase done in {time.perf_counter() - t_start:.1f}s")
+        return 0
+    if "--only-gemm" in sys.argv[1:]:  # phases 3, 7's tall GEMM and 25a alone
+        phase("[3] GEMM against plain")
+        gemm = {"vs_plain": phase_kernel_vs_plain(torch, mm)}
+        phase("[7] the tall GEMM")
+        gemm["tall"] = phase_tall(torch, mm)
+        gemm["persistent_residency"] = {c.name(): mm.persistent_residency(c) for c in mm.config_space()
+                                        if c.tile() in mm.PERSISTENT_TILES and c.order == "mnk"}
+        print(f"  persistent kernel on this card (registers at launch, local bytes, clusters): "
+              f"{gemm['persistent_residency']}")
+        restore = _no_plain_on_card(ops)
+        try:
+            phase("[25a] gradient GEMMs against autograd of matmul_plain; timing")
+            gemm["grad_gemms"] = phase_grad_gemms(torch, mm, ops)
+        finally:
+            restore()
+        (ROOT / "build" / "chip_smoke_gemm.json").write_text(json.dumps(gemm, indent=1, default=str))
+        print(f"[3/7/25a] GEMM phases done in {time.perf_counter() - t_start:.1f}s")
         return 0
     if "--only-training" in sys.argv[1:]:  # phase 25 alone (needs build/deploy_h100.json for 25g)
         training = phase_training(torch, mm, ops, phase)
@@ -5704,9 +5897,18 @@ def main() -> int:
         "tuned_ms": tuned_step_ms,
         "best_per_shape_ms": total("best_ms"),
         "tall_tflops": tall["tflops"][mm.DEFAULT_CONFIG.name()],
+        "tall_best": {"config": tall["best"], "tflops": tall["best_tflops"], "library_tflops": tall["library_tflops"]},
+        "tma_kernel_launches": {"phase 3": errors["tma_kernels"],
+                                "training: granite-8b full width, bf16 steps (25b)": training["granite"]["bf16"][
+                                    "tma_kernels"]},
         "training": {
             "gradient_gemms": "grad_lhs = grad_out . rhs^T and grad_rhs = lhs^T . grad_out through ops.matmul "
-                              "(selected, guarded, this kernel); transposed operands copied (.t().contiguous())",
+                              "(selected, guarded, this kernel); the TMA path reads rhs^T and lhs^T in place "
+                              "(.t() views), the cp.async and f32 paths copy them",
+            "transpose_copies": {"25a": training["grad_gemms"]["transpose_copies"],
+                                 "25b bf16": training["granite"]["bf16"]["transpose_copies"]},
+            "transposed_reads": {"25a": training["grad_gemms"]["transposed_reads"],
+                                 "25b bf16": training["granite"]["bf16"]["transposed_reads"]},
             "max_abs_err_grad": max(w["abs"] for w in training["grad_gemms"]["worst"].values()),
             "max_rel_err_grad": max(w["rel"] for w in training["grad_gemms"]["worst"].values()),
             "granite_step_gemms": {f"{r['dtype']} {r['k']}x{r['n']}": {

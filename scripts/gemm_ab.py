@@ -3,6 +3,7 @@
 
     python3 scripts/gemm_ab.py --base build/parent --out build/gemm_ab.json
     python3 scripts/gemm_ab.py --f32 --base build/parent --out build/gemm_ab_f32.json
+    python3 scripts/gemm_ab.py --train --base build/parent --out build/gemm_ab_train.json
 
 ``--base`` is another checkout of the repository (for example ``git archive``
 of a parent commit unpacked under ``build/``); the other tree is this one.
@@ -18,6 +19,13 @@ back, at the decode shapes).  The
 turns run base, this tree, this tree, base, so that drift on the card falls
 on both alike; each tree's number is the mean of its two turns.
 ``chip_smoke.py`` calls :func:`run_turns` when ``build/parent`` exists.
+With ``--deployment build/deploy_h100.json`` (a tuned Deployment, as
+``chip_smoke.py`` phase 17 writes it) the decode steps are also summed
+under that Deployment's tree: at each decode shape the config it selects
+for the engine's call (1 row, batch 4), from each tree's turns where that
+tree compiles the config (else the shape's best there, marked).
+
+    python3 scripts/gemm_ab.py --deployment build/deploy_h100.json --base build/parent
 
 ``--f32`` times the training path's f32 GEMMs instead (:func:`run_f32_turns`):
 the forward, grad_lhs and grad_rhs GEMMs of one full-width granite-8b layer
@@ -28,6 +36,18 @@ yardstick only) and the bound 2mnk / 67e12 (operations: FP32 outside the
 tensor cores), in the same turns; and, in each turn, the head gradient's
 error against an f64 product, the kernel's beside ``torch.matmul``'s.
 ``chip_smoke.py`` runs it too when ``build/parent`` exists.
+
+``--train`` times the bf16 training shapes instead (:func:`run_train_turns`):
+the tall GEMM (16384, 4096, 14336) under every config, and the forward,
+grad_lhs and grad_rhs GEMMs of one full-width granite-8b layer at 1024 rows
+under ``DEFAULT_CONFIG`` (what training launches), each beside
+``torch.matmul`` on the same operands (a yardstick only) and the bound
+2mnk / 989e12, in the same turns.  The gradients' operands are what each
+tree's backward hands its kernel: a tree whose ``matmul_cuda`` reads
+transposed views (``rhs.t()``, ``lhs.t()``) gets the views; an older tree
+gets row-major copies, and the copy's time is measured beside it (that
+tree's backward makes it each step).  ``chip_smoke.py`` runs it in phase 25a
+when ``build/parent`` exists.
 """
 from __future__ import annotations
 
@@ -68,6 +88,12 @@ SEAMLESS_HEAD_GRAD = (TRAIN_ROWS, 256256, 1024)
 def layer_gemms(k: int, n: int) -> dict[str, tuple[int, int, int]]:
     """(m, k, n) of the forward and both gradient GEMMs of a (k, n) projection."""
     return {"forward": (TRAIN_ROWS, k, n), "grad_lhs": (TRAIN_ROWS, n, k), "grad_rhs": (k, TRAIN_ROWS, n)}
+
+
+def train_shapes() -> list[list]:
+    """(m, k, n, what) of the --train mode: the tall GEMM, then each granite-8b layer
+    projection's forward, grad_lhs and grad_rhs at TRAIN_ROWS rows."""
+    return [[*TALL, "tall"]] + [[*mkn, what] for k, n in GRANITE_LAYER for what, mkn in layer_gemms(k, n).items()]
 
 
 def f32_shapes() -> list[tuple[int, int, int]]:
@@ -146,6 +172,41 @@ def worker_f32(src: Path, todo: list[tuple[int, int, int]]) -> dict:
     return {"src": str(src), "default": mm.DEFAULT_CONFIG.name(), "rows": rows, "against_f64": exact}
 
 
+def worker_train(src: Path, todo: list[list]) -> dict:
+    """Times ``todo`` (:func:`train_shapes`) in bf16 with the matmul of the tree whose
+    package root is ``src``, each gradient on the operands that tree's backward passes."""
+    sys.path.insert(0, str(src))
+    import torch
+
+    from repro_torch.core.gpubench import time_ms
+    from repro_torch.kernels import matmul as mm
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("gemm_ab times on the card and torch finds no CUDA device")
+    views = hasattr(mm, "transposed")  # the tree reads transposed operands in place
+    g = torch.Generator(device="cuda").manual_seed(5)
+    rows = []
+    for m, k, n, what in todo:
+        a = torch.randn(m, k, device="cuda", generator=g).bfloat16()
+        b = torch.randn(k, n, device="cuda", generator=g).bfloat16()
+        copy_ms = 0.0
+        if what in ("grad_lhs", "grad_rhs"):
+            lay = (b.t().contiguous() if what == "grad_lhs" else a.t().contiguous())  # the tensor as it lies
+            view = lay.t()
+            if not views:
+                copy_ms = time_ms(lambda i: view.contiguous(), n_warm=3, n_runs=20)
+                view = view.contiguous()
+            a, b = (a, view) if what == "grad_lhs" else (view, b)
+        runs = 5 if what == "tall" else 20
+        cfgs = mm.config_space() if what == "tall" else [mm.DEFAULT_CONFIG]
+        per_cfg = {c.name(): time_ms(lambda i, c=c: mm.matmul_cuda(a, b, c), n_warm=3, n_runs=runs) for c in cfgs}
+        library = time_ms(lambda i: torch.matmul(a, b), n_warm=3, n_runs=runs)
+        rows.append({"m": m, "k": k, "n": n, "what": what, "per_config_ms": per_cfg, "library_ms": library,
+                     "copy_ms": copy_ms, "views": views})
+        del a, b
+    return {"src": str(src), "default": mm.DEFAULT_CONFIG.name(), "rows": rows}
+
+
 def host_us(torch, fn, n: int = 200) -> float:
     """Host microseconds per call: ``n`` calls enqueued back to back, no sync between."""
     for _ in range(20):
@@ -159,19 +220,31 @@ def host_us(torch, fn, n: int = 200) -> float:
     return (t1 - t0) / n * 1e6
 
 
-def _turn(src: Path, todo, timeout: float, f32: bool = False) -> dict:
+def _turn(src: Path, todo, timeout: float, mode: str | None = None) -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         out = Path(tmp) / "turn.json"
         subprocess.run([sys.executable, __file__, "--worker", str(src), "--shapes", json.dumps(todo),
-                        "--out", str(out), *(["--f32"] if f32 else [])], check=True, timeout=timeout)
+                        "--out", str(out), *([f"--{mode}"] if mode else [])], check=True, timeout=timeout)
         return json.loads(out.read_text())
 
 
-def run_turns(base: Path, todo=None, timeout: float = 600.0) -> dict:
-    """base, this tree, this tree, base: each tree's per-shape numbers, the mean of its two turns."""
+def tree_picks(deployment: Path, todo) -> dict:
+    """The config a tuned Deployment's tree selects at each decode shape (m rows as
+    the engine calls it: ``ops.matmul`` on (m, 1, k), a problem of 1 row, batch m)."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.core.dispatch import Deployment
+
+    dep = Deployment.load(str(deployment))
+    return {f"{m}x{k}x{n}": dep.select_matmul(1, k, n, m).name() for m, k, n in todo if m == 4}
+
+
+def run_turns(base: Path, todo=None, timeout: float = 600.0, deployment: Path | None = None) -> dict:
+    """base, this tree, this tree, base: each tree's per-shape numbers, the mean of its
+    two turns; with ``deployment``, each decode shape's time under its tree."""
     todo = [list(s) for s in (todo or shapes())]
     trees = {"base": base / "src", "this": ROOT / "src"}
     turns = {name: [] for name in trees}
+    picks = tree_picks(deployment, todo) if deployment else {}
     for name in ("base", "this", "this", "base"):
         turns[name].append(_turn(trees[name], todo, timeout))
     merged = {}
@@ -188,8 +261,12 @@ def run_turns(base: Path, todo=None, timeout: float = 600.0) -> dict:
                          "library_ms": mean(r1["library_ms"], r2["library_ms"]), "bound_ms": bnd, "bound_by": by,
                          "host_us": None if r1["host_us"] is None else mean(r1["host_us"], r2["host_us"]),
                          "turns_default_ms": [r1["per_config_ms"][t1["default"]], r2["per_config_ms"][t1["default"]]]})
+            pick = picks.get(f"{r1['m']}x{r1['k']}x{r1['n']}")
+            if pick is not None:
+                rows[-1].update(tree_config=pick, tree_compiled=pick in per, tree_ms=per.get(pick, per[best]))
         merged[name] = rows
-    return {"order": ["base", "this", "this", "base"], "base": str(base), "trees": merged}
+    out = {"order": ["base", "this", "this", "base"], "base": str(base), "trees": merged}
+    return out | ({"deployment": str(deployment), "tree_picks": picks} if deployment else {})
 
 
 def f32_bound_ms(m: int, k: int, n: int) -> float:
@@ -203,7 +280,7 @@ def run_f32_turns(base: Path, timeout: float = 900.0) -> dict:
     trees = {"base": base / "src", "this": ROOT / "src"}
     turns = {name: [] for name in trees}
     for name in ("base", "this", "this", "base"):
-        turns[name].append(_turn(trees[name], todo, timeout, f32=True))
+        turns[name].append(_turn(trees[name], todo, timeout, mode="f32"))
     merged = {}
     for name, (t1, t2) in turns.items():
         merged[name] = {"rows": [{"m": r1["m"], "k": r1["k"], "n": r1["n"], "ms": (r1["ms"] + r2["ms"]) / 2,
@@ -213,6 +290,68 @@ def run_f32_turns(base: Path, timeout: float = 900.0) -> dict:
                                  for r1, r2 in zip(t1["rows"], t2["rows"])],
                         "against_f64": [t1["against_f64"], t2["against_f64"]]}
     return {"order": ["base", "this", "this", "base"], "base": str(base), "mode": "f32", "trees": merged}
+
+
+def run_train_turns(base: Path, timeout: float = 900.0) -> dict:
+    """The --train mode's turns (base, this tree, this tree, base); each tree's numbers
+    the mean of its two turns, both turns' DEFAULT_CONFIG times kept."""
+    todo = train_shapes()
+    trees = {"base": base / "src", "this": ROOT / "src"}
+    turns = {name: [] for name in trees}
+    for name in ("base", "this", "this", "base"):
+        turns[name].append(_turn(trees[name], todo, timeout, mode="train"))
+    merged = {}
+    for name, (t1, t2) in turns.items():
+        rows = []
+        for r1, r2 in zip(t1["rows"], t2["rows"]):
+            per = {c: (r1["per_config_ms"][c] + r2["per_config_ms"][c]) / 2 for c in r1["per_config_ms"]}
+            best = min(per, key=per.get)
+            rows.append({"m": r1["m"], "k": r1["k"], "n": r1["n"], "what": r1["what"], "views": r1["views"],
+                         "default_ms": per[t1["default"]], "best_config": best, "best_ms": per[best],
+                         "per_config_ms": per, "turns_default_ms": [r1["per_config_ms"][t1["default"]],
+                                                                    r2["per_config_ms"][t1["default"]]],
+                         "library_ms": (r1["library_ms"] + r2["library_ms"]) / 2,
+                         "copy_ms": (r1["copy_ms"] + r2["copy_ms"]) / 2,
+                         "bound_ms": bound_ms(r1["m"], r1["k"], r1["n"])[0]})
+        merged[name] = rows
+    return {"order": ["base", "this", "this", "base"], "base": str(base), "mode": "train", "trees": merged}
+
+
+def train_layer_sums(result: dict) -> dict:
+    """Per tree: one granite-8b layer's forward / grad_lhs / grad_rhs GEMM time under
+    DEFAULT_CONFIG, the copies its backward makes first, torch.matmul's time and the
+    bound, in ms (each shape's number times its count in the layer)."""
+    sums = {}
+    for tree, rows in result["trees"].items():
+        by = {(r["m"], r["k"], r["n"], r["what"]): r for r in rows}
+        sums[tree] = {key: {what: sum(c * by[(*layer_gemms(k, n)[what], what)][key] for (k, n), c in
+                                      GRANITE_LAYER.items())
+                            for what in ("forward", "grad_lhs", "grad_rhs")}
+                      for key in ("default_ms", "copy_ms", "library_ms", "bound_ms")}
+    return sums
+
+
+def report_train(result: dict) -> None:
+    flops = 2 * TALL[0] * TALL[1] * TALL[2]
+    for base_row, row in zip(result["trees"]["base"], result["trees"]["this"]):
+        if row["what"] == "tall":
+            print(f"  tall {TALL} bf16: DEFAULT_CONFIG {flops / base_row['default_ms'] / 1e9:.0f} -> "
+                  f"{flops / row['default_ms'] / 1e9:.0f} TFLOP/s; best {base_row['best_config']} "
+                  f"{flops / base_row['best_ms'] / 1e9:.0f} -> {row['best_config']} {flops / row['best_ms'] / 1e9:.0f}; "
+                  f"torch.matmul {flops / row['library_ms'] / 1e9:.0f}; bound {row['bound_ms']:.3f} ms")
+            continue
+        copy = f" + copy {base_row['copy_ms']:.4f}" if base_row["copy_ms"] else ""
+        print(f"  {row['what']} ({row['m']}, {row['k']}, {row['n']}) bf16, DEFAULT_CONFIG: {base_row['default_ms']:.4f}"
+              f"{copy} -> {row['default_ms']:.4f}{' (views)' if row['views'] else ''} ms (turns "
+              f"{[round(t, 4) for t in base_row['turns_default_ms']]} -> {[round(t, 4) for t in row['turns_default_ms']]});"
+              f" torch.matmul {row['library_ms']:.4f}; bound {row['bound_ms']:.4f}")
+    sums = train_layer_sums(result)
+    for what in ("forward", "grad_lhs", "grad_rhs"):
+        b, t = sums["base"], sums["this"]
+        print(f"  one granite-8b layer's {what} GEMMs at {TRAIN_ROWS} rows, bf16: {b['default_ms'][what]:.3f} ms "
+              f"(+ copies {b['copy_ms'][what]:.3f}) -> {t['default_ms'][what]:.3f} (+ copies {t['copy_ms'][what]:.3f}); "
+              f"torch.matmul {t['library_ms'][what]:.3f}, {t['default_ms'][what] / t['library_ms'][what]:.2f}x it; "
+              f"bound {t['bound_ms'][what]:.3f}")
 
 
 def f32_layer_sums(result: dict) -> dict:
@@ -254,6 +393,10 @@ def step_sums(result: dict) -> dict:
             dec = {(r["k"], r["n"]): r for r in rows if r["m"] == 4}
             for key in ("default_ms", "best_ms", "call_ms", "library_ms", "bound_ms", "host_us"):
                 sums[arch][f"{tree}_{key}"] = sum(dec[kn][key] * c for kn, c in step.items())
+            if all("tree_ms" in dec[kn] for kn in step):
+                sums[arch][f"{tree}_tree_ms"] = sum(dec[kn]["tree_ms"] * c for kn, c in step.items())
+                sums[arch][f"{tree}_tree_uncompiled"] = sorted({dec[kn]["tree_config"] for kn in step
+                                                                if not dec[kn]["tree_compiled"]})
     return sums
 
 
@@ -270,6 +413,11 @@ def report(result: dict) -> None:
               f"{s['base_call_ms']:.2f} -> {s['this_call_ms']:.2f}; host {s['base_host_us'] / 1e3:.2f} -> "
               f"{s['this_host_us'] / 1e3:.2f} ms; bound {s['this_bound_ms']:.2f}; torch.matmul "
               f"{s['this_library_ms']:.2f}")
+        if "this_tree_ms" in s:
+            missing = s["base_tree_uncompiled"]
+            print(f"  {arch} decode step's GEMMs under {result['deployment']}'s tree: {s['base_tree_ms']:.2f} -> "
+                  f"{s['this_tree_ms']:.2f} ms ({s['this_tree_ms'] / s['base_tree_ms'] - 1:+.1%})"
+                  + (f"; the base compiles no {missing}: its best config at those shapes" if missing else ""))
 
 
 def main(argv=None) -> int:
@@ -278,24 +426,29 @@ def main(argv=None) -> int:
     ap.add_argument("--out", type=Path, default=ROOT / "build" / "gemm_ab.json")
     ap.add_argument("--report", type=Path, help="print the numbers of a saved result instead of measuring")
     ap.add_argument("--f32", action="store_true", help="time the training path's f32 GEMMs (module docstring)")
+    ap.add_argument("--train", action="store_true", help="time the bf16 training shapes (module docstring)")
+    ap.add_argument("--deployment", type=Path, help="also sum the decode steps under this Deployment's tree")
     ap.add_argument("--worker", type=Path, help=argparse.SUPPRESS)
     ap.add_argument("--shapes", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.worker is not None:
-        result = (worker_f32 if args.f32 else worker)(args.worker, [tuple(s) for s in json.loads(args.shapes)])
+        fn = worker_f32 if args.f32 else worker_train if args.train else worker
+        result = fn(args.worker, [list(s) if args.train else tuple(s) for s in json.loads(args.shapes)])
         args.out.write_text(json.dumps(result))
         return 0
+    reporter = {"f32": report_f32, "train": report_train}
     if args.report is not None:
         result = json.loads(args.report.read_text())
-        (report_f32 if result.get("mode") == "f32" else report)(result)
+        reporter.get(result.get("mode"), report)(result)
         return 0
     if not (args.base / "src" / "repro_torch" / "kernels" / "csrc" / "matmul.cu").is_file():
         print(f"gemm_ab: {args.base} holds no src/repro_torch/kernels/csrc/matmul.cu", file=sys.stderr)
         return 2
-    result = run_f32_turns(args.base) if args.f32 else run_turns(args.base)
+    result = (run_f32_turns(args.base) if args.f32 else run_train_turns(args.base) if args.train
+              else run_turns(args.base, deployment=args.deployment))
     args.out.parent.mkdir(parents=True, exist_ok=True)
     args.out.write_text(json.dumps(result, indent=1))
-    (report_f32 if args.f32 else report)(result)
+    reporter.get(result.get("mode"), report)(result)
     print(f"  -> {args.out}")
     return 0
 

@@ -112,6 +112,21 @@ def tune_family(
     ).to_family_result()
 
 
+def tune_attention(
+    arch_ids: list[str] | None = None,
+    *,
+    n_kernels: int = 4,
+    method: str = "pca_kmeans",
+    normalization: str = "standard",
+    seed: int = 0,
+):
+    """Select + classify the flash-attention family: ``(configs, tree)``, the
+    reference's shim over :func:`tune_family`."""
+    res = tune_family("attention", arch_ids, n_kernels=n_kernels, method=method, normalization=normalization,
+                      seed=seed)
+    return res.configs, res.tree
+
+
 def tune(
     dataset: TuningDataset,
     *,

@@ -216,8 +216,8 @@ std::unordered_map<MapKey, CUtensorMap, MapKeyHash> g_maps;
 std::atomic<long long> g_map_encodes{0};
 
 // A contiguous bf16 tensor of ``rank`` (2 or 3) dims, innermost first, cut into ``box``
-// boxes (innermost first) swizzled by ``swizzle`` bytes (64 or 128). Boxes that cross an
-// edge of the tensor are zero-filled there.
+// boxes (innermost first) swizzled by ``swizzle`` bytes (128, 64, 32, or 0: none). Boxes
+// that cross an edge of the tensor are zero-filled there.
 cudaError_t tensor_map(CUtensorMap* out, const void* ptr, uint32_t rank, const uint64_t (&dims)[3],
                        const uint32_t (&box)[3], uint32_t swizzle) {
   const MapKey key{reinterpret_cast<uintptr_t>(ptr),
@@ -239,10 +239,25 @@ cudaError_t tensor_map(CUtensorMap* out, const void* ptr, uint32_t rank, const u
   const cuuint32_t gbox[3] = {box[0], box[1], box[2]};
   const cuuint32_t estride[3] = {1, 1, 1};
   CUtensorMap map;
-  const CUresult r = encode(&map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr), gdims,
-                            strides, gbox, estride, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            swizzle == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
-                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  auto run = [&] {
+    return encode(&map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr), gdims, strides, gbox,
+                  estride, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                  swizzle == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                  : swizzle == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                  : swizzle == 32 ? CU_TENSOR_MAP_SWIZZLE_32B
+                                  : CU_TENSOR_MAP_SWIZZLE_NONE,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  };
+  CUresult r = run();
+  if (r == CUDA_ERROR_INVALID_CONTEXT) {
+    // cuTensorMapEncodeTiled needs a current context, and a thread whose first CUDA work is this
+    // encode has none (autograd's device thread, when a backward's first op is a GEMM that
+    // reads its operands in place): bind the device's primary context, then encode again.
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess || cudaSetDevice(dev) != cudaSuccess || cudaFree(nullptr) != cudaSuccess)
+      return cudaErrorInvalidValue;
+    r = run();
+  }
   if (r != CUDA_SUCCESS) return cudaErrorInvalidValue;
   g_map_encodes.fetch_add(1, std::memory_order_relaxed);
   std::lock_guard<std::mutex> lock(g_map_mu);

@@ -66,7 +66,7 @@ from torch.distributed.tensor.experimental import register_sharding
 from ..core.faults import GUARDED_EXCEPTIONS, FaultPlan, NonFiniteOutputError, incident
 from ..core.runtime import KernelRuntime, current_runtime, quarantine_redirect
 from .attention import DEFAULT_ATTN_CONFIG, AttentionConfig, attention_cuda, attention_plain
-from .matmul import DEFAULT_CONFIG, MatmulConfig, matmul_cuda, matmul_plain
+from .matmul import DEFAULT_CONFIG, MatmulConfig, matmul_cuda, matmul_plain, transposed
 from .ssm import (DEFAULT_SSM_CONFIG, SsmConfig, ssm_backward_cuda, ssm_backward_plain, ssm_cuda, ssm_cuda_fused,
                   ssm_fused_backward_cuda, ssm_fused_backward_plain, ssm_fused_plain, ssm_plain)
 from .wkv import (DEFAULT_WKV_CONFIG, WkvConfig, launch_chunk, wkv_backward_cuda, wkv_backward_plain, wkv_cuda,
@@ -434,7 +434,10 @@ def _matmul_call(lhs: torch.Tensor, rhs: torch.Tensor, out_dtype: torch.dtype | 
     out_dtype = out_dtype or lhs.dtype
     if lhs.dtype != rhs.dtype:
         lhs2, rhs = lhs2.float(), rhs.float()
-    lhs2 = lhs2.contiguous()
+    if transposed(lhs2) is None:  # the kernel reads row-major operands and transposed views of them
+        lhs2 = lhs2.contiguous()
+    if transposed(rhs) is None:
+        rhs = rhs.contiguous()
     kernel_out = out_dtype if (lhs2.dtype, out_dtype) != (torch.float32, torch.bfloat16) else torch.float32
     run = lambda cfg: matmul_cuda(lhs2, rhs, cfg or DEFAULT_CONFIG, out_dtype=kernel_out).to(out_dtype).reshape(
         *lead, n)
@@ -542,10 +545,11 @@ def _gemm_backward(ctx, grad_out):
       * ``grad_rhs = lhs2^T . grad_out2``: one GEMM (k, B*S, n, batch 1) over
         the flattened rows.
 
-    Each gradient comes back in its operand's dtype.  The kernel takes
-    row-major operands only, so ``rhs^T`` and ``lhs2^T`` are materialised
-    (``.t().contiguous()``).  The runtime active at the forward is activated
-    here, which on the card runs on autograd's device thread.
+    Each gradient comes back in its operand's dtype.  ``rhs^T`` and
+    ``lhs2^T`` are passed as ``.t()`` views: the kernel's TMA path reads them
+    where they lie (its other paths copy them, ``matmul.TRANSPOSE_COPIES``).
+    The runtime active at the forward is activated here, which on the card
+    runs on autograd's device thread.
     """
     lhs, rhs = ctx.saved_tensors
     rt: KernelRuntime = ctx.runtime
@@ -558,11 +562,10 @@ def _gemm_backward(ctx, grad_out):
     with rt.activate():
         if ctx.needs_input_grad[0]:
             _count(GRAD_GEMMS, "grad_lhs")
-            grad_lhs = matmul(g, rhs.t().contiguous(), out_dtype=lhs.dtype)
+            grad_lhs = matmul(g, rhs.t(), out_dtype=lhs.dtype)
         if ctx.needs_input_grad[1]:
             _count(GRAD_GEMMS, "grad_rhs")
-            grad_rhs = matmul(lhs.reshape(-1, k).t().contiguous(), g.reshape(-1, n).contiguous(),
-                              out_dtype=rhs.dtype)
+            grad_rhs = matmul(lhs.reshape(-1, k).t(), g.reshape(-1, n).contiguous(), out_dtype=rhs.dtype)
     return grad_lhs, grad_rhs, None
 
 

@@ -7,10 +7,12 @@ import torch.nn.functional as F
 
 def matmul_ref(lhs: torch.Tensor, rhs: torch.Tensor, *, out_dtype: torch.dtype | None = None) -> torch.Tensor:
     """Oracle for kernels/matmul.py: f32-accumulated 2-D matmul, cast once
-    (f64-accumulated for f64 operands, which only the gradient's tests pass)."""
+    (f64-accumulated for f64 operands, which only the gradient's tests pass).
+    The operands are made row-major first, so a transposed view (``x.t()``, as
+    the GEMM's backward passes them) gives the bits its row-major copy gives."""
     out_dtype = out_dtype or lhs.dtype
     acc = torch.float64 if lhs.dtype == torch.float64 else torch.float32
-    return (lhs.to(acc) @ rhs.to(acc)).to(out_dtype)
+    return (lhs.to(acc).contiguous() @ rhs.to(acc).contiguous()).to(out_dtype)
 
 
 def wkv_ref(r, k, v, logw, u, state=None, chunk: int = 16):

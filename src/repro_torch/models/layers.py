@@ -557,12 +557,56 @@ def mlp_layer(p: dict, x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # embeddings
 # ---------------------------------------------------------------------------
+def table_grad(tokens: torch.Tensor, grad_rows: torch.Tensor, rows: int, dtype: torch.dtype) -> torch.Tensor:
+    """The gradient of ``table[tokens]`` for a (rows, d) table: each token's
+    gradient rows summed in f32 in the order they occur, cast once.
+
+    The rows are gathered in the tokens' stable sort order and
+    ``segment_reduce`` sums each run of one token (one thread a run and
+    column, in order), over as many runs as there are tokens (the runs past
+    the last have no rows); each run's sum lands on its own table row, the
+    empty runs' zeros on a spare row.  No float atomics and no host sync.
+    Autograd's gradient of ``table[tokens]`` adds the rows of a repeated token
+    with atomics on the card, in an order that changes between runs."""
+    flat = tokens.reshape(-1)
+    d = grad_rows.shape[-1]
+    ids, order = torch.sort(flat, stable=True)
+    start = torch.ones_like(ids, dtype=torch.bool)
+    start[1:] = ids[1:] != ids[:-1]
+    run = torch.cumsum(start, 0) - 1  # each sorted row's run
+    lengths = torch.zeros_like(ids).index_add_(0, run, torch.ones_like(ids))
+    sums = torch.segment_reduce(grad_rows.reshape(-1, d).float().index_select(0, order), "sum", lengths=lengths,
+                                axis=0, unsafe=True)
+    row = torch.full_like(ids, rows).index_put_((run,), ids)  # a run's table row; empty runs the spare one
+    out = torch.zeros((rows + 1, d), dtype=dtype, device=grad_rows.device)
+    out[row] = sums.to(dtype)  # every row once, but the spare row's zeros
+    return out[:rows]
+
+
+class _TableRows(torch.autograd.Function):
+    """``table[tokens]`` with :func:`table_grad` as its backward."""
+
+    @staticmethod
+    def forward(ctx, table, tokens):
+        ctx.save_for_backward(tokens)
+        ctx.rows, ctx.dtype = table.shape[0], table.dtype
+        return table[tokens]
+
+    @staticmethod
+    def backward(ctx, grad):
+        (tokens,) = ctx.saved_tensors
+        return table_grad(tokens, grad, ctx.rows, ctx.dtype), None
+
+
 def embed_tokens(p: dict, tokens: torch.Tensor) -> torch.Tensor:
     """The rows of ``tokens``, anchored as the reference anchors every
     embedding (:func:`shard_act`).  A sharded table is gathered whole onto
     every rank, which looks up its own tokens (:func:`on_shards`); its
-    gradient goes back to the table's placements as a reduce-scatter."""
-    rows = on_shards(lambda t, w: w[t], (tokens, p["embed"]), ((0, None), (None, None)), ((0, None),), heads=1)
+    gradient goes back to the table's placements as a reduce-scatter.  The
+    table's gradient is :func:`table_grad`, repeatable bit for bit (on meta
+    tensors, the dry run's, autograd's own: its run lengths have no shape)."""
+    rows = on_shards(lambda t, w: w[t] if w.is_meta else _TableRows.apply(w, t), (tokens, p["embed"]),
+                     ((0, None), (None, None)), ((0, None),), heads=1)
     return shard_act(rows)
 
 

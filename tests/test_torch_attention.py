@@ -478,3 +478,20 @@ def test_sass_reader_finds_releases_that_overtake_loads(case, text, late):
     found = ar.overtaken_loads(ins)
     assert sum(len(f["loads"]) for f in found) == late, (case, found)
     assert len(found) == (1 if late else 0)
+
+
+@pytest.mark.parametrize("case,ins,releases", [
+    ("a consumer's release", (_WAIT, *_LOADS, ("0f40", _RELEASE, 7, 0)), 1),
+    ("a release on the peer CTA's barrier", (_WAIT, ("0f40", "SYNCS.ARRIVE.TRANS64.RED.A1T0 RZ, [UR4], RZ", 7, 0),
+                                             ("0f50", _RELEASE, 7, 0)), 2),
+    ("a producer's expect_tx arrive", (_WAIT, ("0f40", "SYNCS.ARRIVE.TRANS64 RZ, [R8+URZ+0x19030], R0", 7, 0)), 0),
+    ("no arrive", (_WAIT, *_LOADS), 0),
+])
+def test_sass_reader_counts_stage_releases(case, ins, releases):
+    """attn_race.release_arrives counts the stage releases phase 16 reads in the GEMM's
+    wgmma kernels (the persistent kernel's releases of a peer CTA's stage included),
+    and overtaking_arrives' candidates are taken among the same arrives."""
+    ar = _attn_race()
+    (fn,) = ar.parse_sass(_sass(*ins)).values()
+    assert ar.release_arrives(fn) == releases, case
+    assert len(ar.overtaken_loads(fn)) <= releases

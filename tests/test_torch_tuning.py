@@ -5,7 +5,7 @@ tree -> ``Deployment``) is numpy in both packages; only the table's source
 differs (the reference's TPU analytic model, the port's measured H100 table,
 ``core/gpubench.py``, which needs the card).  So both packages get the SAME
 table here: the reference's ``build_model_dataset(synthetic_problems(150))``,
-exported to numpy with its columns cut to as many as the port compiles (10
+exported to numpy with its columns cut to as many as the port compiles (12
 GEMM configs).  Each column of the port's table stands for one of the port's
 configs; the numbers are only data.  For the attention family a test family
 is registered in each package, through its public ``register_family`` /
@@ -49,7 +49,7 @@ PORTED = sorted(registry.ARCHS)
 @pytest.fixture(scope="module")
 def tables():
     """(reference dataset, port dataset) over one table: the synthetic GEMM
-    problems x 10 columns of the reference's model table."""
+    problems x 12 columns of the reference's model table."""
     full = jax_dataset.build_model_dataset(jax_dataset.synthetic_problems(150))
     n = len(mm.config_space())
     cols = np.linspace(0, len(full.configs) - 1, n).astype(int)
@@ -63,7 +63,7 @@ def tables():
 
 def test_tables_and_features_are_the_references(tables):
     ref, port = tables
-    assert port.perf.shape == (len(ref.problems), 10) and len(ref.problems) >= 100  # 150 draws, deduplicated
+    assert port.perf.shape == (len(ref.problems), 12) and len(ref.problems) >= 100  # 150 draws, deduplicated
     np.testing.assert_array_equal(port.features, ref.features)
     assert dataset.FEATURE_NAMES == jax_dataset.FEATURE_NAMES
 
@@ -208,6 +208,22 @@ def test_tune_with_a_precomputed_family_equal(tables, attention_families):
     assert got.family_results["attn_shared"].configs == [
         at.config_space()[jax_attention_space().index(c)] for c in want.family_results["attn_shared"].configs]
     assert got.deployment.meta["family_distributions"] == want.deployment.meta["family_distributions"]
+
+
+@pytest.mark.parametrize("n_kernels,method", [(4, "pca_kmeans"), (3, "kmeans")])
+def test_tune_attention_equal(attention_families, monkeypatch, n_kernels, method):
+    """``tuner.tune_attention``, the reference's shim over ``tune_family``, on the
+    shared attention table: each package's shim is pointed at ``attn_shared``."""
+    jax_tuner = importlib.import_module("repro.core.tuner")
+    for mod in (tuner, jax_tuner):
+        inner = mod.tune_family
+        monkeypatch.setattr(mod, "tune_family", lambda name, *a, _inner=inner, **kw: _inner(
+            "attn_shared" if name == "attention" else name, *a, **kw))
+    configs, tree = tuner.tune_attention(n_kernels=n_kernels, method=method)
+    want_configs, want_tree = jax_tuner.tune_attention(n_kernels=n_kernels, method=method)
+    assert configs == [at.config_space()[jax_attention_space().index(c)] for c in want_configs]
+    feats = attnmodel.attn_problem_features(attention_families)
+    np.testing.assert_array_equal(tree.predict(feats), want_tree.predict(feats))
 
 
 @pytest.mark.parametrize("arch", PORTED)
